@@ -10,10 +10,15 @@ Phases (each prints lines; any failure raises and exits nonzero):
   2. build: the CUDA sources under cudaraytracer_tpu_torch/csrc, with the
      ptxas register and spill report;
   3. kernel against plain: mega_trace and trace_path_mega_plain on the same
-     rays and injected stream, three integrators, four scenes at 128x64x4
-     (at most 0.5% of rays may differ by more than 1e-3), and a scene of
-     duplicated prims that must match on every ray (to 1e-6) and render as
-     if the copies were absent;
+     rays, and either the same injected stream or the same in-kernel draws:
+       * one full main-path launch of each phase-5 frame: its first
+         2^18-ray chunk in swizzled order, three integrators with an
+         injected stream plus the path with in-kernel draws;
+       * four scenes at 128x64x4, three integrators, injected stream;
+       * a scene of duplicated prims, which must render as if the copies
+         were absent, and a scene of exact t ties;
+     the kernel is built without FMA contraction, so every ray must match
+     to PARITY_ATOL;
   4. draws: the scatter_draws kernel over 2^22 samples against its plain
      version and against the unit-ball and uniform distributions;
   5. main path at full size through render_image: (a) random_spheres
@@ -28,14 +33,15 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
-import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -54,146 +60,18 @@ OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
 
 DEPTH = 8
 PHASE3 = (128, 64, 4)
+# Kernel and plain version round alike (no contraction), so every ray must
+# agree to this.
+PARITY_ATOL = 1e-5
+INTEGRATORS = ("path", "lambert", "normal")
 
 
-# ---------------------------------------------------------------------------
-# Scenes (built with the port's SceneBuilder)
-# ---------------------------------------------------------------------------
-
-def mixed_scene(device):
-    """Spheres + triangles, all four materials, a checker texture (the
-    mixed scene of tests/test_megakernel.py)."""
-    from cudaraytracer_tpu_torch.core.camera import make_camera
-    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    b = SceneBuilder()
-    m = b.materials
-    chk = m.lambertian(m.textures.checker((0.9, 0.9, 0.9), (0.1, 0.2, 0.1)))
-    red = m.lambertian(color=(0.9, 0.2, 0.2))
-    met = m.metal((0.8, 0.7, 0.3), fuzz=0.2)
-    glass = m.dielectric(1.5)
-    light = m.diffuse_light(color=(4.0, 4.0, 4.0))
-    b.add_sphere((0, -100.5, -3), 100.0, chk)
-    b.add_sphere((-1.1, 0, -3), 0.5, glass)
-    b.add_sphere((1.1, 0, -3), 0.5, met)
-    pts = np.array([[0, 0, -3], [0.5, 0, -2.6], [-0.5, 0, -2.6],
-                    [0, 0.8, -2.8]], np.float32)
-    for tri in [(0, 1, 3), (1, 2, 3), (2, 0, 3), (0, 2, 1)]:
-        v = pts[list(tri)]
-        b.add_triangle(v[0], v[1], v[2], red)
-    b.add_triangle((-1, 2.0, -2.5), (1, 2.0, -2.5), (0, 2.0, -4), light,
-                   normal=(0, -1, 0))
-    cam = make_camera((0, 0.4, 2), (0, 0.2, -3), vfov=45, aspect=2.0,
-                      focus_dist=5.0, device=device)
-    return b.build(device), cam
-
-
-def duplicate_scene(device, duplicates=True):
-    """Two spheres and a triangle, each followed by an exact copy in another
-    colour: the first prim must win every tie."""
-    from cudaraytracer_tpu_torch.core.camera import make_camera
-    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    b = SceneBuilder()
-    m = b.materials
-    colours = [m.lambertian(color=c) for c in
-               ((0.9, 0.0, 0.0), (0.0, 0.9, 0.0), (0.0, 0.0, 0.9),
-                (0.9, 0.9, 0.0))]
-    b.add_sphere((0, -100.5, -3), 100.0, colours[3])
-    for k, centre in enumerate(((-0.6, 0.0, -3.0), (0.6, 0.1, -3.2))):
-        b.add_sphere(centre, 0.4, colours[k])
-        if duplicates:
-            b.add_sphere(centre, 0.4, colours[k + 1])
-    tri = ((-0.3, 0.5, -2.5), (0.3, 0.5, -2.5), (0.0, 0.9, -2.6))
-    b.add_triangle(*tri, colours[2])
-    if duplicates:
-        b.add_triangle(*tri, colours[0])
-    cam = make_camera((0, 0.35, 1.2), (0, 0, -1), (0, 1, 0), 45.0, 2.0, 0.0,
-                      10.0, device=device)
-    return b.build(device), cam
-
-
-# Two rays that meet exact ties: (0, 0, 5) -> (0, 0, -1) hits sphere B and
-# the triangle both at t = 4 exactly; (3, 0, 5) -> (0, 0, -1) hits sphere A
-# and its copy A', 21 prims later (another chunk), both at t = 4.5.
-TIE_ORIGINS = np.array([[0, 0, 5], [3, 0, 5]], np.float32)
-TIE_DIRECTIONS = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
-TIE_EXPECTED = np.array([[0.0, 0.0, 0.9], [0.9, 0.0, 0.0]], np.float32)
-
-
-def fill_tie_scene(b):
-    """Fill a SceneBuilder (the port's or the JAX package's) with the tie
-    scene: every prim is a light of its own colour, so a path of depth 0
-    under fixed quirks returns the winner's colour (TIE_EXPECTED: sphere B
-    over the triangle, A over A')."""
-    m = b.materials
-    red, green, blue, yellow, grey = (
-        m.diffuse_light(color=c) for c in
-        ((0.9, 0, 0), (0, 0.9, 0), (0, 0, 0.9), (0.9, 0.9, 0),
-         (0.2, 0.2, 0.2)))
-    b.add_sphere((3, 0, 0), 0.5, red)
-    for i in range(20):
-        b.add_sphere((10 + i, 10, -50), 0.1, grey)
-    b.add_sphere((3, 0, 0), 0.5, green)
-    b.add_sphere((0, 0, 0), 1.0, blue)
-    b.add_triangle((-1, -1, 1), (1, -1, 1), (0, 1, 1), yellow)
-    return b
-
-
-def icosphere(subdivisions: int):
-    """Unit icosphere: (points float32[P, 3], faces int32[20 * 4^s, 3]),
-    faces counter-clockwise seen from outside."""
-    t = (1.0 + 5.0 ** 0.5) / 2.0
-    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
-             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
-             (-t, 0, -1), (-t, 0, 1)]
-    verts = [np.array(v, np.float64) / np.linalg.norm(v) for v in verts]
-    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
-    for _ in range(subdivisions):
-        mid = {}
-
-        def midpoint(a, b):
-            key = (min(a, b), max(a, b))
-            if key not in mid:
-                v = verts[a] + verts[b]
-                verts.append(v / np.linalg.norm(v))
-                mid[key] = len(verts) - 1
-            return mid[key]
-
-        new = []
-        for a, b, c in faces:
-            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
-            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
-        faces = new
-    return np.array(verts, np.float32), np.array(faces, np.int32)
-
-
-def icosphere_scene(device, aspect):
-    """A 5,120-triangle icosphere on a checker ground sphere."""
-    from cudaraytracer_tpu_torch.core.camera import make_camera
-    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    pts, faces = icosphere(4)
-    b = SceneBuilder()
-    m = b.materials
-    b.add_sphere((0, -1000, 0), 1000.0, m.lambertian(
-        tex_id=m.textures.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
-    b.add_mesh(pts, faces, m.lambertian(color=(0.8, 0.3, 0.2)),
-               reverse_winding=False, position=(0, 1, 0))
-    cam = make_camera((0, 1.6, 4.5), (0, 0.9, 0), (0, 1, 0), 40.0, aspect,
-                      0.0, 10.0, device=device)
-    return b.build(device), cam
-
-
-def morton_tables(scene):
-    from cudaraytracer_tpu_torch.ops import megakernel as mk
-    from cudaraytracer_tpu_torch.utils.convert import to_numpy
-    host = to_numpy(scene)
-    tri = (mk.morton_order(host.triangles.v0, host.triangles.v1,
-                           host.triangles.v2) if scene.n_triangles else None)
-    sph = (mk.mega_sphere_order(host.spheres.center) if scene.n_spheres
-           else None)
-    return mk.build_mega_tables(scene, tri, sph)
+class Frame(NamedTuple):
+    name: str
+    scene: object
+    camera: object
+    cfg: object
+    tables: object
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +108,42 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def compare(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Print and check one kernel-against-plain comparison -> max abs
+    error."""
+    diff = (got - ref).abs().amax(dim=1)
+    err = float(diff.max())
+    share = float((diff > 1e-3).float().mean())
+    print(f"[parity] {label:40s} rays {got.shape[0]:7d} differing>1e-3 "
+          f"{share * 100:.4f}% max_abs_err {err:.3g}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite radiance")
+    check(err <= PARITY_ATOL, f"{label}: kernel and plain differ by {err}")
+    return err
+
+
+def launch_bound(tables, n: int, tests) -> tuple:
+    """(bound ms, bound_by) of one launch over n rays that made ``tests``
+    (box, sphere, triangle): their FLOPs over the FP32 peak against the
+    rays, radiance and tables over the memory rate."""
+    n_box, n_sph, n_tri = tests
+    flops = n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
+    bytes_ = n * (24 + 12) + sum(t.numel() * 4 for t in tables)
+    t_ops, t_bytes = flops / PEAK_FP32, bytes_ / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def count_tests(tables, rays, cfg, seed) -> list:
+    """Box, sphere and triangle tests of one path launch (the kernel's
+    counting variant)."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    counts = torch.zeros(3, dtype=torch.int64, device=rays.origin.device)
+    mk._launch_mega(tables, rays.origin.contiguous(),
+                    rays.direction.contiguous(), cfg, None, seed,
+                    counts=counts)
+    return counts.tolist()
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -252,29 +166,97 @@ def phase_build():
     print(f"[build] total {wall:.1f} s")
 
 
-def phase_parity(dev):
+def main_frames(dev) -> list:
+    """The two phase-5 frames, with their Morton tables."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.models.check_scenes import icosphere_scene
+    from cudaraytracer_tpu_torch.ops.megakernel import morton_tables
+    sa, ca = presets.random_spheres(aspect=1920 / 1080, device=dev)
+    cfg_a = RenderConfig(width=1920, height=1080, samples=16,
+                         max_depth=DEPTH, engine="mega")
+    sb, cb = icosphere_scene(1280 / 720, device=dev)
+    check(sb.n_triangles == 5120, "icosphere size")
+    cfg_b = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
+                         quirks=Quirks.fixed(), engine="mega")
+    return [Frame("random_spheres", sa, ca, cfg_a, morton_tables(sa)),
+            Frame("icosphere", sb, cb, cfg_b, morton_tables(sb))]
+
+
+def first_chunk(f: Frame, gen):
+    """The rays of the frame's first kernel launch, as render_pixels makes
+    them: the first ray_chunk // samples pixels in swizzled order."""
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.ops.render import swizzled_pixels
+    c = f.cfg
+    pix = swizzled_pixels(c.width, c.height, device=f.scene.device)
+    return generate_pixel_rays(f.camera, c.width, c.height, c.samples,
+                               pix[:c.ray_chunk // c.samples], generator=gen)
+
+
+def chunk_parity(dev, frames) -> dict:
+    """One full main-path launch of each frame against the plain version;
+    times both and counts the tests of the path launch."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"max_abs_err": 0.0}
+    for f in frames:
+        rays = first_chunk(f, gen)
+        n = rays.origin.shape[0]
+        check(n == f.cfg.ray_chunk, f"{f.name}: first chunk of {n} rays")
+        stream = stream_from_generator(gen, n, DEPTH, dev)
+        st = mk.stream_tensor(stream, n, DEPTH + 1)
+        for integrator in INTEGRATORS:
+            cfg = dataclasses.replace(f.cfg, integrator=integrator)
+            got = mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                     samples=stream)
+            ref = mk.trace_path_mega_plain(f.tables, rays, cfg, st)
+            err = compare(f"{f.name} chunk {integrator} injected", got, ref)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        seed = mk.draw_seed(gen)
+        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, f.cfg, tables=f.tables, seed=seed))
+        plain_ms, ref = cuda_ms(lambda: mk.trace_path_mega_plain(
+            f.tables, rays, f.cfg, None, seed), reps=1, warmup=0)
+        err = compare(f"{f.name} chunk path in-kernel draws", got, ref)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        tests = count_tests(f.tables, rays, f.cfg, seed)
+        bound, bound_by = launch_bound(f.tables, n, tests)
+        print(f"[parity] {f.name} chunk path: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
+              f"tests {tests}")
+        out[f.name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "tests": tests, "rays": n}
+    return out
+
+
+def phase_parity(dev, frames) -> dict:
     """mega_trace against trace_path_mega_plain on the card."""
     from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
     from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    result = chunk_parity(dev, frames)
     w, h, spp = PHASE3
     gen = torch.Generator(device=dev).manual_seed(1)
-    mixed = mixed_scene(dev)
+    mixed = cs.mixed_scene(dev)
     cases = [("three_spheres", presets.three_spheres(2.0, device=dev),
               Quirks.reference()),
              ("mixed_reference", mixed, Quirks.reference()),
              ("mixed_fixed", mixed, Quirks.fixed()),
              ("random_spheres", presets.random_spheres(2.0, device=dev),
               Quirks.reference())]
-    result = {"max_abs_err": 0.0, "max_differing_share": 0.0}
     for name, (scene, cam), quirks in cases:
-        tables = morton_tables(scene)
+        tables = mk.morton_tables(scene)
         rays = generate_pixel_rays(cam, w, h, spp, generator=gen)
         n = rays.origin.shape[0]
         stream = stream_from_generator(gen, n, DEPTH, dev)
-        for integrator in ("path", "lambert", "normal"):
+        for integrator in INTEGRATORS:
             cfg = RenderConfig(width=w, height=h, samples=spp,
                                max_depth=DEPTH, integrator=integrator,
                                quirks=quirks, engine="mega")
@@ -282,68 +264,32 @@ def phase_parity(dev):
                                      samples=stream)
             ref = mk.trace_path_mega_plain(
                 tables, rays, cfg, mk.stream_tensor(stream, n, DEPTH + 1))
-            torch.cuda.synchronize()
-            diff = (got - ref).abs().amax(dim=1)
-            share = float((diff > 1e-3).float().mean())
-            err = float(diff.max())
-            print(f"[parity] {name:15s} {integrator:7s} rays {n} "
-                  f"differing>1e-3 {share * 100:.4f}% max_abs_err {err:.3g}")
-            check(torch.isfinite(got).all(), f"{name} {integrator}: NaN")
-            check(share <= 0.005, f"{name} {integrator}: {share:.4%} rays "
-                  "differ by more than 1e-3")
+            err = compare(f"{name} {w}x{h}x{spp} {integrator}", got, ref)
             result["max_abs_err"] = max(result["max_abs_err"], err)
-            result["max_differing_share"] = max(
-                result["max_differing_share"], share)
-        if name == "random_spheres":
-            cfg = RenderConfig(width=w, height=h, samples=spp,
-                               max_depth=DEPTH, engine="mega")
-            # in-kernel Philox against the plain version's counter draws
-            seed = 0x5EED
-            got = mk.trace_path_mega(scene, rays, cfg, tables=tables,
-                                     seed=seed)
-            ref = mk.trace_path_mega_plain(tables, rays, cfg, None, seed)
-            diff = (got - ref).abs().amax(dim=1)
-            share = float((diff > 1e-3).float().mean())
-            print(f"[parity] random_spheres  path in-kernel Philox: "
-                  f"differing>1e-3 {share * 100:.4f}%")
-            check(share <= 0.005, "in-kernel draws disagree with plain")
-            st = mk.stream_tensor(stream, n, DEPTH + 1)
-            result["ms_phase3"], _ = cuda_ms(lambda: mk.trace_path_mega(
-                scene, rays, cfg, tables=tables, samples=stream))
-            result["plain_ms_phase3"], _ = cuda_ms(
-                lambda: mk.trace_path_mega_plain(tables, rays, cfg, st))
-            print(f"[parity] random_spheres path {w}x{h}x{spp}: kernel "
-                  f"{result['ms_phase3']:.3f} ms, plain "
-                  f"{result['plain_ms_phase3']:.3f} ms (no yardstick)")
-    # duplicated prims: must match exactly
-    scene, cam = duplicate_scene(dev)
-    single, _ = duplicate_scene(dev, duplicates=False)
+    # duplicated prims: the copies change nothing
+    scene, cam = cs.duplicate_scene(dev)
+    single, _ = cs.duplicate_scene(dev, duplicates=False)
     rays = generate_pixel_rays(cam, 64, 32, 2, generator=gen)
-    for integrator in ("path", "lambert", "normal"):
+    for integrator in INTEGRATORS:
         cfg = RenderConfig(width=64, height=32, samples=2, max_depth=DEPTH,
                            integrator=integrator, quirks=Quirks.fixed(),
                            engine="mega")
-        tables = morton_tables(scene)
+        tables = mk.morton_tables(scene)
         got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=3)
         ref = mk.trace_path_mega_plain(tables, rays, cfg, None, 3)
         one = mk.trace_path_mega(single, rays, cfg,
-                                 tables=morton_tables(single), seed=3)
-        err = float((got - ref).abs().max())
-        print(f"[parity] duplicates      {integrator:7s} max_abs_err "
-              f"{err:.3g}, vs no duplicates "
-              f"{float((got - one).abs().max()):.3g}")
-        check(err <= 1e-6, f"duplicate prims: kernel != plain ({err})")
+                                 tables=mk.morton_tables(single), seed=3)
+        err = compare(f"duplicates {integrator}", got, ref)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
         check(torch.equal(got, one), "duplicate prims changed the image")
     # exact ties across chunks and between a sphere and a triangle
-    from cudaraytracer_tpu_torch.core.rays import make_rays
-    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    scene = fill_tie_scene(SceneBuilder()).build(dev)
-    rays = make_rays(TIE_ORIGINS, TIE_DIRECTIONS, device=dev)
+    scene = cs.fill_tie_scene(SceneBuilder()).build(dev)
+    rays = make_rays(cs.TIE_ORIGINS, cs.TIE_DIRECTIONS, device=dev)
     cfg = RenderConfig(max_depth=0, quirks=Quirks.fixed(), engine="mega")
     got = mk.trace_path_mega(scene, rays, cfg,
                              tables=mk.build_mega_tables(scene), seed=0)
-    err = float((got.cpu() - torch.from_numpy(TIE_EXPECTED)).abs().max())
-    print(f"[parity] exact ties      path    max_abs_err vs expected {err}")
+    err = float((got.cpu() - torch.from_numpy(cs.TIE_EXPECTED)).abs().max())
+    print(f"[parity] exact ties path max_abs_err vs expected {err}")
     check(err == 0.0, "exact ties: a later prim won")
     return result
 
@@ -380,51 +326,46 @@ def phase_draws(dev):
             "library_ms": None, "on_main_path": False, "samples": n}
 
 
-def frame(dev, name, scene, cam, cfg, tables, gen):
+def render_frame(dev, f: Frame, gen):
     """Warm-up + min of 3 frames through render_image; checks the image."""
     from cudaraytracer_tpu_torch.ops.render import render_image
     from cudaraytracer_tpu_torch.utils.image import write_png
+    cfg = f.cfg
     torch.cuda.reset_peak_memory_stats(dev)
-    ms, img = cuda_ms(lambda: render_image(scene, cam, cfg, generator=gen,
-                                           tables=tables))
+    ms, img = cuda_ms(lambda: render_image(f.scene, f.camera, cfg,
+                                           generator=gen, tables=f.tables))
     peak = torch.cuda.max_memory_allocated(dev)
     rays = cfg.width * cfg.height * cfg.samples
     mean = img.reshape(-1, 3).mean(dim=0).tolist()
-    print(f"[main] {name}: {cfg.width}x{cfg.height}x{cfg.samples} depth "
+    print(f"[main] {f.name}: {cfg.width}x{cfg.height}x{cfg.samples} depth "
           f"{cfg.max_depth}: {ms / 1e3:.4f} s/frame, "
           f"{rays / (ms / 1e3) / 1e6:.1f} Mrays/s, peak "
           f"{peak / 2 ** 30:.2f} GiB, channel means "
           f"{[round(x, 4) for x in mean]}")
-    check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
-    check(all(0.05 < x < 1.0 for x in mean), f"{name}: channel means {mean}")
-    write_png(os.path.join(OUT_DIR, f"{name}.png"), img)
+    check(bool(torch.isfinite(img).all()), f"{f.name}: non-finite pixels")
+    check(all(0.05 < x < 1.0 for x in mean),
+          f"{f.name}: channel means {mean}")
+    write_png(os.path.join(OUT_DIR, f"{f.name}.png"), img)
     return ms, img, peak
 
 
-def kernel_at_frame_shape(dev, scene, cam, cfg, tables, gen):
+def kernel_at_frame_shape(dev, f: Frame, gen):
     """The kernel alone over a whole frame's rays in one launch, and the
     tests these rays need (one extra counting launch)."""
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.render import swizzled_pixels
-    pix = swizzled_pixels(cfg.width, cfg.height, device=dev)
-    rays = generate_pixel_rays(cam, cfg.width, cfg.height, cfg.samples, pix,
+    c = f.cfg
+    pix = swizzled_pixels(c.width, c.height, device=dev)
+    rays = generate_pixel_rays(f.camera, c.width, c.height, c.samples, pix,
                                generator=gen)
-    ms, _ = cuda_ms(lambda: mk.trace_path_mega(scene, rays, cfg,
-                                               tables=tables, seed=11))
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
-    mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 11,
-                    counts=counts)
-    n_box, n_sph, n_tri = counts.tolist()
+    ms, _ = cuda_ms(lambda: mk.trace_path_mega(f.scene, rays, c,
+                                               tables=f.tables, seed=11))
+    tests = count_tests(f.tables, rays, c, 11)
     n = rays.origin.shape[0]
-    flops = n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
-    bytes_ = n * (24 + 12) + sum(t.numel() * 4 for t in tables)
-    bound = max(flops / PEAK_FP32, bytes_ / PEAK_BYTES) * 1e3
-    return {"ms": ms, "bound_ms": bound,
-            "bound_by": "operations" if flops / PEAK_FP32 >= bytes_ /
-            PEAK_BYTES else "bytes",
-            "tests": {"box": n_box, "sphere": n_sph, "triangle": n_tri},
-            "rays": n}
+    bound, bound_by = launch_bound(f.tables, n, tests)
+    return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "tests": tests, "rays": n}
 
 
 def main() -> int:
@@ -432,8 +373,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
-    from cudaraytracer_tpu_torch.models import presets
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
     from cudaraytracer_tpu_torch.ops.render import render_image
@@ -450,29 +389,21 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
 
     phase_build()
-    parity = phase_parity(dev)
+    frames = main_frames(dev)
+    fa, fb = frames
+    parity = phase_parity(dev, frames)
     draws = phase_draws(dev)
 
     # ---- phase 5: the main path, counted from zero ----
     gen = torch.Generator(device=dev).manual_seed(2024)
-    sa, ca = presets.random_spheres(aspect=1920 / 1080, device=dev)
-    cfg_a = RenderConfig(width=1920, height=1080, samples=16,
-                         max_depth=DEPTH, engine="mega")
-    tab_a = morton_tables(sa)
-    sb, cb = icosphere_scene(dev, 1280 / 720)
-    check(sb.n_triangles == 5120, "icosphere size")
-    cfg_b = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
-                         quirks=Quirks.fixed(), engine="mega")
-    tab_b = morton_tables(sb)
     mk.reset_launch_counts()
-    ms_a, img_a, peak_a = frame(dev, "random_spheres", sa, ca, cfg_a, tab_a,
-                                gen)
+    ms_a, img_a, peak_a = render_frame(dev, fa, gen)
     launches_a = mk.LAUNCHES["mega_trace"]
-    ms_b, _, peak_b = frame(dev, "icosphere", sb, cb, cfg_b, tab_b, gen)
-    n_a = cfg_a.width * cfg_a.height * cfg_a.samples
+    ms_b, _, peak_b = render_frame(dev, fb, gen)
+    n_a = fa.cfg.width * fa.cfg.height * fa.cfg.samples
     stream = stream_from_generator(gen, n_a, DEPTH, dev)
-    img_inj = render_image(sa, ca, cfg_a, generator=gen, tables=tab_a,
-                           samples=stream)
+    img_inj = render_image(fa.scene, fa.camera, fa.cfg, generator=gen,
+                           tables=fa.tables, samples=stream)
     del stream
     launches = dict(mk.LAUNCHES)
     print(f"[main] launches on the main path: {launches} "
@@ -487,27 +418,27 @@ def main() -> int:
           f"(max rel {float(rel):.4%})")
     check(float(rel) <= 0.02, "in-kernel draws bias the image")
 
-    # ---- the kernel alone at the phase-5 shapes ----
-    ka = kernel_at_frame_shape(dev, sa, ca, cfg_a, tab_a, gen)
-    kb = kernel_at_frame_shape(dev, sb, cb, cfg_b, tab_b, gen)
-    for nm, k in (("random_spheres", ka), ("icosphere", kb)):
-        print(f"[kernel] {nm}: one launch over {k['rays']} rays "
+    # ---- the kernel alone over a whole frame's rays ----
+    ka = kernel_at_frame_shape(dev, fa, gen)
+    kb = kernel_at_frame_shape(dev, fb, gen)
+    for f, k in ((fa, ka), (fb, kb)):
+        print(f"[kernel] {f.name}: one launch over {k['rays']} rays "
               f"{k['ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
               f"({k['bound_by']}), tests {k['tests']}")
+    ca, cb = parity["random_spheres"], parity["icosphere"]
     mega = {"name": "mega_trace", "route": "cuda",
             "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
             "replaces": "cudaraytracer_tpu/ops/megakernel.py:476",
             "launches": launches["mega_trace"],
             "max_abs_err": parity["max_abs_err"],
-            "ms": ka["ms"], "plain_ms": parity["plain_ms_phase3"],
-            "bound_ms": ka["bound_ms"], "bound_by": ka["bound_by"],
+            "ms": ca["ms"], "plain_ms": ca["plain_ms"],
+            "bound_ms": ca["bound_ms"], "bound_by": ca["bound_by"],
             "library_ms": None,
-            "differing_share_max": parity["max_differing_share"],
-            "ms_at": "random_spheres 1920x1080x16 path-8, one launch",
-            "plain_ms_at": "random_spheres 128x64x4 path-8 (no yardstick)",
-            "ms_phase3": parity["ms_phase3"],
-            "icosphere_ms": kb["ms"], "icosphere_bound_ms": kb["bound_ms"],
-            "tests": ka["tests"], "icosphere_tests": kb["tests"],
+            "ms_at": "one main-path launch: the first 262144-ray chunk of "
+                     "random_spheres 1920x1080x16, path 8, in-kernel draws",
+            "tests": ca["tests"],
+            "icosphere_chunk": cb,
+            "frame_launch": {"random_spheres": ka, "icosphere": kb},
             "frame_s": ms_a / 1e3, "icosphere_frame_s": ms_b / 1e3,
             "peak_gib": peak_a / 2 ** 30,
             "icosphere_peak_gib": peak_b / 2 ** 30}

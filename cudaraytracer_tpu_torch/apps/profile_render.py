@@ -2,10 +2,12 @@
 ``render_image`` at several ``ray_chunk`` sizes.
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
-events), then one frame under ``torch.profiler``: device time by kernel,
-host time by operator, and the device's busy share of the frame (device
-time / frame time).  Prints a few lines per chunk size and, last, one
-JSON object.
+events), then one frame under ``torch.profiler``: device time by kernel and
+host time by operator.  The device's busy share of a frame is the
+profiled device time over the frame time measured WITHOUT the profiler
+(the profiler's own host cost stretches the profiled frame, so dividing by
+it would overstate the idle share).  Prints a few lines per chunk size
+and, last, one JSON object.
 
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --ray-chunk 262144 4194304 33554432
@@ -54,7 +56,7 @@ def main(argv=None):
     from ..config import RenderConfig
     from ..core.device import resolve_device
     from ..models import presets
-    from ..ops.megakernel import build_mega_tables, mega_sphere_order
+    from ..ops.megakernel import morton_tables
     from ..ops.render import render_image
 
     dev = resolve_device(None)
@@ -64,8 +66,7 @@ def main(argv=None):
     print(smi)
     scene, cam = presets.random_spheres(aspect=args.width / args.height,
                                         device=dev)
-    tables = build_mega_tables(
-        scene, None, mega_sphere_order(scene.spheres.center.cpu().numpy()))
+    tables = morton_tables(scene)
     rays = args.width * args.height * args.spp
     rows = []
     for chunk in args.ray_chunk:
@@ -105,7 +106,7 @@ def main(argv=None):
                "mrays_per_s": rays / (best / 1e3) / 1e6,
                "profiled_frame_ms": prof_ms,
                "device_ms": device_ms if kernels else None,
-               "busy_share": device_ms / prof_ms if kernels else None,
+               "busy_share": device_ms / best if kernels else None,
                "top_kernels_ms": _top(kernels),
                "top_host_ms": _top(host)}
         rows.append(row)

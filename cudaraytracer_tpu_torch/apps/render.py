@@ -52,10 +52,8 @@ def main(argv=None):
     from ..core.device import resolve_device
     from ..models import presets
     from ..models.scene import SceneBuilder
-    from ..ops.megakernel import (build_mega_tables, mega_sphere_order,
-                                  morton_order)
+    from ..ops.megakernel import morton_tables
     from ..ops.render import render_image
-    from ..utils.convert import to_numpy
     from ..utils.image import write_png
     from ..utils.obj_loader import face_normals, load_obj
 
@@ -83,13 +81,7 @@ def main(argv=None):
                        samples=args.spp, max_depth=args.max_depth,
                        integrator=args.integrator, quirks=quirks,
                        engine="mega", compact_after=args.compact_after)
-    host = to_numpy(scene)
-    tri_order = (morton_order(host.triangles.v0, host.triangles.v1,
-                              host.triangles.v2)
-                 if scene.n_triangles else None)
-    sph_order = (mega_sphere_order(host.spheres.center)
-                 if scene.n_spheres else None)
-    tables = build_mega_tables(scene, tri_order, sph_order)
+    tables = morton_tables(scene)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()

@@ -6,6 +6,8 @@ from typing import NamedTuple
 
 import torch
 
+from .device import resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -27,6 +29,10 @@ class Rays(NamedTuple):
 
 
 def make_rays(origin, direction, time=None, device=None) -> Rays:
+    """Rays on ``device``; None keeps a tensor origin's device and otherwise
+    means the CUDA card (core/device.py)."""
+    if device is None and not isinstance(origin, torch.Tensor):
+        device = resolve_device(None)
     origin = torch.as_tensor(origin, dtype=torch.float32, device=device)
     direction = torch.as_tensor(direction, dtype=torch.float32,
                                 device=origin.device)

@@ -76,7 +76,8 @@ struct Params {
   const float* o; const float* d;
   const float* stream;        // [max_depth + 1, n, 4] when INJECTED
   float* out;                 // [n, 3]
-  unsigned long long* counts; // optional [3]: box, sphere, triangle tests
+  unsigned long long* counts; // optional [3]: box, sphere, triangle tests;
+                              // given, the counting variant runs
   unsigned long long seed;
   int n, n_sph_chunks, n_sph_supers, n_tri_supers, max_depth, flags;
   float t_min, t_max, ambient;
@@ -176,7 +177,9 @@ __device__ __forceinline__ void tri_chunk(const Params& P, const Ray& r,
 }
 
 // Closest hit over the sphere chunks (one or two box levels) and the
-// triangle supers and chunks.
+// triangle supers and chunks.  COUNT adds the tests made to cnt (a
+// measurement-only variant; the production launches carry none of it).
+template <bool COUNT>
 __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   Hit h{BIG, -1, false};
   const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
@@ -185,25 +188,25 @@ __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
     const float inv_a = 1.f / a;
     if (P.n_sph_supers == 0) {
       for (int c = 0; c < P.n_sph_chunks; ++c) {
-        ++cnt.box;
+        if (COUNT) ++cnt.box;
         if (slab(P.sph_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
                  h.t, P.t_min)) {
-          cnt.sph += PRIM_CHUNK;
+          if (COUNT) cnt.sph += PRIM_CHUNK;
           sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
         }
       }
     } else {
       for (int s = 0; s < P.n_sph_supers; ++s) {
-        ++cnt.box;
+        if (COUNT) ++cnt.box;
         if (!slab(P.sph_super + s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
                   h.t, P.t_min))
           continue;
         for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
           const int c = s * CHUNKS_PER_SUPER + j;
-          ++cnt.box;
+          if (COUNT) ++cnt.box;
           if (slab(P.sph_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
                    h.t, P.t_min)) {
-            cnt.sph += PRIM_CHUNK;
+            if (COUNT) cnt.sph += PRIM_CHUNK;
             sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
           }
         }
@@ -213,16 +216,16 @@ __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   if (P.n_tri_supers > 0) {
     const float lo_cut = (P.flags & NO_T_CLIP) ? -BIG : P.t_min;
     for (int s = 0; s < P.n_tri_supers; ++s) {
-      ++cnt.box;
+      if (COUNT) ++cnt.box;
       if (!slab(P.tri_super + s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
                 h.t, lo_cut))
         continue;
       for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
         const int c = s * CHUNKS_PER_SUPER + j;
-        ++cnt.box;
+        if (COUNT) ++cnt.box;
         if (slab(P.tri_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
                  h.t, lo_cut)) {
-          cnt.tri += PRIM_CHUNK;
+          if (COUNT) cnt.tri += PRIM_CHUNK;
           tri_chunk(P, r, c * PRIM_CHUNK, h);
         }
       }
@@ -317,7 +320,6 @@ __device__ __forceinline__ void sky(float dy, float inv_dlen, float out[3]) {
 }
 
 __device__ __forceinline__ void add_counts(const Params& P, Counts c) {
-  if (P.counts == nullptr) return;
   for (int off = 16; off > 0; off >>= 1) {
     c.box += __shfl_down_sync(0xffffffffu, c.box, off);
     c.sph += __shfl_down_sync(0xffffffffu, c.sph, off);
@@ -387,7 +389,7 @@ __device__ __forceinline__ bool scatter(const Params& P, const Ray& r,
   return true;
 }
 
-template <int INTEG>
+template <int INTEG, bool COUNT>
 __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   Counts cnt{0, 0, 0};
@@ -401,7 +403,7 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
       float thr[3] = {1.f, 1.f, 1.f};
       res[0] = res[1] = res[2] = 0.f;
       for (int step = 0; step <= P.max_depth; ++step) {
-        const Hit h = closest_hit(P, r, cnt);
+        const Hit h = closest_hit<COUNT>(P, r, cnt);
         const float inv_dlen =
             1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
         if (!(h.t < BIG_CUT)) {
@@ -432,7 +434,7 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
     } else {
       // LambertShade (render.h:70-87) and shade_normal (render.h:90-103):
       // one intersection.
-      const Hit h = closest_hit(P, r, cnt);
+      const Hit h = closest_hit<COUNT>(P, r, cnt);
       const bool hit = h.t < BIG_CUT;
       const float inv_dlen =
           1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
@@ -462,7 +464,7 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
     P.out[3 * (size_t)i + 1] = res[1];
     P.out[3 * (size_t)i + 2] = res[2];
   }
-  add_counts(P, cnt);
+  if (COUNT) add_counts(P, cnt);
 }
 
 __global__ void __launch_bounds__(BLOCK) draws_kernel(
@@ -470,6 +472,13 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i < n)
     reinterpret_cast<float4*>(out)[i] = draw(seed, (uint32_t)i, step);
+}
+
+template <int INTEG>
+void launch_mega(const Params& P, cudaStream_t s) {
+  const dim3 grid((P.n + BLOCK - 1) / BLOCK);
+  if (P.counts) mega_kernel<INTEG, true><<<grid, BLOCK, 0, s>>>(P);
+  else mega_kernel<INTEG, false><<<grid, BLOCK, 0, s>>>(P);
 }
 
 }  // namespace
@@ -505,12 +514,11 @@ extern "C" int crt_mega_trace(
   P.t_max = t_max;
   P.ambient = ambient;
   if (n <= 0) return 0;
-  const dim3 grid((n + BLOCK - 1) / BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   switch (integrator) {
-    case PATH: mega_kernel<PATH><<<grid, BLOCK, 0, s>>>(P); break;
-    case LAMBERT: mega_kernel<LAMBERT><<<grid, BLOCK, 0, s>>>(P); break;
-    case NORMAL: mega_kernel<NORMAL><<<grid, BLOCK, 0, s>>>(P); break;
+    case PATH: launch_mega<PATH>(P, s); break;
+    case LAMBERT: launch_mega<LAMBERT>(P, s); break;
+    case NORMAL: launch_mega<NORMAL>(P, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -37,6 +37,7 @@ from ..core.rays import Rays
 from ..models import materials as _mat
 from ..models import textures as _tex
 from ..models.scene import Scene
+from ..utils.convert import to_numpy
 from . import _cuda
 
 Tensor = torch.Tensor
@@ -124,6 +125,22 @@ def mega_sphere_order(centers) -> np.ndarray:
     """Host-side Morton order of sphere centers."""
     c = np.asarray(centers)
     return morton_order(c, c, c)
+
+
+def mega_orders(host) -> tuple:
+    """(triangle order, sphere order) of a scene whose fields hold numpy
+    arrays (``to_numpy(scene)``, or a JAX scene's), None for a type the
+    scene lacks."""
+    tr, sp = host.triangles, host.spheres
+    tri = morton_order(tr.v0, tr.v1, tr.v2) if len(tr.v0) else None
+    sph = mega_sphere_order(sp.center) if len(sp.center) else None
+    return tri, sph
+
+
+def morton_tables(scene: Scene) -> MegaTables:
+    """``build_mega_tables`` with both prim types in Morton order: the
+    tables every entry point renders from."""
+    return build_mega_tables(scene, *mega_orders(to_numpy(scene)))
 
 
 def _pad_rows(x: Tensor, mult: int) -> Tensor:
@@ -281,7 +298,9 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     """One launch of the CUDA kernel -> radiance float32[N, 3].
 
     counts: optional uint64-sized int64[3] CUDA tensor that the kernel adds
-    its box, sphere and triangle tests to (measurement only)."""
+    its box, sphere and triangle tests to (measurement only: given, a
+    separately compiled counting variant runs; the production variant
+    counts nothing)."""
     n = origin.shape[0]
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))

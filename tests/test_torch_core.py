@@ -262,3 +262,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from cudaraytracer_tpu_torch.apps import render as app
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main(["--width", "8", "--height", "4", "--spp", "1"])
+
+
+def test_make_rays_raises_without_a_card(monkeypatch):
+    """make_rays of host arrays with no device given goes to the card, so
+    it raises where there is none; a tensor keeps its own device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    o = np.zeros((2, 3), np.float32)
+    d = np.ones((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_rays(o, d)
+    r = make_rays(torch.from_numpy(o), d)
+    assert r.origin.device.type == r.direction.device.type == "cpu"

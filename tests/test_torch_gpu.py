@@ -7,24 +7,26 @@ JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest tests/test_torch_gpu.py -m gpu -o addopts="" \
         --noconftest -p no:cacheprovider -q
 
-Tolerances: the kernel is built without FMA contraction, so it rounds like
-the plain version; at most 0.5% of rays may differ by more than 1e-3 (a
-grazing hit may still flip on a 1-ulp difference of a math-library call),
-duplicated prims match to 1e-6, and the draws to 1e-5.
+Tolerance: the kernel is built without FMA contraction, so it rounds like
+the plain version; every ray must agree to 1e-5 (kernel against plain), and
+the draws to 1e-5.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
-from chip_smoke import duplicate_scene, mixed_scene, morton_tables
 from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
 from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets
 from cudaraytracer_tpu_torch.ops import megakernel as mk
 from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
-from cudaraytracer_tpu_torch.ops.render import render_image
+from cudaraytracer_tpu_torch.ops.render import render_image, swizzled_pixels
 
 DEPTH = 8
+ATOL = 1e-5
 INTEGRATORS = ("path", "lambert", "normal")
 
 
@@ -42,7 +44,12 @@ def _scene(name, dev):
     if name == "random_spheres":
         return presets.random_spheres(2.0, device=dev), Quirks.reference()
     quirks = Quirks.fixed() if name == "mixed_fixed" else Quirks.reference()
-    return mixed_scene(dev), quirks
+    return cs.mixed_scene(dev), quirks
+
+
+def _assert_rays_match(got, ref):
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= ATOL
 
 
 @pytest.mark.gpu
@@ -57,16 +64,52 @@ def test_kernel_matches_plain(cuda, name, integrator):
     rays = generate_pixel_rays(cam, 64, 32, 4, generator=gen)
     n = rays.origin.shape[0]
     stream = stream_from_generator(gen, n, DEPTH, cuda)
-    tables = morton_tables(scene)
+    tables = mk.morton_tables(scene)
     before = mk.LAUNCHES["mega_trace"]
     got = mk.trace_path_mega(scene, rays, cfg, tables=tables, samples=stream)
     torch.cuda.synchronize()
     assert mk.LAUNCHES["mega_trace"] == before + 1
     ref = mk.trace_path_mega_plain(tables, rays, cfg,
                                    mk.stream_tensor(stream, n, DEPTH + 1))
-    diff = (got - ref).abs().amax(dim=1)
-    assert torch.isfinite(got).all()
-    assert float((diff > 1e-3).float().mean()) <= 0.005
+    _assert_rays_match(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draws", ["injected", "in_kernel"])
+@pytest.mark.parametrize("frame", ["random_spheres", "icosphere"])
+def test_kernel_matches_plain_on_main_path_chunk(cuda, frame, draws):
+    """One full launch of the main path: the first 2^18 rays of a 16:9
+    frame in swizzled order; the icosphere (fixed quirks) runs the
+    two-level triangle cull."""
+    if frame == "icosphere":
+        scene, cam = cs.icosphere_scene(16 / 9, device=cuda)
+        cfg = RenderConfig(width=1280, height=720, samples=8,
+                           max_depth=DEPTH, quirks=Quirks.fixed(),
+                           engine="mega")
+    else:
+        scene, cam = presets.random_spheres(16 / 9, device=cuda)
+        cfg = RenderConfig(width=1920, height=1080, samples=16,
+                           max_depth=DEPTH, engine="mega")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pix = swizzled_pixels(cfg.width, cfg.height, device=cuda)
+    rays = generate_pixel_rays(cam, cfg.width, cfg.height, cfg.samples,
+                               pix[:cfg.ray_chunk // cfg.samples],
+                               generator=gen)
+    n = rays.origin.shape[0]
+    assert n == cfg.ray_chunk
+    tables = mk.morton_tables(scene)
+    if draws == "in_kernel":
+        got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=17)
+        _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg,
+                                                         None, 17))
+        return
+    stream = stream_from_generator(gen, n, DEPTH, cuda)
+    st = mk.stream_tensor(stream, n, DEPTH + 1)
+    for integrator in INTEGRATORS:
+        c = dataclasses.replace(cfg, integrator=integrator)
+        got = mk.trace_path_mega(scene, rays, c, tables=tables,
+                                 samples=stream)
+        _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, c, st))
 
 
 @pytest.mark.gpu
@@ -76,29 +119,28 @@ def test_in_kernel_draws_match_plain(cuda):
         cam, 64, 32, 4, generator=torch.Generator(device=cuda).manual_seed(2))
     cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH,
                        engine="mega")
-    tables = morton_tables(scene)
+    tables = mk.morton_tables(scene)
     got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=99)
-    ref = mk.trace_path_mega_plain(tables, rays, cfg, None, 99)
-    diff = (got - ref).abs().amax(dim=1)
-    assert float((diff > 1e-3).float().mean()) <= 0.005
+    _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg, None,
+                                                     99))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("integrator", INTEGRATORS)
 def test_duplicate_prims_first_wins(cuda, integrator):
-    scene, cam = duplicate_scene(cuda)
-    single, _ = duplicate_scene(cuda, duplicates=False)
+    scene, cam = cs.duplicate_scene(cuda)
+    single, _ = cs.duplicate_scene(cuda, duplicates=False)
     rays = generate_pixel_rays(
         cam, 64, 32, 2, generator=torch.Generator(device=cuda).manual_seed(1))
     cfg = RenderConfig(width=64, height=32, samples=2, max_depth=DEPTH,
                        integrator=integrator, quirks=Quirks.fixed(),
                        engine="mega")
-    tables = morton_tables(scene)
+    tables = mk.morton_tables(scene)
     got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=5)
     ref = mk.trace_path_mega_plain(tables, rays, cfg, None, 5)
     assert float((got - ref).abs().max()) <= 1e-6
-    one = mk.trace_path_mega(single, rays, cfg, tables=morton_tables(single),
-                             seed=5)
+    one = mk.trace_path_mega(single, rays, cfg,
+                             tables=mk.morton_tables(single), seed=5)
     assert torch.equal(got, one)
 
 
@@ -139,14 +181,32 @@ def test_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
+def test_counting_variant_matches_production(cuda):
+    """The counting variant renders what the production variant renders,
+    and counts tests only where asked."""
+    scene, cam = cs.icosphere_scene(2.0, device=cuda)
+    rays = generate_pixel_rays(
+        cam, 64, 32, 2, generator=torch.Generator(device=cuda).manual_seed(4))
+    cfg = RenderConfig(width=64, height=32, samples=2, max_depth=DEPTH,
+                       quirks=Quirks.fixed(), engine="mega")
+    tables = mk.morton_tables(scene)
+    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+    counted = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
+                              9, counts=counts)
+    plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
+    assert torch.equal(counted, plain)
+    n_box, n_sph, n_tri = counts.tolist()
+    assert n_box > 0 and n_sph > 0 and n_tri > 0
+    assert n_sph % 16 == 0 and n_tri % 16 == 0
+
+
+@pytest.mark.gpu
 def test_exact_ties_first_sphere_wins(cuda):
-    from chip_smoke import (TIE_DIRECTIONS, TIE_EXPECTED, TIE_ORIGINS,
-                            fill_tie_scene)
     from cudaraytracer_tpu_torch.core.rays import make_rays
     from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    scene = fill_tie_scene(SceneBuilder()).build(cuda)
-    rays = make_rays(TIE_ORIGINS, TIE_DIRECTIONS, device=cuda)
+    scene = cs.fill_tie_scene(SceneBuilder()).build(cuda)
+    rays = make_rays(cs.TIE_ORIGINS, cs.TIE_DIRECTIONS, device=cuda)
     cfg = RenderConfig(max_depth=0, quirks=Quirks.fixed(), engine="mega")
-    for tables in (mk.build_mega_tables(scene), morton_tables(scene)):
+    for tables in (mk.build_mega_tables(scene), mk.morton_tables(scene)):
         got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=0)
-        assert torch.equal(got.cpu(), torch.from_numpy(TIE_EXPECTED))
+        assert torch.equal(got.cpu(), torch.from_numpy(cs.TIE_EXPECTED))

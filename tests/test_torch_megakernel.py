@@ -17,7 +17,8 @@ Tolerances:
     seen from ~15 units, which scales the quadratic's rounding by about
     |d| / r = 50: it is held at 1e-2 instead (measured on these inputs:
     27 of 1024 rays differ by more than 1e-3, none by more than 1e-2, at
-    most 5.2e-3; path: 3 of 1024 over 1e-3);
+    most 5.2e-3; path: 3 of 1024 over 1e-3).
+
 The CUDA kernel is held against this plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -39,12 +40,13 @@ from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
 from cudaraytracer_tpu_torch.core import camera as tcam
 from cudaraytracer_tpu_torch.core import rng as trng
 from cudaraytracer_tpu_torch.core.rays import Rays
+from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
-                                                   scene_from_numpy, to_numpy)
+                                                   scene_from_numpy)
 from test_megakernel import _mixed_scene
 
 W, H, SPP, DEPTH = 32, 16, 2, 8
@@ -89,15 +91,6 @@ def _tcfg(integrator, quirks, w=W, h=H, spp=SPP):
                         quirks=Quirks(**quirks.__dict__))
 
 
-def _orders(scene_np):
-    tr = scene_np.triangles
-    tri = (tmk.morton_order(tr.v0, tr.v1, tr.v2) if tr.v0.shape[0]
-           else None)
-    sph = (tmk.mega_sphere_order(scene_np.spheres.center)
-           if scene_np.spheres.center.shape[0] else None)
-    return tri, sph
-
-
 def _jax_and_port(js, jc, integrator, quirks, seed=0):
     """(JAX trace_path_mega, port trace_path_mega on the CPU) radiance on
     the same rays, Morton tables and injected stream."""
@@ -106,7 +99,7 @@ def _jax_and_port(js, jc, integrator, quirks, seed=0):
     tc = camera_from_numpy(_np_tree(jc), "cpu")
     o, d, t = _rays_np(tc, seed)
     ball, prob = _stream_np(seed + 1, o.shape[0])
-    tri_order, sph_order = _orders(tree)
+    tri_order, sph_order = tmk.mega_orders(tree)
     jt = jmk.build_mega_tables(js, tri_order=tri_order, sph_order=sph_order)
     ref = np.asarray(jmk.trace_path_mega(
         js, JRays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t)),
@@ -148,37 +141,17 @@ def test_plain_matches_jax_random_spheres(integrator):
                                          float(diff.max()))
 
 
-def _duplicate_scene(builder_cls, duplicates: bool):
-    """Two spheres and two triangles, each optionally followed by an exact
-    copy in another colour; the first prim must win every tie."""
-    b = builder_cls()
-    m = b.materials
-    colours = [m.lambertian(color=c) for c in
-               ((0.9, 0.0, 0.0), (0.0, 0.9, 0.0), (0.0, 0.0, 0.9),
-                (0.9, 0.9, 0.0))]
-    b.add_sphere((0, -100.5, -3), 100.0, colours[3])
-    for k, centre in enumerate(((-0.6, 0.0, -3.0), (0.6, 0.1, -3.2))):
-        b.add_sphere(centre, 0.4, colours[k])
-        if duplicates:
-            b.add_sphere(centre, 0.4, colours[k + 1])
-    tri = ((-0.3, 0.5, -2.5), (0.3, 0.5, -2.5), (0.0, 0.9, -2.6))
-    b.add_triangle(*tri, colours[2])
-    if duplicates:
-        b.add_triangle(*tri, colours[0])
-    return b.build() if builder_cls is JSceneBuilder else b.build("cpu")
-
-
 @pytest.mark.parametrize("integrator", INTEGRATORS)
 def test_duplicate_prims_first_wins(integrator):
     """Exact copies of prims change nothing (first-prim-wins survives
     Morton order and padding), and the port agrees with JAX on the
     duplicate scene."""
-    js = _duplicate_scene(JSceneBuilder, True)
+    js = cs.fill_duplicate_scene(JSceneBuilder(), True).build()
     jc = jpresets.three_spheres(aspect=2.0)[1]
     ref, got = _jax_and_port(js, jc, integrator, JQuirks.fixed(), seed=7)
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
-    single = _duplicate_scene(SceneBuilder, False)
-    dup = _duplicate_scene(SceneBuilder, True)
+    single = cs.fill_duplicate_scene(SceneBuilder(), False).build("cpu")
+    dup = cs.fill_duplicate_scene(SceneBuilder(), True).build("cpu")
     cam = camera_from_numpy(_np_tree(jc), "cpu")
     o, d, t = _rays_np(cam, 7)
     ball, prob = _stream_np(8, o.shape[0])
@@ -187,8 +160,7 @@ def test_duplicate_prims_first_wins(integrator):
     cfg = _tcfg(integrator, JQuirks.fixed())
     outs = []
     for scene in (single, dup):
-        _, sph_order = _orders(to_numpy(scene))
-        tables = tmk.build_mega_tables(scene, None, sph_order)
+        tables = tmk.morton_tables(scene)
         outs.append(tmk.trace_path_mega(scene, rays, cfg, tables=tables,
                                         samples=stream))
     assert torch.equal(outs[0], outs[1])
@@ -237,13 +209,11 @@ def test_scatter_draws_plain_on_cpu_tensor():
 def test_exact_ties_first_sphere_wins(morton):
     """Sphere B beats a triangle hit at exactly the same t, and sphere A
     beats its copy A' in a later chunk, in both packages."""
-    from chip_smoke import (TIE_DIRECTIONS, TIE_EXPECTED, TIE_ORIGINS,
-                            fill_tie_scene)
-    js = fill_tie_scene(JSceneBuilder()).build()
-    ts = fill_tie_scene(SceneBuilder()).build("cpu")
+    js = cs.fill_tie_scene(JSceneBuilder()).build()
+    ts = cs.fill_tie_scene(SceneBuilder()).build("cpu")
     sph_order = (tmk.mega_sphere_order(ts.spheres.center.numpy()) if morton
                  else None)
-    o, d = TIE_ORIGINS, TIE_DIRECTIONS
+    o, d = cs.TIE_ORIGINS, cs.TIE_DIRECTIONS
     jt = jmk.build_mega_tables(js, sph_order=sph_order)
     ref = np.asarray(jmk.trace_path_mega(
         js, JRays(jnp.asarray(o), jnp.asarray(d), jnp.zeros(2)),
@@ -253,5 +223,5 @@ def test_exact_ties_first_sphere_wins(morton):
         ts, Rays(torch.from_numpy(o), torch.from_numpy(d), torch.zeros(2)),
         RenderConfig(max_depth=0, quirks=Quirks.fixed(), engine="mega"),
         tables=tmk.build_mega_tables(ts, None, sph_order), seed=0)
-    np.testing.assert_array_equal(ref, TIE_EXPECTED)
-    np.testing.assert_array_equal(got.numpy(), TIE_EXPECTED)
+    np.testing.assert_array_equal(ref, cs.TIE_EXPECTED)
+    np.testing.assert_array_equal(got.numpy(), cs.TIE_EXPECTED)

@@ -17,6 +17,7 @@ from cudaraytracer_tpu.models import textures as jtex
 from cudaraytracer_tpu.models.scene import SceneBuilder as JSceneBuilder
 from cudaraytracer_tpu.ops import megakernel as jmk
 from cudaraytracer_tpu_torch.config import RenderConfig
+from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.models import textures as ttex
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
@@ -229,6 +230,23 @@ def test_mega_tables_two_level_spheres_match_jax():
     tt = _assert_tables_match(js, ts, None,
                               tmk.mega_sphere_order(centers))
     assert tt.sph.shape == (1280, 16) and tt.sph_super.shape == (5, 8)
+
+
+def test_morton_tables_icosphere_match_jax():
+    """morton_tables orders both prim types as the JAX orders do; the
+    5,120-triangle icosphere fills the two-level triangle tables (20 super
+    boxes, 320 chunk boxes) exactly as JAX does."""
+    from cudaraytracer_tpu.ops.pallas_intersect import morton_order
+    js, ts = _both_builders(cs.fill_icosphere_scene)
+    jh = _np_tree(js)
+    tri_order = morton_order(jh.triangles.v0, jh.triangles.v1,
+                             jh.triangles.v2)
+    sph_order = jmk.mega_sphere_order(jh.spheres.center)
+    tt = _assert_tables_match(js, ts, tri_order, sph_order)
+    for got, ref in zip(to_numpy(tmk.morton_tables(ts)), tt):
+        np.testing.assert_array_equal(got, ref)
+    assert tt.tri.shape == (5120, 24) and tt.tri_box.shape == (320, 8)
+    assert tt.tri_super.shape == (20, 8) and tt.sph.shape == (16, 16)
 
 
 def test_engine_raises_on_image_textures_and_streamed_sizes():
