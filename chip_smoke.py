@@ -1,32 +1,58 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path (the fused render, engine='mega') on
-one CUDA card, and hold every kernel of that path against its plain PyTorch
-version.
+"""Drive the PyTorch port's main paths on one CUDA card, and hold every
+kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
+The paths: the fused render (engine='mega', kernel K1), the wavefront
+render (engine='wavefront': the sweep kernels K3 sphere_sweep and K4
+triangle_sweep, the draws kernel K2 scatter_draws) and the single-device
+fit through the wavefront (K5 sphere_sweep_attrs, K2).
+
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
-  2. build: the CUDA sources under cudaraytracer_tpu_torch/csrc, with the
-     ptxas register and spill report;
-  3. kernel against plain: mega_trace and trace_path_mega_plain on the same
-     rays, and either the same injected stream or the same in-kernel draws:
-       * one full main-path launch of each phase-5 frame: its first
-         2^18-ray chunk in swizzled order, three integrators with an
-         injected stream plus the path with in-kernel draws;
-       * four scenes at 128x64x4, three integrators, injected stream;
-       * a scene of duplicated prims, which must render as if the copies
-         were absent, and a scene of exact t ties;
-     the kernel is built without FMA contraction, so every ray must match
-     to PARITY_ATOL;
-  4. draws: the scatter_draws kernel over 2^22 samples against its plain
-     version and against the unit-ball and uniform distributions;
-  5. main path at full size through render_image: (a) random_spheres
-     1920x1080x16, path depth 8, reference quirks, Morton tables, in-kernel
-     draws; (b) a 5,120-triangle icosphere 1280x720x8, depth 8, fixed
-     quirks.  Warm-up, then the min of 3 frames timed with CUDA events;
-  6. one JSON line of kernels: launches on the main path, times, bounds;
-  7. the last line: {"ok": true, "device": {...}}.
+  2. build: the CUDA sources under cudaraytracer_tpu_torch/csrc, one nvcc
+     each, all started together, with the ptxas register and spill report;
+  3. kernel against plain, every kernel built without FMA contraction, so
+     every ray must match to PARITY_ATOL:
+       * K1 mega_trace against trace_path_mega_plain: one full main-path
+         launch of each fused frame (its first 2^18-ray chunk in swizzled
+         order; three integrators on an injected stream, plus the path on
+         in-kernel draws), four scenes at 128x64x4, a scene of duplicated
+         prims and a scene of exact t ties;
+       * the sweeps K3, K5 (culled and plain) and K4 against their plain
+         versions on one full main-path launch: the first 2^18 camera rays
+         of random_spheres 16:9, the same rays after one bounce with a
+         random alive mask (dead lanes must miss), the first and the middle
+         2^18 rays of the icosphere frame under both quirk profiles and
+         its bounced rays (K4 culled), a scene
+         of fewer than 128 triangles (K4 plain), and the duplicate-prim and
+         exact-tie scenes; idx equal on every ray, t and attrs to
+         PARITY_ATOL;
+  4. draws: the scatter_draws kernel against its plain version at the
+     main path's 2^18 rays and over 2^22 samples against the unit-ball and
+     uniform distributions;
+  5. cross-engine: the wavefront and the fused engine on the same 2^18 rays
+     of each frame (random_spheres' first launch, the icosphere's middle
+     one) and the same injected stream; at most max(2, n/200) rays may
+     differ by more than 1e-3;
+  6. main paths at full size, the launch counts set to 0 just before each
+     and read just after:
+       (a) random_spheres 1920x1080x16, path depth 8, reference quirks,
+           fused, Morton tables, in-kernel draws;
+       (b) a 5,120-triangle icosphere 1280x720x8, depth 8, fixed quirks,
+           fused;
+       (c) (a) on the wavefront through sweep_intersector with K2 draws;
+       (d) (b) on the wavefront;
+       (e) the fit: three_spheres 512x256x4, depth 4, no gamma, the sweep
+           pair with the attribute-carrying sphere sweep, SGD on albedo and
+           centres at lr 0.5 on fixed rays and draws: a warm-up step, then
+           5 timed steps; then one step on random_spheres (K5 over 484
+           Morton-ordered spheres);
+     the fit's first-step gradients on the card are held against the
+     plain CPU run on the same injected rays and stream at 64x32x2;
+  7. one JSON line of kernels: launches on the main paths, times, bounds;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Writes its PNGs and the build log under chip_smoke_out/.
 """
@@ -57,12 +83,17 @@ FLOP_BOX = 24      # slab: 6 sub, 6 mul, 10 min/max, 2 compares
 FLOP_SPHERE = 26   # 3 sub, b 5, c 6, disc 3, sqrt, 2 roots x 2, 4 compares
 FLOP_TRI = 46      # h 9, a 5, 1/a, s 3, u 6, q 9, v 6, t 6, 1 add
 OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
+N_ATTRS = 21       # K5's attribute row: centre, radius, mat, 16 decode
 
 DEPTH = 8
 PHASE3 = (128, 64, 4)
 # Kernel and plain version round alike (no contraction), so every ray must
 # agree to this.
 PARITY_ATOL = 1e-5
+# The fit's first-step gradients, card against CPU: max |g_card - g_cpu| over
+# max |g_cpu|, per parameter.  Same kernels' arithmetic on both sides; the
+# card sums the scatter-adds with atomics and the means in another order.
+GRAD_RTOL = 1e-3
 INTEGRATORS = ("path", "lambert", "normal")
 
 
@@ -121,16 +152,21 @@ def compare(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def launch_bound(tables, n: int, tests) -> tuple:
-    """(bound ms, bound_by) of one launch over n rays that made ``tests``
-    (box, sphere, triangle): their FLOPs over the FP32 peak against the
-    rays, radiance and tables over the memory rate."""
-    n_box, n_sph, n_tri = tests
-    flops = n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
-    bytes_ = n * (24 + 12) + sum(t.numel() * 4 for t in tables)
+def bound(flops: float, bytes_: float) -> tuple:
+    """(bound ms, bound_by): the larger of the operations over the FP32 peak
+    and the bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_FP32, bytes_ / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def launch_bound(tables, n: int, tests) -> tuple:
+    """(bound ms, bound_by) of one launch over n rays that made ``tests``
+    (box, sphere, triangle): their FLOPs against the rays, radiance and
+    tables."""
+    n_box, n_sph, n_tri = tests
+    flops = n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
+    return bound(flops, n * (24 + 12) + sum(t.numel() * 4 for t in tables))
 
 
 def count_tests(tables, rays, cfg, seed) -> list:
@@ -183,15 +219,25 @@ def main_frames(dev) -> list:
             Frame("icosphere", sb, cb, cfg_b, morton_tables(sb))]
 
 
-def first_chunk(f: Frame, gen):
-    """The rays of the frame's first kernel launch, as render_pixels makes
-    them: the first ray_chunk // samples pixels in swizzled order."""
+def first_chunk(f: Frame, gen, index: int = 0):
+    """The rays of one of the frame's kernel launches (default the first),
+    as render_pixels makes them: ray_chunk // samples pixels in swizzled
+    order."""
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.ops.render import swizzled_pixels
     c = f.cfg
+    per = c.ray_chunk // c.samples
     pix = swizzled_pixels(c.width, c.height, device=f.scene.device)
     return generate_pixel_rays(f.camera, c.width, c.height, c.samples,
-                               pix[:c.ray_chunk // c.samples], generator=gen)
+                               pix[index * per:(index + 1) * per],
+                               generator=gen)
+
+
+def middle_chunk(f: Frame) -> int:
+    """The index of the frame's middle launch: the icosphere frame's first
+    launch covers its bottom rows, which see only the ground sphere."""
+    per = f.cfg.ray_chunk // f.cfg.samples
+    return -(-f.cfg.width * f.cfg.height // per) // 2
 
 
 def chunk_parity(dev, frames) -> dict:
@@ -294,46 +340,348 @@ def phase_parity(dev, frames) -> dict:
     return result
 
 
-def phase_draws(dev):
+def phase_draws(dev, n_path: int):
+    """scatter_draws at the wavefront's launch size (one chunk of n_path
+    rays, timed) and over 2^22 samples (the distribution checks)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
+    path_out = torch.empty(n_path, 4, device=dev)
+    ms, _ = cuda_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3), reps=20)
+    plain_ms, ref = cuda_ms(
+        lambda: mk.scatter_draws_plain(n_path, 0xD1CE, 3, dev), reps=5)
+    err = float((path_out - ref).abs().max())
+    print(f"[draws] {n_path} samples (one wavefront chunk): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, max_abs_err {err:.3g}")
     n = 1 << 22
-    out = torch.empty(n, 4, device=dev)
-    ms, _ = cuda_ms(lambda: mk.scatter_draws(out, 0xD1CE, 3))
-    plain_ms, ref = cuda_ms(lambda: mk.scatter_draws_plain(n, 0xD1CE, 3, dev))
-    err = float((out - ref).abs().max())
+    out = mk.scatter_draws(torch.empty(n, 4, device=dev), 0xD1CE, 3)
+    err = max(err, float(
+        (out - mk.scatter_draws_plain(n, 0xD1CE, 3, dev)).abs().max()))
     ball, prob = out[:, :3].double(), out[:, 3]
     r = ball.norm(dim=1)
     mean = ball.mean(dim=0).abs().max()
     ks_r, ks_p = ks_uniform(r ** 3), ks_uniform(prob)
-    print(f"[draws] {n} samples: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"max_abs_err vs plain {err:.3g}")
-    print(f"[draws] max|ball| {float(r.max()):.7f} "
+    print(f"[draws] {n} samples: max|ball| {float(r.max()):.7f} "
           f"max|mean| {float(mean):.2e} KS(r^3) {ks_r:.5f} "
-          f"KS(prob) {ks_p:.5f}")
+          f"KS(prob) {ks_p:.5f}, max_abs_err vs plain {err:.3g}")
     check(float(r.max()) <= 1.0 + 1e-6, "ball sample outside the unit ball")
     check(float(mean) < 5e-3, "ball mean off 0")
     check(ks_r < 0.01 and ks_p < 0.01, "draws fail the KS checks")
     check(err <= 1e-5, "scatter_draws disagrees with its plain version")
-    bytes_ = n * 16
-    bound = max(bytes_ / PEAK_BYTES, n * OPS_DRAW / PEAK_FP32) * 1e3
+    bound_ms, bound_by = bound(n_path * OPS_DRAW, n_path * 16)
     return {"name": "scatter_draws", "route": "cuda",
             "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
             "replaces": "cudaraytracer_tpu/ops/pallas_intersect.py:1122",
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": ("bytes" if bytes_ / PEAK_BYTES
-                         >= n * OPS_DRAW / PEAK_FP32 else "operations"),
-            "library_ms": None, "on_main_path": False, "samples": n}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "samples": n_path}
+
+
+# ---------------------------------------------------------------------------
+# The sweep kernels K3, K4, K5
+# ---------------------------------------------------------------------------
+
+def compare_hits(label: str, got, ref) -> float:
+    """Kernel (t, idx[, attrs]) against plain: idx equal on every ray, t
+    and attrs to PARITY_ATOL -> max abs error."""
+    t, i, rt, ri = got[0], got[1], ref[0], ref[1]
+    n_diff = int((i != ri).sum())
+    err = float((t - rt).abs().max())
+    if len(got) > 2:
+        err = max(err, float((got[2] - ref[2]).abs().max()))
+    hit = float((i >= 0).float().mean())
+    print(f"[sweeps] {label:46s} rays {t.shape[0]:7d} hit {hit * 100:6.2f}% "
+          f"idx differ {n_diff} max_abs_err {err:.3g}")
+    check(n_diff == 0, f"{label}: idx differs on {n_diff} rays")
+    check(err <= PARITY_ATOL, f"{label}: kernel and plain differ by {err}")
+    return err
+
+
+def one_bounce(scene, rays, cfg, seed: int, gen):
+    """The rays after one wavefront bounce on K2 draws, and a random alive
+    mask over the lanes that went on (incoherent rays, dead lanes)."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.render import sweep_intersector
+    o, d, tm = rays
+    n = o.shape[0]
+    draws = mk.scatter_draws(torch.empty(n, 4, device=o.device), seed, 0)
+    with torch.no_grad():
+        o2, d2, t2, _, _, cont = integ._bounce(
+            scene, cfg, sweep_intersector(cfg, coherent=True), 0, o, d, tm,
+            torch.ones(n, 3, device=o.device),
+            torch.zeros(n, 3, device=o.device),
+            torch.ones(n, dtype=torch.bool, device=o.device),
+            draws[:, :3], draws[:, 3])
+    keep = torch.rand(n, generator=gen, device=o.device) < 0.7
+    return Rays(o2, d2, t2), cont & keep
+
+
+def sweep_cost(n: int, tests, prim_flops: int, tables, out_floats: int,
+               alive: bool) -> tuple:
+    """(bound ms, bound_by) of one sweep launch over n rays that made
+    ``tests`` (box, prim): rays in, (t, idx[, attrs]) out, tables read
+    once."""
+    n_box, n_prim = tests
+    bytes_ = (n * (24 + 4 * out_floats + (1 if alive else 0))
+              + sum(t.numel() * 4 for t in tables))
+    return bound(n_box * FLOP_BOX + n_prim * prim_flops, bytes_)
+
+
+def time_sweep(label: str, kernel, plain, counted, n: int, prim_flops: int,
+               tables, out_floats: int, alive: bool) -> dict:
+    """Kernel and plain times on one launch, and its bound from the tests
+    that the counting variant reports."""
+    ms, _ = cuda_ms(kernel, reps=10)
+    plain_ms, _ = cuda_ms(plain, reps=1)
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    counted(counts)
+    tests = counts.tolist()
+    bound_ms, bound_by = sweep_cost(n, tests, prim_flops, tables, out_floats,
+                                    alive)
+    print(f"[sweeps] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), tests (box, prim) {tests}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tests": tests, "rays": n, "at": label}
+
+
+def fit_shape():
+    """The bench's fit shape: (width, height, samples, depth)."""
+    return 512, 256, 4, 4
+
+
+def phase_sweep_parity(dev, frames) -> dict:
+    """K3, K5 and K4 against their plain versions; times and bounds of one
+    main-path launch of each."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops import intersect as isect
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    fa, fb = frames
+    t_min, t_max = fa.cfg.t_min, fa.cfg.t_max
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {"sphere_sweep": 0.0, "sphere_sweep_attrs": 0.0,
+           "triangle_sweep": 0.0}
+
+    def note(name, e):
+        err[name] = max(err[name], e)
+
+    def spheres(label, scene, o, d, alive=None):
+        sp = scene.spheres
+        attr = isect.sphere_attr_table(scene)
+        for cull in (True, False):
+            form = "culled" if cull else "plain"
+            got = sw.sphere_best_hit_raw(o, d, sp.center, sp.radius, t_min,
+                                         t_max, cull, alive)
+            note("sphere_sweep", compare_hits(
+                f"K3 {form} {label}", got, sw.sphere_best_hit_plain(
+                    o, d, sp.center, sp.radius, t_min, t_max, alive)))
+            gota = sw.sphere_best_hit_attrs_raw(o, d, sp.center, sp.radius,
+                                                attr, t_min, t_max, cull,
+                                                alive)
+            note("sphere_sweep_attrs", compare_hits(
+                f"K5 {form} {label}", gota, sw.sphere_best_hit_attrs_plain(
+                    o, d, sp.center, sp.radius, attr, t_min, t_max, alive)))
+            check(torch.equal(gota[1], got[1]), f"{label}: K5 and K3 differ")
+            if alive is not None:
+                check(bool((got[1][~alive] == -1).all()
+                           and (gota[1][~alive] == -1).all()),
+                      f"{label}: a dead lane hit")
+        return got
+
+    def triangles(label, scene, o, d, quirks, cull, alive=None):
+        tr = scene.triangles
+        got = sw.triangle_best_hit_raw(o, d, tr.v0, tr.v1, tr.v2, tr.normal,
+                                       t_min, t_max, quirks, cull, alive)
+        note("triangle_sweep", compare_hits(
+            f"K4 {'culled' if cull else 'plain'} {label}", got,
+            sw.triangle_best_hit_plain(o, d, tr.v0, tr.v1, tr.v2, tr.normal,
+                                       t_min, t_max, quirks, alive)))
+        return got
+
+    # (a)'s first launch: camera rays, then the same rays after one bounce
+    wcfg = dataclasses.replace(fa.cfg, engine="wavefront")
+    sa = integ._morton_scene(fa.scene)
+    cam_a = first_chunk(fa, gen)
+    spheres("random_spheres camera", sa, cam_a.origin, cam_a.direction)
+    bounce_a, alive_a = one_bounce(sa, cam_a, wcfg, 21, gen)
+    spheres("random_spheres bounce, alive", sa, bounce_a.origin,
+            bounce_a.direction, alive_a)
+    # the icosphere frame: K4 culled under both quirk profiles, on its
+    # first launch and on its middle one (the first sees only the ground)
+    sb = integ._morton_scene(fb.scene)
+    for k in (0, middle_chunk(fb)):
+        cam_b = first_chunk(fb, gen, k)
+        for q in ("reference", "fixed"):
+            quirks = getattr(Quirks, q)()
+            triangles(f"icosphere launch {k} camera {q}", sb, cam_b.origin,
+                      cam_b.direction, quirks, True)
+    bounce_b, alive_b = one_bounce(sb, cam_b, dataclasses.replace(
+        fb.cfg, engine="wavefront"), 22, gen)
+    triangles("icosphere bounce, alive", sb, bounce_b.origin,
+              bounce_b.direction, Quirks.fixed(), True, alive_b)
+    # fewer than 128 triangles: the plain form (and the culled one)
+    mixed, cam_m = cs.mixed_scene(dev)
+    rays_m = generate_pixel_rays(cam_m, 512, 256, 2, generator=gen)
+    for q in ("reference", "fixed"):
+        for cull in (False, True):
+            triangles(f"mixed 5 triangles {q}", mixed, rays_m.origin,
+                      rays_m.direction, getattr(Quirks, q)(), cull)
+    # duplicated prims: the copies (spheres 2 and 4, triangle 1) never win
+    dup, cam_d = cs.duplicate_scene(dev)
+    rays_d = generate_pixel_rays(cam_d, 256, 128, 8, generator=gen)
+    got = spheres("duplicates", dup, rays_d.origin, rays_d.direction)
+    check(bool((got[1] == 1).any() and (got[1] == 3).any()
+               and not ((got[1] == 2) | (got[1] == 4)).any()),
+          "duplicates: a sphere's copy won")
+    for cull in (False, True):
+        got = triangles("duplicates", dup, rays_d.origin, rays_d.direction,
+                        Quirks.fixed(), cull)
+        check(bool((got[1] == 0).any() and not (got[1] == 1).any()),
+              "duplicates: the triangle's copy won")
+    # exact ties: sphere B (id 22) over the triangle at t = 4, sphere A
+    # (id 0) over its copy A' (id 21, another chunk) at t = 4.5
+    tie = cs.fill_tie_scene(SceneBuilder()).build(dev)
+    rays_t = make_rays(cs.TIE_ORIGINS, cs.TIE_DIRECTIONS, device=dev)
+    got = spheres("ties", tie, rays_t.origin, rays_t.direction)
+    check(got[1].tolist() == [22, 0] and got[0].tolist() == [4.0, 4.5],
+          f"ties: sphere sweep gave {got}")
+    got = triangles("ties", tie, rays_t.origin, rays_t.direction,
+                    Quirks.fixed(), False)
+    check(got[1].tolist() == [0, -1], f"ties: triangle sweep gave {got}")
+    for policy in ("all", "off"):
+        hits = isect.intersect_scene_sweeps(tie, rays_t, t_min, t_max,
+                                            Quirks.fixed(),
+                                            sphere_cull=policy)
+        check(hits.prim.tolist() == [22, 0],
+              f"ties: intersect_scene_sweeps gave {hits.prim.tolist()}")
+    print(f"[sweeps] max abs error {err}")
+
+    # ---- times and bounds of one main-path launch of each ----
+    out = {}
+    sp = sa.spheres
+    o, d = cam_a.origin, cam_a.direction
+    tbl, box = sw.sphere_table(sp.center, sp.radius)
+    n = o.shape[0]
+    out["sphere_sweep"] = time_sweep(
+        "K3 culled, (c)'s first launch: 2^18 camera rays, 484 spheres",
+        lambda: sw.launch_sphere_sweep(o, d, tbl, box, None, None, t_min,
+                                       t_max),
+        lambda: sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, t_min,
+                                         t_max),
+        lambda c: sw.launch_sphere_sweep(o, d, tbl, box, None, None, t_min,
+                                         t_max, c),
+        n, FLOP_SPHERE, (tbl, box), 2, False)
+    bo, bd, al = bounce_a.origin, bounce_a.direction, alive_a
+    out["sphere_sweep"]["bounce"] = time_sweep(
+        "K3 culled, (c)'s second bounce: 2^18 rays, alive mask",
+        lambda: sw.launch_sphere_sweep(bo, bd, tbl, box, al, None, t_min,
+                                       t_max),
+        lambda: sw.sphere_best_hit_plain(bo, bd, sp.center, sp.radius, t_min,
+                                         t_max, al),
+        lambda c: sw.launch_sphere_sweep(bo, bd, tbl, box, al, None, t_min,
+                                         t_max, c),
+        n, FLOP_SPHERE, (tbl, box), 2, True)
+    tr = sb.triangles
+    ttbl, tbox = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+    fixed = Quirks.fixed()
+    ob, db = cam_b.origin, cam_b.direction
+    out["triangle_sweep"] = time_sweep(
+        f"K4 culled, (d)'s launch {middle_chunk(fb)}: 2^18 camera rays, "
+        "5120 triangles",
+        lambda: sw.launch_triangle_sweep(ob, db, ttbl, tbox, None, t_min,
+                                         t_max, fixed),
+        lambda: sw.triangle_best_hit_plain(ob, db, tr.v0, tr.v1, tr.v2,
+                                           tr.normal, t_min, t_max, fixed),
+        lambda c: sw.launch_triangle_sweep(ob, db, ttbl, tbox, None, t_min,
+                                           t_max, fixed, c),
+        n, FLOP_TRI, (ttbl, tbox), 2, False)
+    # K5 at the fit's first launch: three_spheres 512x256x4 camera rays in
+    # row-major order, the first 2^18
+    w, h, spp, _ = fit_shape()
+    s3, c3 = presets.three_spheres(aspect=w / h, device=dev)
+    r3 = generate_pixel_rays(c3, w, h, spp, generator=gen)
+    o3, d3 = r3.origin[:n], r3.direction[:n]
+    sp3 = s3.spheres
+    attr3 = isect.sphere_attr_table(s3)
+    stbl, sbox = sw.sphere_table(sp3.center, sp3.radius)
+    rows = sw.pad_rows(attr3.t(), sw.PRIM_CHUNK).contiguous()
+    note("sphere_sweep_attrs", compare_hits(
+        "K5 culled (e)'s first launch", sw.sphere_best_hit_attrs_raw(
+            o3, d3, sp3.center, sp3.radius, attr3, t_min, t_max, True),
+        sw.sphere_best_hit_attrs_plain(o3, d3, sp3.center, sp3.radius, attr3,
+                                       t_min, t_max)))
+    out["sphere_sweep_attrs"] = time_sweep(
+        "K5 culled, (e)'s first launch: 2^18 camera rays, 4 spheres",
+        lambda: sw.launch_sphere_sweep(o3, d3, stbl, sbox, None, rows, t_min,
+                                       t_max),
+        lambda: sw.sphere_best_hit_attrs_plain(o3, d3, sp3.center,
+                                               sp3.radius, attr3, t_min,
+                                               t_max),
+        lambda c: sw.launch_sphere_sweep(o3, d3, stbl, sbox, None, rows,
+                                         t_min, t_max, c),
+        n, FLOP_SPHERE, (stbl, sbox, rows), 2 + N_ATTRS, False)
+    attr_a = isect.sphere_attr_table(sa)
+    rows_a = sw.pad_rows(attr_a.t(), sw.PRIM_CHUNK).contiguous()
+    out["sphere_sweep_attrs"]["random_spheres"] = time_sweep(
+        "K5 culled, 2^18 camera rays, 484 Morton-ordered spheres",
+        lambda: sw.launch_sphere_sweep(o, d, tbl, box, None, rows_a, t_min,
+                                       t_max),
+        lambda: sw.sphere_best_hit_attrs_plain(o, d, sp.center, sp.radius,
+                                               attr_a, t_min, t_max),
+        lambda c: sw.launch_sphere_sweep(o, d, tbl, box, None, rows_a, t_min,
+                                         t_max, c),
+        n, FLOP_SPHERE, (tbl, box, rows_a), 2 + N_ATTRS, False)
+    for k, v in out.items():
+        v["max_abs_err"] = err[k]
+    return out
+
+
+def phase_cross_engine(dev, frames):
+    """The wavefront (sweep pair) and the fused engine on the same 2^18
+    rays and injected stream: count the rays that differ by more than
+    1e-3."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import (
+        integrate, stream_from_generator)
+    from cudaraytracer_tpu_torch.ops.render import sweep_intersector_pair
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for f, k in zip(frames, (0, middle_chunk(frames[1]))):
+        rays = first_chunk(f, gen, k)
+        n = rays.origin.shape[0]
+        stream = stream_from_generator(gen, n, DEPTH, dev)
+        wcfg = dataclasses.replace(f.cfg, engine="wavefront")
+        with torch.no_grad():
+            wave = integrate(f.scene, rays, wcfg, samples=stream,
+                             intersect_fn=sweep_intersector_pair(wcfg))
+        mega = mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables,
+                                  samples=stream)
+        diff = (wave - mega).abs().amax(dim=1)
+        n_diff = int((diff > 1e-3).sum())
+        limit = max(2, n // 200)
+        print(f"[cross] {f.name} launch {k}: wavefront vs mega on {n} rays, "
+              f"{n_diff} differ by >1e-3 ({n_diff / n:.4%}; limit {limit}), "
+              f"max {float(diff.max()):.3g}")
+        check(bool(torch.isfinite(wave).all()), f"{f.name}: non-finite")
+        check(n_diff <= limit,
+              f"{f.name}: wavefront and mega differ on {n_diff} rays")
 
 
 def render_frame(dev, f: Frame, gen):
-    """Warm-up + min of 3 frames through render_image; checks the image."""
+    """Warm-up + min of 5 frames through render_image (the frame waits on
+    the host's launches, whose speed swings between runs); checks the
+    image."""
     from cudaraytracer_tpu_torch.ops.render import render_image
     from cudaraytracer_tpu_torch.utils.image import write_png
     cfg = f.cfg
     torch.cuda.reset_peak_memory_stats(dev)
     ms, img = cuda_ms(lambda: render_image(f.scene, f.camera, cfg,
-                                           generator=gen, tables=f.tables))
+                                           generator=gen, tables=f.tables),
+                      reps=5)
     peak = torch.cuda.max_memory_allocated(dev)
     rays = cfg.width * cfg.height * cfg.samples
     mean = img.reshape(-1, 3).mean(dim=0).tolist()
@@ -347,6 +695,163 @@ def render_frame(dev, f: Frame, gen):
           f"{f.name}: channel means {mean}")
     write_png(os.path.join(OUT_DIR, f"{f.name}.png"), img)
     return ms, img, peak
+
+
+def render_wavefront(dev, f: Frame, gen):
+    """(c) and (d): the frame on the wavefront through sweep_intersector
+    (K2 draws): warm-up + min of 2 frames; checks the image."""
+    from cudaraytracer_tpu_torch.ops.render import (render_image,
+                                                    sweep_intersector)
+    from cudaraytracer_tpu_torch.utils.image import write_png
+    cfg = dataclasses.replace(f.cfg, engine="wavefront")
+    isect = sweep_intersector(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        ms, img = cuda_ms(lambda: render_image(f.scene, f.camera, cfg,
+                                               generator=gen,
+                                               intersect_fn=isect), reps=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rays = cfg.width * cfg.height * cfg.samples
+    mean = img.reshape(-1, 3).mean(dim=0).tolist()
+    print(f"[main] {f.name} wavefront: {cfg.width}x{cfg.height}x"
+          f"{cfg.samples} depth {cfg.max_depth}: {ms / 1e3:.4f} s/frame, "
+          f"{rays / (ms / 1e3) / 1e6:.1f} Mrays/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB, channel means "
+          f"{[round(x, 4) for x in mean]}")
+    check(bool(torch.isfinite(img).all()), f"{f.name}: non-finite pixels")
+    check(all(0.05 < x < 1.0 for x in mean),
+          f"{f.name} wavefront: channel means {mean}")
+    write_png(os.path.join(OUT_DIR, f"{f.name}_wavefront.png"), img)
+    return ms, img, peak
+
+
+def fit_scene(name: str, dev):
+    """(scene, camera, rays, target, start params) of a fit at the bench's
+    shape, the target rendered from the true scene on the same rays and
+    draws (seed 1) that every step uses."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops.render import (render_pixels,
+                                                    sweep_intersector_pair)
+    from cudaraytracer_tpu_torch.parallel.train import fit_config
+    w, h, spp, depth = fit_shape()
+    scene, cam = getattr(presets, name)(aspect=w / h, device=dev)
+    cfg = RenderConfig(width=w, height=h, samples=spp, max_depth=depth,
+                       gamma=False, wavefront_kernel_attrs=True)
+    rays = generate_pixel_rays(cam, w, h, spp, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    lcfg = fit_config(cfg)
+    with torch.no_grad():
+        target = render_pixels(scene, cam, lcfg, torch.arange(w * h,
+                                                              device=dev),
+                               torch.Generator(device=dev).manual_seed(1),
+                               rays=rays,
+                               intersect_fn=sweep_intersector_pair(lcfg))
+    params = {"albedo": (scene.textures.color0 * 0.6 + 0.1).requires_grad_(),
+              "centers": (scene.spheres.center + 0.05).requires_grad_()}
+    return scene, cam, cfg, rays, target, params
+
+
+def run_fit(dev) -> dict:
+    """(e): a warm-up step, then 5 timed SGD steps on three_spheres at the
+    bench's shape, then one step on random_spheres."""
+    from cudaraytracer_tpu_torch.parallel.train import make_fit_step
+    scene, cam, cfg, rays, target, p0 = fit_scene("three_spheres", dev)
+    step = make_fit_step(scene, cam, cfg, lr=0.5)
+
+    def run(p):
+        return step(p, target, torch.Generator(device=dev).manual_seed(1),
+                    rays=rays)
+
+    run(p0)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, losses, times = p0, [], []
+    for i in range(5):
+        t0 = time.perf_counter()
+        loss, params = run(params)
+        losses.append(float(loss))            # waits for the device
+        times.append(time.perf_counter() - t0)
+        print(f"[fit] three_spheres step {i}: loss {losses[-1]:.6e}, "
+              f"{times[-1]:.4f} s")
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = max(float((params[k] - p0[k]).detach().abs().max())
+                for k in p0)
+    print(f"[fit] three_spheres {'x'.join(map(str, fit_shape()[:3]))} depth "
+          f"{fit_shape()[3]}: {min(times):.4f} s/step (min of 5), peak "
+          f"{peak / 2 ** 30:.2f} GiB, params moved by up to {moved:.3e}")
+    check(all(math.isfinite(x) for x in losses), f"fit losses {losses}")
+    check(losses[-1] < losses[0], f"fit loss did not fall: {losses}")
+    check(moved > 0.0, "the fit did not move the parameters")
+    scene, cam, cfg, rays, target, p = fit_scene("random_spheres", dev)
+    check(scene.n_spheres == 484, "random_spheres size")
+    step = make_fit_step(scene, cam, cfg, lr=0.5)
+    t0 = time.perf_counter()
+    loss, p1 = step(p, target, torch.Generator(device=dev).manual_seed(1),
+                    rays=rays)
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    print(f"[fit] random_spheres one step (K5 over 484 Morton-ordered "
+          f"spheres): loss {loss:.6e}, {dt:.4f} s (first call)")
+    check(math.isfinite(loss) and loss > 0.0, f"random_spheres loss {loss}")
+    check(all(bool(torch.isfinite(v).all()) for v in p1.values()),
+          "random_spheres fit step: non-finite params")
+    return {"s_per_step": min(times), "losses": losses,
+            "peak_gib": peak / 2 ** 30, "random_spheres_step_s": dt}
+
+
+def fit_grad_parity(dev) -> float:
+    """The fit's first-step gradients on the card against the plain CPU run
+    on the same injected rays and stream, at 64x32x2 (three_spheres, depth
+    4, no gamma) -> the largest relative difference."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops.integrators import (
+        SampleStream, stream_from_generator)
+    from cudaraytracer_tpu_torch.ops.render import (render_pixels,
+                                                    sweep_intersector_pair)
+    from cudaraytracer_tpu_torch.parallel.train import (fit_config,
+                                                        value_and_grad)
+    w, h, spp, depth = 64, 32, 2, 4
+    cfg = fit_config(RenderConfig(width=w, height=h, samples=spp,
+                                  max_depth=depth, gamma=False))
+    gen = torch.Generator().manual_seed(4)
+    _, cam_cpu = presets.three_spheres(aspect=2.0, device="cpu")
+    rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
+    stream = stream_from_generator(gen, w * h * spp, depth, "cpu")
+    out = {}
+    for device in ("cpu", dev):
+        scene, cam = presets.three_spheres(aspect=2.0, device=device)
+        r = Rays(*(x.to(device) for x in rays))
+        st = SampleStream(stream.ball.to(device), stream.prob.to(device))
+        pix = torch.arange(w * h, device=device)
+        isect = sweep_intersector_pair(cfg)
+        with torch.no_grad():
+            target = render_pixels(scene, cam, cfg, pix, rays=r, samples=st,
+                                   intersect_fn=isect)
+        params = {
+            "albedo": (scene.textures.color0 * 0.6 + 0.1).requires_grad_(),
+            "centers": (scene.spheres.center + 0.05).requires_grad_()}
+        loss, grads = value_and_grad(scene, params, cam, cfg, pix, target,
+                                     intersect_fn=isect, rays=r, samples=st)
+        out[str(device)] = (float(loss), {k: g.cpu() for k, g in
+                                          grads.items()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    worst = 0.0
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        rel = float((g_dev[k] - g_cpu[k]).abs().max()) / scale
+        worst = max(worst, rel)
+        print(f"[fit] first-step grad {k}: card vs CPU max rel {rel:.3g} "
+              f"(max |g| {scale:.3g})")
+        check(scale > 0.0, f"zero gradient on {k}")
+    print(f"[fit] 64x32x2 loss card {l_dev:.8e} cpu {l_cpu:.8e}")
+    check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), "fit loss card vs CPU")
+    check(worst <= GRAD_RTOL, f"fit gradients card vs CPU differ by {worst}")
+    return worst
 
 
 def kernel_at_frame_shape(dev, f: Frame, gen):
@@ -368,12 +873,28 @@ def kernel_at_frame_shape(dev, f: Frame, gen):
             "tests": tests, "rays": n}
 
 
+def counted(name: str, fn, need):
+    """Run one main path with every launch count set to 0 just before it;
+    read the counts just after and require a launch of each kernel in
+    ``need``."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    mk.reset_launch_counts()
+    sw.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {**mk.LAUNCHES, **sw.LAUNCHES}
+    print(f"[main] launches in {name}: {launches}")
+    for k in need:
+        check(launches[k] > 0, f"{name} never launched {k}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
     from cudaraytracer_tpu_torch.ops.render import render_image
     t_start = time.perf_counter()
@@ -392,24 +913,30 @@ def main() -> int:
     frames = main_frames(dev)
     fa, fb = frames
     parity = phase_parity(dev, frames)
-    draws = phase_draws(dev)
+    sweeps = phase_sweep_parity(dev, frames)
+    draws = phase_draws(dev, fa.cfg.ray_chunk)
+    phase_cross_engine(dev, frames)
+    grad_rel = fit_grad_parity(dev)
+    print(f"[phase] parity and cross-engine checks done at "
+          f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- phase 5: the main path, counted from zero ----
+    # ---- the main paths, each counted from zero ----
     gen = torch.Generator(device=dev).manual_seed(2024)
-    mk.reset_launch_counts()
-    ms_a, img_a, peak_a = render_frame(dev, fa, gen)
-    launches_a = mk.LAUNCHES["mega_trace"]
-    ms_b, _, peak_b = render_frame(dev, fb, gen)
     n_a = fa.cfg.width * fa.cfg.height * fa.cfg.samples
-    stream = stream_from_generator(gen, n_a, DEPTH, dev)
-    img_inj = render_image(fa.scene, fa.camera, fa.cfg, generator=gen,
+
+    def fused():
+        ra = render_frame(dev, fa, gen)
+        rb = render_frame(dev, fb, gen)
+        stream = stream_from_generator(gen, n_a, DEPTH, dev)
+        inj = render_image(fa.scene, fa.camera, fa.cfg, generator=gen,
                            tables=fa.tables, samples=stream)
-    del stream
-    launches = dict(mk.LAUNCHES)
-    print(f"[main] launches on the main path: {launches} "
-          f"({launches_a // 4} mega_trace per 1920x1080x16 frame)")
-    check(launches["mega_trace"] > 0, "the main path never launched "
-          "mega_trace")
+        return ra, rb, inj
+
+    ((ms_a, img_a, peak_a), (ms_b, _, peak_b), img_inj), l_ab = counted(
+        "(a) and (b), fused", fused, ("mega_trace",))
+    per = fa.cfg.ray_chunk // fa.cfg.samples
+    print(f"[main] {-(-fa.cfg.width * fa.cfg.height // per)} mega_trace "
+          f"per 1920x1080x16 frame")
     mean_a = img_a.reshape(-1, 3).mean(0)
     mean_inj = img_inj.reshape(-1, 3).mean(0)
     rel = ((mean_a - mean_inj).abs() / mean_inj).max()
@@ -418,7 +945,25 @@ def main() -> int:
           f"(max rel {float(rel):.4%})")
     check(float(rel) <= 0.02, "in-kernel draws bias the image")
 
-    # ---- the kernel alone over a whole frame's rays ----
+    (ms_c, img_c, peak_c), l_c = counted(
+        "(c) random_spheres, wavefront",
+        lambda: render_wavefront(dev, fa, gen),
+        ("sphere_sweep", "scatter_draws"))
+    mean_c = img_c.reshape(-1, 3).mean(0)
+    rel = ((mean_c - mean_a).abs() / mean_a).max()
+    print(f"[main] random_spheres wavefront vs fused channel means "
+          f"{mean_c.tolist()} vs {mean_a.tolist()} (max rel "
+          f"{float(rel):.4%})")
+    check(float(rel) <= 0.02, "the wavefront and fused images disagree")
+    (ms_d, _, peak_d), l_d = counted(
+        "(d) icosphere, wavefront", lambda: render_wavefront(dev, fb, gen),
+        ("sphere_sweep", "triangle_sweep", "scatter_draws"))
+    fit, l_e = counted("(e) fit", lambda: run_fit(dev),
+                       ("sphere_sweep_attrs", "scatter_draws"))
+    launches = {k: l_ab[k] + l_c[k] + l_d[k] + l_e[k] for k in l_ab}
+    per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e}
+
+    # ---- the fused kernel alone over a whole frame's rays ----
     ka = kernel_at_frame_shape(dev, fa, gen)
     kb = kernel_at_frame_shape(dev, fb, gen)
     for f, k in ((fa, ka), (fb, kb)):
@@ -443,8 +988,25 @@ def main() -> int:
             "peak_gib": peak_a / 2 ** 30,
             "icosphere_peak_gib": peak_b / 2 ** 30}
     draws["launches"] = launches["scatter_draws"]
+    rows = [mega, draws]
+    for name, line in (("sphere_sweep", 181), ("sphere_sweep_attrs", 314),
+                       ("triangle_sweep", 645)):
+        k = sweeps[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "cudaraytracer_tpu_torch/csrc/sweeps.cu",
+            "replaces": f"cudaraytracer_tpu/ops/pallas_intersect.py:{line}",
+            "launches": launches[name], "max_abs_err": k.pop("max_abs_err"),
+            "ms": k.pop("ms"), "plain_ms": k.pop("plain_ms"),
+            "bound_ms": k.pop("bound_ms"), "bound_by": k.pop("bound_by"),
+            "library_ms": None, **k})
+    paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
+             "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
+             "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
+             "launches_per_path": per_path}
+    print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [mega, draws]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,17 @@ plain functions on tensors, NamedTuples of tensors for the SoA tables, an
 explicit device and an explicit ``torch.Generator`` for every draw.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``.
 
-This slice ports the fused forward render (``engine='mega'``): scene
-building, the thin-lens camera, the three integrators in one hand-written
-CUDA kernel (``csrc/megakernel.cu``) with its plain PyTorch version, the
-chunked render loop and the PNG writer.
+Ported so far:
+  * the fused forward render (``engine='mega'``): scene building, the
+    thin-lens camera, the three integrators in one hand-written CUDA kernel
+    (``csrc/megakernel.cu``) with its plain PyTorch version, the chunked
+    render loop and the PNG writer;
+  * the differentiable wavefront (``engine='wavefront'``, the default) and
+    the single-device fit: the closest-hit sweep kernels
+    (``csrc/sweeps.cu``, ``ops/sweeps.py``) inside autograd Functions, the
+    per-bounce draws kernel, hit records, materials and integrators as
+    tensor ops (``ops/intersect.py``, ``ops/integrators.py``),
+    ``parallel/train.py`` and ``apps/fit.py``.
 """
 
 from .config import Quirks, RenderConfig

@@ -1,5 +1,7 @@
 """Where a frame's time goes on the card: random_spheres through
-``render_image`` at several ``ray_chunk`` sizes.
+``render_image`` at several ``ray_chunk`` sizes, on the fused engine (the
+default) or on the wavefront through the sweep kernels
+(``--engine wavefront``).
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
 events), then one frame under ``torch.profiler``: device time by kernel and
@@ -11,6 +13,8 @@ and, last, one JSON object.
 
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --ray-chunk 262144 4194304 33554432
+    python -m cudaraytracer_tpu_torch.apps.profile_render \
+        --engine wavefront --ray-chunk 262144 4194304
 """
 
 from __future__ import annotations
@@ -36,9 +40,13 @@ def _times(prof):
     return device, host
 
 
-def _top(times, k=5):
-    return {name[:60]: us / 1e3 for name, us in
-            sorted(times.items(), key=lambda kv: -kv[1])[:k]}
+def _top(times, k=8):
+    """The k largest entries in ms, names cut to 60 characters (a cut name
+    that repeats keeps its largest entry)."""
+    out = {}
+    for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:k]:
+        out.setdefault(name[:60], us / 1e3)
+    return out
 
 
 def main(argv=None):
@@ -49,6 +57,8 @@ def main(argv=None):
     ap.add_argument("--max-depth", type=int, default=8)
     ap.add_argument("--ray-chunk", type=int, nargs="+",
                     default=[1 << 18, 1 << 22, 1 << 25])
+    ap.add_argument("--engine", default="mega",
+                    choices=["mega", "wavefront"])
     args = ap.parse_args(argv)
 
     import torch
@@ -57,7 +67,7 @@ def main(argv=None):
     from ..core.device import resolve_device
     from ..models import presets
     from ..ops.megakernel import morton_tables
-    from ..ops.render import render_image
+    from ..ops.render import render_image, sweep_intersector
 
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -66,18 +76,21 @@ def main(argv=None):
     print(smi)
     scene, cam = presets.random_spheres(aspect=args.width / args.height,
                                         device=dev)
-    tables = morton_tables(scene)
+    mega = args.engine == "mega"
+    tables = morton_tables(scene) if mega else None
     rays = args.width * args.height * args.spp
     rows = []
     for chunk in args.ray_chunk:
         cfg = RenderConfig(width=args.width, height=args.height,
                            samples=args.spp, max_depth=args.max_depth,
-                           engine="mega", ray_chunk=chunk)
+                           engine=args.engine, ray_chunk=chunk)
         gen = torch.Generator(device=dev).manual_seed(0)
+        isect = None if mega else sweep_intersector(cfg)
 
         def frame():
-            return render_image(scene, cam, cfg, generator=gen,
-                                tables=tables)
+            with torch.no_grad():
+                return render_image(scene, cam, cfg, generator=gen,
+                                    tables=tables, intersect_fn=isect)
 
         frame()
         torch.cuda.synchronize()
@@ -118,7 +131,7 @@ def main(argv=None):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "power": smi, "rows": rows}))
+                      "power": smi, "engine": args.engine, "rows": rows}))
     return 0
 
 

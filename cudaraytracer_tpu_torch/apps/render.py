@@ -1,5 +1,7 @@
 """Still-image rendering CLI on the port: a preset scene or an OBJ mesh to
-PNG through the fused CUDA kernel.
+PNG, through the fused CUDA kernel (--accel mega, and auto where the
+kernel takes the scene) or the wavefront engine (--accel sweeps or
+bruteforce).
 
 Examples:
   python -m cudaraytracer_tpu_torch.apps.render --scene random_spheres \
@@ -30,9 +32,14 @@ def main(argv=None):
     ap.add_argument("--max-depth", type=int, default=8)
     ap.add_argument("--integrator", default="path",
                     choices=["path", "lambert", "normal"])
-    # the fused kernel is this slice's only engine (bruteforce, bvh and
-    # pallas come with later slices)
-    ap.add_argument("--accel", default="auto", choices=["auto", "mega"])
+    ap.add_argument("--accel", default="auto",
+                    choices=["auto", "bruteforce", "sweeps", "mega"],
+                    help="mega: the fused kernel; sweeps: the wavefront "
+                         "engine on the sweep kernels (the JAX CLI's "
+                         "'pallas'); bruteforce: the wavefront engine on "
+                         "brute-force tensor ops; auto: mega where the "
+                         "kernel takes the scene, else sweeps (bvh comes "
+                         "with a later slice)")
     ap.add_argument("--compact-after", type=int, default=0,
                     help="mega engine: sort the wavefront after N bounces "
                          "(not ported yet: rejected when > 0)")
@@ -52,8 +59,8 @@ def main(argv=None):
     from ..core.device import resolve_device
     from ..models import presets
     from ..models.scene import SceneBuilder
-    from ..ops.megakernel import morton_tables
-    from ..ops.render import render_image
+    from ..ops.megakernel import megakernel_supported, morton_tables
+    from ..ops.render import render_image, sweep_intersector
     from ..utils.image import write_png
     from ..utils.obj_loader import face_normals, load_obj
 
@@ -77,21 +84,28 @@ def main(argv=None):
 
     quirks = Quirks.reference() if args.quirks == "reference" \
         else Quirks.fixed()
+    accel = args.accel
+    if accel == "auto":
+        accel = "mega" if megakernel_supported(scene) else "sweeps"
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples=args.spp, max_depth=args.max_depth,
                        integrator=args.integrator, quirks=quirks,
-                       engine="mega", compact_after=args.compact_after)
-    tables = morton_tables(scene)
+                       engine="mega" if accel == "mega" else "wavefront",
+                       compact_after=args.compact_after)
+    tables = morton_tables(scene) if accel == "mega" else None
+    isect = sweep_intersector(cfg) if accel == "sweeps" else None
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    img = render_image(scene, cam, cfg, generator=gen, tables=tables)
+    with torch.no_grad():
+        img = render_image(scene, cam, cfg, generator=gen, tables=tables,
+                           intersect_fn=isect)
     img = img.cpu().numpy()       # waits for the device
     dt = time.perf_counter() - t0
     write_png(args.out, np.asarray(img))
     rays = args.width * args.height * args.spp
     print(f"rendered {args.width}x{args.height}x{args.spp}spp "
-          f"({args.integrator}, mega on {device}) in {dt:.2f}s "
+          f"({args.integrator}, {accel} on {device}) in {dt:.2f}s "
           f"[{rays / dt / 1e6:.2f} Mrays/s] -> {args.out}")
     return 0
 

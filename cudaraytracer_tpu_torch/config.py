@@ -8,7 +8,8 @@ commented-out line acting as a menu (render.h:119-121).
 ``Quirks.reference()`` matches the CUDA reference in its deterministic parts;
 ``Quirks.fixed()`` is the physically corrected profile.
 
-This slice of the port runs only ``engine='mega'``.  ``check_supported``
+The port runs ``engine='mega'`` (the fused kernel) and ``engine='wavefront'``
+(the differentiable per-bounce engine, the default).  ``check_supported``
 rejects every knob whose engine or mode has not been ported yet, naming the
 ROADMAP item that brings it.
 """
@@ -81,7 +82,8 @@ class RenderConfig:
     # pixels * samples per chunk
     ray_chunk: int = 1 << 18
     dtype: str = "float32"
-    # 'mega' is the only engine of this slice (see check_supported).
+    # 'wavefront' (default) or 'mega'; 'mega_diff' is not ported yet (see
+    # check_supported).
     engine: str = "wavefront"
     wavefront_compact: bool = False
     wavefront_sphere_cull: str = "morton"
@@ -119,21 +121,24 @@ class RenderConfig:
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for any engine or knob this slice of the
-    port does not run, naming the ROADMAP item that brings it.
-
-    ``wavefront_tpu_prng`` (default True, as in the JAX package) selects the
-    draws of the wavefront engine only, so it is rejected together with that
-    engine; under ``engine='mega'`` the JAX package ignores it too."""
-    if cfg.engine == "wavefront":
-        raise NotImplementedError(
-            "engine='wavefront' (and its wavefront_tpu_prng draws) is not "
-            "ported yet: ROADMAP Queue 1 item 13 (slice 3). Pass "
-            "engine='mega'.")
+    """Raise NotImplementedError for any engine or knob the port does not
+    run yet, naming the ROADMAP item that brings it."""
     if cfg.engine == "mega_diff":
         raise NotImplementedError(
             "engine='mega_diff' is not ported yet: ROADMAP Queue 1 item 15 "
             "(slice 4)")
+    if cfg.wavefront_compact:
+        raise NotImplementedError(
+            "wavefront_compact (the alive-first partition between bounces) "
+            "is not ported yet: ROADMAP Queue 1 item 22")
+    if cfg.grad_sync_axes:
+        raise NotImplementedError(
+            "grad_sync_axes (per-bounce gradient all-reduce) is not ported "
+            "yet: ROADMAP Queue 1 item 20 (slice 7)")
+    if cfg.wavefront_sphere_cull not in ("morton", "primary", "off"):
+        raise ValueError(
+            f"wavefront_sphere_cull={cfg.wavefront_sphere_cull!r}: expected "
+            "'morton', 'primary', or 'off'")
     if cfg.compact_after > 0 or cfg.compact_every > 0:
         raise NotImplementedError(
             "compact_after / compact_every (octant compaction, kernel mode "

@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCES = {"megakernel": PACKAGE_DIR / "csrc" / "megakernel.cu"}
+SOURCES = {name: PACKAGE_DIR / "csrc" / f"{name}.cu"
+           for name in ("megakernel", "sweeps")}
 BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no contraction of a * b + c into one rounding, so the kernels
 # round like their plain PyTorch versions (see csrc/megakernel.cu).

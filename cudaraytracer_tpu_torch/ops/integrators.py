@@ -1,25 +1,52 @@
-"""Integrator dispatch.
+"""Integrators and engine dispatch.
 
 The reference ships three integrators, chosen by (un)commenting
 render.h:119-121: ``shade`` (the path tracer, render.h:48-67),
 ``LambertShade`` (render.h:70-87) and ``shade_normal`` (render.h:90-103).
-In this slice all three run in the fused kernel (``engine='mega'``); the
-wavefront forms (``trace_path``, ``lambert_shade``, ``shade_normal``) come
-with slice 3.
+
+Two engines run them:
+  * ``engine='mega'``: all three in the fused kernel K1
+    (``ops/megakernel.py``), forward only;
+  * ``engine='wavefront'`` (the default): one intersection per bounce over
+    the whole ray batch, then differentiable shading in tensor ops
+    (``trace_path``, ``lambert_shade``, ``shade_normal``).  The intersector
+    is brute force (``intersect_fn=None``) or the sweep kernels
+    (``ops/render.sweep_intersector``).
+
+Differentiability: the discrete hit choice is piecewise constant, so
+gradients flow through the continuous quantities of the chosen prim (t, p,
+normal, attenuation); random draws are taken outside the differentiated
+function.  With gradients on, each bounce is checkpointed (recomputed in
+the backward instead of stored), as the JAX package checkpoints its scan;
+the draws are made before the checkpointed function, so the recompute
+reads the same numbers whatever their source.
+
+Draws of the wavefront path integrator, in order of precedence:
+  1. an injected ``SampleStream``;
+  2. ``cfg.wavefront_tpu_prng`` (the default; the JAX name kept for
+     parity): the counter-keyed Philox draws of kernel K2
+     (``megakernel.scatter_draws``) on a CUDA tensor, its plain version on
+     a CPU tensor, so both devices draw the same numbers for a seed;
+  3. otherwise the explicit ``torch.Generator`` (the JAX package's
+     threefry draws).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
-from ..config import RenderConfig
+from ..config import RenderConfig, check_supported
 from ..core import vec as v3
 from ..core.rays import Rays
 from ..models import materials as _mat
 from ..models.scene import Scene
+from . import intersect as _isect
 from . import megakernel as _mk
+from . import sweeps as _sw
 
 Tensor = torch.Tensor
 
@@ -50,13 +77,174 @@ def background_sky(direction: Tensor) -> Tensor:
     return v3.lerp(t, torch.ones_like(direction), top.expand_as(direction))
 
 
+def _split_fns(intersect_fn):
+    """intersect_fn may be one callable or a (primary_fn, bounce_fn) pair
+    (ops.render.sweep_intersector_pair): the primary fn serves the coherent
+    camera pass, the bounce fn the incoherent later bounces."""
+    if isinstance(intersect_fn, tuple):
+        return intersect_fn
+    return intersect_fn, intersect_fn
+
+
+def _intersect(scene: Scene, rays: Rays, cfg: RenderConfig,
+               intersect_fn=None, alive: Optional[Tensor] = None):
+    """intersect_fn(scene, rays, alive=None), or brute force when None (the
+    brute-force intersector ignores the alive mask; dead lanes are masked
+    downstream either way)."""
+    if intersect_fn is not None:
+        return intersect_fn(scene, rays, alive=alive)
+    return _isect.intersect_scene(scene, rays, cfg.t_min, cfg.t_max,
+                                  cfg.quirks)
+
+
+def _morton_scene(scene: Scene) -> Scene:
+    """The scene with its spheres (by center) and triangles (by centroid)
+    permuted into Morton order, each when it fills more than one chunk, so
+    that the sweeps' chunk boxes are compact (integrators.py:184-203).
+    Prim ids stay in sorted space through the trace and gradients flow back
+    through the gathers; on exact-t ties the winner follows Morton order."""
+    if scene.n_spheres > _sw.PRIM_CHUNK:
+        sp = scene.spheres
+        o = _sw.morton_argsort(sp.center)
+        scene = scene._replace(spheres=sp._replace(
+            center=sp.center[o], radius=sp.radius[o], mat=sp.mat[o]))
+    if scene.n_triangles > _sw.PRIM_CHUNK:
+        tr = scene.triangles
+        o = _sw.morton_argsort((tr.v0 + tr.v1 + tr.v2) / 3.0)
+        scene = scene._replace(triangles=tr._replace(
+            v0=tr.v0[o], v1=tr.v1[o], v2=tr.v2[o], normal=tr.normal[o],
+            mat=tr.mat[o]))
+    return scene
+
+
+def _bounce(scene, cfg, isect_fn, step, o, d, tm, throughput, radiance,
+            alive, ball, prob):
+    """One wavefront bounce (integrators.py:236-317): intersect, shade,
+    scatter; returns the next (o, d, time, throughput, radiance, alive)."""
+    rays = Rays(o, d, tm)
+    hits = _intersect(scene, rays, cfg, isect_fn,
+                      alive=alive if step > 0 else None)
+    dec = hits.dec
+    if dec is None:
+        dec = _mat.decode_materials(scene.materials, scene.textures,
+                                    hits.mat)
+    emitted = _mat.emitted(scene.materials, scene.textures, hits.mat, hits.u,
+                           hits.v, hits.p, dec=dec)
+    sc = _mat.scatter(scene.materials, scene.textures, hits.mat, rays,
+                      hits.p, hits.normal, hits.u, hits.v, ball, prob,
+                      cfg.quirks.dielectric_reference_cosine,
+                      cfg.quirks.lambertian_zero_uv, dec=dec)
+    sky = background_sky(d)
+    can_recurse = step < cfg.max_depth            # render.h:57 depth > 0
+    continues = alive & hits.hit & sc.ok & can_recurse
+    absorbed = alive & hits.hit & ~(sc.ok & can_recurse)
+    missed = alive & ~hits.hit
+    contrib = torch.where((alive & hits.hit)[:, None], emitted, 0.0)
+    contrib = contrib + torch.where(absorbed[:, None],
+                                    cfg.quirks.ambient_on_absorb, 0.0)
+    contrib = contrib + torch.where(missed[:, None], sky, 0.0)
+    radiance = radiance + throughput * contrib
+    c3 = continues[:, None]
+    throughput = torch.where(c3, throughput * sc.attenuation, throughput)
+    return (torch.where(c3, sc.scattered.origin, o),
+            torch.where(c3, sc.scattered.direction, d),
+            torch.where(continues, sc.scattered.time, tm),
+            throughput, radiance, continues)
+
+
+def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
+               intersect_fn=None, samples: Optional[SampleStream] = None,
+               seed: Optional[int] = None,
+               generator: Optional[torch.Generator] = None,
+               checkpoint: bool = True) -> Tensor:
+    """shade() as a wavefront loop -> radiance float32[N, 3]
+    (integrators.py:143 of the JAX package).
+
+    Step i is the recursive call at depth max_depth - i; the last step can
+    no longer scatter (render.h:57), so after max_depth + 1 steps every lane
+    has ended.  samples / seed / generator: the draws (module docstring).
+    checkpoint: with gradients on, recompute each bounce in the backward
+    instead of storing it (the JAX package always does)."""
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    primary_fn, bounce_fn = _split_fns(intersect_fn)
+    if getattr(bounce_fn, "morton_spheres", False):
+        scene = _morton_scene(scene)
+    if samples is None and cfg.wavefront_tpu_prng and seed is None:
+        if generator is None:
+            raise ValueError("the path integrator needs samples, a seed or "
+                             "a generator")
+        seed = _mk.draw_seed(generator)
+    throughput = torch.ones(n, 3, device=dev)
+    radiance = torch.zeros(n, 3, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    o, d, tm = rays
+    use_ckpt = checkpoint and torch.is_grad_enabled()
+    for step in range(cfg.max_depth + 1):
+        if samples is not None:
+            ball, prob = samples.ball[step], samples.prob[step]
+        elif cfg.wavefront_tpu_prng:
+            draws = _mk.scatter_draws(torch.empty(n, 4, device=dev), seed,
+                                      step)
+            ball, prob = draws[:, :3], draws[:, 3]
+        else:
+            ball, prob = _mat.scatter_draws(n, generator, dev)
+        body = functools.partial(_bounce, scene, cfg,
+                                 primary_fn if step == 0 else bounce_fn,
+                                 step)
+        state = (o, d, tm, throughput, radiance, alive, ball, prob)
+        if use_ckpt:
+            out = _checkpoint(body, *state, use_reentrant=False)
+        else:
+            out = body(*state)
+        o, d, tm, throughput, radiance, alive = out
+    return radiance
+
+
+def lambert_shade(scene: Scene, rays: Rays, cfg: RenderConfig,
+                  intersect_fn=None) -> Tensor:
+    """LambertShade (render.h:70-87), the reference's active integrator."""
+    hits = _intersect(scene, rays, cfg, _split_fns(intersect_fn)[0])
+    dec = hits.dec
+    if dec is None:
+        dec = _mat.decode_materials(scene.materials, scene.textures,
+                                    hits.mat)
+    emitted = _mat.emitted(scene.materials, scene.textures, hits.mat, hits.u,
+                           hits.v, hits.p, dec=dec)
+    att = _mat.attenuation(dec, scene.textures, hits.u, hits.v, hits.p,
+                           cfg.quirks.lambertian_zero_uv)
+    direction = rays.direction if cfg.quirks.lambert_unnormalized_dot \
+        else v3.unit_vector(rays.direction)
+    t = torch.clamp(v3.dot(direction, hits.normal), min=0.0)  # render.h:80
+    sky = background_sky(rays.direction)
+    lit = att * t[:, None] * sky * 0.2 + emitted              # render.h:82
+    return torch.where(hits.hit[:, None], lit, sky)
+
+
+def shade_normal(scene: Scene, rays: Rays, cfg: RenderConfig,
+                 intersect_fn=None) -> Tensor:
+    """shade_normal (render.h:90-103): raw normals as colour."""
+    hits = _intersect(scene, rays, cfg, _split_fns(intersect_fn)[0])
+    return torch.where(hits.hit[:, None], hits.normal,
+                       background_sky(rays.direction))
+
+
 def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
               tables: Optional[_mk.MegaTables] = None,
               samples: Optional[SampleStream] = None,
               generator: Optional[torch.Generator] = None,
-              seed: Optional[int] = None) -> Tensor:
-    """Radiance float32[N, 3] of the rays under cfg.integrator, through the
-    fused kernel (the only engine of this slice)."""
-    return _mk.trace_path_mega(scene, rays, cfg, tables=tables,
-                               samples=samples, generator=generator,
-                               seed=seed)
+              seed: Optional[int] = None, intersect_fn=None) -> Tensor:
+    """Radiance float32[N, 3] of the rays under cfg.integrator and
+    cfg.engine.  The fused engine raises on scenes its kernel does not take
+    yet (image textures, streamed sizes), naming the slice that brings
+    them."""
+    check_supported(cfg)
+    if cfg.engine == "mega":
+        return _mk.trace_path_mega(scene, rays, cfg, tables=tables,
+                                   samples=samples, generator=generator,
+                                   seed=seed)
+    if cfg.integrator == "path":
+        return trace_path(scene, rays, cfg, intersect_fn, samples, seed,
+                          generator)
+    fn = lambert_shade if cfg.integrator == "lambert" else shade_normal
+    return fn(scene, rays, cfg, intersect_fn)

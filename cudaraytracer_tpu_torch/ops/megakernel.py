@@ -39,13 +39,13 @@ from ..models import textures as _tex
 from ..models.scene import Scene
 from ..utils.convert import to_numpy
 from . import _cuda
+from .sweeps import (BIG, BOX_COLS, PRIM_CHUNK, TRI_EPSILON, group_boxes,
+                     pad_rows, sphere_candidates_t, triangle_candidates_t,
+                     widen)
 
 Tensor = torch.Tensor
 
-BIG = float(np.finfo(np.float32).max)   # 3.4028235e38, the "no hit" t
 BIG_CUT = 1e37              # t >= BIG_CUT is a miss (megakernel.py:84-88)
-TRI_EPSILON = 1e-6
-PRIM_CHUNK = 16             # prims per chunk box
 SUPER_T = 256               # prims per super box (16 chunks)
 SPH_SUPER_MIN = 1024        # spheres get the super level above this count
 # The table-resident form (K1) serves up to this many prims per type; larger
@@ -56,7 +56,7 @@ MAX_VMEM_PRIMS = 8192
 S_CX, S_CY, S_CZ, S_R2, S_INVR, S_MAT = 0, 1, 2, 3, 4, 5
 T_V0, T_E1, T_E2, T_N, T_MAT = 0, 3, 6, 9, 12
 N_MAT_COMPS = 9             # kind, tex kind, aux, color0 rgb, color1 rgb
-SPH_COLS, TRI_COLS, BOX_COLS = 16, 24, 8
+SPH_COLS, TRI_COLS = 16, 24
 
 INTEGRATOR_IDS = {"path": 0, "lambert": 1, "normal": 2}
 F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
@@ -143,28 +143,6 @@ def morton_tables(scene: Scene) -> MegaTables:
     return build_mega_tables(scene, *mega_orders(to_numpy(scene)))
 
 
-def _pad_rows(x: Tensor, mult: int) -> Tensor:
-    """Pad rows to a multiple of ``mult`` by repeating the last row."""
-    n = x.shape[0]
-    pad = -(-max(n, 1) // mult) * mult - n
-    if pad == 0:
-        return x
-    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
-
-
-def _widen(cols: Tensor, width: int) -> Tensor:
-    return torch.cat([cols, cols.new_zeros(cols.shape[0],
-                                           width - cols.shape[1])], dim=1)
-
-
-def _boxes(lo: Tensor, hi: Tensor, group: int, mult: int) -> Tensor:
-    lo, hi = _pad_rows(lo, mult), _pad_rows(hi, mult)
-    k = lo.shape[0] // group
-    b = torch.cat([lo.reshape(k, group, 3).amin(dim=1),
-                   hi.reshape(k, group, 3).amax(dim=1)], dim=1)
-    return _widen(b, BOX_COLS)
-
-
 def _mat_lanes(scene: Scene, mat_id: Tensor) -> Tensor:
     """float32[N, 9] per-prim material block: kind, texture kind, aux
     (metal fuzz | dielectric ref_idx), color0, color1.  Metal's attenuation
@@ -211,10 +189,10 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         cols = torch.cat([center, (radius * radius)[:, None],
                           (1.0 / radius)[:, None], _mat_lanes(scene, smat)],
                          dim=1)
-        sph = _widen(_pad_rows(cols, sph_mult), SPH_COLS)
+        sph = widen(pad_rows(cols, sph_mult), SPH_COLS)
         lo, hi = center - radius[:, None], center + radius[:, None]
-        sph_box = _boxes(lo, hi, PRIM_CHUNK, sph_mult)
-        sph_super = (_boxes(lo, hi, SUPER_T, sph_mult) if sph_two_level
+        sph_box = group_boxes(lo, hi, PRIM_CHUNK, sph_mult)
+        sph_super = (group_boxes(lo, hi, SUPER_T, sph_mult) if sph_two_level
                      else empty_box)
     else:
         sph = torch.zeros(0, SPH_COLS, device=dev)
@@ -227,11 +205,11 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
             v0, v1, v2, nrm, tmat = v0[o], v1[o], v2[o], nrm[o], tmat[o]
         cols = torch.cat([v0, v1 - v0, v2 - v0, nrm, _mat_lanes(scene, tmat)],
                          dim=1)
-        tri = _widen(_pad_rows(cols, SUPER_T), TRI_COLS)
+        tri = widen(pad_rows(cols, SUPER_T), TRI_COLS)
         lo = torch.minimum(torch.minimum(v0, v1), v2)
         hi = torch.maximum(torch.maximum(v0, v1), v2)
-        tri_box = _boxes(lo, hi, PRIM_CHUNK, SUPER_T)
-        tri_super = _boxes(lo, hi, SUPER_T, SUPER_T)
+        tri_box = group_boxes(lo, hi, PRIM_CHUNK, SUPER_T)
+        tri_super = group_boxes(lo, hi, SUPER_T, SUPER_T)
     else:
         tri = torch.zeros(0, TRI_COLS, device=dev)
         tri_box = tri_super = empty_box
@@ -415,59 +393,21 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor,
     -> (t, tri_wins, sphere row, triangle row).  Ties: min returns the first
     index; a triangle wins only when strictly nearer."""
     n = o.shape[0]
-    q = cfg.quirks
     # the kernel takes t_min / t_max as float32
     t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
-    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
-    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
     big = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
     s_t, t_t = big, big
     s_i = t_i = torch.zeros(n, dtype=torch.int64, device=o.device)
     if tables.sph.shape[0]:
         s = tables.sph
-        a = dx * dx + dy * dy + dz * dz
-        ocx, ocy, ocz = ox - s[:, S_CX], oy - s[:, S_CY], oz - s[:, S_CZ]
-        b = ocx * dx + ocy * dy + ocz * dz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - s[:, S_R2]
-        disc = b * b - a * c
-        hit = disc > 0.0
-        sq = torch.sqrt(torch.where(hit, disc, 0.0))
-        inv_a = 1.0 / a
-        t0 = (-b - sq) * inv_a
-        t1 = (-b + sq) * inv_a
-        ok0 = hit & (t0 < t_max) & (t0 > t_min)
-        ok1 = hit & (t1 < t_max) & (t1 > t_min)
-        t3 = torch.where(ok0, t0, torch.where(ok1, t1, BIG))
-        s_t, s_i = t3.min(dim=1)
+        s_t, s_i = sphere_candidates_t(o, d, s[:, S_CX:S_CZ + 1], s[:, S_R2],
+                                       t_min, t_max).min(dim=1)
     if tables.tri.shape[0]:
         tr = tables.tri
-        v0x, v0y, v0z = (tr[:, T_V0 + k] for k in range(3))
-        e1x, e1y, e1z = (tr[:, T_E1 + k] for k in range(3))
-        e2x, e2y, e2z = (tr[:, T_E2 + k] for k in range(3))
-        hx = dy * e2z - dz * e2y
-        hy = dz * e2x - dx * e2z
-        hz = dx * e2y - dy * e2x
-        a = e1x * hx + e1y * hy + e1z * hz
-        f = 1.0 / a
-        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-        u = f * (sx * hx + sy * hy + sz * hz)
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        v = f * (dx * qx + dy * qy + dz * qz)
-        t = f * (e2x * qx + e2y * qy + e2z * qz)
-        valid = ((a.abs() >= TRI_EPSILON) & (u >= 0.0) & (u <= 1.0)
-                 & (v >= 0.0) & (u + v <= 1.0))
-        if q.triangle_back_culling:
-            valid &= a >= TRI_EPSILON
-        if q.triangle_backface_only:
-            valid &= (dx * tr[:, T_N] + dy * tr[:, T_N + 1]
-                      + dz * tr[:, T_N + 2]) >= 0.0
-        if q.triangle_no_t_clip:
-            valid &= t < t_max
-        else:
-            valid &= (t > t_min) & (t < t_max)
-        t_t, t_i = torch.where(valid, t, BIG).min(dim=1)
+        t_t, t_i = triangle_candidates_t(
+            o, d, tr[:, T_V0:T_V0 + 3], tr[:, T_E1:T_E1 + 3],
+            tr[:, T_E2:T_E2 + 3], tr[:, T_N:T_N + 3], t_min, t_max,
+            cfg.quirks).min(dim=1)
     tri_w = t_t < s_t
     srow = (tables.sph[s_i] if tables.sph.shape[0]
             else o.new_zeros(n, SPH_COLS))

@@ -1,0 +1,654 @@
+"""Closest-hit sweeps over one primitive type: kernels K3, K4 and K5.
+
+The counterpart of the JAX package's ``ops/pallas_intersect.py``: the
+wrappers around ``csrc/sweeps.cu`` (the ports of ``_sphere_kernel`` /
+``_sphere_kernel_plain`` (K3), ``_triangle_kernel`` /
+``_triangle_kernel_culled`` (K4) and ``_sphere_kernel_attrs`` (K5)), their
+plain PyTorch versions, and the ``torch.autograd.Function``s around them
+whose backward recomputes only the winning primitive.
+
+Contract kept from the TPU kernels: per-ray (t, idx) with t = BIG and
+idx = -1 on a miss; the nearest in-range sphere root; Moller-Trumbore with
+the quirk gates; first prim wins ties (strict <, prims in table order);
+tables padded by repeating the last prim, so padding never wins; chunk
+boxes of 16 prims with the negated slab test (NaN keeps a chunk
+reachable), cut at t_min, or at -BIG for triangles under the no-t-clip
+quirk; triangle chunk boxes recomputed from the vertices at every call.
+
+TPU layout dropped (a CUDA thread loads what it needs):
+  * no 32 x 128 ray tiles or per-tile any() votes: each thread culls its
+    own chunks, so a dead lane (alive false) returns (BIG, -1) and does no
+    work, where the TPU kernel ran dead lanes of a live tile;
+  * tables are rows (4 floats per sphere, 12 per triangle, 8 per box)
+    padded to a multiple of 16 prims, not (comp, c_pad, 1) planes in
+    SEG_PRIMS=1024 segments;
+  * K5 does not carry the attribute row through every chunk merge: it
+    loads the winner's row once after the sweep (miss lanes get row 0).
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
+the plain version.  Nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Quirks
+from . import _cuda
+
+Tensor = torch.Tensor
+
+BIG = float(np.finfo(np.float32).max)   # 3.4028235e38, the "no hit" t
+TRI_EPSILON = 1e-6                       # triangle.h:9
+PRIM_CHUNK = 16                          # prims per chunk box
+BOX_COLS = 8                             # lo.xyz hi.xyz | 2 pad
+TRI_CULL_MIN = 128   # triangle sweeps cull from this many triangles up
+# plain versions bound their (rays x prims) candidate matrices to this
+PLAIN_ELEMENTS = 1 << 22
+N_ATTRS = 21         # K5 attribute row: center(3), radius, mat, decode(16)
+F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
+
+# Launches of each kernel since the last reset_launch_counts().
+LAUNCHES = {"sphere_sweep": 0, "sphere_sweep_attrs": 0, "triangle_sweep": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Tables
+# ---------------------------------------------------------------------------
+
+def pad_rows(x: Tensor, mult: int) -> Tensor:
+    """Pad rows to a multiple of ``mult`` by repeating the last row."""
+    n = x.shape[0]
+    pad = -(-max(n, 1) // mult) * mult - n
+    if pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+
+
+def widen(cols: Tensor, width: int) -> Tensor:
+    return torch.cat([cols, cols.new_zeros(cols.shape[0],
+                                           width - cols.shape[1])], dim=1)
+
+
+def group_boxes(lo: Tensor, hi: Tensor, group: int, mult: int) -> Tensor:
+    """float32[k, 8] boxes (lo.xyz, hi.xyz, 2 pad) of consecutive groups of
+    ``group`` rows, after padding to a multiple of ``mult``."""
+    lo, hi = pad_rows(lo, mult), pad_rows(hi, mult)
+    k = lo.shape[0] // group
+    b = torch.cat([lo.reshape(k, group, 3).amin(dim=1),
+                   hi.reshape(k, group, 3).amax(dim=1)], dim=1)
+    return widen(b, BOX_COLS)
+
+
+def morton_argsort(points: Tensor) -> Tensor:
+    """Device-side order of float32[N, 3] points by their 30-bit Morton
+    code (stable) -> int64[N] (pallas_intersect.py:728)."""
+    p = points.detach()
+    lo = p.amin(dim=0)
+    span = torch.clamp(p.amax(dim=0) - lo, min=1e-20)
+    q = torch.clamp((p - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+    return torch.argsort(code, stable=True)
+
+
+def sphere_table(center: Tensor, radius: Tensor):
+    """(float32[C_pad, 4] rows cx cy cz r^2, float32[C_pad / 16, 8] chunk
+    boxes), padded by repeating the last sphere."""
+    center_p = pad_rows(center, PRIM_CHUNK)
+    radius_p = pad_rows(radius, PRIM_CHUNK)
+    tbl = torch.cat([center_p, (radius_p * radius_p)[:, None]], dim=1)
+    box = group_boxes(center_p - radius_p[:, None],
+                      center_p + radius_p[:, None], PRIM_CHUNK, PRIM_CHUNK)
+    return tbl.contiguous(), box.contiguous()
+
+
+def triangle_table(v0: Tensor, v1: Tensor, v2: Tensor, normal: Tensor):
+    """(float32[C_pad, 12] rows v0, e1 = v1 - v0, e2 = v2 - v0, normal;
+    float32[C_pad / 16, 8] chunk boxes from the vertices), padded by
+    repeating the last triangle (pallas_intersect.py:794-835)."""
+    v0, v1, v2, normal = (pad_rows(x, PRIM_CHUNK) for x in (v0, v1, v2,
+                                                            normal))
+    tbl = torch.cat([v0, v1 - v0, v2 - v0, normal], dim=1)
+    lo = torch.minimum(torch.minimum(v0, v1), v2)
+    hi = torch.maximum(torch.maximum(v0, v1), v2)
+    return (tbl.contiguous(),
+            group_boxes(lo, hi, PRIM_CHUNK, PRIM_CHUNK).contiguous())
+
+
+def _f32(x: float) -> float:
+    """A bound as the kernels see it (float32)."""
+    return float(np.float32(x))
+
+
+# ---------------------------------------------------------------------------
+# Candidate math, shared by the plain versions (and by the fused kernel's)
+# ---------------------------------------------------------------------------
+
+def sphere_candidates_t(o: Tensor, d: Tensor, center: Tensor, r2: Tensor,
+                        t_min: float, t_max: float) -> Tensor:
+    """(rays x spheres) candidate t, BIG on a miss: the half-b quadratic
+    with a strict disc > 0, each root times 1/a, the nearest root inside
+    (t_min, t_max) (pallas_intersect.py:112-133)."""
+    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    a = dx * dx + dy * dy + dz * dz
+    ocx, ocy, ocz = ox - center[:, 0], oy - center[:, 1], oz - center[:, 2]
+    b = ocx * dx + ocy * dy + ocz * dz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    disc = b * b - a * c
+    hit = disc > 0.0
+    sq = torch.sqrt(torch.where(hit, disc, 0.0))
+    inv_a = 1.0 / a
+    t0 = (-b - sq) * inv_a
+    t1 = (-b + sq) * inv_a
+    ok0 = hit & (t0 < t_max) & (t0 > t_min)
+    ok1 = hit & (t1 < t_max) & (t1 > t_min)
+    return torch.where(ok0, t0, torch.where(ok1, t1, BIG))
+
+
+def triangle_candidates_t(o: Tensor, d: Tensor, v0: Tensor, e1: Tensor,
+                          e2: Tensor, normal: Tensor, t_min: float,
+                          t_max: float, quirks: Quirks) -> Tensor:
+    """(rays x triangles) candidate t, BIG on a miss: Moller-Trumbore with
+    the quirk gates of pallas_intersect.py:136-174."""
+    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    e1x, e1y, e1z = e1[:, 0], e1[:, 1], e1[:, 2]
+    e2x, e2y, e2z = e2[:, 0], e2[:, 1], e2[:, 2]
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = 1.0 / a
+    sx, sy, sz = ox - v0[:, 0], oy - v0[:, 1], oz - v0[:, 2]
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    valid = ((a.abs() >= TRI_EPSILON) & (u >= 0.0) & (u <= 1.0)
+             & (v >= 0.0) & (u + v <= 1.0))
+    if quirks.triangle_back_culling:      # triangle.h:74
+        valid &= a >= TRI_EPSILON
+    if quirks.triangle_backface_only:     # triangle.h:61
+        valid &= (dx * normal[:, 0] + dy * normal[:, 1]
+                  + dz * normal[:, 2]) >= 0.0
+    if quirks.triangle_no_t_clip:         # triangle.h:92-94
+        valid &= t < t_max
+    else:
+        valid &= (t > t_min) & (t < t_max)
+    return torch.where(valid, t, BIG)
+
+
+def _closest(cand_fn, n_prims: int, o: Tensor, alive: Optional[Tensor]):
+    """Brute-force closest hit over prims in chunks -> (t, int32 idx).
+    ``cand_fn(lo, hi)`` gives the (rays x prims[lo:hi]) candidate t.  Ties:
+    ``min`` returns the first index, and a later chunk wins only when
+    strictly nearer."""
+    n = o.shape[0]
+    best_t = torch.full((n,), BIG, dtype=o.dtype, device=o.device)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    step = max(PRIM_CHUNK, PLAIN_ELEMENTS // max(n, 1))
+    for lo in range(0, n_prims, step):
+        hi = min(n_prims, lo + step)
+        tmin, imin = cand_fn(lo, hi).min(dim=1)
+        take = tmin < best_t
+        best_t = torch.where(take, tmin, best_t)
+        best_i = torch.where(take, imin + lo, best_i)
+    if alive is not None:
+        best_t = torch.where(alive, best_t, BIG)
+        best_i = torch.where(alive, best_i, -1)
+    return best_t, best_i.to(torch.int32)
+
+
+def _alive_mask(alive: Optional[Tensor]) -> Optional[Tensor]:
+    if alive is None:
+        return None
+    return alive if alive.dtype == torch.bool else alive > 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def sphere_best_hit_plain(origin: Tensor, direction: Tensor, center: Tensor,
+                          radius: Tensor, t_min: float, t_max: float,
+                          alive: Optional[Tensor] = None):
+    """Plain version of K3: (t float32[N], idx int32[N])."""
+    t_min, t_max = _f32(t_min), _f32(t_max)
+    r2 = radius * radius
+    return _closest(lambda lo, hi: sphere_candidates_t(
+        origin, direction, center[lo:hi], r2[lo:hi], t_min, t_max),
+        center.shape[0], origin, _alive_mask(alive))
+
+
+def sphere_best_hit_attrs_plain(origin: Tensor, direction: Tensor,
+                                center: Tensor, radius: Tensor,
+                                attr_tbl: Tensor, t_min: float, t_max: float,
+                                alive: Optional[Tensor] = None):
+    """Plain version of K5: (t, idx, attrs float32[N, A]); attr_tbl is
+    float32[A, C]; a miss lane carries prim 0's row."""
+    t, idx = sphere_best_hit_plain(origin, direction, center, radius, t_min,
+                                   t_max, alive)
+    return t, idx, attr_tbl.t()[idx.clamp(min=0).long()]
+
+
+def triangle_best_hit_plain(origin: Tensor, direction: Tensor, v0: Tensor,
+                            v1: Tensor, v2: Tensor, normal: Tensor,
+                            t_min: float, t_max: float, quirks: Quirks,
+                            alive: Optional[Tensor] = None):
+    """Plain version of K4: (t float32[N], idx int32[N])."""
+    t_min, t_max = _f32(t_min), _f32(t_max)
+    e1, e2 = v1 - v0, v2 - v0
+    return _closest(lambda lo, hi: triangle_candidates_t(
+        origin, direction, v0[lo:hi], e1[lo:hi], e2[lo:hi], normal[lo:hi],
+        t_min, t_max, quirks), v0.shape[0], origin, _alive_mask(alive))
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def _library() -> ctypes.CDLL:
+    lib = _cuda.load("sweeps")
+    if not getattr(lib, "_crt_declared", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.crt_sphere_sweep.argtypes = [vp] * 10 + [ci] * 3 + [cf] * 2 + [vp]
+        lib.crt_sphere_sweep.restype = ci
+        lib.crt_triangle_sweep.argtypes = ([vp] * 8 + [ci] * 3 + [cf] * 2
+                                           + [vp])
+        lib.crt_triangle_sweep.restype = ci
+        lib.crt_sweeps_error_string.argtypes = [ci]
+        lib.crt_sweeps_error_string.restype = ctypes.c_char_p
+        lib._crt_declared = True
+    return lib
+
+
+def _check_cuda(name: str, x: Tensor, dtype, shape, device,
+                align: int = 4) -> None:
+    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor; "
+                         f"got {x.dtype} on {x.device}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, rays on {device}")
+    if x.numel() and x.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _ptr(x: Optional[Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_checks(origin, direction, alive, counts):
+    n = origin.shape[0]
+    dev = origin.device
+    _check_cuda("origin", origin, torch.float32, (n, 3), dev)
+    _check_cuda("direction", direction, torch.float32, (n, 3), dev)
+    if alive is not None:
+        _check_cuda("alive", alive, torch.bool, (n,), dev)
+    if counts is not None:
+        _check_cuda("counts", counts, torch.int64, (2,), dev, 8)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rays exceed one launch")
+
+
+def _check(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.crt_sweeps_error_string(code).decode()}")
+
+
+def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
+                        box: Optional[Tensor], alive: Optional[Tensor],
+                        attr_rows: Optional[Tensor], t_min: float,
+                        t_max: float, counts: Optional[Tensor] = None):
+    """One launch of K3 (attr_rows None) or K5 over prepared tables ->
+    (t, idx[, attrs]).  box None: the plain form; given, the culled form.
+    counts: optional int64[2] CUDA tensor that a separately compiled
+    counting variant adds its box and sphere tests to (measurement only)."""
+    n = origin.shape[0]
+    dev = origin.device
+    _launch_checks(origin, direction, alive, counts)
+    n_pad = tbl.shape[0]
+    _check_cuda("sphere table", tbl, torch.float32, (n_pad, 4), dev, 16)
+    if n_pad % PRIM_CHUNK:
+        raise ValueError(f"sphere table of {n_pad} rows is not padded to "
+                         f"{PRIM_CHUNK}")
+    if box is not None:
+        _check_cuda("sphere boxes", box, torch.float32,
+                    (n_pad // PRIM_CHUNK, BOX_COLS), dev, 16)
+    n_attr = 0
+    if attr_rows is not None:
+        n_attr = attr_rows.shape[1]
+        _check_cuda("attr rows", attr_rows, torch.float32, (n_pad, n_attr),
+                    dev)
+    out_t = torch.empty(n, dtype=torch.float32, device=dev)
+    out_i = torch.empty(n, dtype=torch.int32, device=dev)
+    out_a = (torch.empty((n, n_attr), dtype=torch.float32, device=dev)
+             if attr_rows is not None else None)
+    lib = _library()
+    with torch.cuda.device(dev):
+        code = lib.crt_sphere_sweep(
+            origin.data_ptr(), direction.data_ptr(), tbl.data_ptr(),
+            _ptr(box), _ptr(alive), _ptr(attr_rows), out_t.data_ptr(),
+            out_i.data_ptr(), _ptr(out_a), _ptr(counts), n,
+            n_pad // PRIM_CHUNK, n_attr, _f32(t_min), _f32(t_max),
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, code, "sphere_sweep")
+    if counts is None:
+        LAUNCHES["sphere_sweep_attrs" if attr_rows is not None
+                 else "sphere_sweep"] += 1
+    return (out_t, out_i) if out_a is None else (out_t, out_i, out_a)
+
+
+def launch_triangle_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
+                          box: Optional[Tensor], alive: Optional[Tensor],
+                          t_min: float, t_max: float, quirks: Quirks,
+                          counts: Optional[Tensor] = None):
+    """One launch of K4 over prepared tables -> (t, idx).  box None: the
+    plain form; given, the culled form.  counts: as launch_sphere_sweep
+    (box and triangle tests)."""
+    n = origin.shape[0]
+    dev = origin.device
+    _launch_checks(origin, direction, alive, counts)
+    n_pad = tbl.shape[0]
+    _check_cuda("triangle table", tbl, torch.float32, (n_pad, 12), dev, 16)
+    if n_pad % PRIM_CHUNK:
+        raise ValueError(f"triangle table of {n_pad} rows is not padded "
+                         f"to {PRIM_CHUNK}")
+    if box is not None:
+        _check_cuda("triangle boxes", box, torch.float32,
+                    (n_pad // PRIM_CHUNK, BOX_COLS), dev, 16)
+    flags = ((F_BACKFACE_ONLY if quirks.triangle_backface_only else 0)
+             | (F_NO_T_CLIP if quirks.triangle_no_t_clip else 0)
+             | (F_BACK_CULLING if quirks.triangle_back_culling else 0))
+    out_t = torch.empty(n, dtype=torch.float32, device=dev)
+    out_i = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        code = lib.crt_triangle_sweep(
+            origin.data_ptr(), direction.data_ptr(), tbl.data_ptr(),
+            _ptr(box), _ptr(alive), out_t.data_ptr(), out_i.data_ptr(),
+            _ptr(counts), n, n_pad // PRIM_CHUNK, flags, _f32(t_min),
+            _f32(t_max), torch.cuda.current_stream().cuda_stream)
+    _check(lib, code, "triangle_sweep")
+    if counts is None:
+        LAUNCHES["triangle_sweep"] += 1
+    return out_t, out_i
+
+
+def _rays_in(origin: Tensor, direction: Tensor, alive: Optional[Tensor]):
+    return (origin.detach().contiguous(), direction.detach().contiguous(),
+            None if alive is None else _alive_mask(alive).contiguous())
+
+
+def _miss(origin: Tensor, n_attr: int = 0):
+    n = origin.shape[0]
+    out = (torch.full((n,), BIG, dtype=origin.dtype, device=origin.device),
+           torch.full((n,), -1, dtype=torch.int32, device=origin.device))
+    if n_attr:
+        out += (origin.new_zeros(n, n_attr),)
+    return out
+
+
+def sphere_best_hit_raw(origin: Tensor, direction: Tensor, center: Tensor,
+                        radius: Tensor, t_min: float, t_max: float,
+                        cull: bool = False, alive: Optional[Tensor] = None):
+    """K3 (pallas_intersect.py:503): (best_t float32[N], best_idx int32[N])
+    over all spheres; idx -1 = miss.  cull: per-chunk box culling.  alive:
+    optional bool/float[N] mask; a dead lane returns (BIG, -1)."""
+    if center.shape[0] == 0:
+        return _miss(origin)
+    if origin.device.type == "cpu":
+        return sphere_best_hit_plain(origin, direction, center, radius,
+                                     t_min, t_max, alive)
+    tbl, box = sphere_table(center.detach(), radius.detach())
+    o, d, al = _rays_in(origin, direction, alive)
+    return launch_sphere_sweep(o, d, tbl, box if cull else None, al, None,
+                               t_min, t_max)
+
+
+def sphere_best_hit_attrs_raw(origin: Tensor, direction: Tensor,
+                              center: Tensor, radius: Tensor,
+                              attr_tbl: Tensor, t_min: float, t_max: float,
+                              cull: bool = False,
+                              alive: Optional[Tensor] = None):
+    """K5 (pallas_intersect.py:411): K3 plus the winner's attribute row ->
+    (t, idx, attrs float32[N, A]).  attr_tbl: float32[A, C] per-prim
+    columns; rows 0..2 are the center and row 3 the radius (the backward
+    reads them from attrs).  A miss or dead lane carries prim 0's row."""
+    if center.shape[0] == 0:
+        return _miss(origin, attr_tbl.shape[0])
+    if origin.device.type == "cpu":
+        return sphere_best_hit_attrs_plain(origin, direction, center, radius,
+                                           attr_tbl, t_min, t_max, alive)
+    tbl, box = sphere_table(center.detach(), radius.detach())
+    rows = pad_rows(attr_tbl.detach().t(), PRIM_CHUNK).contiguous()
+    o, d, al = _rays_in(origin, direction, alive)
+    return launch_sphere_sweep(o, d, tbl, box if cull else None, al, rows,
+                               t_min, t_max)
+
+
+def triangle_best_hit_raw(origin: Tensor, direction: Tensor, v0: Tensor,
+                          v1: Tensor, v2: Tensor, normal: Tensor,
+                          t_min: float, t_max: float, quirks: Quirks,
+                          cull: Optional[bool] = None,
+                          alive: Optional[Tensor] = None):
+    """K4 (pallas_intersect.py:773): (t, idx) over all triangles.  cull
+    None: the culled form from TRI_CULL_MIN triangles up (:785-786)."""
+    c = v0.shape[0]
+    if c == 0:
+        return _miss(origin)
+    if origin.device.type == "cpu":
+        return triangle_best_hit_plain(origin, direction, v0, v1, v2, normal,
+                                       t_min, t_max, quirks, alive)
+    if cull is None:
+        cull = c >= TRI_CULL_MIN
+    tbl, box = triangle_table(v0.detach(), v1.detach(), v2.detach(),
+                              normal.detach())
+    o, d, al = _rays_in(origin, direction, alive)
+    return launch_triangle_sweep(o, d, tbl, box if cull else None, al,
+                                 t_min, t_max, quirks)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable sweeps: kernel forward, winner-only backward
+# ---------------------------------------------------------------------------
+
+def _dot(a: Tensor, b: Tensor) -> Tensor:
+    """x * x' + y * y' + z * z' in the kernels' order, as elementwise ops:
+    each rounds alike on every device, where a reduction's order does not.
+    A grazing ray's t gradient scales as 1 / sqrt(disc), so an ulp of disc
+    moves it visibly."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _cross(a: Tensor, b: Tensor) -> Tensor:
+    """a x b as elementwise ops, in the kernels' order (see _dot)."""
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+
+
+def _sphere_t_of(origin, direction, center, radius, pick_first):
+    """Differentiable t for a known winning sphere per ray
+    (pallas_intersect.py:926)."""
+    oc = origin - center
+    a = _dot(direction, direction)
+    b = _dot(oc, direction)
+    cc = _dot(oc, oc) - radius * radius
+    sq = torch.sqrt(torch.clamp(b * b - a * cc, min=1e-20))
+    return torch.where(pick_first, (-b - sq) / a, (-b + sq) / a)
+
+
+def _sphere_grads(origin, direction, c_w, r_w, hit, g_t, t_min, t_max):
+    """Gradients of sum(t * g_t) over hit lanes w.r.t. the rays and the
+    winners' center and radius.  The root is re-chosen by the sweep's
+    exact rule (take t0 iff it lies in (t_min, t_max)), not by a tolerance
+    on t (pallas_intersect.py:958-969)."""
+    oc = origin - c_w
+    a = _dot(direction, direction)
+    b = _dot(oc, direction)
+    cc = _dot(oc, oc) - r_w * r_w
+    disc = b * b - a * cc
+    t0 = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / a
+    pick_first = (disc > 0.0) & (t0 < t_max) & (t0 > t_min)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (origin, direction,
+                                                        c_w, r_w)]
+        t = _sphere_t_of(*leaves, pick_first)
+        total = (t * torch.where(hit, g_t, 0.0)).sum()
+        g_o, g_d, g_c, g_r = torch.autograd.grad(total, leaves)
+    h3 = hit[:, None]
+    return (torch.where(h3, g_o, 0.0), torch.where(h3, g_d, 0.0),
+            torch.where(h3, g_c, 0.0), torch.where(hit, g_r, 0.0))
+
+
+class _SphereBestHit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, center, radius, t_min, t_max, cull,
+                alive):
+        t, idx = sphere_best_hit_raw(origin, direction, center, radius,
+                                     t_min, t_max, cull, alive)
+        ctx.save_for_backward(origin, direction, center, radius, idx)
+        ctx.bounds = (_f32(t_min), _f32(t_max))
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx):
+        origin, direction, center, radius, idx = ctx.saved_tensors
+        hit = idx >= 0
+        safe = idx.clamp(min=0).long()
+        g_o, g_d, g_c, g_r = _sphere_grads(origin, direction, center[safe],
+                                           radius[safe], hit, g_t,
+                                           *ctx.bounds)
+        g_center = torch.zeros_like(center).index_add_(0, safe, g_c)
+        g_radius = torch.zeros_like(radius).index_add_(0, safe, g_r)
+        return g_o, g_d, g_center, g_radius, None, None, None, None
+
+
+class _SphereBestHitAttrs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, center, radius, attr_tbl, t_min,
+                t_max, cull, alive):
+        t, idx, attrs = sphere_best_hit_attrs_raw(
+            origin, direction, center, radius, attr_tbl, t_min, t_max, cull,
+            alive)
+        ctx.save_for_backward(origin, direction, idx, attrs)
+        ctx.bounds = (_f32(t_min), _f32(t_max))
+        ctx.tbl_shape = tuple(attr_tbl.shape)
+        ctx.mark_non_differentiable(idx)
+        return t, idx, attrs
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx, g_attrs):
+        origin, direction, idx, attrs = ctx.saved_tensors
+        hit = idx >= 0
+        safe = idx.clamp(min=0).long()
+        # miss lanes carry prim 0's row (finite geometry); every term is
+        # masked by hit (pallas_intersect.py:1015-1050)
+        g_o, g_d, g_c, g_r = _sphere_grads(origin, direction, attrs[:, 0:3],
+                                           attrs[:, 3], hit, g_t,
+                                           *ctx.bounds)
+        n_c = ctx.tbl_shape[1]
+        g_center = origin.new_zeros(n_c, 3).index_add_(0, safe, g_c)
+        g_radius = origin.new_zeros(n_c).index_add_(0, safe, g_r)
+        g_tbl = origin.new_zeros(ctx.tbl_shape).index_add_(
+            1, safe, torch.where(hit[None], g_attrs.t(), 0.0))
+        return (g_o, g_d, g_center, g_radius, g_tbl, None, None, None, None)
+
+
+def _tri_t_of(origin, direction, v0, v1, v2, mask):
+    """Differentiable t for a known winning triangle per ray.  Miss lanes
+    pair with triangle 0, whose determinant may be 0: the double-where
+    keeps 1/a finite there (pallas_intersect.py:1056-1070)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    q = _cross(origin - v0, e1)
+    h = _cross(direction, e2)
+    a = _dot(e1, h)
+    a_safe = torch.where(mask, a, 1.0)
+    return torch.where(mask, _dot(e2, q) / a_safe, 0.0)
+
+
+class _TriangleBestHit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, v0, v1, v2, normal, t_min, t_max,
+                quirks, alive):
+        t, idx = triangle_best_hit_raw(origin, direction, v0, v1, v2, normal,
+                                       t_min, t_max, quirks, alive=alive)
+        ctx.save_for_backward(origin, direction, v0, v1, v2, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx):
+        origin, direction, v0, v1, v2, idx = ctx.saved_tensors
+        hit = idx >= 0
+        safe = idx.clamp(min=0).long()
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (
+                origin, direction, v0[safe], v1[safe], v2[safe])]
+            t = _tri_t_of(*leaves, hit)
+            total = (t * torch.where(hit, g_t, 0.0)).sum()
+            g_o, g_d, g0, g1, g2 = torch.autograd.grad(total, leaves)
+        z = hit[:, None]
+        grads = [torch.zeros_like(v).index_add_(0, safe,
+                                                torch.where(z, g, 0.0))
+                 for v, g in ((v0, g0), (v1, g1), (v2, g2))]
+        return (torch.where(z, g_o, 0.0), torch.where(z, g_d, 0.0), *grads,
+                None, None, None, None, None)
+
+
+def sphere_best_hit(origin: Tensor, direction: Tensor, center: Tensor,
+                    radius: Tensor, t_min: float, t_max: float,
+                    cull: bool = False,
+                    alive: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Differentiable K3 (pallas_intersect.py:938): t carries gradients to
+    the rays and to the winners' center and radius; idx carries none."""
+    return _SphereBestHit.apply(origin, direction, center, radius, t_min,
+                                t_max, cull, alive)
+
+
+def sphere_best_hit_attrs(origin: Tensor, direction: Tensor, center: Tensor,
+                          radius: Tensor, attr_tbl: Tensor, t_min: float,
+                          t_max: float, cull: bool = False,
+                          alive: Optional[Tensor] = None):
+    """Differentiable K5 (pallas_intersect.py:989): t flows to the rays
+    and to center/radius (winner's center/radius read from attrs); attrs
+    flow to attr_tbl by a scatter-add at the winners' columns.  The caller
+    builds attr_tbl from center/radius, so the two paths are disjoint."""
+    return _SphereBestHitAttrs.apply(origin, direction, center, radius,
+                                     attr_tbl, t_min, t_max, cull, alive)
+
+
+def triangle_best_hit(origin: Tensor, direction: Tensor, v0: Tensor,
+                      v1: Tensor, v2: Tensor, normal: Tensor, t_min: float,
+                      t_max: float, quirks: Quirks,
+                      alive: Optional[Tensor] = None):
+    """Differentiable K4 (pallas_intersect.py:1074): t carries gradients to
+    the rays and to the winners' vertices; the normal gets none."""
+    return _TriangleBestHit.apply(origin, direction, v0, v1, v2, normal,
+                                  t_min, t_max, quirks, alive)

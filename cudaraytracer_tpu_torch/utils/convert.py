@@ -1,9 +1,11 @@
-"""Carry scene and camera state across from the JAX package.
+"""Carry scene, camera and fit state across from the JAX package.
 
 The JAX package's parameters, given as numpy arrays (for example
 ``jax.tree.map(np.asarray, jax_scene)``), become the port's tensors, so that
 both packages compute on the same numbers.  Only field names are read: any
 nested object with the JAX ``Scene`` / ``Camera`` field names will do.
+Fit parameters (a dict of arrays, ``parallel/train.py``) go across with
+``params_from_numpy`` and back with ``params_to_numpy``.
 """
 
 from __future__ import annotations
@@ -59,3 +61,22 @@ def to_numpy(record):
     if isinstance(record, torch.Tensor):
         return record.detach().cpu().numpy()
     return type(record)(*(to_numpy(v) for v in record))
+
+
+def params_from_numpy(params, device=None) -> dict:
+    """A dict of numpy arrays (tuples of them allowed, as 'tri_v') -> the
+    same dict of float32 leaf tensors that require grad, on ``device``."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            requires_grad=True)
+
+    return {k: tuple(leaf(x) for x in v) if isinstance(v, tuple) else leaf(v)
+            for k, v in params.items()}
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse of params_from_numpy: a dict of numpy arrays."""
+    return {k: tuple(to_numpy(x) for x in v) if isinstance(v, tuple)
+            else to_numpy(v) for k, v in params.items()}

@@ -229,7 +229,7 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="wavefront"), "item 13"),
+    (dict(wavefront_compact=True), "item 22"),
     (dict(engine="mega_diff"), "item 15"),
     (dict(engine="mega", compact_after=2), "item 19"),
     (dict(engine="mega", compact_every=2), "item 19"),
@@ -247,6 +247,19 @@ def test_config_rejects_unported_knobs(kw, item):
 
 def test_config_accepts_mega():
     tconfig.check_supported(tconfig.RenderConfig(engine="mega"))
+
+
+def test_config_accepts_the_wavefront_and_its_knobs():
+    """engine='wavefront' (the default) with each sphere-cull policy, the
+    attribute-carrying sweep and either source of draws."""
+    for cull in ("morton", "primary", "off"):
+        for attrs in (False, True):
+            tconfig.check_supported(tconfig.RenderConfig(
+                wavefront_sphere_cull=cull, wavefront_kernel_attrs=attrs,
+                wavefront_tpu_prng=attrs))
+    with pytest.raises(ValueError, match="wavefront_sphere_cull"):
+        tconfig.check_supported(tconfig.RenderConfig(
+            wavefront_sphere_cull="sometimes"))
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the fused kernel K1 and the draws K2 (csrc/megakernel.cu), the sweeps K3,
+K4 and K5 (csrc/sweeps.cu), and the wavefront render and fit through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -7,9 +9,12 @@ JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest tests/test_torch_gpu.py -m gpu -o addopts="" \
         --noconftest -p no:cacheprovider -q
 
-Tolerance: the kernel is built without FMA contraction, so it rounds like
-the plain version; every ray must agree to 1e-5 (kernel against plain), and
-the draws to 1e-5.
+Tolerance: the kernels are built without FMA contraction, so they round
+like the plain versions; every ray must agree to 1e-5 (kernel against
+plain), the draws to 1e-5, and the sweeps' idx exactly.  A fit step on the
+card against the CPU: the loss to rtol 1e-5 and each gradient to 1e-3 of
+its largest entry (the card sums the scatter-adds with atomics and the
+means in another order).
 """
 
 import dataclasses
@@ -21,9 +26,16 @@ from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
 from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
 from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets
+from cudaraytracer_tpu_torch.ops import integrators as integ
+from cudaraytracer_tpu_torch.ops import intersect as isect
 from cudaraytracer_tpu_torch.ops import megakernel as mk
+from cudaraytracer_tpu_torch.ops import sweeps as sw
 from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
-from cudaraytracer_tpu_torch.ops.render import render_image, swizzled_pixels
+from cudaraytracer_tpu_torch.ops.render import (render_image, render_pixels,
+                                                sweep_intersector,
+                                                sweep_intersector_pair,
+                                                swizzled_pixels)
+from cudaraytracer_tpu_torch.parallel import train
 
 DEPTH = 8
 ATOL = 1e-5
@@ -210,3 +222,231 @@ def test_exact_ties_first_sphere_wins(cuda):
     for tables in (mk.build_mega_tables(scene), mk.morton_tables(scene)):
         got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=0)
         assert torch.equal(got.cpu(), torch.from_numpy(cs.TIE_EXPECTED))
+
+
+# ---------------------------------------------------------------------------
+# The sweeps K3, K4, K5 and the wavefront
+# ---------------------------------------------------------------------------
+
+T_MIN, T_MAX = 1e-3, sw.BIG
+
+
+def _hits_match(got, ref):
+    assert torch.equal(got[1], ref[1])
+    for a, b in zip(got[::2], ref[::2]):
+        assert float((a - b).abs().max()) <= ATOL
+    assert bool((got[1] >= 0).any())
+
+
+def _bounced(scene, rays, cfg, seed):
+    """The rays after one wavefront bounce, and a random alive mask."""
+    n = rays.origin.shape[0]
+    draws = mk.scatter_draws(torch.empty(n, 4, device=rays.origin.device),
+                             seed, 0)
+    with torch.no_grad():
+        o, d, t, _, _, cont = integ._bounce(
+            scene, cfg, sweep_intersector(cfg, True), 0, *rays,
+            torch.ones_like(rays.origin), torch.zeros_like(rays.origin),
+            torch.ones(n, dtype=torch.bool, device=rays.origin.device),
+            draws[:, :3], draws[:, 3])
+    keep = torch.rand(n, generator=torch.Generator(
+        device=o.device).manual_seed(seed), device=o.device) < 0.7
+    return o, d, cont & keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attrs", [False, True])
+@pytest.mark.parametrize("cull", [False, True])
+def test_sphere_sweeps_match_plain(cuda, cull, attrs):
+    """K3 / K5 on random_spheres (Morton order, as the trace runs it):
+    camera rays, then bounced rays with an alive mask (dead lanes miss)."""
+    scene, cam = presets.random_spheres(2.0, device=cuda)
+    scene = integ._morton_scene(scene)
+    sp = scene.spheres
+    cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH)
+    rays = generate_pixel_rays(cam, 64, 32, 4, generator=torch.Generator(
+        device=cuda).manual_seed(6))
+    tbl = isect.sphere_attr_table(scene)
+    bo, bd, alive = _bounced(scene, rays, cfg, 8)
+    for o, d, al in ((rays.origin, rays.direction, None), (bo, bd, alive)):
+        before = dict(sw.LAUNCHES)
+        if attrs:
+            got = sw.sphere_best_hit_attrs_raw(o, d, sp.center, sp.radius,
+                                               tbl, T_MIN, T_MAX, cull, al)
+            ref = sw.sphere_best_hit_attrs_plain(o, d, sp.center, sp.radius,
+                                                 tbl, T_MIN, T_MAX, al)
+            key = "sphere_sweep_attrs"
+        else:
+            got = sw.sphere_best_hit_raw(o, d, sp.center, sp.radius, T_MIN,
+                                         T_MAX, cull, al)
+            ref = sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, T_MIN,
+                                           T_MAX, al)
+            key = "sphere_sweep"
+        torch.cuda.synchronize()
+        assert sw.LAUNCHES[key] == before[key] + 1
+        _hits_match(got, ref)
+        if al is not None:
+            assert bool((got[1][~al] == -1).all())
+            assert bool((got[0][~al] == sw.BIG).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_triangle_sweep_matches_plain(cuda, profile, cull):
+    """K4 on the icosphere (5,120 triangles) and on the mixed scene (5
+    triangles), camera and bounced rays."""
+    quirks = getattr(Quirks, profile)()
+    for scene, cam in (cs.icosphere_scene(2.0, device=cuda),
+                       cs.mixed_scene(cuda)):
+        scene = integ._morton_scene(scene)
+        tr = scene.triangles
+        cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH,
+                           quirks=quirks)
+        rays = generate_pixel_rays(cam, 64, 32, 4, generator=torch.Generator(
+            device=cuda).manual_seed(2))
+        bo, bd, alive = _bounced(scene, rays, cfg, 4)
+        for o, d, al in ((rays.origin, rays.direction, None),
+                         (bo, bd, alive)):
+            got = sw.triangle_best_hit_raw(o, d, tr.v0, tr.v1, tr.v2,
+                                           tr.normal, T_MIN, T_MAX, quirks,
+                                           cull, al)
+            ref = sw.triangle_best_hit_plain(o, d, tr.v0, tr.v1, tr.v2,
+                                             tr.normal, T_MIN, T_MAX, quirks,
+                                             al)
+            if al is None or bool((ref[1] >= 0).any()):
+                _hits_match(got, ref)
+            else:
+                assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+def test_sweeps_keep_the_first_prim_on_ties(cuda):
+    """Duplicated prims never win, and exact ties go to the lowest id,
+    across chunks and from a sphere over a triangle."""
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    scene, cam = cs.duplicate_scene(cuda)
+    rays = generate_pixel_rays(cam, 64, 32, 4, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    sp, tr = scene.spheres, scene.triangles
+    for cull in (False, True):
+        got = sw.sphere_best_hit_raw(rays.origin, rays.direction, sp.center,
+                                     sp.radius, T_MIN, T_MAX, cull)
+        _hits_match(got, sw.sphere_best_hit_plain(
+            rays.origin, rays.direction, sp.center, sp.radius, T_MIN, T_MAX))
+        assert not bool(((got[1] == 2) | (got[1] == 4)).any())
+        got = sw.triangle_best_hit_raw(rays.origin, rays.direction, tr.v0,
+                                       tr.v1, tr.v2, tr.normal, T_MIN, T_MAX,
+                                       Quirks.fixed(), cull)
+        assert bool((got[1] == 0).any()) and not bool((got[1] == 1).any())
+    tie = cs.fill_tie_scene(SceneBuilder()).build(cuda)
+    rays = make_rays(cs.TIE_ORIGINS, cs.TIE_DIRECTIONS, device=cuda)
+    for policy in ("all", "off"):
+        hits = isect.intersect_scene_sweeps(tie, rays, quirks=Quirks.fixed(),
+                                            sphere_cull=policy)
+        assert hits.prim.tolist() == [22, 0]
+
+
+@pytest.mark.gpu
+def test_wavefront_render_runs_the_kernels(cuda):
+    """render_image on the wavefront launches K3 and K2 (and K4 on a
+    triangle scene) and agrees with the fused engine on the same seeds."""
+    scene, cam = cs.mixed_scene(cuda)
+    cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH,
+                       ray_chunk=4096)
+    mk.reset_launch_counts()
+    sw.reset_launch_counts()
+    with torch.no_grad():
+        img = render_image(scene, cam, cfg,
+                           intersect_fn=sweep_intersector(cfg))
+    assert sw.LAUNCHES["sphere_sweep"] > 0
+    assert sw.LAUNCHES["triangle_sweep"] > 0
+    assert mk.LAUNCHES["scatter_draws"] > 0
+    assert img.is_cuda and torch.isfinite(img).all()
+    mega = render_image(scene, cam, dataclasses.replace(cfg, engine="mega"))
+    assert float(((img - mega).abs() > 1e-3).float().mean()) <= 0.05
+
+
+@pytest.mark.gpu
+def test_sweep_gradients_on_the_card_match_the_cpu(cuda):
+    """The winner-only backwards run on the card and agree with the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    o = torch.rand(512, 3, generator=gen) - 0.5
+    d = torch.cat([torch.rand(512, 2, generator=gen) - 0.5,
+                   -torch.ones(512, 1)], 1)
+    center = torch.tensor([[0.0, 0.0, -4.0], [0.4, 0.1, -6.0]])
+    radius = torch.tensor([1.0, 0.7])
+    v0, v1, v2 = (torch.tensor([[-2.0, -2.0, -3.0]]),
+                  torch.tensor([[2.0, -2.0, -3.5]]),
+                  torch.tensor([[0.0, 2.0, -3.2]]))
+    normal = torch.tensor([[0.0, 0.0, -1.0]])
+    out = []
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev).requires_grad_() for x in
+                  (o, d, center, radius, v0, v1, v2)]
+        lo, ld, lc, lr, a, b, c = leaves
+        ts, _ = sw.sphere_best_hit(lo, ld, lc, lr, T_MIN, T_MAX, True)
+        tt, it = sw.triangle_best_hit(lo, ld, a, b, c, normal.to(dev),
+                                      T_MIN, T_MAX, Quirks.fixed())
+        loss = (torch.where(ts < 1e30, ts, 0.0).square().sum()
+                + torch.where(it >= 0, tt, 0.0).sum())
+        out.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for g_cpu, g_dev in zip(*out):
+        assert torch.isfinite(g_dev).all()
+        assert float((g_dev - g_cpu).abs().max()) <= 1e-4 * max(
+            1.0, float(g_cpu.abs().max()))
+
+
+@pytest.mark.gpu
+def test_fit_step_on_the_card_matches_the_cpu(cuda):
+    """One fit step (K5, K2 off: an injected stream) at 32x16x2: the loss
+    and the gradients on the card against the plain CPU run."""
+    w, h, spp, depth = 32, 16, 2, 3
+    cfg = train.fit_config(RenderConfig(width=w, height=h, samples=spp,
+                                        max_depth=depth, gamma=False))
+    gen = torch.Generator().manual_seed(3)
+    _, cam_cpu = presets.three_spheres(2.0, device="cpu")
+    rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
+    stream = stream_from_generator(gen, w * h * spp, depth, "cpu")
+    out = []
+    for dev in ("cpu", cuda):
+        scene, cam = presets.three_spheres(2.0, device=dev)
+        r = type(rays)(*(x.to(dev) for x in rays))
+        st = integ.SampleStream(stream.ball.to(dev), stream.prob.to(dev))
+        pix = torch.arange(w * h, device=dev)
+        fn = sweep_intersector_pair(cfg)
+        with torch.no_grad():
+            target = render_pixels(scene, cam, cfg, pix, rays=r, samples=st,
+                                   intersect_fn=fn)
+        params = {"albedo": (scene.textures.color0 * 0.6 + 0.1)
+                  .requires_grad_(),
+                  "centers": (scene.spheres.center + 0.05).requires_grad_()}
+        sw.reset_launch_counts()
+        loss, grads = train.value_and_grad(scene, params, cam, cfg, pix,
+                                           target, intersect_fn=fn, rays=r,
+                                           samples=st)
+        if dev is cuda:
+            assert sw.LAUNCHES["sphere_sweep_attrs"] > 0
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (l_cpu, g_cpu), (l_dev, g_dev) = out
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        assert scale > 0
+        assert float((g_dev[k] - g_cpu[k]).abs().max()) <= 1e-3 * scale, k
+
+
+@pytest.mark.gpu
+def test_sweeps_reject_bad_inputs(cuda):
+    o = torch.zeros(4, 3, device=cuda)
+    tbl, box = sw.sphere_table(torch.zeros(3, 3, device=cuda),
+                               torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):
+        sw.launch_sphere_sweep(o, torch.zeros(4, 3), tbl, box, None, None,
+                               T_MIN, T_MAX)
+    with pytest.raises(ValueError):
+        sw.launch_sphere_sweep(o, o, tbl[:5], None, None, None, T_MIN, T_MAX)
+    with pytest.raises(ValueError):
+        sw.launch_triangle_sweep(o, o, torch.zeros(16, 9, device=cuda), None,
+                                 None, T_MIN, T_MAX, Quirks.fixed())
