@@ -4,10 +4,12 @@ kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-The paths: the fused render (engine='mega', kernel K1), the wavefront
-render (engine='wavefront': the sweep kernels K3 sphere_sweep and K4
-triangle_sweep, the draws kernel K2 scatter_draws) and the single-device
-fit through the wavefront (K5 sphere_sweep_attrs, K2).
+The paths: the fused render (engine='mega', kernel K1, and its rect / TRS
+mode K8 mega_trace_xform), the wavefront render (engine='wavefront': the
+sweep kernels K3 sphere_sweep and K4 triangle_sweep, the draws kernel K2
+scatter_draws), the single-device fit through the wavefront (K5
+sphere_sweep_attrs, K2) and through engine='mega_diff' (K1 recording its
+winners, K7 mega_winners, and the replay backward on K2 draws).
 
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
@@ -29,13 +31,22 @@ Phases (each prints lines; any failure raises and exits nonzero):
          of fewer than 128 triangles (K4 plain), and the duplicate-prim and
          exact-tie scenes; idx equal on every ray, t and attrs to
          PARITY_ATOL;
+       * K8 against the plain version on one full 2^18-ray launch of
+         light_box 1280x720x16 and of the TRS showcase, and 2^16 rays of
+         the TRS field (three integrators injected, the path on in-kernel
+         draws), with equal winner ids (K7 on K8's scenes);
+       * K7 on (g)'s first 2^18-ray launch: winners equal to the plain
+         version's, radiance equal to the launch that records nothing;
   4. draws: the scatter_draws kernel against its plain version at the
      main path's 2^18 rays and over 2^22 samples against the unit-ball and
      uniform distributions;
   5. cross-engine: the wavefront and the fused engine on the same 2^18 rays
      of each frame (random_spheres' first launch, the icosphere's middle
-     one) and the same injected stream; at most max(2, n/200) rays may
-     differ by more than 1e-3;
+     one, light_box's and the TRS showcase's first) and the same injected
+     stream; at most max(2, n/200) rays may differ by more than 1e-3; the
+     fit's first-step gradients (64x32x2) card against CPU for the
+     wavefront and for mega_diff, and mega_diff against the wavefront on
+     the card, each to 1e-3 of the largest entry;
   6. main paths at full size, the launch counts set to 0 just before each
      and read just after:
        (a) random_spheres 1920x1080x16, path depth 8, reference quirks,
@@ -49,8 +60,15 @@ Phases (each prints lines; any failure raises and exits nonzero):
            centres at lr 0.5 on fixed rays and draws: a warm-up step, then
            5 timed steps; then one step on random_spheres (K5 over 484
            Morton-ordered spheres);
-     the fit's first-step gradients on the card are held against the
-     plain CPU run on the same injected rays and stream at 64x32x2;
+       (f) (e) through engine='mega_diff': the tables rebuilt from the
+           params every step, the loss must fall over the 5 steps;
+       (g) (a)'s frame through engine='mega_diff', without a gradient
+           (K1) and with the centres requiring one (K7, recording);
+       (h) light_box 1280x720x16, depth 8, reference quirks, fused (K8),
+           then on the wavefront (K3, the rect folded in by tensor ops);
+       (i) 1,100 each of rects, TRS spheres and TRS triangles (above the
+           JAX engine's 1024-per-class cap), 640x360x4, depth 4, fixed
+           quirks, fused (K8);
   7. one JSON line of kernels: launches on the main paths, times, bounds;
   8. the last line: {"ok": true, "device": {...}}.
 
@@ -82,6 +100,13 @@ PEAK_BYTES = 3.35e12
 FLOP_BOX = 24      # slab: 6 sub, 6 mul, 10 min/max, 2 compares
 FLOP_SPHERE = 26   # 3 sub, b 5, c 6, disc 3, sqrt, 2 roots x 2, 4 compares
 FLOP_TRI = 46      # h 9, a 5, 1/a, s 3, u 6, q 9, v 6, t 6, 1 add
+# K8, per rect / TRS row: TransformRay (3 div, |d/s|^2 5, sqrt, 1/x, 3 mul,
+# two 3x3 rotations 30, 3 sub) = 46, plus the test and the compare of
+# t * (1 / |raw d|) with best_t: rect 16 (div, x and y 4, facing, 8
+# compares, mul, compare), TRS sphere 34 (b, a 5 each, c 6, disc 3, sqrt,
+# 1/a, two roots 4, 8 compares and selects, mul, compare), TRS triangle 64
+# (Moller-Trumbore 46, the backface dot 6, 10 compares, mul, compare)
+FLOP_XFORM = (46 + 16, 46 + 34, 46 + 64)
 OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
 N_ATTRS = 21       # K5's attribute row: centre, radius, mat, 16 decode
 
@@ -160,20 +185,23 @@ def bound(flops: float, bytes_: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def launch_bound(tables, n: int, tests) -> tuple:
+def launch_bound(tables, n: int, tests, out_bytes: int = 12) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that made ``tests``
-    (box, sphere, triangle): their FLOPs against the rays, radiance and
-    tables."""
-    n_box, n_sph, n_tri = tests
-    flops = n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
-    return bound(flops, n * (24 + 12) + sum(t.numel() * 4 for t in tables))
+    (box, sphere, triangle, rect, TRS sphere, TRS triangle): their FLOPs
+    against the rays in, ``out_bytes`` per ray out and the tables."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    n_box, n_sph, n_tri = tests[:3]
+    flops = (n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
+             + sum(c * f for c, f in zip(tests[3:], FLOP_XFORM)))
+    return bound(flops, n * (24 + out_bytes) + mk.table_bytes(tables))
 
 
 def count_tests(tables, rays, cfg, seed) -> list:
-    """Box, sphere and triangle tests of one path launch (the kernel's
-    counting variant)."""
+    """The tests of one path launch (the kernel's counting variant): box,
+    sphere, triangle, rect, TRS sphere, TRS triangle."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    counts = torch.zeros(3, dtype=torch.int64, device=rays.origin.device)
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
+                         device=rays.origin.device)
     mk._launch_mega(tables, rays.origin.contiguous(),
                     rays.direction.contiguous(), cfg, None, seed,
                     counts=counts)
@@ -406,8 +434,9 @@ def one_bounce(scene, rays, cfg, seed: int, gen):
     n = o.shape[0]
     draws = mk.scatter_draws(torch.empty(n, 4, device=o.device), seed, 0)
     with torch.no_grad():
-        o2, d2, t2, _, _, cont = integ._bounce(
-            scene, cfg, sweep_intersector(cfg, coherent=True), 0, o, d, tm,
+        o2, d2, t2, _, _, cont, _ = integ._bounce(
+            scene, cfg, sweep_intersector(cfg, coherent=True), 0, None, o, d,
+            tm,
             torch.ones(n, 3, device=o.device),
             torch.zeros(n, 3, device=o.device),
             torch.ones(n, dtype=torch.bool, device=o.device),
@@ -505,7 +534,7 @@ def phase_sweep_parity(dev, frames) -> dict:
 
     # (a)'s first launch: camera rays, then the same rays after one bounce
     wcfg = dataclasses.replace(fa.cfg, engine="wavefront")
-    sa = integ._morton_scene(fa.scene)
+    sa = integ._morton_scene(fa.scene)[0]
     cam_a = first_chunk(fa, gen)
     spheres("random_spheres camera", sa, cam_a.origin, cam_a.direction)
     bounce_a, alive_a = one_bounce(sa, cam_a, wcfg, 21, gen)
@@ -513,7 +542,7 @@ def phase_sweep_parity(dev, frames) -> dict:
             bounce_a.direction, alive_a)
     # the icosphere frame: K4 culled under both quirk profiles, on its
     # first launch and on its middle one (the first sees only the ground)
-    sb = integ._morton_scene(fb.scene)
+    sb = integ._morton_scene(fb.scene)[0]
     for k in (0, middle_chunk(fb)):
         cam_b = first_chunk(fb, gen, k)
         for q in ("reference", "fixed"):
@@ -641,19 +670,20 @@ def phase_sweep_parity(dev, frames) -> dict:
     return out
 
 
-def phase_cross_engine(dev, frames):
-    """The wavefront (sweep pair) and the fused engine on the same 2^18
-    rays and injected stream: count the rays that differ by more than
-    1e-3."""
+def phase_cross_engine(dev, launches):
+    """The wavefront (sweep pair, rects and TRS prims folded in by tensor
+    ops) and the fused engine on the same 2^18 rays and injected stream,
+    for each (frame, launch index): count the rays that differ by more
+    than 1e-3."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import (
         integrate, stream_from_generator)
     from cudaraytracer_tpu_torch.ops.render import sweep_intersector_pair
     gen = torch.Generator(device=dev).manual_seed(9)
-    for f, k in zip(frames, (0, middle_chunk(frames[1]))):
+    for f, k in launches:
         rays = first_chunk(f, gen, k)
         n = rays.origin.shape[0]
-        stream = stream_from_generator(gen, n, DEPTH, dev)
+        stream = stream_from_generator(gen, n, f.cfg.max_depth, dev)
         wcfg = dataclasses.replace(f.cfg, engine="wavefront")
         with torch.no_grad():
             wave = integrate(f.scene, rays, wcfg, samples=stream,
@@ -725,7 +755,7 @@ def render_wavefront(dev, f: Frame, gen):
     return ms, img, peak
 
 
-def fit_scene(name: str, dev):
+def fit_scene(name: str, dev, engine: str = "wavefront"):
     """(scene, camera, rays, target, start params) of a fit at the bench's
     shape, the target rendered from the true scene on the same rays and
     draws (seed 1) that every step uses."""
@@ -738,26 +768,30 @@ def fit_scene(name: str, dev):
     w, h, spp, depth = fit_shape()
     scene, cam = getattr(presets, name)(aspect=w / h, device=dev)
     cfg = RenderConfig(width=w, height=h, samples=spp, max_depth=depth,
-                       gamma=False, wavefront_kernel_attrs=True)
+                       gamma=False, wavefront_kernel_attrs=True,
+                       engine=engine)
     rays = generate_pixel_rays(cam, w, h, spp, generator=torch.Generator(
         device=dev).manual_seed(0))
     lcfg = fit_config(cfg)
+    isect = sweep_intersector_pair(lcfg) if engine == "wavefront" else None
     with torch.no_grad():
         target = render_pixels(scene, cam, lcfg, torch.arange(w * h,
                                                               device=dev),
                                torch.Generator(device=dev).manual_seed(1),
-                               rays=rays,
-                               intersect_fn=sweep_intersector_pair(lcfg))
+                               rays=rays, intersect_fn=isect)
     params = {"albedo": (scene.textures.color0 * 0.6 + 0.1).requires_grad_(),
               "centers": (scene.spheres.center + 0.05).requires_grad_()}
     return scene, cam, cfg, rays, target, params
 
 
-def run_fit(dev) -> dict:
-    """(e): a warm-up step, then 5 timed SGD steps on three_spheres at the
-    bench's shape, then one step on random_spheres."""
+def run_fit(dev, engine: str = "wavefront") -> dict:
+    """(e), or (f) under engine='mega_diff': a warm-up step, then 5 timed
+    SGD steps on three_spheres at the bench's shape, then one step on
+    random_spheres."""
     from cudaraytracer_tpu_torch.parallel.train import make_fit_step
-    scene, cam, cfg, rays, target, p0 = fit_scene("three_spheres", dev)
+    tag = f"[fit {engine}]"
+    scene, cam, cfg, rays, target, p0 = fit_scene("three_spheres", dev,
+                                                  engine)
     step = make_fit_step(scene, cam, cfg, lr=0.5)
 
     def run(p):
@@ -773,18 +807,19 @@ def run_fit(dev) -> dict:
         loss, params = run(params)
         losses.append(float(loss))            # waits for the device
         times.append(time.perf_counter() - t0)
-        print(f"[fit] three_spheres step {i}: loss {losses[-1]:.6e}, "
+        print(f"{tag} three_spheres step {i}: loss {losses[-1]:.6e}, "
               f"{times[-1]:.4f} s")
     peak = torch.cuda.max_memory_allocated(dev)
     moved = max(float((params[k] - p0[k]).detach().abs().max())
                 for k in p0)
-    print(f"[fit] three_spheres {'x'.join(map(str, fit_shape()[:3]))} depth "
+    print(f"{tag} three_spheres {'x'.join(map(str, fit_shape()[:3]))} depth "
           f"{fit_shape()[3]}: {min(times):.4f} s/step (min of 5), peak "
           f"{peak / 2 ** 30:.2f} GiB, params moved by up to {moved:.3e}")
     check(all(math.isfinite(x) for x in losses), f"fit losses {losses}")
     check(losses[-1] < losses[0], f"fit loss did not fall: {losses}")
     check(moved > 0.0, "the fit did not move the parameters")
-    scene, cam, cfg, rays, target, p = fit_scene("random_spheres", dev)
+    scene, cam, cfg, rays, target, p = fit_scene("random_spheres", dev,
+                                                 engine)
     check(scene.n_spheres == 484, "random_spheres size")
     step = make_fit_step(scene, cam, cfg, lr=0.5)
     t0 = time.perf_counter()
@@ -792,7 +827,7 @@ def run_fit(dev) -> dict:
                     rays=rays)
     loss = float(loss)
     dt = time.perf_counter() - t0
-    print(f"[fit] random_spheres one step (K5 over 484 Morton-ordered "
+    print(f"{tag} random_spheres one step (484 Morton-ordered "
           f"spheres): loss {loss:.6e}, {dt:.4f} s (first call)")
     check(math.isfinite(loss) and loss > 0.0, f"random_spheres loss {loss}")
     check(all(bool(torch.isfinite(v).all()) for v in p1.values()),
@@ -801,10 +836,11 @@ def run_fit(dev) -> dict:
             "peak_gib": peak / 2 ** 30, "random_spheres_step_s": dt}
 
 
-def fit_grad_parity(dev) -> float:
+def fit_grad_parity(dev, engine: str = "wavefront") -> tuple:
     """The fit's first-step gradients on the card against the plain CPU run
     on the same injected rays and stream, at 64x32x2 (three_spheres, depth
-    4, no gamma) -> the largest relative difference."""
+    4, no gamma) -> (the largest relative difference, the card's
+    gradients)."""
     from cudaraytracer_tpu_torch.config import RenderConfig
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.core.rays import Rays
@@ -817,7 +853,8 @@ def fit_grad_parity(dev) -> float:
                                                         value_and_grad)
     w, h, spp, depth = 64, 32, 2, 4
     cfg = fit_config(RenderConfig(width=w, height=h, samples=spp,
-                                  max_depth=depth, gamma=False))
+                                  max_depth=depth, gamma=False,
+                                  engine=engine))
     gen = torch.Generator().manual_seed(4)
     _, cam_cpu = presets.three_spheres(aspect=2.0, device="cpu")
     rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
@@ -828,7 +865,7 @@ def fit_grad_parity(dev) -> float:
         r = Rays(*(x.to(device) for x in rays))
         st = SampleStream(stream.ball.to(device), stream.prob.to(device))
         pix = torch.arange(w * h, device=device)
-        isect = sweep_intersector_pair(cfg)
+        isect = sweep_intersector_pair(cfg) if engine == "wavefront" else None
         with torch.no_grad():
             target = render_pixels(scene, cam, cfg, pix, rays=r, samples=st,
                                    intersect_fn=isect)
@@ -845,13 +882,13 @@ def fit_grad_parity(dev) -> float:
         scale = float(g_cpu[k].abs().max())
         rel = float((g_dev[k] - g_cpu[k]).abs().max()) / scale
         worst = max(worst, rel)
-        print(f"[fit] first-step grad {k}: card vs CPU max rel {rel:.3g} "
-              f"(max |g| {scale:.3g})")
+        print(f"[fit {engine}] first-step grad {k}: card vs CPU max rel "
+              f"{rel:.3g} (max |g| {scale:.3g})")
         check(scale > 0.0, f"zero gradient on {k}")
-    print(f"[fit] 64x32x2 loss card {l_dev:.8e} cpu {l_cpu:.8e}")
+    print(f"[fit {engine}] 64x32x2 loss card {l_dev:.8e} cpu {l_cpu:.8e}")
     check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), "fit loss card vs CPU")
     check(worst <= GRAD_RTOL, f"fit gradients card vs CPU differ by {worst}")
-    return worst
+    return worst, g_dev
 
 
 def kernel_at_frame_shape(dev, f: Frame, gen):
@@ -871,6 +908,148 @@ def kernel_at_frame_shape(dev, f: Frame, gen):
     bound, bound_by = launch_bound(f.tables, n, tests)
     return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
             "tests": tests, "rays": n}
+
+
+# ---------------------------------------------------------------------------
+# Kernel modes K8 (rects, runtime-TRS prims) and K7 (winners)
+# ---------------------------------------------------------------------------
+
+TRS_FIELD = 1100        # rects, TRS spheres and TRS triangles each in (i)
+
+
+def xform_frames(dev) -> list:
+    """(h) light_box 1280x720x16, path depth 8, reference quirks; the TRS
+    showcase at the same shape under fixed quirks; (i) 1,100 each of
+    rects, TRS spheres and TRS triangles, 640x360x4, depth 4, fixed
+    quirks.  All fused, Morton tables."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops.megakernel import morton_tables
+    cfg_h = RenderConfig(width=1280, height=720, samples=16,
+                         max_depth=DEPTH, engine="mega")
+    sh, ch = presets.light_box(1280 / 720, device=dev)
+    ss, cs_ = cs.trs_showcase_scene(1280 / 720, device=dev)
+    si, ci = cs.trs_field_scene(TRS_FIELD, 640 / 360, device=dev)
+    check(min(si.n_rects, si.n_t_spheres, si.n_t_triangles) > 1024,
+          "the TRS field is above the JAX engine's per-class cap")
+    cfg_i = RenderConfig(width=640, height=360, samples=4, max_depth=4,
+                         quirks=Quirks.fixed(), engine="mega")
+    return [Frame("light_box", sh, ch, cfg_h, morton_tables(sh)),
+            Frame("trs_showcase", ss, cs_,
+                  dataclasses.replace(cfg_h, quirks=Quirks.fixed()),
+                  morton_tables(ss)),
+            Frame("trs_field", si, ci, cfg_i, morton_tables(si))]
+
+
+def compare_ids(label: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    n_diff = int((got != ref).sum())
+    hit = float((got >= 0).float().mean())
+    print(f"[winners] {label:40s} entries {got.numel():8d} hit "
+          f"{hit * 100:6.2f}% differ {n_diff}")
+    check(n_diff == 0, f"{label}: winners differ on {n_diff} entries")
+
+
+def phase_xform_parity(dev, xframes) -> dict:
+    """K8 against its plain version: one full 2^18-ray launch of light_box
+    and of the showcase, 2^16 rays of the TRS field; the three integrators
+    on an injected stream, the path on in-kernel draws, with and without
+    winners.  Times and bounds of each path launch."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"max_abs_err": 0.0}
+    for f in xframes:
+        rays = first_chunk(f, gen)
+        if f.name == "trs_field":
+            rays = Rays(*(x[:1 << 16] for x in rays))
+        n = rays.origin.shape[0]
+        depth = f.cfg.max_depth
+        stream = stream_from_generator(gen, n, depth, dev)
+        st = mk.stream_tensor(stream, n, depth + 1)
+        for integrator in INTEGRATORS:
+            cfg = dataclasses.replace(f.cfg, integrator=integrator)
+            got = mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                     samples=stream)
+            ref = mk.trace_path_mega_plain(f.tables, rays, cfg, st)
+            out["max_abs_err"] = max(out["max_abs_err"], compare(
+                f"K8 {f.name} {integrator} injected", got, ref))
+        seed = mk.draw_seed(gen)
+        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, f.cfg, tables=f.tables, seed=seed))
+        plain_ms, (ref, wref) = cuda_ms(lambda: mk.trace_path_mega_plain(
+            f.tables, rays, f.cfg, None, seed, True), reps=1, warmup=0)
+        out["max_abs_err"] = max(out["max_abs_err"], compare(
+            f"K8 {f.name} path in-kernel draws", got, ref))
+        got_w, win = mk.trace_path_mega(f.scene, rays, f.cfg,
+                                        tables=f.tables, seed=seed,
+                                        want_winners=True)
+        compare_ids(f"K7+K8 {f.name}", win, wref)
+        check(torch.equal(got_w, got), f"{f.name}: recording changed the "
+              "radiance")
+        tests = count_tests(f.tables, rays, f.cfg, seed)
+        b, by = launch_bound(f.tables, n, tests)
+        print(f"[K8] {f.name} path launch of {n} rays: kernel {ms:.4f} ms, "
+              f"plain (with winners) {plain_ms:.3f} ms, bound {b:.4f} ms "
+              f"({by}), tests {tests}")
+        out[f.name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                       "bound_by": by, "tests": tests, "rays": n}
+    return out
+
+
+def phase_winner_parity(dev, f: Frame) -> dict:
+    """K7 against its plain version on (g)'s first launch (random_spheres,
+    2^18 rays, in-kernel draws): winners equal on every ray and bounce,
+    radiance equal to the launch that records nothing."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rays = first_chunk(f, gen)
+    n = rays.origin.shape[0]
+    seed = mk.draw_seed(gen)
+    ms, (got, win) = cuda_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, f.cfg, tables=f.tables, seed=seed, want_winners=True))
+    plain_launch = mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables,
+                                      seed=seed)
+    check(torch.equal(got, plain_launch), "K7 changed the radiance")
+    plain_ms, (ref, wref) = cuda_ms(lambda: mk.trace_path_mega_plain(
+        f.tables, rays, f.cfg, None, seed, True), reps=1, warmup=0)
+    err = compare(f"K7 {f.name} path in-kernel draws", got, ref)
+    compare_ids(f"K7 {f.name}", win, wref)
+    tests = count_tests(f.tables, rays, f.cfg, seed)
+    b, by = launch_bound(f.tables, n, tests, 12 + 4 * (DEPTH + 1))
+    print(f"[K7] {f.name} recording launch of {n} rays: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "tests": tests, "rays": n, "max_abs_err": err}
+
+
+def render_mega_diff(dev, f: Frame, gen) -> dict:
+    """(g): f's frame through engine='mega_diff', without a gradient (the
+    K1 launch) and with the centres requiring one (the recording launch,
+    K7): warm-up + min of 3 each, peak memory."""
+    from cudaraytracer_tpu_torch.ops.render import render_image
+    cfg = dataclasses.replace(f.cfg, engine="mega_diff")
+    out = {}
+    for mode in ("no_grad", "recording"):
+        scene = f.scene
+        if mode == "recording":
+            sp = scene.spheres
+            scene = scene._replace(spheres=sp._replace(
+                center=sp.center.clone().requires_grad_()))
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.set_grad_enabled(mode == "recording"):
+            ms, img = cuda_ms(lambda: render_image(
+                scene, f.camera, cfg, generator=gen, tables=f.tables))
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(img.requires_grad == (mode == "recording"),
+              f"(g) {mode}: autograd graph")
+        check(bool(torch.isfinite(img).all()), f"(g) {mode}: non-finite")
+        print(f"[main] (g) {f.name} mega_diff {mode}: {ms / 1e3:.4f} "
+              f"s/frame, peak {peak / 2 ** 30:.2f} GiB")
+        out[mode] = {"frame_s": ms / 1e3, "peak_gib": peak / 2 ** 30}
+        del img
+    return out
 
 
 def counted(name: str, fn, need):
@@ -912,11 +1091,22 @@ def main() -> int:
     phase_build()
     frames = main_frames(dev)
     fa, fb = frames
+    xframes = xform_frames(dev)
+    fh, fs, fi = xframes
     parity = phase_parity(dev, frames)
+    xparity = phase_xform_parity(dev, xframes)
+    wparity = phase_winner_parity(dev, fa)
     sweeps = phase_sweep_parity(dev, frames)
     draws = phase_draws(dev, fa.cfg.ray_chunk)
-    phase_cross_engine(dev, frames)
-    grad_rel = fit_grad_parity(dev)
+    phase_cross_engine(dev, [(fa, 0), (fb, middle_chunk(fb)), (fh, 0),
+                             (fs, 0)])
+    grad_rel, g_wave = fit_grad_parity(dev)
+    grad_rel_m, g_mega = fit_grad_parity(dev, "mega_diff")
+    cross_rel = max(float((g_mega[k] - g_wave[k]).abs().max())
+                    / float(g_wave[k].abs().max()) for k in g_wave)
+    print(f"[fit] first-step grads on the card, mega_diff vs wavefront: max "
+          f"rel {cross_rel:.3g}")
+    check(cross_rel <= GRAD_RTOL, "mega_diff and wavefront gradients differ")
     print(f"[phase] parity and cross-engine checks done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -960,8 +1150,32 @@ def main() -> int:
         ("sphere_sweep", "triangle_sweep", "scatter_draws"))
     fit, l_e = counted("(e) fit", lambda: run_fit(dev),
                        ("sphere_sweep_attrs", "scatter_draws"))
-    launches = {k: l_ab[k] + l_c[k] + l_d[k] + l_e[k] for k in l_ab}
-    per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e}
+    fit_f, l_f = counted("(f) mega_diff fit",
+                         lambda: run_fit(dev, "mega_diff"),
+                         ("mega_winners", "scatter_draws"))
+    print(f"[main] (f) mega_diff {fit_f['s_per_step']:.4f} s/step beside (e) "
+          f"wavefront {fit['s_per_step']:.4f} s/step")
+    mdiff, l_g = counted("(g) random_spheres mega_diff forward",
+                         lambda: render_mega_diff(dev, fa, gen),
+                         ("mega_trace", "mega_winners"))
+    (ms_h, img_h, peak_h), l_h = counted(
+        "(h) light_box fused", lambda: render_frame(dev, fh, gen),
+        ("mega_trace_xform",))
+    (ms_hw, img_hw, peak_hw), l_hw = counted(
+        "(h) light_box wavefront", lambda: render_wavefront(dev, fh, gen),
+        ("sphere_sweep", "scatter_draws"))
+    mean_h = img_h.reshape(-1, 3).mean(0)
+    rel = ((img_hw.reshape(-1, 3).mean(0) - mean_h).abs() / mean_h).max()
+    print(f"[main] light_box wavefront vs fused channel means: max rel "
+          f"{float(rel):.4%}")
+    check(float(rel) <= 0.02, "light_box: the wavefront and fused images "
+          "disagree")
+    (ms_i, _, peak_i), l_i = counted(
+        "(i) TRS field fused", lambda: render_frame(dev, fi, gen),
+        ("mega_trace_xform",))
+    per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
+                "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i}
+    launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
 
     # ---- the fused kernel alone over a whole frame's rays ----
     ka = kernel_at_frame_shape(dev, fa, gen)
@@ -1000,9 +1214,42 @@ def main() -> int:
             "ms": k.pop("ms"), "plain_ms": k.pop("plain_ms"),
             "bound_ms": k.pop("bound_ms"), "bound_by": k.pop("bound_by"),
             "library_ms": None, **k})
+    xh, xs, xi = (xparity[f.name] for f in xframes)
+    rows.append({
+        "name": "mega_winners", "route": "cuda",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "replaces": "cudaraytracer_tpu/ops/megakernel.py:1445",
+        "launches": launches["mega_winners"],
+        "max_abs_err": wparity.pop("max_abs_err"), "ms": wparity.pop("ms"),
+        "plain_ms": wparity.pop("plain_ms"),
+        "bound_ms": wparity.pop("bound_ms"),
+        "bound_by": wparity.pop("bound_by"), "library_ms": None,
+        "ms_at": "(g)'s first launch: 262144 rays of random_spheres "
+                 "1920x1080x16, path 8, in-kernel draws, recording the "
+                 "winners", **wparity})
+    rows.append({
+        "name": "mega_trace_xform", "route": "cuda",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "replaces": "cudaraytracer_tpu/ops/megakernel.py:1186",
+        "launches": launches["mega_trace_xform"],
+        "max_abs_err": xparity["max_abs_err"], "ms": xh["ms"],
+        "plain_ms": xh["plain_ms"], "bound_ms": xh["bound_ms"],
+        "bound_by": xh["bound_by"], "library_ms": None,
+        "ms_at": "(h)'s first launch: 262144 rays of light_box 1280x720x16, "
+                 "path 8, in-kernel draws",
+        "tests": xh["tests"], "trs_showcase": xs, "trs_field_2_16": xi,
+        "h_frame_s": ms_h / 1e3, "i_frame_s": ms_i / 1e3})
     paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
              "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
              "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
+             "f_mega_diff_fit": fit_f,
+             "f_grad_rel_card_vs_cpu": grad_rel_m,
+             "f_grad_rel_mega_diff_vs_wavefront": cross_rel,
+             "g_mega_diff_forward": mdiff,
+             "h_fused_frame_s": ms_h / 1e3, "h_fused_peak_gib": peak_h / 2 ** 30,
+             "h_wavefront_frame_s": ms_hw / 1e3,
+             "h_wavefront_peak_gib": peak_hw / 2 ** 30,
+             "i_fused_frame_s": ms_i / 1e3, "i_peak_gib": peak_i / 2 ** 30,
              "launches_per_path": per_path}
     print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

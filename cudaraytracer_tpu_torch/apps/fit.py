@@ -1,14 +1,15 @@
 """Inverse-rendering demo on the port: recover sphere positions and albedos
 of three_spheres from a target image by gradient descent on the pixel
-loss, through the wavefront engine and the sweep kernels.
+loss, through the wavefront engine and the sweep kernels, or (--engine
+mega_diff) through the fused kernel and the replay backward.
 
 The target is rendered from the true scene; the fit starts from perturbed
 parameters.  Runs on the CUDA card, or with --cpu on the plain PyTorch
 path.  Same flags as the JAX package's apps/fit.py; --devices / --tp above
-1 and --engine mega_diff are not ported yet and raise.
+1 are not ported yet and raise.
 
     python -m cudaraytracer_tpu_torch.apps.fit --cpu --steps 20 \\
-        --width 48 --height 27 --samples 2
+        --width 48 --height 27 --samples 2 [--engine mega_diff]
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def main(argv=None):
                     choices=["wavefront", "mega_diff"],
                     help="wavefront = the sweep pair (K3/K4) and the "
                          "attribute-carrying sphere sweep (K5); mega_diff "
-                         "is not ported yet (slice 4)")
+                         "= the fused kernel recording its winners (K7) "
+                         "and the replay backward")
     ap.add_argument("--out", default="fit_out")
     ap.add_argument("--checkpoint-every", type=int, default=25,
                     help="save params every N steps (0 disables)")

@@ -1,7 +1,8 @@
 """Where a frame's time goes on the card: random_spheres through
 ``render_image`` at several ``ray_chunk`` sizes, on the fused engine (the
-default) or on the wavefront through the sweep kernels
-(``--engine wavefront``).
+default), on the wavefront through the sweep kernels (``--engine
+wavefront``), or through ``--engine mega_diff`` (with ``--grad`` the
+sphere centres require a gradient, so the forward records its winners).
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
 events), then one frame under ``torch.profiler``: device time by kernel and
@@ -15,6 +16,8 @@ and, last, one JSON object.
         --ray-chunk 262144 4194304 33554432
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --engine wavefront --ray-chunk 262144 4194304
+    python -m cudaraytracer_tpu_torch.apps.profile_render \
+        --engine mega_diff --grad --ray-chunk 262144
 """
 
 from __future__ import annotations
@@ -58,7 +61,10 @@ def main(argv=None):
     ap.add_argument("--ray-chunk", type=int, nargs="+",
                     default=[1 << 18, 1 << 22, 1 << 25])
     ap.add_argument("--engine", default="mega",
-                    choices=["mega", "wavefront"])
+                    choices=["mega", "wavefront", "mega_diff"])
+    ap.add_argument("--grad", action="store_true",
+                    help="the sphere centres require a gradient (the frame "
+                         "keeps its autograd graph; mega_diff records)")
     args = ap.parse_args(argv)
 
     import torch
@@ -76,8 +82,12 @@ def main(argv=None):
     print(smi)
     scene, cam = presets.random_spheres(aspect=args.width / args.height,
                                         device=dev)
-    mega = args.engine == "mega"
+    mega = args.engine != "wavefront"
     tables = morton_tables(scene) if mega else None
+    if args.grad:
+        sp = scene.spheres
+        scene = scene._replace(spheres=sp._replace(
+            center=sp.center.clone().requires_grad_()))
     rays = args.width * args.height * args.spp
     rows = []
     for chunk in args.ray_chunk:
@@ -88,7 +98,7 @@ def main(argv=None):
         isect = None if mega else sweep_intersector(cfg)
 
         def frame():
-            with torch.no_grad():
+            with torch.set_grad_enabled(args.grad):
                 return render_image(scene, cam, cfg, generator=gen,
                                     tables=tables, intersect_fn=isect)
 
@@ -131,7 +141,8 @@ def main(argv=None):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "power": smi, "engine": args.engine, "rows": rows}))
+                      "power": smi, "engine": args.engine,
+                      "grad": args.grad, "rows": rows}))
     return 0
 
 

@@ -8,10 +8,11 @@ commented-out line acting as a menu (render.h:119-121).
 ``Quirks.reference()`` matches the CUDA reference in its deterministic parts;
 ``Quirks.fixed()`` is the physically corrected profile.
 
-The port runs ``engine='mega'`` (the fused kernel) and ``engine='wavefront'``
-(the differentiable per-bounce engine, the default).  ``check_supported``
-rejects every knob whose engine or mode has not been ported yet, naming the
-ROADMAP item that brings it.
+The port runs ``engine='mega'`` (the fused kernel), ``engine='wavefront'``
+(the differentiable per-bounce engine, the default) and ``engine='mega_diff'``
+(the fused forward with the replay backward, ``mega_replay_bwd``).
+``check_supported`` rejects every knob whose engine or mode has not been
+ported yet, naming the ROADMAP item and slice that bring it.
 """
 
 from __future__ import annotations
@@ -82,8 +83,7 @@ class RenderConfig:
     # pixels * samples per chunk
     ray_chunk: int = 1 << 18
     dtype: str = "float32"
-    # 'wavefront' (default) or 'mega'; 'mega_diff' is not ported yet (see
-    # check_supported).
+    # 'wavefront' (default), 'mega' or 'mega_diff'
     engine: str = "wavefront"
     wavefront_compact: bool = False
     wavefront_sphere_cull: str = "morton"
@@ -123,14 +123,11 @@ class RenderConfig:
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for any engine or knob the port does not
     run yet, naming the ROADMAP item that brings it."""
-    if cfg.engine == "mega_diff":
-        raise NotImplementedError(
-            "engine='mega_diff' is not ported yet: ROADMAP Queue 1 item 15 "
-            "(slice 4)")
     if cfg.wavefront_compact:
         raise NotImplementedError(
             "wavefront_compact (the alive-first partition between bounces) "
-            "is not ported yet: ROADMAP Queue 1 item 22")
+            "is not ported yet: ROADMAP Queue 1 item 22 (measured first, "
+            "slice 2's open item)")
     if cfg.grad_sync_axes:
         raise NotImplementedError(
             "grad_sync_axes (per-bounce gradient all-reduce) is not ported "
@@ -146,9 +143,10 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.mega_f2b_shells > 0:
         raise NotImplementedError(
             "mega_f2b_shells (kernel mode K11) is not ported yet: ROADMAP "
-            "Queue 2 K11")
+            "Queue 2 K11, after slice 6")
     if cfg.mega_mxu:
         raise NotImplementedError(
-            "mega_mxu (kernel mode K12) is not ported: ROADMAP Queue 2 K12")
+            "mega_mxu (kernel mode K12) is not ported yet: ROADMAP Queue 2 "
+            "K12, after slice 6")
     if cfg.dtype != "float32":
         raise NotImplementedError("the port renders in float32 only")

@@ -1,12 +1,22 @@
 // Fused path tracer for NVIDIA Hopper (sm_90a): the whole bounce loop of one
 // ray in one thread.
 //
-// Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, main-path form
-// (spheres + triangles, tables resident, integrator path / lambert / normal,
-// in-kernel draws or an injected (ball, prob) stream), launched there by
-// _mega_call through its single pl.pallas_call.  Also exposes that kernel's
-// draw transform as a kernel of its own, scatter_draws
-// (ops/pallas_intersect.py::_draws_kernel).
+// Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, launched
+// there by _mega_call through its single pl.pallas_call, in three of its
+// modes, each a compile-time parameter of mega_kernel<INTEG, COUNT, XFORM,
+// WINNERS>:
+//   * K1, the main-path form (spheres + triangles, tables resident,
+//     integrator path / lambert / normal, in-kernel draws or an injected
+//     (ball, prob) stream): XFORM = WINNERS = false;
+//   * K8, XFORM: rects and runtime-TRS spheres and triangles (rect_sweep,
+//     tsph_sweep, ttri_sweep over trs_ray_chunk, _trs_table_sweep and
+//     trs_merge, megakernel.py:1119-1362), after the sphere and triangle
+//     sweeps;
+//   * K7, WINNERS (path only): each bounce's winner in the scene's prim ids
+//     (want_winners, megakernel.py:1445-1615, mapped as _winners_to_scene
+//     :2778 does).
+// Also exposes that kernel's draw transform as a kernel of its own,
+// scatter_draws (ops/pallas_intersect.py::_draws_kernel).
 //
 // What bounds it on this card: FP32 ALU issue on the per-ray sweeps (the
 // sphere quadratic and the Moller-Trumbore test over every chunk whose box
@@ -40,6 +50,25 @@
 // triangles, the half-b quadratic times 1/a with a strict disc > 0, the
 // quirk gates, and the material rules of the reference.
 //
+// K8.  Each thread walks the rect, TRS-sphere and TRS-triangle rows in table
+// order after the sphere and triangle sweeps (which share best_t).  Per row:
+// TransformRay (ScaleRay divides the direction by the scale and renormalizes
+// it and leaves the origin unscaled, RotateRay multiplies origin and
+// direction by the row-major matrix, TranslateRay subtracts the position),
+// the test in the native t of the unit object-space ray, then t_native /
+// |raw d| against best_t with a strict <.  So classes earlier in [spheres |
+// triangles | rects | t_spheres | t_triangles] win exact ties, and the
+// lowest row within a class.  The winner's record is recomputed once after
+// the sweep: the OBJECT-space hit point (the reference's rec.p quirk: also
+// the scattered ray's origin and the checker point), the pre-rotated normal
+// and the material block.  No culling boxes and no per-class cap: the rows
+// are read from global memory through L1/L2, cost O(rows) per ray.
+//
+// K7.  The path integrator writes int32 winners[step * n + i] (step-major,
+// so a warp's stores coalesce): the winner's scene id at each bounce that
+// hits (a light included), -1 at the bounce that misses and at every bounce
+// after the path ended.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -shared -Xcompiler -fPIC  (plain C interface, loaded with ctypes;
 //        ops/_cuda.py).
@@ -59,6 +88,13 @@ constexpr int SPH_COLS = 16;  // cx cy cz r2 1/r | 9 material | 2 pad
 constexpr int TRI_COLS = 24;  // v0 e1 e2 n | 9 material | 3 pad
 constexpr int BOX_COLS = 8;   // lo.xyz hi.xyz | 2 pad
 constexpr int S_INVR = 4, S_MAT = 5, T_N = 9, T_MAT = 12;
+// rect / TRS rows (ops/megakernel.py): position, scale, row-major rotation,
+// material, then per class
+constexpr int X_POS = 0, X_SCL = 3, X_ROT = 6, X_MAT = 15;
+constexpr int RECT_SGN = 24, RECT_NRM = 25, TSPH_R2 = 24, TSPH_INVR = 25;
+constexpr int TTRI_V0 = 24, TTRI_E1 = 27, TTRI_E2 = 30, TTRI_NOBJ = 33,
+              TTRI_NW = 36;
+constexpr int RECT_COLS = 28, TSPH_COLS = 28, TTRI_COLS = 40;
 constexpr int BLOCK = 128;
 
 enum Integrator { PATH = 0, LAMBERT = 1, NORMAL = 2 };
@@ -81,6 +117,11 @@ struct Params {
   unsigned long long seed;
   int n, n_sph_chunks, n_sph_supers, n_tri_supers, max_depth, flags;
   float t_min, t_max, ambient;
+  // kernel modes K8 and K7
+  const float* rect; const float* tsph; const float* ttri;
+  const int* sph_map; const int* tri_map;  // table row -> scene id
+  int* winners;                            // [max_depth + 1, n] (K7)
+  int n_rects, n_tsph, n_ttri, n_spheres, n_triangles;
 };
 
 // jnp.minimum / jnp.maximum semantics: NaN in, NaN out (fminf would drop it)
@@ -117,7 +158,13 @@ struct Hit {
   bool tri;
 };
 
-struct Counts { unsigned long long box, sph, tri; };
+// the rect / TRS winner: cls 0 none, 1 rect, 2 TRS sphere, 3 TRS triangle
+struct XHit {
+  int cls;
+  int idx;
+};
+
+struct Counts { unsigned long long box, sph, tri, rect, tsph, ttri; };
 
 // Sphere quadratic over one chunk (megakernel.py:620-652): half-b form,
 // strict disc > 0, each root times 1/a; nearest root inside (t_min, t_max).
@@ -234,6 +281,169 @@ __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   return h;
 }
 
+// TransformRay (transform.h:11-14) through one rect / TRS row.
+__device__ __forceinline__ Ray trs_ray(const float* row, const Ray& r) {
+  float dsx = r.dx / __ldg(row + X_SCL);
+  float dsy = r.dy / __ldg(row + X_SCL + 1);
+  float dsz = r.dz / __ldg(row + X_SCL + 2);
+  const float inv_dl = 1.f / sqrtf(dsx * dsx + dsy * dsy + dsz * dsz);
+  dsx = dsx * inv_dl;
+  dsy = dsy * inv_dl;
+  dsz = dsz * inv_dl;
+  const float* m = row + X_ROT;
+  Ray x;
+  x.dx = __ldg(m) * dsx + __ldg(m + 1) * dsy + __ldg(m + 2) * dsz;
+  x.dy = __ldg(m + 3) * dsx + __ldg(m + 4) * dsy + __ldg(m + 5) * dsz;
+  x.dz = __ldg(m + 6) * dsx + __ldg(m + 7) * dsy + __ldg(m + 8) * dsz;
+  x.ox = __ldg(m) * r.ox + __ldg(m + 1) * r.oy + __ldg(m + 2) * r.oz
+         - __ldg(row + X_POS);
+  x.oy = __ldg(m + 3) * r.ox + __ldg(m + 4) * r.oy + __ldg(m + 5) * r.oz
+         - __ldg(row + X_POS + 1);
+  x.oz = __ldg(m + 6) * r.ox + __ldg(m + 7) * r.oy + __ldg(m + 8) * r.oz
+         - __ldg(row + X_POS + 2);
+  return x;
+}
+
+// rectangle.h:22-44 on the object-space ray: the unit rect on z = 0, the
+// window inclusive (megakernel.py:1196-1209).  Writes the native t.
+__device__ __forceinline__ bool rect_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn) {
+  tn = -x.oz / x.dz;
+  const float px = x.ox + tn * x.dx, py = x.oy + tn * x.dy;
+  const float facing = x.dz * __ldg(row + RECT_SGN);
+  return (facing <= 0.f) && (tn >= P.t_min) && (tn <= P.t_max) &&
+         (px >= -0.5f) && (px <= 0.5f) && (py >= -0.5f) && (py <= 0.5f);
+}
+
+// sphere.h:27-55 on the object-space ray (megakernel.py:1236-1258): the
+// near root in the native window, else the far one.
+__device__ __forceinline__ bool tsph_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn) {
+  const float b = x.ox * x.dx + x.oy * x.dy + x.oz * x.dz;
+  const float a = x.dx * x.dx + x.dy * x.dy + x.dz * x.dz;
+  const float c = x.ox * x.ox + x.oy * x.oy + x.oz * x.oz
+                  - __ldg(row + TSPH_R2);
+  const float disc = b * b - a * c;
+  const bool has = disc > 0.f;
+  const float sq = sqrtf(has ? disc : 0.f);
+  const float inv_a = 1.f / a;
+  const float t0 = (-b - sq) * inv_a;
+  const float t1 = (-b + sq) * inv_a;
+  const bool ok0 = has && (t0 < P.t_max) && (t0 > P.t_min);
+  const bool ok1 = has && (t1 < P.t_max) && (t1 > P.t_min);
+  tn = ok0 ? t0 : t1;
+  return ok0 || ok1;
+}
+
+// Moller-Trumbore on the object-space ray against object-space vertices,
+// the quirk gates on the transformed direction (megakernel.py:1284-1321).
+__device__ __forceinline__ bool ttri_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn) {
+  const float e1x = __ldg(row + TTRI_E1), e1y = __ldg(row + TTRI_E1 + 1),
+              e1z = __ldg(row + TTRI_E1 + 2);
+  const float e2x = __ldg(row + TTRI_E2), e2y = __ldg(row + TTRI_E2 + 1),
+              e2z = __ldg(row + TTRI_E2 + 2);
+  const float hx = x.dy * e2z - x.dz * e2y;
+  const float hy = x.dz * e2x - x.dx * e2z;
+  const float hz = x.dx * e2y - x.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.f / a;
+  const float sx = x.ox - __ldg(row + TTRI_V0);
+  const float sy = x.oy - __ldg(row + TTRI_V0 + 1);
+  const float sz = x.oz - __ldg(row + TTRI_V0 + 2);
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (x.dx * qx + x.dy * qy + x.dz * qz);
+  tn = f * (e2x * qx + e2y * qy + e2z * qz);
+  bool valid = (fabsf(a) >= TRI_EPSILON) && (u >= 0.f) && (u <= 1.f) &&
+               (v >= 0.f) && (u + v <= 1.f);
+  if (P.flags & BACK_CULLING) valid = valid && (a >= TRI_EPSILON);
+  if (P.flags & BACKFACE_ONLY)
+    valid = valid && (x.dx * __ldg(row + TTRI_NOBJ)
+                      + x.dy * __ldg(row + TTRI_NOBJ + 1)
+                      + x.dz * __ldg(row + TTRI_NOBJ + 2)) >= 0.f;
+  if (P.flags & NO_T_CLIP) valid = valid && (tn < P.t_max);
+  else valid = valid && (tn > P.t_min) && (tn < P.t_max);
+  return valid;
+}
+
+// The rect, TRS-sphere and TRS-triangle rows, in table order after the
+// sphere and triangle sweeps: t_native / |raw d| wins with a strict <.
+template <bool COUNT>
+__device__ void xform_hit(const Params& P, const Ray& r, float inv_raw,
+                          Hit& h, XHit& xh, Counts& cnt) {
+  float tn;
+  for (int k = 0; k < P.n_rects; ++k) {
+    const float* row = P.rect + (size_t)k * RECT_COLS;
+    if (rect_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{1, k}; }
+    }
+  }
+  for (int k = 0; k < P.n_tsph; ++k) {
+    const float* row = P.tsph + (size_t)k * TSPH_COLS;
+    if (tsph_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{2, k}; }
+    }
+  }
+  for (int k = 0; k < P.n_ttri; ++k) {
+    const float* row = P.ttri + (size_t)k * TTRI_COLS;
+    if (ttri_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{3, k}; }
+    }
+  }
+  if (COUNT) {
+    cnt.rect += P.n_rects;
+    cnt.tsph += P.n_tsph;
+    cnt.ttri += P.n_ttri;
+  }
+}
+
+// The rect / TRS winner's record: object-space point, rotated normal,
+// material block (recomputed with the sweep's arithmetic).
+__device__ void load_xwinner(const Params& P, const Ray& r, const XHit& xh,
+                             float p[3], float n[3], float m[9]) {
+  const float* row = xh.cls == 1 ? P.rect + (size_t)xh.idx * RECT_COLS
+                   : xh.cls == 2 ? P.tsph + (size_t)xh.idx * TSPH_COLS
+                                 : P.ttri + (size_t)xh.idx * TTRI_COLS;
+  const Ray x = trs_ray(row, r);
+  float tn;
+  if (xh.cls == 1) rect_test(P, row, x, tn);
+  else if (xh.cls == 2) tsph_test(P, row, x, tn);
+  else ttri_test(P, row, x, tn);
+  p[0] = x.ox + tn * x.dx;
+  p[1] = x.oy + tn * x.dy;
+  p[2] = x.oz + tn * x.dz;
+  if (xh.cls == 2) {
+    const float inv_r = __ldg(row + TSPH_INVR);
+    const float nx = p[0] * inv_r, ny = p[1] * inv_r, nz = p[2] * inv_r;
+    const float* mr = row + X_ROT;
+    n[0] = __ldg(mr) * nx + __ldg(mr + 1) * ny + __ldg(mr + 2) * nz;
+    n[1] = __ldg(mr + 3) * nx + __ldg(mr + 4) * ny + __ldg(mr + 5) * nz;
+    n[2] = __ldg(mr + 6) * nx + __ldg(mr + 7) * ny + __ldg(mr + 8) * nz;
+  } else {
+    const int k0 = xh.cls == 1 ? RECT_NRM : TTRI_NW;
+    for (int k = 0; k < 3; ++k) n[k] = __ldg(row + k0 + k);
+  }
+  for (int k = 0; k < 9; ++k) m[k] = __ldg(row + X_MAT + k);
+}
+
+// The winner's id in the scene's prim id space [spheres | triangles |
+// rects | t_spheres | t_triangles] (megakernel.py:2778).
+__device__ __forceinline__ int scene_id(const Params& P, const Hit& h,
+                                        const XHit& xh) {
+  const int base = P.n_spheres + P.n_triangles;
+  if (xh.cls == 1) return base + xh.idx;
+  if (xh.cls == 2) return base + P.n_rects + xh.idx;
+  if (xh.cls == 3) return base + P.n_rects + P.n_tsph + xh.idx;
+  return h.tri ? P.n_spheres + __ldg(P.tri_map + h.idx)
+               : __ldg(P.sph_map + h.idx);
+}
+
 // The winner's normal and material block, loaded after the sweep.  Sphere
 // normal (p - c) * (1 / r) with the stored 1/r keeps hollow (negative
 // radius) spheres right; triangles use the stored face normal.
@@ -320,15 +530,11 @@ __device__ __forceinline__ void sky(float dy, float inv_dlen, float out[3]) {
 }
 
 __device__ __forceinline__ void add_counts(const Params& P, Counts c) {
-  for (int off = 16; off > 0; off >>= 1) {
-    c.box += __shfl_down_sync(0xffffffffu, c.box, off);
-    c.sph += __shfl_down_sync(0xffffffffu, c.sph, off);
-    c.tri += __shfl_down_sync(0xffffffffu, c.tri, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(P.counts, c.box);
-    atomicAdd(P.counts + 1, c.sph);
-    atomicAdd(P.counts + 2, c.tri);
+  unsigned long long v[6] = {c.box, c.sph, c.tri, c.rect, c.tsph, c.ttri};
+  for (int k = 0; k < 6; ++k) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    if ((threadIdx.x & 31) == 0) atomicAdd(P.counts + k, v[k]);
   }
 }
 
@@ -389,34 +595,66 @@ __device__ __forceinline__ bool scatter(const Params& P, const Ray& r,
   return true;
 }
 
-template <int INTEG, bool COUNT>
+// The closest hit and the winner's point, normal and material.  K1's form
+// (XFORM false) is the code of the main path; XFORM adds K8.
+template <bool COUNT, bool XFORM>
+__device__ __forceinline__ Hit trace_hit(const Params& P, const Ray& r,
+                                         float inv_dlen, XHit& xh,
+                                         Counts& cnt) {
+  Hit h = closest_hit<COUNT>(P, r, cnt);
+  if constexpr (XFORM) {
+    xh = XHit{0, 0};
+    xform_hit<COUNT>(P, r, inv_dlen, h, xh, cnt);
+  }
+  return h;
+}
+
+template <bool XFORM>
+__device__ __forceinline__ void surface(const Params& P, const Ray& r,
+                                        const Hit& h, const XHit& xh,
+                                        float p[3], float n[3], float m[9]) {
+  if constexpr (XFORM) {
+    if (xh.cls) {
+      load_xwinner(P, r, xh, p, n, m);
+      return;
+    }
+  }
+  p[0] = r.ox + h.t * r.dx;
+  p[1] = r.oy + h.t * r.dy;
+  p[2] = r.oz + h.t * r.dz;
+  load_winner(P, h, p[0], p[1], p[2], n, m);
+}
+
+template <int INTEG, bool COUNT, bool XFORM, bool WINNERS>
 __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  Counts cnt{0, 0, 0};
+  Counts cnt{0, 0, 0, 0, 0, 0};
   if (i < P.n) {
     Ray r{P.o[3 * (size_t)i], P.o[3 * (size_t)i + 1], P.o[3 * (size_t)i + 2],
           P.d[3 * (size_t)i], P.d[3 * (size_t)i + 1], P.d[3 * (size_t)i + 2]};
     float res[3];
+    XHit xh{0, 0};
     if (INTEG == PATH) {
       // render.h:48-67: emitted + attenuation * recursion; ambient on
       // absorb; sky on miss.  Step i is recursion depth max_depth - i.
       float thr[3] = {1.f, 1.f, 1.f};
       res[0] = res[1] = res[2] = 0.f;
-      for (int step = 0; step <= P.max_depth; ++step) {
-        const Hit h = closest_hit<COUNT>(P, r, cnt);
+      int step = 0;
+      for (; step <= P.max_depth; ++step) {
         const float inv_dlen =
             1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+        const Hit h = trace_hit<COUNT, XFORM>(P, r, inv_dlen, xh, cnt);
         if (!(h.t < BIG_CUT)) {
           float s[3];
           sky(r.dy, inv_dlen, s);
           for (int k = 0; k < 3; ++k) res[k] += thr[k] * s[k];
           break;
         }
-        const float px = r.ox + h.t * r.dx, py = r.oy + h.t * r.dy,
-                    pz = r.oz + h.t * r.dz;
-        float n[3], m[9], att[3], em[3], dir[3];
-        load_winner(P, h, px, py, pz, n, m);
-        mat_decode(m, px, py, pz, att, em);
+        float p[3], n[3], m[9], att[3], em[3], dir[3];
+        surface<XFORM>(P, r, h, xh, p, n, m);
+        if constexpr (WINNERS)
+          P.winners[(size_t)step * P.n + i] = scene_id(P, h, xh);
+        mat_decode(m, p[0], p[1], p[2], att, em);
         bool cont = false;
         if (step < P.max_depth && m[0] != K_LIGHT) {   // render.h:57
           const float4 s = (P.flags & INJECTED)
@@ -427,31 +665,37 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
         }
         const float amb = cont ? 0.f : P.ambient;
         for (int k = 0; k < 3; ++k) res[k] += thr[k] * (em[k] + amb);
-        if (!cont) break;
+        if (!cont) {
+          ++step;
+          break;
+        }
         for (int k = 0; k < 3; ++k) thr[k] *= att[k];
-        r = Ray{px, py, pz, dir[0], dir[1], dir[2]};
+        r = Ray{p[0], p[1], p[2], dir[0], dir[1], dir[2]};
+      }
+      if constexpr (WINNERS) {
+        // the miss (step left where it broke) and every bounce after the end
+        for (; step <= P.max_depth; ++step)
+          P.winners[(size_t)step * P.n + i] = -1;
       }
     } else {
       // LambertShade (render.h:70-87) and shade_normal (render.h:90-103):
       // one intersection.
-      const Hit h = closest_hit<COUNT>(P, r, cnt);
-      const bool hit = h.t < BIG_CUT;
       const float inv_dlen =
           1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+      const Hit h = trace_hit<COUNT, XFORM>(P, r, inv_dlen, xh, cnt);
+      const bool hit = h.t < BIG_CUT;
       float s[3];
       sky(r.dy, inv_dlen, s);
       if (!hit) {
         res[0] = s[0]; res[1] = s[1]; res[2] = s[2];
       } else {
-        const float px = r.ox + h.t * r.dx, py = r.oy + h.t * r.dy,
-                    pz = r.oz + h.t * r.dz;
-        float n[3], m[9];
-        load_winner(P, h, px, py, pz, n, m);
+        float p[3], n[3], m[9];
+        surface<XFORM>(P, r, h, xh, p, n, m);
         if (INTEG == NORMAL) {
           res[0] = n[0]; res[1] = n[1]; res[2] = n[2];
         } else {
           float att[3], em[3];
-          mat_decode(m, px, py, pz, att, em);
+          mat_decode(m, p[0], p[1], p[2], att, em);
           const float scale = (P.flags & LAMBERT_UNNORM) ? 1.f : inv_dlen;
           const float tq =
               fmaxf((r.dx * n[0] + r.dy * n[1] + r.dz * n[2]) * scale, 0.f);
@@ -474,11 +718,25 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(
     reinterpret_cast<float4*>(out)[i] = draw(seed, (uint32_t)i, step);
 }
 
-template <int INTEG>
+template <int INTEG, bool XFORM>
 void launch_mega(const Params& P, cudaStream_t s) {
   const dim3 grid((P.n + BLOCK - 1) / BLOCK);
-  if (P.counts) mega_kernel<INTEG, true><<<grid, BLOCK, 0, s>>>(P);
-  else mega_kernel<INTEG, false><<<grid, BLOCK, 0, s>>>(P);
+  if (P.counts) {
+    mega_kernel<INTEG, true, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
+  } else if constexpr (INTEG == PATH) {
+    if (P.winners)
+      mega_kernel<PATH, false, XFORM, true><<<grid, BLOCK, 0, s>>>(P);
+    else
+      mega_kernel<PATH, false, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
+  } else {
+    mega_kernel<INTEG, false, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
+  }
+}
+
+template <int INTEG>
+void launch_mega(const Params& P, cudaStream_t s) {
+  if (P.n_rects + P.n_tsph + P.n_ttri > 0) launch_mega<INTEG, true>(P, s);
+  else launch_mega<INTEG, false>(P, s);
 }
 
 }  // namespace
@@ -486,12 +744,28 @@ void launch_mega(const Params& P, cudaStream_t s) {
 extern "C" int crt_mega_trace(
     const void* sph, const void* sph_box, const void* sph_super,
     const void* tri, const void* tri_box, const void* tri_super,
+    const void* rect, const void* tsph, const void* ttri,
+    const void* sph_map, const void* tri_map,
     const void* o, const void* d, const void* stream, void* out,
-    void* counts, int n, int n_sph_chunks, int n_sph_supers,
-    int n_tri_supers, int integrator, int max_depth, float t_min,
+    void* winners, void* counts, int n, int n_sph_chunks, int n_sph_supers,
+    int n_tri_supers, int n_rects, int n_tsph, int n_ttri, int n_spheres,
+    int n_triangles, int integrator, int max_depth, float t_min,
     float t_max, float ambient, int flags, unsigned long long seed,
     void* cuda_stream) {
+  if (winners && (integrator != PATH || counts))
+    return (int)cudaErrorInvalidValue;
   Params P;
+  P.rect = static_cast<const float*>(rect);
+  P.tsph = static_cast<const float*>(tsph);
+  P.ttri = static_cast<const float*>(ttri);
+  P.sph_map = static_cast<const int*>(sph_map);
+  P.tri_map = static_cast<const int*>(tri_map);
+  P.winners = static_cast<int*>(winners);
+  P.n_rects = n_rects;
+  P.n_tsph = n_tsph;
+  P.n_ttri = n_ttri;
+  P.n_spheres = n_spheres;
+  P.n_triangles = n_triangles;
   P.sph = static_cast<const float*>(sph);
   P.sph_box = static_cast<const float*>(sph_box);
   P.sph_super = static_cast<const float*>(sph_super);

@@ -10,7 +10,15 @@
   * ``fill_icosphere_scene``: a 5,120-triangle subdivided icosahedron on a
     checker ground sphere, the triangle frame of the main-path check (it
     fills 20 super boxes and 320 chunk boxes, so the two-level triangle
-    cull runs).
+    cull runs);
+  * ``fill_trs_showcase``: runtime-TRS spheres (one checker), a runtime-TRS
+    metal triangle, a ground sphere and a rect light (the showcase of
+    tests/test_transform_prims.py), every rect / TRS path of kernel mode
+    K8;
+  * ``fill_trs_field``: ``k`` each of TRS spheres, TRS triangles and rects
+    scattered in front of the camera (the generator of
+    tests/test_transform_prims.py:168-207), above the JAX engine's
+    1024-per-class cap when k > 1024.
 
 The ``fill_*`` functions take a SceneBuilder and return it, so the same
 scene can be built by any builder with this package's interface.
@@ -149,3 +157,66 @@ def icosphere_scene(aspect: float, device=None):
     cam = make_camera((0, 1.6, 4.5), (0, 0.9, 0), (0, 1, 0), 40.0, aspect,
                       0.0, 10.0, device=device)
     return fill_icosphere_scene(SceneBuilder()).build(device), cam
+
+
+def fill_trs_showcase(b):
+    """Two runtime-TRS spheres (one checker-textured), a runtime-TRS metal
+    triangle, a plain ground sphere and a rect light."""
+    m = b.materials
+    ground = m.lambertian(color=(0.5, 0.7, 0.3))
+    red = m.lambertian(color=(0.9, 0.2, 0.2))
+    chk = m.lambertian(m.textures.checker((0.9, 0.9, 0.1), (0.1, 0.1, 0.1)))
+    met = m.metal((0.8, 0.6, 0.2), 0.1)
+    light = m.diffuse_light(color=(2.0, 2.0, 2.0))
+    b.add_sphere((0, -100.5, -3), 100.0, ground)
+    b.add_sphere((0, 0, -3), 0.8, red, rotation=(0, 30, 0), scale=(1, 2, 1))
+    b.add_sphere((-1.8, 0, -3), 0.6, chk, rotation=(20, 0, 45))
+    b.add_triangle((-0.8, -0.4, 0), (0.8, -0.4, 0), (0, 0.9, 0), met,
+                   position=(1.9, 0, -2.5), rotation=(0, -25, 0),
+                   scale=(1, 1.3, 1))
+    b.add_rect(light, position=(0, 2.5, -3), rotation=(90, 0, 0),
+               scale=(3, 3, 1))
+    return b
+
+
+def trs_showcase_scene(aspect: float, device=None):
+    """(Scene, Camera) of ``fill_trs_showcase``."""
+    cam = make_camera((0, 0.3, 1), (0, 0, -3), vfov=55, aspect=aspect,
+                      focus_dist=4.0, device=device)
+    return fill_trs_showcase(SceneBuilder()).build(device), cam
+
+
+def fill_trs_field(b, k: int, seed: int = 3):
+    """``k`` each of runtime-TRS spheres, runtime-TRS triangles and rects
+    (one in nine a light) over a ground sphere."""
+    rng = np.random.default_rng(seed)
+    m = b.materials
+    ground = m.lambertian(color=(0.5, 0.7, 0.3))
+    red = m.lambertian(color=(0.9, 0.2, 0.2))
+    met = m.metal((0.8, 0.6, 0.2), 0.1)
+    light = m.diffuse_light(color=(2.0, 2.0, 2.0))
+    b.add_sphere((0, -100.5, -3), 100.0, ground)
+    for i in range(k):
+        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
+        b.add_sphere(p, rng.uniform(0.08, 0.2), red if i % 3 else met,
+                     rotation=tuple(rng.uniform(-90, 90, 3)),
+                     scale=tuple(rng.uniform(0.6, 1.6, 3)))
+    for i in range(k):
+        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
+        b.add_triangle((-0.15, -0.1, 0), (0.15, -0.1, 0), (0, 0.2, 0), red,
+                       position=tuple(p),
+                       rotation=tuple(rng.uniform(-90, 90, 3)),
+                       scale=tuple(rng.uniform(0.7, 1.4, 3)))
+    for i in range(k):
+        p = rng.uniform([-3, 1.4, -6], [3, 2.2, -2])
+        b.add_rect(light if i % 9 == 0 else red, position=tuple(p),
+                   rotation=tuple(rng.uniform(-90, 90, 3)),
+                   scale=(0.3, 0.3, 1.0))
+    return b
+
+
+def trs_field_scene(k: int, aspect: float, device=None):
+    """(Scene, Camera) of ``fill_trs_field``."""
+    cam = make_camera((0, 0.3, 1), (0, 0.3, -3), vfov=60, aspect=aspect,
+                      focus_dist=4.0, device=device)
+    return fill_trs_field(SceneBuilder(), k).build(device), cam

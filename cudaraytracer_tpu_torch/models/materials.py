@@ -96,10 +96,20 @@ def decoded_from_rows(row: Tensor) -> DecodedMaterials:
         wh=row[..., 14:16].to(torch.int32))
 
 
+def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """table[idx] for a float32[K, C] table and an index per lane, as an
+    embedding lookup: its backward sums the lanes of each row after a sort,
+    where advanced indexing's backward (index_put with accumulate) ran one
+    lane at a time on the card when a few rows take every lane (1.02 s of
+    device time in one mega_diff fit step, NVIDIA H100 80GB HBM3 at
+    700 W)."""
+    return torch.nn.functional.embedding(idx.long(), table)
+
+
 def decode_materials(mat: MaterialTable, tex: TextureTable,
                      mat_id: Tensor) -> DecodedMaterials:
     """Per-lane material/texture decode: one row gather of decode_table."""
-    return decoded_from_rows(decode_table(mat, tex)[mat_id.long()])
+    return decoded_from_rows(gather_rows(decode_table(mat, tex), mat_id))
 
 
 def eval_texture_dec(dec: DecodedMaterials, tex: TextureTable, u: Tensor,

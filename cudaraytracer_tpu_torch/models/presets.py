@@ -3,10 +3,11 @@ same scene).
 
   three_spheres  - lambertian / metal / dielectric trio on a ground sphere.
   random_spheres - the "One Weekend" final scene (484 spheres at n = 22).
+  light_box      - an emissive rect over a checker floor and a metal sphere.
   fbx_walk_camera - the FBX pipeline's camera (createScene.h:160).
 
-``light_box`` (a rect) and ``textured_globe`` (a rect and image textures)
-need kernel modes K8 and K9, which come with slice 5.
+``textured_globe`` holds image textures, kernel mode K9, which comes with
+slice 5.
 """
 
 from __future__ import annotations
@@ -87,15 +88,28 @@ def random_spheres(aspect: float = 16 / 9, seed: int = 7, n: int = 22,
 
 
 def light_box(aspect: float = 1.0, device=None):
-    raise NotImplementedError(
-        "light_box holds a rect (kernel mode K8): ROADMAP Queue 1 item 16 "
-        "(slice 5)")
+    """Emissive rect + checker floor + metal sphere: textures, lights and a
+    rect (kernel mode K8 in the fused engine)."""
+    device = resolve_device(device)
+    b = SceneBuilder()
+    m = b.materials
+    floor = m.lambertian(tex_id=m.textures.checker((0.1, 0.1, 0.1),
+                                                   (0.9, 0.9, 0.9)))
+    light = m.diffuse_light(color=(4.0, 4.0, 4.0))
+    shiny = m.metal((0.9, 0.9, 0.9), 0.05)
+    b.add_sphere((0, -1000, 0), 1000.0, floor)
+    b.add_sphere((0, 1, 0), 1.0, shiny)
+    b.add_rect(light, flip=True, position=(0, 2, 3), rotation=(0, 0, 0),
+               scale=(3, 3, 1))
+    cam = make_camera((0, 2, 8), (0, 1, 0), (0, 1, 0), 35.0, aspect, 0.0,
+                      10.0, device=device)
+    return b.build(device), cam
 
 
 def textured_globe(aspect: float = 16 / 9, device=None):
     raise NotImplementedError(
-        "textured_globe holds a rect and image textures (kernel modes K8, "
-        "K9): ROADMAP Queue 1 items 16-17 (slice 5)")
+        "textured_globe holds image textures (kernel mode K9): ROADMAP "
+        "Queue 1 item 17 (slice 5)")
 
 
 def fbx_walk_camera(aspect: float = 2.0, device=None) -> Camera:

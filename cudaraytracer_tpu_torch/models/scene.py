@@ -10,8 +10,8 @@ tensors:
   rectangles : TRS + flip + mat (rectangle.h)
   t_spheres / t_triangles : prims with a runtime TRS
 
-plus the material and texture tables.  Rects and runtime-TRS prims are
-built here; the fused engine raises on them until slice 5.
+plus the material and texture tables.  Both engines render rects and
+runtime-TRS prims (the fused one through kernel mode K8).
 """
 
 from __future__ import annotations

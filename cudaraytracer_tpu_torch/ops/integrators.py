@@ -4,14 +4,23 @@ The reference ships three integrators, chosen by (un)commenting
 render.h:119-121: ``shade`` (the path tracer, render.h:48-67),
 ``LambertShade`` (render.h:70-87) and ``shade_normal`` (render.h:90-103).
 
-Two engines run them:
+Three engines run them:
   * ``engine='mega'``: all three in the fused kernel K1
     (``ops/megakernel.py``), forward only;
   * ``engine='wavefront'`` (the default): one intersection per bounce over
     the whole ray batch, then differentiable shading in tensor ops
     (``trace_path``, ``lambert_shade``, ``shade_normal``).  The intersector
     is brute force (``intersect_fn=None``) or the sweep kernels
-    (``ops/render.sweep_intersector``).
+    (``ops/render.sweep_intersector``);
+  * ``engine='mega_diff'``: the path integrator through the fused kernel
+    forward, recording each bounce's winner (K7), and a backward that
+    replays the wavefront on those winners only
+    (``megakernel.trace_path_mega_diff``).  Lambert and normal have no
+    fused differentiable pairing and run on the wavefront.
+
+``trace_path(return_winners=True)`` records the winners of a wavefront
+render; ``trace_path(winners=...)`` replays them (``intersect.replay_hits``)
+instead of intersecting.
 
 Differentiability: the discrete hit choice is piecewise constant, so
 gradients flow through the continuous quantities of the chosen prim (t, p,
@@ -97,33 +106,56 @@ def _intersect(scene: Scene, rays: Rays, cfg: RenderConfig,
                                   cfg.quirks)
 
 
-def _morton_scene(scene: Scene) -> Scene:
-    """The scene with its spheres (by center) and triangles (by centroid)
-    permuted into Morton order, each when it fills more than one chunk, so
-    that the sweeps' chunk boxes are compact (integrators.py:184-203).
-    Prim ids stay in sorted space through the trace and gradients flow back
-    through the gathers; on exact-t ties the winner follows Morton order."""
+def _morton_scene(scene: Scene):
+    """(scene, sphere order, triangle order): the scene with its spheres (by
+    center) and triangles (by centroid) permuted into Morton order, each
+    when it fills more than one chunk (else its order is None), so that the
+    sweeps' chunk boxes are compact (integrators.py:184-203).  Prim ids stay
+    in sorted space through the trace and gradients flow back through the
+    gathers; on exact-t ties the winner follows Morton order."""
+    s_order = t_order = None
     if scene.n_spheres > _sw.PRIM_CHUNK:
         sp = scene.spheres
-        o = _sw.morton_argsort(sp.center)
+        s_order = o = _sw.morton_argsort(sp.center)
         scene = scene._replace(spheres=sp._replace(
             center=sp.center[o], radius=sp.radius[o], mat=sp.mat[o]))
     if scene.n_triangles > _sw.PRIM_CHUNK:
         tr = scene.triangles
-        o = _sw.morton_argsort((tr.v0 + tr.v1 + tr.v2) / 3.0)
+        t_order = o = _sw.morton_argsort((tr.v0 + tr.v1 + tr.v2) / 3.0)
         scene = scene._replace(triangles=tr._replace(
             v0=tr.v0[o], v1=tr.v1[o], v2=tr.v2[o], normal=tr.normal[o],
             mat=tr.mat[o]))
-    return scene
+    return scene, s_order, t_order
 
 
-def _bounce(scene, cfg, isect_fn, step, o, d, tm, throughput, radiance,
-            alive, ball, prob):
-    """One wavefront bounce (integrators.py:236-317): intersect, shade,
-    scatter; returns the next (o, d, time, throughput, radiance, alive)."""
+def _winners_to_scene(w: Tensor, n_s: int, n_t: int, s_order, t_order):
+    """Winner ids recorded on a Morton-permuted scene -> the scene's own
+    ids (integrators.py:343-358): sphere and triangle ids go back through
+    their permutations; rect and TRS ids and -1 stay."""
+    if s_order is not None:
+        is_s = (w >= 0) & (w < n_s)
+        w = torch.where(is_s, s_order[w.long().clamp(0, n_s - 1)].to(w.dtype),
+                        w)
+    if t_order is not None:
+        is_t = (w >= n_s) & (w < n_s + n_t)
+        w = torch.where(is_t, (n_s + t_order[(w.long() - n_s).clamp(
+            0, n_t - 1)]).to(w.dtype), w)
+    return w
+
+
+def _bounce(scene, cfg, isect_fn, step, win, o, d, tm, throughput,
+            radiance, alive, ball, prob):
+    """One wavefront bounce (integrators.py:236-317): intersect (or replay
+    the recorded winners ``win``), shade, scatter; returns the next (o, d,
+    time, throughput, radiance, alive) and this bounce's winners (-1 where
+    the lane was dead or missed)."""
     rays = Rays(o, d, tm)
-    hits = _intersect(scene, rays, cfg, isect_fn,
-                      alive=alive if step > 0 else None)
+    if win is not None:
+        hits = _isect.replay_hits(scene, rays, win, cfg.t_min, cfg.t_max,
+                                  cfg.quirks)
+    else:
+        hits = _intersect(scene, rays, cfg, isect_fn,
+                          alive=alive if step > 0 else None)
     dec = hits.dec
     if dec is None:
         dec = _mat.decode_materials(scene.materials, scene.textures,
@@ -149,14 +181,16 @@ def _bounce(scene, cfg, isect_fn, step, o, d, tm, throughput, radiance,
     return (torch.where(c3, sc.scattered.origin, o),
             torch.where(c3, sc.scattered.direction, d),
             torch.where(continues, sc.scattered.time, tm),
-            throughput, radiance, continues)
+            throughput, radiance, continues,
+            torch.where(alive & hits.hit, hits.prim.to(torch.int32), -1))
 
 
 def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
                intersect_fn=None, samples: Optional[SampleStream] = None,
                seed: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
-               checkpoint: bool = True) -> Tensor:
+               checkpoint: bool = True, winners: Optional[Tensor] = None,
+               return_winners: bool = False):
     """shade() as a wavefront loop -> radiance float32[N, 3]
     (integrators.py:143 of the JAX package).
 
@@ -164,12 +198,24 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     no longer scatter (render.h:57), so after max_depth + 1 steps every lane
     has ended.  samples / seed / generator: the draws (module docstring).
     checkpoint: with gradients on, recompute each bounce in the backward
-    instead of storing it (the JAX package always does)."""
+    instead of storing it (the JAX package always does).
+
+    winners: optional int32[max_depth + 1, N] winner per bounce in the
+    scene's Hits.prim ids (-1 for a miss): replay them instead of
+    intersecting (``intersect_fn`` is then unused and the scene keeps its
+    order).  return_winners: also return the winners this render recorded,
+    int32[max_depth + 1, N] in the scene's own ids."""
     n = rays.origin.shape[0]
     dev = rays.origin.device
     primary_fn, bounce_fn = _split_fns(intersect_fn)
-    if getattr(bounce_fn, "morton_spheres", False):
-        scene = _morton_scene(scene)
+    n_s, n_t = scene.n_spheres, scene.n_triangles
+    s_order = t_order = None
+    if winners is None and getattr(bounce_fn, "morton_spheres", False):
+        scene, s_order, t_order = _morton_scene(scene)
+    if winners is not None and tuple(winners.shape) != (cfg.max_depth + 1,
+                                                        n):
+        raise ValueError(f"winners of shape {tuple(winners.shape)} do not "
+                         f"fit {cfg.max_depth + 1} steps x {n} rays")
     if samples is None and cfg.wavefront_tpu_prng and seed is None:
         if generator is None:
             raise ValueError("the path integrator needs samples, a seed or "
@@ -180,6 +226,7 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     o, d, tm = rays
     use_ckpt = checkpoint and torch.is_grad_enabled()
+    recorded = []
     for step in range(cfg.max_depth + 1):
         if samples is not None:
             ball, prob = samples.ball[step], samples.prob[step]
@@ -189,16 +236,20 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
             ball, prob = draws[:, :3], draws[:, 3]
         else:
             ball, prob = _mat.scatter_draws(n, generator, dev)
-        body = functools.partial(_bounce, scene, cfg,
-                                 primary_fn if step == 0 else bounce_fn,
-                                 step)
+        body = functools.partial(
+            _bounce, scene, cfg, primary_fn if step == 0 else bounce_fn,
+            step, winners[step] if winners is not None else None)
         state = (o, d, tm, throughput, radiance, alive, ball, prob)
         if use_ckpt:
             out = _checkpoint(body, *state, use_reentrant=False)
         else:
             out = body(*state)
-        o, d, tm, throughput, radiance, alive = out
-    return radiance
+        o, d, tm, throughput, radiance, alive, win = out
+        recorded.append(win)
+    if not return_winners:
+        return radiance
+    return radiance, _winners_to_scene(torch.stack(recorded), n_s, n_t,
+                                       s_order, t_order)
 
 
 def lambert_shade(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -235,14 +286,20 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
               generator: Optional[torch.Generator] = None,
               seed: Optional[int] = None, intersect_fn=None) -> Tensor:
     """Radiance float32[N, 3] of the rays under cfg.integrator and
-    cfg.engine.  The fused engine raises on scenes its kernel does not take
-    yet (image textures, streamed sizes), naming the slice that brings
-    them."""
+    cfg.engine.  The fused engines raise on scenes their kernel does not
+    take yet (image textures, streamed sizes), naming the slice that brings
+    them; nothing falls back to the wavefront."""
     check_supported(cfg)
+    if cfg.engine == "mega_diff" and cfg.integrator == "path":
+        return _mk.trace_path_mega_diff(scene, rays, cfg, tables=tables,
+                                        samples=samples, generator=generator,
+                                        seed=seed)
     if cfg.engine == "mega":
         return _mk.trace_path_mega(scene, rays, cfg, tables=tables,
                                    samples=samples, generator=generator,
                                    seed=seed)
+    # the wavefront; also lambert and normal under mega_diff, which pairs
+    # only the path integrator with a replay backward (integrators.py:404)
     if cfg.integrator == "path":
         return trace_path(scene, rays, cfg, intersect_fn, samples, seed,
                           generator)

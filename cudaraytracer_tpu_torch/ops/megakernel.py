@@ -1,21 +1,28 @@
 """Fused path tracer: the whole bounce loop of a ray in one CUDA thread.
 
 The wrapper around ``csrc/megakernel.cu`` (the port of the JAX package's
-``ops/megakernel.py::_mega_kernel`` in its main-path form) and its plain
-PyTorch version.
+``ops/megakernel.py::_mega_kernel``) and its plain PyTorch version, in the
+kernel's modes ported so far:
+  * K1, the main-path form: spheres and triangles, three integrators;
+  * K8: rects and runtime-TRS spheres and triangles, tested through the
+    reference TransformRay after the sphere and triangle sweeps;
+  * K7: the path integrator records each bounce's winner in the scene's
+    prim ids, for the replay backward of ``engine='mega_diff'``
+    (``trace_path_mega_diff``).
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
 prims in the same (optionally Morton) order, the same per-prim columns, the
-same chunk boxes (16 prims) and super boxes (256 prims), and pad rows that
-repeat the last prim, so first-prim-wins survives padding.  It drops the TPU
-layout:
-  * rows are 16 (sphere), 24 (triangle) and 8 (box) floats wide, not 128
-    lanes: a CUDA thread loads a row with float4 loads, it needs no
-    components-on-lanes slicing;
+same chunk boxes (16 prims) and super boxes (256 prims), pad rows that
+repeat the last prim, so first-prim-wins survives padding, and the row ->
+scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
+  * rows are 16 (sphere), 24 (triangle), 8 (box), 28 (rect, TRS sphere) and
+    40 (TRS triangle) floats wide, not 128 lanes: a CUDA thread loads what
+    it needs, it needs no components-on-lanes slicing;
   * box tables get no extra padding to a multiple of 8 rows (a TPU sublane
-    tile);
-  * no segment boxes, MXU coefficients, rect or runtime-TRS tables, and no
-    row -> scene maps: those serve kernel modes K6-K12, later slices.
+    tile), and the rect / TRS tables no padding at all: a thread walks
+    their rows one by one, with no chunks and no 1024-per-class cap;
+  * no segment boxes or MXU coefficients: those serve kernel modes K6 and
+    K12, later slices.
 Masks are bools, not f32; the sweep carries no attributes (the winner's row
 is loaded after it).
 
@@ -26,6 +33,7 @@ Dispatch.  A CUDA tensor launches the kernel or raises; a CPU tensor runs
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,10 +41,12 @@ import torch
 
 from ..config import RenderConfig, check_supported
 from ..core import rng as _rng
+from ..core import vec as v3
 from ..core.rays import Rays
 from ..models import materials as _mat
 from ..models import textures as _tex
 from ..models.scene import Scene
+from ..models.transform import rotate_rows, transform_arrays
 from ..utils.convert import to_numpy
 from . import _cuda
 from .sweeps import (BIG, BOX_COLS, PRIM_CHUNK, TRI_EPSILON, group_boxes,
@@ -48,8 +58,8 @@ Tensor = torch.Tensor
 BIG_CUT = 1e37              # t >= BIG_CUT is a miss (megakernel.py:84-88)
 SUPER_T = 256               # prims per super box (16 chunks)
 SPH_SUPER_MIN = 1024        # spheres get the super level above this count
-# The table-resident form (K1) serves up to this many prims per type; larger
-# scenes stream (kernel mode K6, slice 6).
+# The table-resident form (K1) serves up to this many spheres or triangles;
+# larger scenes stream (kernel mode K6, slice 6).
 MAX_VMEM_PRIMS = 8192
 
 # Table columns (the JAX lane layout, cut to the used width)
@@ -57,13 +67,28 @@ S_CX, S_CY, S_CZ, S_R2, S_INVR, S_MAT = 0, 1, 2, 3, 4, 5
 T_V0, T_E1, T_E2, T_N, T_MAT = 0, 3, 6, 9, 12
 N_MAT_COMPS = 9             # kind, tex kind, aux, color0 rgb, color1 rgb
 SPH_COLS, TRI_COLS = 16, 24
+# Rect and runtime-TRS rows share a head: position, scale, the row-major
+# rotation matrix (vec3.h:200-217), the material block.
+X_POS, X_SCL, X_ROT, X_MAT = 0, 3, 6, 15
+RECT_SGN, RECT_NRM = 24, 25          # +-1 object normal z, world normal
+TSPH_R2, TSPH_INVR = 24, 25
+TTRI_V0, TTRI_E1, TTRI_E2, TTRI_NOBJ, TTRI_NW = 24, 27, 30, 33, 36
+RECT_COLS, TSPH_COLS, TTRI_COLS = 28, 28, 40
+# winner classes, in the order of the prim id space
+C_SPH, C_TRI, C_RECT, C_TSPH, C_TTRI = 0, 1, 2, 3, 4
 
 INTEGRATOR_IDS = {"path": 0, "lambert": 1, "normal": 2}
 F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
 F_DIE_REF_COSINE, F_LAMBERT_UNNORM, F_INJECTED = 8, 16, 32
+# tests counted by the counting variant: boxes, spheres, triangles, rects,
+# TRS spheres, TRS triangles
+N_COUNTS = 6
 
-# Launches of each kernel since the last reset_launch_counts().
-LAUNCHES = {"mega_trace": 0, "scatter_draws": 0}
+# Launches of each kernel since the last reset_launch_counts(): the fused
+# kernel without and with the rect / TRS sweeps (K1, K8), its winner-
+# recording form (K7), and the draws (K2).
+LAUNCHES = {"mega_trace": 0, "mega_trace_xform": 0, "mega_winners": 0,
+            "scatter_draws": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,14 +103,32 @@ class MegaTables(NamedTuple):
     tri: Tensor        # float32[T_pad, 24]
     tri_box: Tensor    # float32[T_pad / 16, 8]
     tri_super: Tensor  # float32[T_pad / 256, 8]
+    rect: Tensor       # float32[R, 28]
+    tsph: Tensor       # float32[TS, 28]
+    ttri: Tensor       # float32[TT, 40]
+    sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
+    tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
+    n_spheres: int     # the scene's counts (the id offsets of the winners)
+    n_triangles: int
+
+
+FLOAT_TABLES = ("sph", "sph_box", "sph_super", "tri", "tri_box",
+                "tri_super", "rect", "tsph", "ttri")
+
+
+def float_tables(tables: MegaTables) -> list:
+    return [getattr(tables, k) for k in FLOAT_TABLES]
+
+
+def table_bytes(tables: MegaTables) -> int:
+    """Bytes of every table the kernel reads."""
+    return sum(t.numel() * t.element_size() for t in tables
+               if isinstance(t, torch.Tensor))
 
 
 def _unsupported(scene: Scene) -> Optional[str]:
     """Why the ported kernel modes cannot render the scene (naming the
     ROADMAP item that brings it), or None."""
-    if scene.n_rects or scene.n_t_spheres or scene.n_t_triangles:
-        return ("rects and runtime-TRS prims (kernel mode K8) are not "
-                "ported yet: ROADMAP Queue 1 item 16 (slice 5)")
     if scene.textures.images.shape[0] > 1:
         return ("image textures (kernel mode K9) are not ported yet: "
                 "ROADMAP Queue 1 item 17 (slice 5)")
@@ -97,8 +140,9 @@ def _unsupported(scene: Scene) -> Optional[str]:
 
 
 def megakernel_supported(scene: Scene) -> bool:
-    """Scenes the main-path kernel serves: spheres and triangles (up to
-    MAX_VMEM_PRIMS each), constant and checker textures."""
+    """Scenes the ported kernel modes serve: spheres and triangles (up to
+    MAX_VMEM_PRIMS each), rects and runtime-TRS prims (any count), constant
+    and checker textures."""
     return _unsupported(scene) is None
 
 
@@ -161,9 +205,20 @@ def _mat_lanes(scene: Scene, mat_id: Tensor) -> Tensor:
                       t.color1[tex_id]], dim=1)
 
 
+def _xform_head(scene: Scene, trs, mat: Tensor):
+    """(rotation matrices float32[K, 3, 3], the rows' shared head
+    float32[K, 24]: position, scale, row-major rotation, material)."""
+    R = v3.rotation_matrix_euler_deg(trs.rotation)
+    return R, torch.cat([trs.position, trs.scale, R.reshape(-1, 9),
+                         _mat_lanes(scene, mat)], dim=1)
+
+
+@torch.no_grad()
 def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
                       sph_order: Optional[np.ndarray] = None) -> MegaTables:
-    """Pack the scene into the kernel's tables, on the scene's device.
+    """Pack the scene into the kernel's tables, on the scene's device (no
+    autograd: the tables are a packing of the scene, and gradients reach
+    the scene through the replay, ``trace_path_mega_diff``).
 
     tri_order / sph_order: optional host permutations (morton_order,
     mega_sphere_order) that make each chunk's box spatially compact, so
@@ -177,9 +232,15 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     def perm(order):
         return torch.as_tensor(np.asarray(order), device=dev).long()
 
+    def row_map(n, order, mult):
+        m = (perm(order) if order is not None
+             else torch.arange(n, device=dev))
+        return pad_rows(m.to(torch.int32), mult)
+
     sph_two_level = n_s > SPH_SUPER_MIN
     sph_mult = SUPER_T if sph_two_level else PRIM_CHUNK
     empty_box = torch.zeros(0, BOX_COLS, device=dev)
+    no_map = torch.zeros(0, dtype=torch.int32, device=dev)
     if n_s:
         sp = scene.spheres
         center, radius, smat = sp.center, sp.radius, sp.mat
@@ -194,9 +255,11 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         sph_box = group_boxes(lo, hi, PRIM_CHUNK, sph_mult)
         sph_super = (group_boxes(lo, hi, SUPER_T, sph_mult) if sph_two_level
                      else empty_box)
+        sph_map = row_map(n_s, sph_order, sph_mult)
     else:
         sph = torch.zeros(0, SPH_COLS, device=dev)
         sph_box = sph_super = empty_box
+        sph_map = no_map
     if n_t:
         tr = scene.triangles
         v0, v1, v2, nrm, tmat = tr.v0, tr.v1, tr.v2, tr.normal, tr.mat
@@ -210,11 +273,37 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         hi = torch.maximum(torch.maximum(v0, v1), v2)
         tri_box = group_boxes(lo, hi, PRIM_CHUNK, SUPER_T)
         tri_super = group_boxes(lo, hi, SUPER_T, SUPER_T)
+        tri_map = row_map(n_t, tri_order, SUPER_T)
     else:
         tri = torch.zeros(0, TRI_COLS, device=dev)
         tri_box = tri_super = empty_box
+        tri_map = no_map
+    rect = torch.zeros(0, RECT_COLS, device=dev)
+    tsph = torch.zeros(0, TSPH_COLS, device=dev)
+    ttri = torch.zeros(0, TTRI_COLS, device=dev)
+    if scene.n_rects:
+        rc = scene.rects
+        R, head = _xform_head(scene, rc.trs, rc.mat)
+        sgn = torch.where(rc.flip, -1.0, 1.0)
+        # world normal = R (0, 0, sgn): the rotation's third column
+        rect = torch.cat([head, sgn[:, None], R[:, :, 2] * sgn[:, None]], 1)
+    if scene.n_t_spheres:
+        ts = scene.t_spheres
+        _, head = _xform_head(scene, ts.trs, ts.mat)
+        tsph = widen(torch.cat([head, (ts.radius * ts.radius)[:, None],
+                                (1.0 / ts.radius)[:, None]], 1), TSPH_COLS)
+    if scene.n_t_triangles:
+        tt = scene.t_triangles
+        R, head = _xform_head(scene, tt.trs, tt.mat)
+        n = tt.normal
+        n_w = torch.stack(rotate_rows(
+            [R[:, i, j] for i in range(3) for j in range(3)],
+            n[:, 0], n[:, 1], n[:, 2]), 1)
+        ttri = widen(torch.cat([head, tt.v0, tt.v1 - tt.v0, tt.v2 - tt.v0,
+                                n, n_w], 1), TTRI_COLS)
     return MegaTables(*(x.contiguous() for x in (
-        sph, sph_box, sph_super, tri, tri_box, tri_super)))
+        sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
+        sph_map, tri_map)), n_s, n_t)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -243,7 +332,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_crt_declared", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.crt_mega_trace.argtypes = (
-            [vp] * 11 + [ci] * 6 + [cf] * 3 + [ci, ctypes.c_uint64, vp])
+            [vp] * 17 + [ci] * 11 + [cf] * 3 + [ci, ctypes.c_uint64, vp])
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
@@ -259,9 +348,10 @@ def _check(lib, code: int, what: str) -> None:
                            f"{lib.crt_error_string(code).decode()}")
 
 
-def _require_cuda_f32(name: str, x: Tensor, shape=None) -> None:
-    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 CUDA tensor; "
+def _require_cuda(name: str, x: Tensor, dtype=torch.float32,
+                  shape=None) -> None:
+    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor; "
                          f"got {x.dtype} on {x.device}")
     if x.numel() and x.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
@@ -270,57 +360,82 @@ def _require_cuda_f32(name: str, x: Tensor, shape=None) -> None:
                          f"expected {tuple(shape)}")
 
 
+def _require_cuda_f32(name: str, x: Tensor, shape=None) -> None:
+    _require_cuda(name, x, torch.float32, shape)
+
+
+def _flags(cfg: RenderConfig, injected: bool) -> int:
+    q = cfg.quirks
+    return ((F_BACKFACE_ONLY if q.triangle_backface_only else 0)
+            | (F_NO_T_CLIP if q.triangle_no_t_clip else 0)
+            | (F_BACK_CULLING if q.triangle_back_culling else 0)
+            | (F_DIE_REF_COSINE if q.dielectric_reference_cosine else 0)
+            | (F_LAMBERT_UNNORM if q.lambert_unnormalized_dot else 0)
+            | (F_INJECTED if injected else 0))
+
+
 def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                  cfg: RenderConfig, stream: Optional[Tensor], seed: int,
-                 counts: Optional[Tensor] = None) -> Tensor:
-    """One launch of the CUDA kernel -> radiance float32[N, 3].
+                 counts: Optional[Tensor] = None,
+                 want_winners: bool = False):
+    """One launch of the CUDA kernel -> radiance float32[N, 3], and with
+    want_winners (path only) the winners int32[max_depth + 1, N] in scene
+    prim ids, -1 for a miss or a dead lane.
 
-    counts: optional uint64-sized int64[3] CUDA tensor that the kernel adds
-    its box, sphere and triangle tests to (measurement only: given, a
-    separately compiled counting variant runs; the production variant
-    counts nothing)."""
+    counts: optional int64[6] CUDA tensor that the kernel adds its box,
+    sphere, triangle, rect, TRS-sphere and TRS-triangle tests to
+    (measurement only: given, a separately compiled counting variant runs;
+    the production variants count nothing)."""
     n = origin.shape[0]
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))
-    for name, t in zip(MegaTables._fields, tables):
-        _require_cuda_f32(name, t)
+    for name in FLOAT_TABLES + ("sph_map", "tri_map"):
+        t = getattr(tables, name)
+        _require_cuda(name, t, torch.int32 if name.endswith("map")
+                      else torch.float32)
         if t.device != origin.device:
             raise ValueError(f"{name} is on {t.device}, rays on "
                              f"{origin.device}")
     if stream is not None:
         _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n, 4))
     if counts is not None and (counts.dtype != torch.int64
-                               or tuple(counts.shape) != (3,)
+                               or tuple(counts.shape) != (N_COUNTS,)
                                or not counts.is_cuda):
-        raise ValueError("counts must be an int64[3] CUDA tensor")
+        raise ValueError(f"counts must be an int64[{N_COUNTS}] CUDA tensor")
+    if want_winners and (cfg.integrator != "path" or counts is not None):
+        raise ValueError("winners are recorded by the path integrator's "
+                         "production variant only")
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one launch")
-    q = cfg.quirks
-    flags = ((F_BACKFACE_ONLY if q.triangle_backface_only else 0)
-             | (F_NO_T_CLIP if q.triangle_no_t_clip else 0)
-             | (F_BACK_CULLING if q.triangle_back_culling else 0)
-             | (F_DIE_REF_COSINE if q.dielectric_reference_cosine else 0)
-             | (F_LAMBERT_UNNORM if q.lambert_unnormalized_dot else 0)
-             | (F_INJECTED if stream is not None else 0))
     out = torch.empty((n, 3), dtype=torch.float32, device=origin.device)
+    winners = (torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
+                           device=origin.device) if want_winners else None)
+    n_x = sum(getattr(tables, k).shape[0] for k in ("rect", "tsph", "ttri"))
     lib = _library()
     with torch.cuda.device(origin.device):
         cuda_stream = torch.cuda.current_stream().cuda_stream
         code = lib.crt_mega_trace(
-            *(t.data_ptr() for t in tables), origin.data_ptr(),
-            direction.data_ptr(),
+            *(t.data_ptr() for t in float_tables(tables)),
+            tables.sph_map.data_ptr(), tables.tri_map.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(),
             stream.data_ptr() if stream is not None else None,
             out.data_ptr(),
+            winners.data_ptr() if winners is not None else None,
             counts.data_ptr() if counts is not None else None,
             n, tables.sph_box.shape[0], tables.sph_super.shape[0],
-            tables.tri_super.shape[0], INTEGRATOR_IDS[cfg.integrator],
+            tables.tri_super.shape[0], tables.rect.shape[0],
+            tables.tsph.shape[0], tables.ttri.shape[0], tables.n_spheres,
+            tables.n_triangles, INTEGRATOR_IDS[cfg.integrator],
             cfg.max_depth, float(np.float32(cfg.t_min)),
             float(np.float32(cfg.t_max)),
-            float(q.ambient_on_absorb), flags, seed & (2 ** 64 - 1),
+            float(cfg.quirks.ambient_on_absorb),
+            _flags(cfg, stream is not None), seed & (2 ** 64 - 1),
             cuda_stream)
     _check(lib, code, "megakernel")
-    LAUNCHES["mega_trace"] += 1
-    return out
+    if counts is None:
+        LAUNCHES["mega_winners" if want_winners
+                 else "mega_trace_xform" if n_x else "mega_trace"] += 1
+    return (out, winners) if want_winners else out
 
 
 def scatter_draws(out: Tensor, seed: int, step: int) -> Tensor:
@@ -350,21 +465,26 @@ def scatter_draws_plain(n: int, seed: int, step: int, device) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Entry point
+# Entry points
 # ---------------------------------------------------------------------------
 
 def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
                     tables: Optional[MegaTables] = None, samples=None,
                     generator: Optional[torch.Generator] = None,
-                    seed: Optional[int] = None) -> Tensor:
+                    seed: Optional[int] = None, want_winners: bool = False):
     """Fused integrator (cfg.integrator: path / lambert / normal) ->
     radiance float32[N, 3].
 
     samples: optional injected SampleStream (ball [D+1, N, 3], prob
     [D+1, N]); otherwise the path integrator draws in-kernel from ``seed``,
     itself drawn from ``generator`` when not given.  lambert and normal draw
-    nothing."""
+    nothing.  want_winners (path only): return (radiance, winners
+    int32[max_depth + 1, N]), each bounce's winner in the scene's prim ids
+    [spheres | triangles | rects | t_spheres | t_triangles], -1 for a miss
+    or a dead lane (megakernel.py:2731-2793)."""
     check_supported(cfg)
+    if want_winners and cfg.integrator != "path":
+        raise ValueError("want_winners needs the path integrator")
     if tables is None:
         tables = build_mega_tables(scene)
     n = rays.origin.shape[0]
@@ -378,26 +498,222 @@ def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
     stream = (stream_tensor(samples, n, cfg.max_depth + 1) if injected
               else None)
     if rays.origin.device.type == "cpu":
-        return trace_path_mega_plain(tables, rays, cfg, stream, seed)
+        return trace_path_mega_plain(tables, rays, cfg, stream, seed,
+                                     want_winners)
     return _launch_mega(tables, rays.origin.contiguous(),
-                        rays.direction.contiguous(), cfg, stream, seed)
+                        rays.direction.contiguous(), cfg, stream, seed,
+                        want_winners=want_winners)
+
+
+def _leaves(record) -> list:
+    """The tensors of a NamedTuple tree, depth first."""
+    out = []
+    for x in record:
+        out.extend([x] if isinstance(x, torch.Tensor) else _leaves(x))
+    return out
+
+
+def _rebuild(record, it):
+    return type(record)(*(next(it) if isinstance(x, torch.Tensor)
+                          else _rebuild(x, it) for x in record))
+
+
+@dataclasses.dataclass
+class _DiffCall:
+    """What the replay backward needs beside the scene's grad leaves."""
+    scene: Scene
+    rays: Rays
+    cfg: RenderConfig
+    tables: MegaTables
+    samples: object
+    seed: Optional[int]
+    grad_at: list          # positions of the grad leaves in _leaves(scene)
+
+
+class _MegaDiff(torch.autograd.Function):
+    """The fused forward and the replay backward of engine='mega_diff'
+    (megakernel.py:2025-2070)."""
+
+    @staticmethod
+    def forward(ctx, call: _DiffCall, *leaves):
+        replay = call.cfg.mega_replay_bwd
+        out = trace_path_mega(call.scene, call.rays, call.cfg,
+                              tables=call.tables, samples=call.samples,
+                              seed=call.seed, want_winners=replay)
+        rad, ctx.winners = out if replay else (out, None)
+        ctx.call = call
+        ctx.save_for_backward(*leaves)
+        return rad
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import integrators as _integ
+        from .render import sweep_intersector_pair
+        call = ctx.call
+        cfg = dataclasses.replace(call.cfg, engine="wavefront",
+                                  wavefront_tpu_prng=True)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            all_leaves = [x.detach() for x in _leaves(call.scene)]
+            for k, x in zip(call.grad_at, leaves):
+                all_leaves[k] = x
+            scene = _rebuild(call.scene, iter(all_leaves))
+            rays = Rays(*(x.detach() for x in call.rays))
+            isect = (None if ctx.winners is not None
+                     else sweep_intersector_pair(cfg))
+            rad = _integ.trace_path(scene, rays, cfg, intersect_fn=isect,
+                                    samples=call.samples, seed=call.seed,
+                                    winners=ctx.winners)
+            grads = torch.autograd.grad(rad, leaves, g, allow_unused=True)
+        return (None,) + tuple(torch.zeros_like(x) if gx is None else gx
+                               for x, gx in zip(leaves, grads))
+
+
+def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
+                         tables: Optional[MegaTables] = None, samples=None,
+                         generator: Optional[torch.Generator] = None,
+                         seed: Optional[int] = None) -> Tensor:
+    """The differentiable fused path integrator (engine='mega_diff',
+    megakernel.py:2073) -> radiance float32[N, 3].
+
+    Forward: one launch of the fused kernel.  When gradients are asked (grad
+    mode on and some scene tensor requires grad) it records each bounce's
+    winner (K7), and the backward re-runs the wavefront ``trace_path`` on
+    those winners only (``intersect.replay_hits``), or with
+    cfg.mega_replay_bwd False on the full sweeps.  Both sides read the same
+    draws: the injected ``samples``, or the counter draws of one ``seed``
+    (in the kernel, and through the draws kernel K2 in the replay), so no
+    stream is materialized.  The tables get no gradient; pass tables
+    rebuilt from the current scene (a fit moves it).  Gradients reach the
+    scene's tensors, not the rays."""
+    check_supported(cfg)
+    if cfg.integrator != "path":
+        raise ValueError("engine='mega_diff' pairs only the path integrator")
+    if tables is None:
+        tables = build_mega_tables(scene)
+    if samples is None and seed is None:
+        if generator is None:
+            raise ValueError("the path integrator needs samples, a seed or "
+                             "a generator")
+        seed = draw_seed(generator)
+    leaves = _leaves(scene)
+    grad_at = [k for k, x in enumerate(leaves) if x.requires_grad]
+    if not (torch.is_grad_enabled() and grad_at):
+        return trace_path_mega(scene, rays, cfg, tables=tables,
+                               samples=samples, seed=seed)
+    call = _DiffCall(scene, rays, cfg, tables, samples, seed, grad_at)
+    return _MegaDiff.apply(call, *(leaves[k] for k in grad_at))
 
 
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
 
-def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor,
-                 cfg: RenderConfig):
+def _xray(rows: Tensor, o, d):
+    """TransformRay of rays (3-lists of components) through table rows: [N,
+    1] components against float32[C, cols] rows give [N, C] planes, [N]
+    components against one gathered row per ray give [N]."""
+    return transform_arrays(o, d, [rows[..., X_POS + k] for k in range(3)],
+                            [rows[..., X_SCL + k] for k in range(3)],
+                            [rows[..., X_ROT + k] for k in range(9)])
+
+
+def _rect_test(rows, xo, xd, t_min, t_max, quirks):
+    """rectangle.h:22-44 on the object-space ray -> (valid, native t)."""
+    ox, oy, oz = xo
+    dx, dy, dz = xd
+    t = -oz / dz
+    x = ox + t * dx
+    y = oy + t * dy
+    facing = dz * rows[..., RECT_SGN]
+    valid = ((facing <= 0.0) & (t >= t_min) & (t <= t_max) & (x >= -0.5)
+             & (x <= 0.5) & (y >= -0.5) & (y <= 0.5))
+    return valid, t
+
+
+def _tsph_test(rows, xo, xd, t_min, t_max, quirks):
+    """sphere.h:27-55 on the object-space ray, the half-b quadratic times
+    1/a -> (valid, native t: the near root in the window, else the far)."""
+    ox, oy, oz = xo
+    dx, dy, dz = xd
+    b = ox * dx + oy * dy + oz * dz
+    a = dx * dx + dy * dy + dz * dz
+    c = ox * ox + oy * oy + oz * oz - rows[..., TSPH_R2]
+    disc = b * b - a * c
+    has = disc > 0.0
+    sq = torch.sqrt(torch.where(has, disc, 0.0))
+    inv_a = 1.0 / a
+    t0 = (-b - sq) * inv_a
+    t1 = (-b + sq) * inv_a
+    ok0 = has & (t0 < t_max) & (t0 > t_min)
+    ok1 = has & (t1 < t_max) & (t1 > t_min)
+    return ok0 | ok1, torch.where(ok0, t0, t1)
+
+
+def _ttri_test(rows, xo, xd, t_min, t_max, quirks):
+    """Moller-Trumbore on the object-space ray with the quirk gates on the
+    transformed direction against the object normal -> (valid, native
+    t)."""
+    ox, oy, oz = xo
+    dx, dy, dz = xd
+    e1x, e1y, e1z = (rows[..., TTRI_E1 + k] for k in range(3))
+    e2x, e2y, e2z = (rows[..., TTRI_E2 + k] for k in range(3))
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = 1.0 / a
+    sx = ox - rows[..., TTRI_V0]
+    sy = oy - rows[..., TTRI_V0 + 1]
+    sz = oz - rows[..., TTRI_V0 + 2]
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    valid = ((a.abs() >= TRI_EPSILON) & (u >= 0.0) & (u <= 1.0)
+             & (v >= 0.0) & (u + v <= 1.0))
+    if quirks.triangle_back_culling:
+        valid &= a >= TRI_EPSILON
+    if quirks.triangle_backface_only:
+        valid &= (dx * rows[..., TTRI_NOBJ] + dy * rows[..., TTRI_NOBJ + 1]
+                  + dz * rows[..., TTRI_NOBJ + 2]) >= 0.0
+    if quirks.triangle_no_t_clip:
+        valid &= t < t_max
+    else:
+        valid &= (t > t_min) & (t < t_max)
+    return valid, t
+
+
+# (winner class, table field, test) of the transform-tested classes, in
+# the order of the prim id space
+_XFORM = ((C_RECT, "rect", _rect_test), (C_TSPH, "tsph", _tsph_test),
+          (C_TTRI, "ttri", _ttri_test))
+
+
+class _Winner(NamedTuple):
+    t: Tensor      # float32[N] closest t (BIG on a miss)
+    cls: Tensor    # int64[N] C_SPH .. C_TTRI
+    idx: Tensor    # int64[N] row of the winner in its table
+    p: Tensor      # float32[N, 3] hit point (object space for rect / TRS)
+    n: Tensor      # float32[N, 3] normal
+    m: Tensor      # float32[N, 9] material block
+
+
+def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
+                 cfg: RenderConfig) -> _Winner:
     """Brute-force closest hit over the same tables with the same formulas
-    -> (t, tri_wins, sphere row, triangle row).  Ties: min returns the first
-    index; a triangle wins only when strictly nearer."""
+    and the same order: spheres, then triangles (a triangle wins only when
+    strictly nearer), then rects, TRS spheres and TRS triangles, each
+    compared as native t times 1 / |raw d| and winning only when strictly
+    nearer; min returns the first row on ties.  Then the winner's record."""
     n = o.shape[0]
     # the kernel takes t_min / t_max as float32
     t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
     big = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
-    s_t, t_t = big, big
-    s_i = t_i = torch.zeros(n, dtype=torch.int64, device=o.device)
+    zero = torch.zeros(n, dtype=torch.int64, device=o.device)
+    s_t, t_t, s_i, t_i = big, big, zero, zero
     if tables.sph.shape[0]:
         s = tables.sph
         s_t, s_i = sphere_candidates_t(o, d, s[:, S_CX:S_CZ + 1], s[:, S_R2],
@@ -409,20 +725,74 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor,
             tr[:, T_E2:T_E2 + 3], tr[:, T_N:T_N + 3], t_min, t_max,
             cfg.quirks).min(dim=1)
     tri_w = t_t < s_t
-    srow = (tables.sph[s_i] if tables.sph.shape[0]
-            else o.new_zeros(n, SPH_COLS))
-    trow = (tables.tri[t_i] if tables.tri.shape[0]
-            else o.new_zeros(n, TRI_COLS))
-    return torch.where(tri_w, t_t, s_t), tri_w, srow, trow
-
-
-def _surface(tri_w, srow, trow, p):
-    """Winner normal and material block."""
+    t = torch.where(tri_w, t_t, s_t)
+    cls = torch.where(tri_w, C_TRI, C_SPH)
+    idx = torch.where(tri_w, t_i, s_i)
+    oc = [o[:, k:k + 1] for k in range(3)]
+    dc = [d[:, k:k + 1] for k in range(3)]
+    for c, name, test in _XFORM:
+        rows = getattr(tables, name)
+        if not rows.shape[0]:
+            continue
+        valid, tn = test(rows, *_xray(rows, oc, dc), t_min, t_max,
+                         cfg.quirks)
+        x_t, x_i = torch.where(valid, tn * inv_raw[:, None], BIG).min(dim=1)
+        w = x_t < t
+        t = torch.where(w, x_t, t)
+        cls = torch.where(w, c, cls)
+        idx = torch.where(w, x_i, idx)
+    # the winner's record: sphere and triangle rows loaded after the sweep
+    p = o + t[:, None] * d
+    srow = (tables.sph[idx.clamp(max=tables.sph.shape[0] - 1)]
+            if tables.sph.shape[0] else o.new_zeros(n, SPH_COLS))
+    trow = (tables.tri[idx.clamp(max=tables.tri.shape[0] - 1)]
+            if tables.tri.shape[0] else o.new_zeros(n, TRI_COLS))
+    is_t = (cls == C_TRI)[:, None]
     s_n = (p - srow[:, S_CX:S_CZ + 1]) * srow[:, S_INVR:S_INVR + 1]
-    nrm = torch.where(tri_w[:, None], trow[:, T_N:T_N + 3], s_n)
-    m = torch.where(tri_w[:, None], trow[:, T_MAT:T_MAT + N_MAT_COMPS],
+    nrm = torch.where(is_t, trow[:, T_N:T_N + 3], s_n)
+    m = torch.where(is_t, trow[:, T_MAT:T_MAT + N_MAT_COMPS],
                     srow[:, S_MAT:S_MAT + N_MAT_COMPS])
-    return nrm, m
+    oc = [o[:, k] for k in range(3)]
+    dc = [d[:, k] for k in range(3)]
+    for c, name, test in _XFORM:
+        rows = getattr(tables, name)
+        win = cls == c
+        if not rows.shape[0] or not bool(win.any()):
+            continue
+        row = rows[torch.where(win, idx, 0)]
+        xo, xd = _xray(row, oc, dc)
+        _, tn = test(row, xo, xd, t_min, t_max, cfg.quirks)
+        xp = torch.stack([xo[k] + tn * xd[k] for k in range(3)], 1)
+        if c == C_TSPH:
+            inv_r = row[:, TSPH_INVR]
+            xn = torch.stack(rotate_rows(
+                [row[:, X_ROT + k] for k in range(9)], xp[:, 0] * inv_r,
+                xp[:, 1] * inv_r, xp[:, 2] * inv_r), 1)
+        else:
+            k0 = RECT_NRM if c == C_RECT else TTRI_NW
+            xn = row[:, k0:k0 + 3]
+        w3 = win[:, None]
+        p = torch.where(w3, xp, p)
+        nrm = torch.where(w3, xn, nrm)
+        m = torch.where(w3, row[:, X_MAT:X_MAT + N_MAT_COMPS], m)
+    return _Winner(t, cls, idx, p, nrm, m)
+
+
+def _scene_ids(tables: MegaTables, win: _Winner) -> Tensor:
+    """int32[N] winner ids in the scene's prim id space."""
+    n_s, n_t = tables.n_spheres, tables.n_triangles
+    ids = torch.zeros_like(win.idx)
+    if tables.sph_map.shape[0]:
+        sid = tables.sph_map[win.idx.clamp(max=tables.sph_map.shape[0] - 1)]
+        ids = torch.where(win.cls == C_SPH, sid.long(), ids)
+    if tables.tri_map.shape[0]:
+        tid = tables.tri_map[win.idx.clamp(max=tables.tri_map.shape[0] - 1)]
+        ids = torch.where(win.cls == C_TRI, n_s + tid.long(), ids)
+    base = n_s + n_t
+    for c, name, _ in _XFORM:
+        ids = torch.where(win.cls == c, base + win.idx, ids)
+        base += getattr(tables, name).shape[0]
+    return ids.to(torch.int32)
 
 
 def _decode(m: Tensor, p: Tensor):
@@ -488,22 +858,27 @@ def _scatter(d, nrm, m, inv_dlen, ball, prob, ref_cosine: bool):
     return ok[:, 0], out
 
 
-def _plain_rays(tables, o, d, cfg, stream, seed, index):
+def _inv_len(d: Tensor) -> Tensor:
+    return 1.0 / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                            + d[:, 2] * d[:, 2])
+
+
+def _plain_rays(tables, o, d, cfg, stream, seed, index,
+                want_winners: bool = False):
+    """Radiance float32[N, 3] of one chunk of rays (and, with want_winners,
+    its winners int32[max_depth + 1, N])."""
     q = cfg.quirks
     if cfg.integrator != "path":
-        t, tri_w, srow, trow = _sweep_plain(tables, o, d, cfg)
-        hit = t < BIG_CUT
-        p = o + torch.where(hit, t, 0.0)[:, None] * d
-        nrm, m = _surface(tri_w, srow, trow, p)
-        inv_dlen = 1.0 / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                                    + d[:, 2] * d[:, 2])
+        inv_dlen = _inv_len(d)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg)
+        hit = win.t < BIG_CUT
         sky = _sky(d, inv_dlen)
         if cfg.integrator == "normal":
-            return torch.where(hit[:, None], nrm, sky)
-        att, em = _decode(m, p)
+            return torch.where(hit[:, None], win.n, sky)
+        att, em = _decode(win.m, win.p)
         scale = 1.0 if q.lambert_unnormalized_dot else inv_dlen
-        tq = torch.clamp((d[:, 0] * nrm[:, 0] + d[:, 1] * nrm[:, 1]
-                          + d[:, 2] * nrm[:, 2]) * scale, min=0.0)
+        tq = torch.clamp((d[:, 0] * win.n[:, 0] + d[:, 1] * win.n[:, 1]
+                          + d[:, 2] * win.n[:, 2]) * scale, min=0.0)
         lit = att * tq[:, None] * sky * 0.2 + em
         return torch.where(hit[:, None], lit, sky)
 
@@ -511,19 +886,21 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index):
     thr = torch.ones(n, 3, device=o.device)
     rad = torch.zeros(n, 3, device=o.device)
     alive = torch.ones(n, dtype=torch.bool, device=o.device)
+    winners = torch.full((cfg.max_depth + 1, n), -1, dtype=torch.int32,
+                         device=o.device)
     for step in range(cfg.max_depth + 1):
-        t, tri_w, srow, trow = _sweep_plain(tables, o, d, cfg)
-        hit = t < BIG_CUT
-        p = o + t[:, None] * d
-        nrm, m = _surface(tri_w, srow, trow, p)
-        att, em = _decode(m, p)
+        inv_dlen = _inv_len(d)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg)
+        hit = win.t < BIG_CUT
+        if want_winners:
+            winners[step] = torch.where(alive & hit,
+                                        _scene_ids(tables, win), -1)
+        att, em = _decode(win.m, win.p)
         if stream is not None:
             ball, prob = stream[step, :, 0:3], stream[step, :, 3]
         else:
             ball, prob = _rng.counter_draws(seed, index, step)
-        inv_dlen = 1.0 / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                                    + d[:, 2] * d[:, 2])
-        ok, out = _scatter(d, nrm, m, inv_dlen, ball, prob,
+        ok, out = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
                            q.dielectric_reference_cosine)
         sky = _sky(d, inv_dlen)
         can_rec = step < cfg.max_depth            # render.h:57 depth > 0
@@ -536,25 +913,28 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index):
         rad = rad + thr * contrib
         c3 = cont[:, None]
         thr = torch.where(c3, thr * att, thr)
-        o = torch.where(c3, p, o)
+        o = torch.where(c3, win.p, o)
         d = torch.where(c3, out, d)
         alive = cont
         if not bool(alive.any()):
             break
-    return rad
+    return (rad, winners) if want_winners else rad
 
 
 def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
-                          stream: Optional[Tensor] = None,
-                          seed: int = 0) -> Tensor:
+                          stream: Optional[Tensor] = None, seed: int = 0,
+                          want_winners: bool = False):
     """Plain PyTorch version of the kernel on the same tables: brute-force
     sweeps with the same formulas and a Python loop over the bounces with
-    alive masks -> radiance float32[N, 3].
+    alive masks -> radiance float32[N, 3] (and, with want_winners, the
+    winners int32[max_depth + 1, N] as the kernel records them).
 
     stream: optional float32[max_depth + 1, N, 4] injected draws; otherwise
     the counter-based draws of ``seed`` (the kernel's numbers)."""
+    if want_winners and cfg.integrator != "path":
+        raise ValueError("want_winners needs the path integrator")
     n = rays.origin.shape[0]
-    width = max(tables.sph.shape[0] + tables.tri.shape[0], 1)
+    width = max(sum(t.shape[0] for t in float_tables(tables)), 1)
     chunk = max(256, (1 << 22) // width)
     out = []
     for lo in range(0, n, chunk):
@@ -562,7 +942,13 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
         index = torch.arange(lo, hi, device=rays.origin.device)
         out.append(_plain_rays(
             tables, rays.origin[lo:hi], rays.direction[lo:hi], cfg,
-            stream[:, lo:hi] if stream is not None else None, seed, index))
+            stream[:, lo:hi] if stream is not None else None, seed, index,
+            want_winners))
+    if not want_winners:
+        return (torch.cat(out) if out else rays.origin.new_zeros(0, 3))
     if not out:
-        return rays.origin.new_zeros(0, 3)
-    return torch.cat(out)
+        return (rays.origin.new_zeros(0, 3),
+                torch.zeros(cfg.max_depth + 1, 0, dtype=torch.int32,
+                            device=rays.origin.device))
+    return (torch.cat([r for r, _ in out]),
+            torch.cat([w for _, w in out], dim=1))

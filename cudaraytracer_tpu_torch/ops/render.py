@@ -111,14 +111,16 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
 
     rays: optional Rays of n * cfg.samples rays (a pixel's samples
     adjacent); samples: optional SampleStream over the same rays.
-    tables: the fused engine's tables (built when not given);
+    tables: the fused engines' tables (built when not given; the
+    mega_diff backward gives them no gradient, so a fit passes tables built
+    from its current scene);
     intersect_fn: the wavefront's intersector (brute force when None)."""
     device = scene.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if pixel_index is None:
         pixel_index = torch.arange(cfg.width * cfg.height, device=device)
-    mega = cfg.engine == "mega"
+    mega = cfg.engine in ("mega", "mega_diff")
     if mega and tables is None:
         tables = _mk.build_mega_tables(scene)
     spp = cfg.samples

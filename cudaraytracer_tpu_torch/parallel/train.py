@@ -3,7 +3,10 @@ device (the single-device part of the JAX package's ``parallel/train.py``).
 
 Scene parameters (sphere centers and radii, texture albedos, mesh
 vertices) are fit to a target image by gradient descent on the pixel loss,
-through the wavefront engine and the sweep kernels' autograd Functions.
+through the wavefront engine and the sweep kernels' autograd Functions, or
+(``engine='mega_diff'``) through the fused kernel's forward and the replay
+backward, with the kernel's tables rebuilt from the moving scene at every
+step.
 Sharding pixels over several devices (``dp``) or prims (``tp``) comes with
 slice 7 (``torch.distributed``); here both must be 1.
 """
@@ -18,6 +21,7 @@ import torch
 from ..config import RenderConfig, check_supported
 from ..core.camera import Camera
 from ..models.scene import Scene
+from ..ops import megakernel as _mk
 from ..ops.integrators import SampleStream
 from ..ops.render import render_pixels, sweep_intersector_pair
 
@@ -51,10 +55,14 @@ def pixel_loss(scene_template: Scene, params: Params, camera: Camera,
                samples: Optional[SampleStream] = None) -> Tensor:
     """Mean squared pixel error on a pixel subset, rendered
     differentiably.  rays / samples: optional injected camera rays and
-    scatter draws (render_pixels)."""
+    scatter draws (render_pixels).  Under engine='mega_diff' the fused
+    kernel's tables are built from the scene with the params installed
+    (megakernel.py:2091-2094)."""
     scene = apply_sphere_params(scene_template, params)
+    tables = (_mk.morton_tables(scene) if cfg.engine == "mega_diff"
+              else None)
     cols = render_pixels(scene, camera, cfg, pixel_index, generator,
-                         rays=rays, samples=samples,
+                         tables=tables, rays=rays, samples=samples,
                          intersect_fn=intersect_fn)
     return torch.mean((cols - target) ** 2)
 
@@ -71,13 +79,15 @@ def _unflatten(params: Params, flat):
 
 
 def fit_config(cfg: RenderConfig) -> RenderConfig:
-    """The fit's render config: the wavefront with the attribute-carrying
-    sphere sweep (K5), the gradient workload's form in the JAX package."""
+    """The fit's render config: the attribute-carrying sphere sweep (K5) on
+    the wavefront, the gradient workload's form in the JAX package; or
+    engine='mega_diff' (the fused forward, the replay backward)."""
     cfg = dataclasses.replace(cfg, wavefront_kernel_attrs=True)
     check_supported(cfg)
-    if cfg.engine != "wavefront":
+    if cfg.engine not in ("wavefront", "mega_diff"):
         raise ValueError(f"engine={cfg.engine!r} is forward only; the fit "
-                         "differentiates through engine='wavefront'")
+                         "differentiates through engine='wavefront' or "
+                         "'mega_diff'")
     return cfg
 
 
@@ -102,14 +112,18 @@ def make_fit_step(scene_template: Scene, camera: Camera, cfg: RenderConfig,
 
     target_flat: float32[H * W, 3] (row 0 = bottom).  params: a dict of
     leaf tensors that require grad; the new params are fresh leaves.
-    use_sweeps: the sweep pair (K3/K4/K5; on a CPU tensor their plain
-    versions) or, False, the brute-force intersect."""
+    use_sweeps: the wavefront's sweep pair (K3/K4/K5; on a CPU tensor
+    their plain versions) or, False, the brute-force intersect.  Under
+    engine='mega_diff' every step renders through the fused kernel from
+    tables rebuilt from the current params."""
     if dp * tp != 1:
         raise NotImplementedError(
             f"dp={dp} x tp={tp}: multi-device fits are not ported yet: "
             "ROADMAP Queue 1 item 20 (slice 7)")
     lcfg = fit_config(cfg)
-    isect = sweep_intersector_pair(lcfg) if use_sweeps else None
+    mega = lcfg.engine == "mega_diff"
+    isect = (sweep_intersector_pair(lcfg) if use_sweeps and not mega
+             else None)
     pixel_index = torch.arange(cfg.width * cfg.height,
                                device=scene_template.device)
 

@@ -60,7 +60,9 @@ def to_numpy(record):
     arrays."""
     if isinstance(record, torch.Tensor):
         return record.detach().cpu().numpy()
-    return type(record)(*(to_numpy(v) for v in record))
+    if isinstance(record, tuple):
+        return type(record)(*(to_numpy(v) for v in record))
+    return record
 
 
 def params_from_numpy(params, device=None) -> dict:

@@ -230,7 +230,7 @@ def test_config_defaults_match_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(wavefront_compact=True), "item 22"),
-    (dict(engine="mega_diff"), "item 15"),
+    (dict(engine="mega_diff", mega_mxu=True), "K12"),
     (dict(engine="mega", compact_after=2), "item 19"),
     (dict(engine="mega", compact_every=2), "item 19"),
     (dict(engine="mega", mega_f2b_shells=4), "K11"),
@@ -247,6 +247,9 @@ def test_config_rejects_unported_knobs(kw, item):
 
 def test_config_accepts_mega():
     tconfig.check_supported(tconfig.RenderConfig(engine="mega"))
+    for replay in (True, False):
+        tconfig.check_supported(tconfig.RenderConfig(
+            engine="mega_diff", mega_replay_bwd=replay))
 
 
 def test_config_accepts_the_wavefront_and_its_knobs():

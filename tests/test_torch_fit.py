@@ -253,9 +253,9 @@ def test_fit_rejects_unported_modes():
     cfg = RenderConfig(width=8, height=4, samples=1)
     with pytest.raises(NotImplementedError, match="slice 7"):
         ttrain.make_fit_step(scene, cam, cfg, dp=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="K12"):
         ttrain.make_fit_step(scene, cam, dataclasses.replace(
-            cfg, engine="mega_diff"))
+            cfg, engine="mega_diff", mega_mxu=True))
     with pytest.raises(ValueError, match="forward only"):
         ttrain.make_fit_step(scene, cam, dataclasses.replace(cfg,
                                                              engine="mega"))
@@ -297,5 +297,5 @@ def test_fit_cli_runs_and_resumes_on_cpu(tmp_path, capsys):
     assert "resumed" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="slice 7"):
         fit_app.main(args + ["--devices", "2"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        fit_app.main(args + ["--engine", "mega_diff"])
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        fit_app.main(args + ["--engine", "mega_diff", "--tp", "2"])

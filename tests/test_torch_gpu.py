@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the fused kernel K1 and the draws K2 (csrc/megakernel.cu), the sweeps K3,
-K4 and K5 (csrc/sweeps.cu), and the wavefront render and fit through them.
+the fused kernel K1, its rect / TRS mode K8 and winner mode K7, the draws
+K2 (csrc/megakernel.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), and the
+wavefront render, the fit and the mega_diff fit through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -202,14 +203,25 @@ def test_counting_variant_matches_production(cuda):
     cfg = RenderConfig(width=64, height=32, samples=2, max_depth=DEPTH,
                        quirks=Quirks.fixed(), engine="mega")
     tables = mk.morton_tables(scene)
-    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64, device=cuda)
     counted = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
                               9, counts=counts)
     plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
     assert torch.equal(counted, plain)
-    n_box, n_sph, n_tri = counts.tolist()
+    n_box, n_sph, n_tri, n_rect, n_tsph, n_ttri = counts.tolist()
     assert n_box > 0 and n_sph > 0 and n_tri > 0
     assert n_sph % 16 == 0 and n_tri % 16 == 0
+    assert n_rect == n_tsph == n_ttri == 0
+    # K8's counting variant: every rect / TRS row once per ray and bounce
+    scene, cam = cs.trs_showcase_scene(2.0, device=cuda)
+    tables = mk.morton_tables(scene)
+    counts.zero_()
+    counted = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
+                              9, counts=counts)
+    plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
+    assert torch.equal(counted, plain)
+    n_rect, n_tsph, n_ttri = counts.tolist()[3:]
+    assert n_rect > 0 and n_tsph == 2 * n_rect and n_ttri == n_rect
 
 
 @pytest.mark.gpu
@@ -222,6 +234,165 @@ def test_exact_ties_first_sphere_wins(cuda):
     for tables in (mk.build_mega_tables(scene), mk.morton_tables(scene)):
         got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=0)
         assert torch.equal(got.cpu(), torch.from_numpy(cs.TIE_EXPECTED))
+
+
+# ---------------------------------------------------------------------------
+# Kernel modes K8 (rects, runtime-TRS prims) and K7 (winners)
+# ---------------------------------------------------------------------------
+
+def _frame(name, dev):
+    """(scene, camera, cfg) of a full-size rect / TRS frame."""
+    if name == "light_box":
+        scene, cam = presets.light_box(16 / 9, device=dev)
+        cfg = RenderConfig(width=1280, height=720, samples=16,
+                           max_depth=DEPTH, engine="mega")
+    elif name == "showcase":
+        scene, cam = cs.trs_showcase_scene(16 / 9, device=dev)
+        cfg = RenderConfig(width=1280, height=720, samples=16,
+                           max_depth=DEPTH, quirks=Quirks.fixed(),
+                           engine="mega")
+    else:
+        scene, cam = presets.random_spheres(16 / 9, device=dev)
+        cfg = RenderConfig(width=1920, height=1080, samples=16,
+                           max_depth=DEPTH, engine="mega")
+    return scene, cam, cfg
+
+
+def _first_launch(cam, cfg, dev, seed):
+    pix = swizzled_pixels(cfg.width, cfg.height, device=dev)
+    return generate_pixel_rays(
+        cam, cfg.width, cfg.height, cfg.samples,
+        pix[:cfg.ray_chunk // cfg.samples],
+        generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["light_box", "showcase"])
+def test_xform_kernel_matches_plain_on_a_full_launch(cuda, frame):
+    """K8: the first 2^18 rays of a 1280x720x16 rect / TRS frame, the three
+    integrators on an injected stream and the path on in-kernel draws."""
+    scene, cam, cfg = _frame(frame, cuda)
+    rays = _first_launch(cam, cfg, cuda, 5)
+    n = rays.origin.shape[0]
+    assert n == cfg.ray_chunk
+    tables = mk.morton_tables(scene)
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(6),
+                                   n, DEPTH, cuda)
+    st = mk.stream_tensor(stream, n, DEPTH + 1)
+    mk.reset_launch_counts()
+    for integrator in INTEGRATORS:
+        c = dataclasses.replace(cfg, integrator=integrator)
+        got = mk.trace_path_mega(scene, rays, c, tables=tables,
+                                 samples=stream)
+        _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, c, st))
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8)
+    _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg, None,
+                                                     8))
+    assert mk.LAUNCHES["mega_trace_xform"] == 4
+    assert mk.LAUNCHES["mega_trace"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["random_spheres", "showcase"])
+def test_winners_match_plain(cuda, frame):
+    """K7: the winners of one full 2^18-ray launch equal the plain
+    version's on every ray and bounce, and recording them leaves the
+    radiance as the plain launch gives it."""
+    scene, cam, cfg = _frame(frame, cuda)
+    rays = _first_launch(cam, cfg, cuda, 7)
+    tables = mk.morton_tables(scene)
+    got, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=21,
+                                  want_winners=True)
+    plain = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=21)
+    ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 21,
+                                         want_winners=True)
+    assert torch.equal(got, plain)
+    _assert_rays_match(got, ref)
+    assert win.shape == (DEPTH + 1, rays.origin.shape[0])
+    assert torch.equal(win, wref)
+    n_ids = (scene.n_spheres + scene.n_triangles + scene.n_rects
+             + scene.n_t_spheres + scene.n_t_triangles)
+    assert int(win.min()) == -1 and int(win.max()) < n_ids
+
+
+@pytest.mark.gpu
+def test_above_cap_trs_scene_matches_plain(cuda):
+    """1,100 each of rects, TRS spheres and TRS triangles, above the JAX
+    engine's 1024-per-class cap: radiance and winners against the plain
+    version."""
+    scene, cam = cs.trs_field_scene(1100, 2.0, device=cuda)
+    cfg = RenderConfig(width=128, height=64, samples=2, max_depth=4,
+                       quirks=Quirks.fixed(), engine="mega")
+    rays = generate_pixel_rays(
+        cam, 128, 64, 2, generator=torch.Generator(device=cuda).manual_seed(9))
+    tables = mk.morton_tables(scene)
+    got, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=4,
+                                  want_winners=True)
+    ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 4,
+                                         want_winners=True)
+    _assert_rays_match(got, ref)
+    assert torch.equal(win, wref)
+    assert int(win.max()) > scene.n_spheres + 2 * 1100
+
+
+@pytest.mark.gpu
+def test_mega_diff_fit_step_on_the_card_matches_the_cpu(cuda):
+    """One mega_diff fit step (K7 forward, replay backward) at 64x32x2 on
+    one injected stream: the loss and the gradients on the card against
+    the plain CPU run.  Then the seed route on the card: the kernel's
+    in-kernel draws in the forward and K2's in the replay give the
+    gradients of injecting K2's numbers."""
+    w, h, spp, depth = 64, 32, 2, 4
+    n = w * h * spp
+    cfg = train.fit_config(RenderConfig(width=w, height=h, samples=spp,
+                                        max_depth=depth, gamma=False,
+                                        engine="mega_diff"))
+    gen = torch.Generator().manual_seed(3)
+    _, cam_cpu = presets.three_spheres(2.0, device="cpu")
+    rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
+    stream = stream_from_generator(gen, n, depth, "cpu")
+    out = []
+    for dev in ("cpu", cuda):
+        scene, cam = presets.three_spheres(2.0, device=dev)
+        r = type(rays)(*(x.to(dev) for x in rays))
+        st = integ.SampleStream(stream.ball.to(dev), stream.prob.to(dev))
+        pix = torch.arange(w * h, device=dev)
+        with torch.no_grad():
+            target = render_pixels(scene, cam, cfg, pix, rays=r, samples=st)
+        params = {"albedo": (scene.textures.color0 * 0.6 + 0.1)
+                  .requires_grad_(),
+                  "centers": (scene.spheres.center + 0.05).requires_grad_()}
+        mk.reset_launch_counts()
+        loss, grads = train.value_and_grad(scene, params, cam, cfg, pix,
+                                           target, rays=r, samples=st)
+        if dev is cuda:
+            assert mk.LAUNCHES["mega_winners"] > 0
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (l_cpu, g_cpu), (l_dev, g_dev) = out
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        assert scale > 0
+        assert float((g_dev[k] - g_cpu[k]).abs().max()) <= 1e-3 * scale, k
+    # the seed route on the card
+    seed = 77
+    draws = [mk.scatter_draws(torch.empty(n, 4, device=cuda), seed, step)
+             for step in range(depth + 1)]
+    counter = integ.SampleStream(torch.stack([x[:, :3] for x in draws]),
+                                 torch.stack([x[:, 3] for x in draws]))
+    wts = torch.rand(n, 3, generator=torch.Generator(device=cuda)
+                     .manual_seed(2), device=cuda)
+    got = []
+    for kw in (dict(seed=seed), dict(samples=counter)):
+        c = scene.spheres.center.clone().requires_grad_()
+        sc = scene._replace(spheres=scene.spheres._replace(center=c))
+        img = mk.trace_path_mega_diff(sc, r, cfg,
+                                      tables=mk.morton_tables(sc), **kw)
+        got.append(torch.autograd.grad((img * wts).sum(), [c])[0])
+    # the scatter-adds of the backward use atomics: the order of the sums
+    # may change from run to run
+    assert float((got[0] - got[1]).abs().max()) <= 1e-6 * float(
+        got[1].abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +415,8 @@ def _bounced(scene, rays, cfg, seed):
     draws = mk.scatter_draws(torch.empty(n, 4, device=rays.origin.device),
                              seed, 0)
     with torch.no_grad():
-        o, d, t, _, _, cont = integ._bounce(
-            scene, cfg, sweep_intersector(cfg, True), 0, *rays,
+        o, d, t, _, _, cont, _ = integ._bounce(
+            scene, cfg, sweep_intersector(cfg, True), 0, None, *rays,
             torch.ones_like(rays.origin), torch.zeros_like(rays.origin),
             torch.ones(n, dtype=torch.bool, device=rays.origin.device),
             draws[:, :3], draws[:, 3])
@@ -261,7 +432,7 @@ def test_sphere_sweeps_match_plain(cuda, cull, attrs):
     """K3 / K5 on random_spheres (Morton order, as the trace runs it):
     camera rays, then bounced rays with an alive mask (dead lanes miss)."""
     scene, cam = presets.random_spheres(2.0, device=cuda)
-    scene = integ._morton_scene(scene)
+    scene = integ._morton_scene(scene)[0]
     sp = scene.spheres
     cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH)
     rays = generate_pixel_rays(cam, 64, 32, 4, generator=torch.Generator(
@@ -299,7 +470,7 @@ def test_triangle_sweep_matches_plain(cuda, profile, cull):
     quirks = getattr(Quirks, profile)()
     for scene, cam in (cs.icosphere_scene(2.0, device=cuda),
                        cs.mixed_scene(cuda)):
-        scene = integ._morton_scene(scene)
+        scene = integ._morton_scene(scene)[0]
         tr = scene.triangles
         cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH,
                            quirks=quirks)

@@ -170,7 +170,7 @@ def test_cli_renders_obj(tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     (["--compact-after", "2"], "item 19"),
-    (["--scene", "light_box"], "slice 5"),
+    (["--scene", "textured_globe"], "slice 5"),
 ])
 def test_cli_rejects_unported(tmp_path, argv, err):
     with pytest.raises(NotImplementedError, match=err):

@@ -64,8 +64,19 @@ def test_fbx_walk_camera_matches_jax():
 
 @pytest.mark.parametrize("name", ["light_box", "textured_globe"])
 def test_slice5_presets_raise(name):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        getattr(tpresets, name)(device="cpu")
+    """textured_globe (image textures, kernel mode K9) still raises, naming
+    slice 5; light_box (a rect, kernel mode K8) builds the JAX preset's
+    scene and camera."""
+    if name == "textured_globe":
+        with pytest.raises(NotImplementedError, match="K9.*slice 5"):
+            tpresets.textured_globe(device="cpu")
+        return
+    js, jc = jpresets.light_box(aspect=2.0)
+    ts, tc = tpresets.light_box(aspect=2.0, device="cpu")
+    _assert_records_equal(ts, _np_tree(js))
+    for a, b in zip(tc, _np_tree(jc)):
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-6)
+    assert ts.n_rects == 1 and tmk.megakernel_supported(ts)
 
 
 def test_convert_round_trip_is_exact():
@@ -116,10 +127,10 @@ def test_scene_builder_mesh_rects_and_trs_match_jax():
     _assert_records_equal(ts, _np_tree(js))
     assert (ts.n_triangles, ts.n_t_triangles, ts.n_t_spheres, ts.n_rects) \
         == (66, 1, 1, 1)
-    # rects and runtime-TRS prims are built, but the engine raises on them
-    assert not tmk.megakernel_supported(ts)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tmk.build_mega_tables(ts)
+    # rects and runtime-TRS prims are built, and the engine (K8) takes them
+    assert tmk.megakernel_supported(ts)
+    tt = tmk.build_mega_tables(ts)
+    assert (tt.rect.shape[0], tt.tsph.shape[0], tt.ttri.shape[0]) == (1, 1, 1)
 
 
 def test_with_triangle_vertices_keeps_normals():

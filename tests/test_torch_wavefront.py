@@ -261,17 +261,27 @@ def test_sphere_attrs_hits_match_jax_and_finalize():
 
 
 def test_rects_and_trs_raise():
+    """Rects and runtime-TRS prims no longer raise: both intersectors take
+    them, fold them after the spheres and triangles, and agree (the rect
+    of this scene sits behind the sphere on the first ray and alone on the
+    second); image textures still raise in the engine, naming slice 5."""
     from cudaraytracer_tpu_torch.models.scene import SceneBuilder
     b = SceneBuilder()
     m = b.materials.lambertian(color=(0.5, 0.5, 0.5))
     b.add_sphere((0, 0, -2), 0.5, m)
-    b.add_rect(m)
+    b.add_rect(m, position=(0, 0, -3), scale=(4, 4, 1))
+    b.add_sphere((1.5, 0, -2.5), 0.3, m, scale=(1, 2, 1))
     scene = b.build("cpu")
-    rays = Rays(torch.zeros(2, 3), torch.tensor([[0.0, 0, -1]] * 2),
-                torch.zeros(2))
-    for fn in (tisect.intersect_scene, tisect.intersect_scene_sweeps):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            fn(scene, rays)
+    rays = Rays(torch.zeros(3, 3),
+                torch.tensor([[0.0, 0, -1], [0.4, 0.4, -1], [1.5, 0, -2.5]]),
+                torch.zeros(3))
+    hits = [fn(scene, rays) for fn in (tisect.intersect_scene,
+                                       tisect.intersect_scene_sweeps)]
+    assert hits[0].prim.tolist() == [0, 1, 2] == hits[1].prim.tolist()
+    torch.testing.assert_close(hits[0].t, hits[1].t)
+    tb, _ = tpresets.random_spheres(textured=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tmk.build_mega_tables(tb)
 
 
 # ---------------------------------------------------------------------------
