@@ -4,12 +4,14 @@ kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-The paths: the fused render (engine='mega', kernel K1, and its rect / TRS
-mode K8 mega_trace_xform), the wavefront render (engine='wavefront': the
-sweep kernels K3 sphere_sweep and K4 triangle_sweep, the draws kernel K2
-scatter_draws), the single-device fit through the wavefront (K5
-sphere_sweep_attrs, K2) and through engine='mega_diff' (K1 recording its
-winners, K7 mega_winners, and the replay backward on K2 draws).
+The paths: the fused render (engine='mega', kernel K1, its rect / TRS
+mode K8 mega_trace_xform and its image texture mode K9 mega_trace_tex),
+the wavefront render (engine='wavefront': the sweep kernels K3
+sphere_sweep and K4 triangle_sweep, the draws kernel K2 scatter_draws), the
+single-device fit through the wavefront (K5 sphere_sweep_attrs, K2) and
+through engine='mega_diff' (K1 recording its winners, K7 mega_winners, and
+the replay backward on K2 draws).  A launch counts once for each mode it
+runs (K7, K8, K9), or as mega_trace when it runs none.
 
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
@@ -37,16 +39,24 @@ Phases (each prints lines; any failure raises and exits nonzero):
          draws), with equal winner ids (K7 on K8's scenes);
        * K7 on (g)'s first 2^18-ray launch: winners equal to the plain
          version's, radiance equal to the launch that records nothing;
+       * K9 on full 2^18-ray launches of (j) (its middle launch, both quirk
+         profiles), (k) (its middle launch) and (l) (its first): every ray
+         to PARITY_ATOL except rays whose texel flipped at an edge (at
+         most max(2, n / 10^4), printed), winners equal (K7 on K9), the
+         launch timed beside the same launch with the images swapped for
+         constant textures, its bound with 3 bytes per texel fetched;
   4. draws: the scatter_draws kernel against its plain version at the
      main path's 2^18 rays and over 2^22 samples against the unit-ball and
      uniform distributions;
   5. cross-engine: the wavefront and the fused engine on the same 2^18 rays
      of each frame (random_spheres' first launch, the icosphere's middle
      one, light_box's and the TRS showcase's first) and the same injected
-     stream; at most max(2, n/200) rays may differ by more than 1e-3; the
-     fit's first-step gradients (64x32x2) card against CPU for the
-     wavefront and for mega_diff, and mega_diff against the wavefront on
-     the card, each to 1e-3 of the largest entry;
+     stream (and (j)'s, (k)'s middle and (l)'s first launch); at most
+     max(2, n/200) rays may differ by more than 1e-3; the fit's first-step
+     gradients (64x32x2) card against CPU for the wavefront and for
+     mega_diff (three_spheres, and textured_globe for mega_diff), and
+     mega_diff against the wavefront on the card, each to 1e-3 of the
+     largest entry;
   6. main paths at full size, the launch counts set to 0 just before each
      and read just after:
        (a) random_spheres 1920x1080x16, path depth 8, reference quirks,
@@ -69,7 +79,18 @@ Phases (each prints lines; any failure raises and exits nonzero):
        (i) 1,100 each of rects, TRS spheres and TRS triangles (above the
            JAX engine's 1024-per-class cap), 640x360x4, depth 4, fixed
            quirks, fused (K8);
-  7. one JSON line of kernels: launches on the main paths, times, bounds;
+       (j) random_spheres with images, 1920x1080x16, depth 8, fixed
+           quirks, fused (K9), plus one 2^18-ray launch under the
+           reference quirks;
+       (k) the 5,120-triangle icosphere on bench.py's 128x128 image,
+           1280x720x8, depth 8, fixed quirks, fused (K9) and on the
+           wavefront;
+       (l) textured_globe 1280x720x16, depth 8, reference quirks, fused
+           (K8 and K9); through engine='mega_diff' without and with a
+           gradient (K7, K8, K9); one mega_diff fit step at (e)'s shape;
+     then ROADMAP Queue 3's replay divergence on (g)'s and (l)'s first
+     launch: the rays whose replay meets a recorded winner that the
+     replayed ray misses (printed, never a failure);
   8. the last line: {"ok": true, "device": {...}}.
 
 Writes its PNGs and the build log under chip_smoke_out/.
@@ -185,15 +206,18 @@ def bound(flops: float, bytes_: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def launch_bound(tables, n: int, tests, out_bytes: int = 12) -> tuple:
+def launch_bound(tables, n: int, tests, out_bytes: int = 12,
+                 extra_bytes: int = 0) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that made ``tests``
     (box, sphere, triangle, rect, TRS sphere, TRS triangle): their FLOPs
-    against the rays in, ``out_bytes`` per ray out and the tables."""
+    against the rays in, ``out_bytes`` per ray out, the tables and
+    ``extra_bytes`` (K9: 3 per texel fetched)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     n_box, n_sph, n_tri = tests[:3]
     flops = (n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
              + sum(c * f for c, f in zip(tests[3:], FLOP_XFORM)))
-    return bound(flops, n * (24 + out_bytes) + mk.table_bytes(tables))
+    return bound(flops, n * (24 + out_bytes) + mk.table_bytes(tables)
+                 + extra_bytes)
 
 
 def count_tests(tables, rays, cfg, seed) -> list:
@@ -836,10 +860,11 @@ def run_fit(dev, engine: str = "wavefront") -> dict:
             "peak_gib": peak / 2 ** 30, "random_spheres_step_s": dt}
 
 
-def fit_grad_parity(dev, engine: str = "wavefront") -> tuple:
+def fit_grad_parity(dev, engine: str = "wavefront",
+                    name: str = "three_spheres") -> tuple:
     """The fit's first-step gradients on the card against the plain CPU run
-    on the same injected rays and stream, at 64x32x2 (three_spheres, depth
-    4, no gamma) -> (the largest relative difference, the card's
+    on the same injected rays and stream, at 64x32x2 (the preset ``name``,
+    depth 4, no gamma) -> (the largest relative difference, the card's
     gradients)."""
     from cudaraytracer_tpu_torch.config import RenderConfig
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
@@ -856,12 +881,12 @@ def fit_grad_parity(dev, engine: str = "wavefront") -> tuple:
                                   max_depth=depth, gamma=False,
                                   engine=engine))
     gen = torch.Generator().manual_seed(4)
-    _, cam_cpu = presets.three_spheres(aspect=2.0, device="cpu")
+    _, cam_cpu = getattr(presets, name)(aspect=2.0, device="cpu")
     rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
     stream = stream_from_generator(gen, w * h * spp, depth, "cpu")
     out = {}
     for device in ("cpu", dev):
-        scene, cam = presets.three_spheres(aspect=2.0, device=device)
+        scene, cam = getattr(presets, name)(aspect=2.0, device=device)
         r = Rays(*(x.to(device) for x in rays))
         st = SampleStream(stream.ball.to(device), stream.prob.to(device))
         pix = torch.arange(w * h, device=device)
@@ -882,10 +907,11 @@ def fit_grad_parity(dev, engine: str = "wavefront") -> tuple:
         scale = float(g_cpu[k].abs().max())
         rel = float((g_dev[k] - g_cpu[k]).abs().max()) / scale
         worst = max(worst, rel)
-        print(f"[fit {engine}] first-step grad {k}: card vs CPU max rel "
-              f"{rel:.3g} (max |g| {scale:.3g})")
+        print(f"[fit {engine}] {name} first-step grad {k}: card vs CPU max "
+              f"rel {rel:.3g} (max |g| {scale:.3g})")
         check(scale > 0.0, f"zero gradient on {k}")
-    print(f"[fit {engine}] 64x32x2 loss card {l_dev:.8e} cpu {l_cpu:.8e}")
+    print(f"[fit {engine}] {name} 64x32x2 loss card {l_dev:.8e} cpu "
+          f"{l_cpu:.8e}")
     check(abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), "fit loss card vs CPU")
     check(worst <= GRAD_RTOL, f"fit gradients card vs CPU differ by {worst}")
     return worst, g_dev
@@ -1025,9 +1051,9 @@ def phase_winner_parity(dev, f: Frame) -> dict:
 
 
 def render_mega_diff(dev, f: Frame, gen) -> dict:
-    """(g): f's frame through engine='mega_diff', without a gradient (the
-    K1 launch) and with the centres requiring one (the recording launch,
-    K7): warm-up + min of 3 each, peak memory."""
+    """(g), (l): f's frame through engine='mega_diff', without a gradient
+    (the fused launch) and with the centres requiring one (the recording
+    launch, K7): warm-up + min of 3 each, peak memory."""
     from cudaraytracer_tpu_torch.ops.render import render_image
     cfg = dataclasses.replace(f.cfg, engine="mega_diff")
     out = {}
@@ -1043,13 +1069,217 @@ def render_mega_diff(dev, f: Frame, gen) -> dict:
                 scene, f.camera, cfg, generator=gen, tables=f.tables))
         peak = torch.cuda.max_memory_allocated(dev)
         check(img.requires_grad == (mode == "recording"),
-              f"(g) {mode}: autograd graph")
-        check(bool(torch.isfinite(img).all()), f"(g) {mode}: non-finite")
-        print(f"[main] (g) {f.name} mega_diff {mode}: {ms / 1e3:.4f} "
+              f"{f.name} mega_diff {mode}: autograd graph")
+        check(bool(torch.isfinite(img).all()),
+              f"{f.name} mega_diff {mode}: non-finite")
+        print(f"[main] {f.name} mega_diff {mode}: {ms / 1e3:.4f} "
               f"s/frame, peak {peak / 2 ** 30:.2f} GiB")
         out[mode] = {"frame_s": ms / 1e3, "peak_gib": peak / 2 ** 30}
         del img
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel mode K9 (image textures)
+# ---------------------------------------------------------------------------
+
+def tex_frames(dev) -> list:
+    """(j) random_spheres with images (about 1 in 5 small lambertians and
+    the big left sphere on a 128x64 image), 1920x1080x16, path depth 8,
+    fixed quirks (every lambertian hit samples its real uv); (k) the
+    5,120-triangle icosphere on bench.py's 128x128 image, 1280x720x8, depth
+    8, fixed quirks; (l) textured_globe (an image light on a rect: K8 and
+    K9), 1280x720x16, depth 8, reference quirks.  All fused, Morton
+    tables."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops.megakernel import morton_tables
+    sj, cj = presets.random_spheres(aspect=1920 / 1080, textured=True,
+                                    device=dev)
+    cfg_j = RenderConfig(width=1920, height=1080, samples=16,
+                         max_depth=DEPTH, quirks=Quirks.fixed(),
+                         engine="mega")
+    sk, ck = cs.tex_icosphere_scene(1280 / 720, device=dev)
+    check(sk.n_triangles == 5120, "tex_icosphere size")
+    cfg_k = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
+                         quirks=Quirks.fixed(), engine="mega")
+    sl, cl = presets.textured_globe(1280 / 720, device=dev)
+    cfg_l = RenderConfig(width=1280, height=720, samples=16,
+                         max_depth=DEPTH, engine="mega")
+    return [Frame("tex_spheres", sj, cj, cfg_j, morton_tables(sj)),
+            Frame("tex_icosphere", sk, ck, cfg_k, morton_tables(sk)),
+            Frame("textured_globe", sl, cl, cfg_l, morton_tables(sl))]
+
+
+def constant_textures(tables):
+    """The tables with every image material's block made a constant grey
+    texture and the images dropped: the launch takes the instance without
+    TEX over the same paths (textures never change a path), so the time
+    against the K9 launch is the texel fetch's own cost."""
+    from cudaraytracer_tpu_torch.models import textures as tx
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+
+    def strip(rows, k0):
+        rows = rows.clone()
+        img = rows[:, k0 + 1] == float(tx.IMAGE)
+        rows[img, k0 + 1] = float(tx.CONSTANT)
+        rows[img, k0 + 3:k0 + 6] = 0.5
+        return rows
+
+    return tables._replace(
+        sph=strip(tables.sph, mk.S_MAT), tri=strip(tables.tri, mk.T_MAT),
+        rect=strip(tables.rect, mk.X_MAT), tsph=strip(tables.tsph, mk.X_MAT),
+        ttri=strip(tables.ttri, mk.X_MAT),
+        images=tables.images[:1, :1, :1].contiguous())
+
+
+def texel_fetches(scene, winners) -> int:
+    """Texels a path launch fetched: one at each hit on an image lambertian
+    (its attenuation) or an image light (its emission)."""
+    from cudaraytracer_tpu_torch.models import materials as mt
+    from cudaraytracer_tpu_torch.models import textures as tx
+    mats = torch.cat([scene.spheres.mat, scene.triangles.mat,
+                      scene.rects.mat, scene.t_spheres.mat,
+                      scene.t_triangles.mat]).long()
+    m = scene.materials
+    kind = m.kind[mats]
+    image = ((scene.textures.kind[m.tex_id[mats].long()] == tx.IMAGE)
+             & ((kind == mt.LAMBERTIAN) | (kind == mt.DIFFUSE_LIGHT)))
+    return int(image[winners[winners >= 0].long()].sum())
+
+
+def compare_tex(label: str, got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """K9 against its plain version -> (max abs error, flipped rays): every
+    ray to PARITY_ATOL except rays whose texel flipped at an edge (the
+    kernel's atan2f / asinf against PyTorch's, within rounding of a texel
+    boundary), at most max(2, n / 10^4) of them."""
+    diff = (got - ref).abs().amax(dim=1)
+    n = got.shape[0]
+    flips = int((diff > PARITY_ATOL).sum())
+    limit = max(2, n // 10 ** 4)
+    err = float(diff.max())
+    print(f"[K9] {label:44s} rays {n:7d} flipped texels {flips} (limit "
+          f"{limit}) max_abs_err {err:.3g}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite radiance")
+    check(flips <= limit, f"{label}: {flips} rays differ by more than "
+          f"{PARITY_ATOL}")
+    return err, flips
+
+
+def phase_tex_parity(dev, tframes) -> dict:
+    """K9 against its plain version on full 2^18-ray launches: (j)'s middle
+    launch under both quirk profiles, (k)'s middle launch, (l)'s first:
+    three integrators on an injected stream, the path on in-kernel draws
+    with winners (K7 on K9) equal to the plain version's and radiance equal
+    to the launch that records nothing.  Times each path launch beside the
+    same launch with constant textures, and its bound with 3 bytes per
+    texel fetched."""
+    from cudaraytracer_tpu_torch.config import Quirks
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fj, fk, fl = tframes
+    launches = [(fj, "fixed", middle_chunk(fj)),
+                (fj, "reference", middle_chunk(fj)),
+                (fk, "fixed", middle_chunk(fk)), (fl, "reference", 0)]
+    out = {"max_abs_err": 0.0, "flips": 0}
+    for f, profile, k in launches:
+        cfg = dataclasses.replace(f.cfg, quirks=getattr(Quirks, profile)())
+        label = f"{f.name} {profile} launch {k}"
+        rays = first_chunk(f, gen, k)
+        n = rays.origin.shape[0]
+        stream = stream_from_generator(gen, n, DEPTH, dev)
+        st = mk.stream_tensor(stream, n, DEPTH + 1)
+
+        def note(res):
+            out["max_abs_err"] = max(out["max_abs_err"], res[0])
+            out["flips"] += res[1]
+
+        for integrator in INTEGRATORS:
+            c = dataclasses.replace(cfg, integrator=integrator)
+            got = mk.trace_path_mega(f.scene, rays, c, tables=f.tables,
+                                     samples=stream)
+            note(compare_tex(f"{label} {integrator} injected", got,
+                             mk.trace_path_mega_plain(f.tables, rays, c,
+                                                      st)))
+        seed = mk.draw_seed(gen)
+        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, cfg, tables=f.tables, seed=seed))
+        ctab = constant_textures(f.tables)
+        const_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, cfg, tables=ctab, seed=seed))
+        plain_ms, (ref, wref) = cuda_ms(lambda: mk.trace_path_mega_plain(
+            f.tables, rays, cfg, None, seed, True), reps=1, warmup=0)
+        note(compare_tex(f"{label} path in-kernel draws", got, ref))
+        got_w, win = mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                        seed=seed, want_winners=True)
+        compare_ids(f"K7+K9 {label}", win, wref)
+        check(torch.equal(got_w, got), f"{label}: recording changed the "
+              "radiance")
+        tests = count_tests(f.tables, rays, cfg, seed)
+        fetched = texel_fetches(f.scene, win)
+        b, by = launch_bound(f.tables, n, tests, extra_bytes=3 * fetched)
+        print(f"[K9] {label} path launch of {n} rays: kernel {ms:.4f} ms, "
+              f"constant textures {const_ms:.4f} ms (texel fetch "
+              f"{ms - const_ms:+.4f} ms), plain (with winners) "
+              f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}), texels fetched "
+              f"{fetched}, tests {tests}")
+        out[label] = {"ms": ms, "const_tex_ms": const_ms,
+                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "texels": fetched, "tests": tests, "rays": n}
+    return out
+
+
+def replay_divergence(dev, f: Frame, index: int = 0) -> int:
+    """ROADMAP Queue 3's risk, counted: the rays of one 2^18-ray mega_diff
+    launch whose replay (the backward's trace_path on the recorded winners,
+    K2 draws of the same seed) meets a recorded winner that fails its own
+    test on the replayed ray at some bounce.  Printed; does not fail."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import replay_misses
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rays = first_chunk(f, gen, index)
+    seed = mk.draw_seed(gen)
+    cfg = dataclasses.replace(f.cfg, engine="mega_diff")
+    _, win = mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                seed=seed, want_winners=True)
+    missed = int(replay_misses(f.scene, rays, dataclasses.replace(
+        cfg, engine="wavefront", wavefront_tpu_prng=True), win,
+        seed=seed).sum())
+    print(f"[replay] {f.name} launch {index}: {missed} of "
+          f"{rays.origin.shape[0]} rays meet a recorded winner that the "
+          f"replayed ray misses")
+    return missed
+
+
+def tex_fit_step(dev) -> dict:
+    """One mega_diff fit step on textured_globe at (e)'s 512x256x4 shape
+    (depth 4, no gamma, SGD on albedo and centres, tables rebuilt from the
+    params): a warm-up step, then one timed step."""
+    from cudaraytracer_tpu_torch.parallel.train import make_fit_step
+    scene, cam, cfg, rays, target, p0 = fit_scene("textured_globe", dev,
+                                                  "mega_diff")
+    step = make_fit_step(scene, cam, cfg, lr=0.5)
+
+    def run(p):
+        return step(p, target, torch.Generator(device=dev).manual_seed(1),
+                    rays=rays)
+
+    run(p0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss, p1 = run(p0)
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[fit mega_diff] textured_globe one step: loss {loss:.6e}, "
+          f"{dt:.4f} s, peak {peak / 2 ** 30:.2f} GiB")
+    check(math.isfinite(loss) and loss > 0.0, f"textured_globe loss {loss}")
+    check(all(bool(torch.isfinite(v).all()) for v in p1.values()),
+          "textured_globe fit step: non-finite params")
+    return {"s_per_step": dt, "loss": loss, "peak_gib": peak / 2 ** 30}
 
 
 def counted(name: str, fn, need):
@@ -1074,6 +1304,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from cudaraytracer_tpu_torch.config import Quirks
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
     from cudaraytracer_tpu_torch.ops.render import render_image
     t_start = time.perf_counter()
@@ -1096,12 +1328,17 @@ def main() -> int:
     parity = phase_parity(dev, frames)
     xparity = phase_xform_parity(dev, xframes)
     wparity = phase_winner_parity(dev, fa)
+    tframes = tex_frames(dev)
+    fj, fk, fl = tframes
+    tparity = phase_tex_parity(dev, tframes)
     sweeps = phase_sweep_parity(dev, frames)
     draws = phase_draws(dev, fa.cfg.ray_chunk)
     phase_cross_engine(dev, [(fa, 0), (fb, middle_chunk(fb)), (fh, 0),
-                             (fs, 0)])
+                             (fs, 0), (fj, middle_chunk(fj)),
+                             (fk, middle_chunk(fk)), (fl, 0)])
     grad_rel, g_wave = fit_grad_parity(dev)
     grad_rel_m, g_mega = fit_grad_parity(dev, "mega_diff")
+    grad_rel_l, _ = fit_grad_parity(dev, "mega_diff", "textured_globe")
     cross_rel = max(float((g_mega[k] - g_wave[k]).abs().max())
                     / float(g_wave[k].abs().max()) for k in g_wave)
     print(f"[fit] first-step grads on the card, mega_diff vs wavefront: max "
@@ -1173,9 +1410,48 @@ def main() -> int:
     (ms_i, _, peak_i), l_i = counted(
         "(i) TRS field fused", lambda: render_frame(dev, fi, gen),
         ("mega_trace_xform",))
+
+    def tex_spheres():
+        out = render_frame(dev, fj, gen)
+        rays = first_chunk(fj, gen, middle_chunk(fj))
+        rad = mk.trace_path_mega(fj.scene, rays, dataclasses.replace(
+            fj.cfg, quirks=Quirks.reference()), tables=fj.tables,
+            generator=gen)
+        check(bool(torch.isfinite(rad).all()), "(j) reference launch")
+        return out
+
+    (ms_j, img_j, peak_j), l_j = counted(
+        "(j) tex_spheres fused", tex_spheres, ("mega_trace_tex",))
+    (ms_k, img_k, peak_k), l_k = counted(
+        "(k) tex_icosphere fused", lambda: render_frame(dev, fk, gen),
+        ("mega_trace_tex",))
+    (ms_kw, img_kw, peak_kw), l_kw = counted(
+        "(k) tex_icosphere wavefront", lambda: render_wavefront(dev, fk, gen),
+        ("sphere_sweep", "triangle_sweep", "scatter_draws"))
+    mean_k = img_k.reshape(-1, 3).mean(0)
+    rel = ((img_kw.reshape(-1, 3).mean(0) - mean_k).abs() / mean_k).max()
+    print(f"[main] tex_icosphere wavefront vs fused channel means: max rel "
+          f"{float(rel):.4%}")
+    check(float(rel) <= 0.02, "tex_icosphere: the wavefront and fused "
+          "images disagree")
+    (ms_l, _, peak_l), l_l = counted(
+        "(l) textured_globe fused", lambda: render_frame(dev, fl, gen),
+        ("mega_trace_tex", "mega_trace_xform"))
+    mdiff_l, l_lg = counted("(l) textured_globe mega_diff forward",
+                            lambda: render_mega_diff(dev, fl, gen),
+                            ("mega_trace_tex", "mega_winners"))
+    fit_l, l_lf = counted("(l) textured_globe mega_diff fit step",
+                          lambda: tex_fit_step(dev),
+                          ("mega_trace_tex", "mega_winners",
+                           "scatter_draws"))
     per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
-                "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i}
+                "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i,
+                "j": l_j, "k_fused": l_k, "k_wavefront": l_kw,
+                "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf}
     launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
+    # ROADMAP Queue 3: replays that leave the recorded path, (g) and (l)
+    replay_g = replay_divergence(dev, fa)
+    replay_l = replay_divergence(dev, fl)
 
     # ---- the fused kernel alone over a whole frame's rays ----
     ka = kernel_at_frame_shape(dev, fa, gen)
@@ -1239,6 +1515,23 @@ def main() -> int:
                  "path 8, in-kernel draws",
         "tests": xh["tests"], "trs_showcase": xs, "trs_field_2_16": xi,
         "h_frame_s": ms_h / 1e3, "i_frame_s": ms_i / 1e3})
+    tj = tparity.pop(f"tex_spheres fixed launch {middle_chunk(fj)}")
+    rows.append({
+        "name": "mega_trace_tex", "route": "cuda",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "replaces": "cudaraytracer_tpu/ops/megakernel.py:1574",
+        "launches": launches["mega_trace_tex"],
+        "max_abs_err": tparity.pop("max_abs_err"),
+        "texel_flips": tparity.pop("flips"), "ms": tj["ms"],
+        "plain_ms": tj["plain_ms"], "bound_ms": tj["bound_ms"],
+        "bound_by": tj["bound_by"], "library_ms": None,
+        "ms_at": f"(j)'s launch {middle_chunk(fj)}: 262144 rays of "
+                 "random_spheres with images 1920x1080x16, path 8, fixed "
+                 "quirks, in-kernel draws",
+        "const_tex_ms": tj["const_tex_ms"], "texels": tj["texels"],
+        "tests": tj["tests"], "other_launches": tparity,
+        "j_frame_s": ms_j / 1e3, "k_frame_s": ms_k / 1e3,
+        "l_frame_s": ms_l / 1e3})
     paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
              "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
              "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
@@ -1250,6 +1543,14 @@ def main() -> int:
              "h_wavefront_frame_s": ms_hw / 1e3,
              "h_wavefront_peak_gib": peak_hw / 2 ** 30,
              "i_fused_frame_s": ms_i / 1e3, "i_peak_gib": peak_i / 2 ** 30,
+             "j_fused_frame_s": ms_j / 1e3, "j_peak_gib": peak_j / 2 ** 30,
+             "k_fused_frame_s": ms_k / 1e3, "k_peak_gib": peak_k / 2 ** 30,
+             "k_wavefront_frame_s": ms_kw / 1e3,
+             "k_wavefront_peak_gib": peak_kw / 2 ** 30,
+             "l_fused_frame_s": ms_l / 1e3, "l_peak_gib": peak_l / 2 ** 30,
+             "l_mega_diff_forward": mdiff_l, "l_mega_diff_fit": fit_l,
+             "l_grad_rel_card_vs_cpu": grad_rel_l,
+             "replay_divergence": {"g": replay_g, "l": replay_l},
              "launches_per_path": per_path}
     print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

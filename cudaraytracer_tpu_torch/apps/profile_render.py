@@ -1,8 +1,10 @@
-"""Where a frame's time goes on the card: random_spheres through
-``render_image`` at several ``ray_chunk`` sizes, on the fused engine (the
-default), on the wavefront through the sweep kernels (``--engine
-wavefront``), or through ``--engine mega_diff`` (with ``--grad`` the
-sphere centres require a gradient, so the forward records its winners).
+"""Where a frame's time goes on the card: random_spheres (``--textured``:
+with images), textured_globe or the textured icosphere (``--scene``)
+through ``render_image`` at several ``ray_chunk`` sizes, on the fused
+engine (the default), on the wavefront through the sweep kernels
+(``--engine wavefront``), or through ``--engine mega_diff`` (with
+``--grad`` the sphere centres require a gradient, so the forward records
+its winners).
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
 events), then one frame under ``torch.profiler``: device time by kernel and
@@ -18,6 +20,8 @@ and, last, one JSON object.
         --engine wavefront --ray-chunk 262144 4194304
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --engine mega_diff --grad --ray-chunk 262144
+    python -m cudaraytracer_tpu_torch.apps.profile_render \
+        --scene tex_icosphere --width 1280 --height 720 --spp 8 --fixed
 """
 
 from __future__ import annotations
@@ -62,6 +66,14 @@ def main(argv=None):
                     default=[1 << 18, 1 << 22, 1 << 25])
     ap.add_argument("--engine", default="mega",
                     choices=["mega", "wavefront", "mega_diff"])
+    ap.add_argument("--scene", default="random_spheres",
+                    choices=["random_spheres", "textured_globe",
+                             "tex_icosphere"])
+    ap.add_argument("--textured", action="store_true",
+                    help="random_spheres with about 1 in 5 small "
+                         "lambertians on an image")
+    ap.add_argument("--fixed", action="store_true",
+                    help="Quirks.fixed() (default: the reference quirks)")
     ap.add_argument("--grad", action="store_true",
                     help="the sphere centres require a gradient (the frame "
                          "keeps its autograd graph; mega_diff records)")
@@ -69,9 +81,9 @@ def main(argv=None):
 
     import torch
 
-    from ..config import RenderConfig
+    from ..config import Quirks, RenderConfig
     from ..core.device import resolve_device
-    from ..models import presets
+    from ..models import check_scenes, presets
     from ..ops.megakernel import morton_tables
     from ..ops.render import render_image, sweep_intersector
 
@@ -80,8 +92,15 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    scene, cam = presets.random_spheres(aspect=args.width / args.height,
-                                        device=dev)
+    aspect = args.width / args.height
+    if args.scene == "tex_icosphere":
+        scene, cam = check_scenes.tex_icosphere_scene(aspect, device=dev)
+    elif args.scene == "textured_globe":
+        scene, cam = presets.textured_globe(aspect, device=dev)
+    else:
+        scene, cam = presets.random_spheres(aspect, textured=args.textured,
+                                            device=dev)
+    quirks = Quirks.fixed() if args.fixed else Quirks.reference()
     mega = args.engine != "wavefront"
     tables = morton_tables(scene) if mega else None
     if args.grad:
@@ -93,7 +112,8 @@ def main(argv=None):
     for chunk in args.ray_chunk:
         cfg = RenderConfig(width=args.width, height=args.height,
                            samples=args.spp, max_depth=args.max_depth,
-                           engine=args.engine, ray_chunk=chunk)
+                           quirks=quirks, engine=args.engine,
+                           ray_chunk=chunk)
         gen = torch.Generator(device=dev).manual_seed(0)
         isect = None if mega else sweep_intersector(cfg)
 
@@ -141,7 +161,8 @@ def main(argv=None):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "power": smi, "engine": args.engine,
+                      "power": smi, "scene": args.scene,
+                      "textured": args.textured, "engine": args.engine,
                       "grad": args.grad, "rows": rows}))
     return 0
 

@@ -23,7 +23,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scene", default="three_spheres",
                     choices=["three_spheres", "random_spheres", "light_box",
-                             "textured_globe"])
+                             "textured_globe", "tex_icosphere"],
+                    help="tex_icosphere: a 5,120-triangle icosphere on "
+                         "bench.py's 128x128 procedural image")
+    ap.add_argument("--textured", action="store_true",
+                    help="random_spheres: about 1 in 5 small lambertians "
+                         "on a procedural image")
     ap.add_argument("--obj", default=None, help="render an OBJ mesh instead")
     ap.add_argument("--scale", type=float, default=1.0, help="OBJ scale")
     ap.add_argument("--width", type=int, default=480)
@@ -50,6 +55,8 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
     args = ap.parse_args(argv)
+    if args.textured and args.scene != "random_spheres":
+        ap.error("--textured applies to --scene random_spheres")
 
     import numpy as np
     import torch
@@ -57,7 +64,7 @@ def main(argv=None):
     from ..config import Quirks, RenderConfig
     from ..core.camera import make_camera
     from ..core.device import resolve_device
-    from ..models import presets
+    from ..models import check_scenes, presets
     from ..models.scene import SceneBuilder
     from ..ops.megakernel import megakernel_supported, morton_tables
     from ..ops.render import render_image, sweep_intersector
@@ -78,9 +85,12 @@ def main(argv=None):
         c = pts.mean(0)
         cam = make_camera(c + [0, 0.1 * ext[1], 2.2 * ext.max()], c,
                           (0, 1, 0), 40.0, aspect, 0.0, 10.0, device=device)
+    elif args.scene == "tex_icosphere":
+        scene, cam = check_scenes.tex_icosphere_scene(aspect, device=device)
     else:
+        kw = {"textured": True} if args.textured else {}
         scene, cam = getattr(presets, args.scene)(aspect=aspect,
-                                                  device=device)
+                                                  device=device, **kw)
 
     quirks = Quirks.reference() if args.quirks == "reference" \
         else Quirks.fixed()

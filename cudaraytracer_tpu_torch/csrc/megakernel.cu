@@ -2,9 +2,9 @@
 // ray in one thread.
 //
 // Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, launched
-// there by _mega_call through its single pl.pallas_call, in three of its
+// there by _mega_call through its single pl.pallas_call, in four of its
 // modes, each a compile-time parameter of mega_kernel<INTEG, COUNT, XFORM,
-// WINNERS>:
+// WINNERS, TEX>:
 //   * K1, the main-path form (spheres + triangles, tables resident,
 //     integrator path / lambert / normal, in-kernel draws or an injected
 //     (ball, prob) stream): XFORM = WINNERS = false;
@@ -14,7 +14,10 @@
 //     sweeps;
 //   * K7, WINNERS (path only): each bounce's winner in the scene's prim ids
 //     (want_winners, megakernel.py:1445-1615, mapped as _winners_to_scene
-//     :2778 does).
+//     :2778 does);
+//   * K9, TEX (path and lambert): image textures, the texel fetched in the
+//     bounce loop (what want_tex, megakernel.py:1574-1596 and :1720-1743,
+//     and _deferred_texture_radiance :2254 compute together).
 // Also exposes that kernel's draw transform as a kernel of its own,
 // scatter_draws (ops/pallas_intersect.py::_draws_kernel).
 //
@@ -69,6 +72,28 @@
 // hits (a light included), -1 at the bounce that misses and at every bounce
 // after the path ended.
 //
+// K9.  The TPU kernel cannot gather texels, so the JAX package runs it with
+// a placeholder albedo, dumps ten planes per bounce and multiplies the
+// texels back in outside the kernel.  Here the thread loads them: an image
+// material's block carries its image id, w and h in the color0 slots (an
+// image uses neither colour), and after the sweep the winner's (u, v) is
+// computed as ops/intersect.py::finalize_hits defines it: get_sphere_uv's
+// z-theta of the unit normal for spheres and TRS spheres (the normal the
+// kernel already has), the Moller-Trumbore (u, v) recomputed for a triangle
+// winner from its row (the JAX deferred pass solves a Gram system instead;
+// the port's kernel, its plain version, the wavefront and the replay all
+// use Moller-Trumbore), and the object-space (x, y) + 0.5 for rects.  The
+// nearest texel: i = int(u * w), j = int((1 - v) * h - 0.001), each
+// clamped to the image's own size (a NaN lands on texel 0), three bytes
+// each divided by 255 and rounded once (the reference's int(data) / 255.0).  Lambertian attenuation reads texel (0, 0) under
+// the lambertian_zero_uv quirk (material.h:67), the real (u, v) otherwise,
+// as does the lambert integrator's att term of an image light (scatter's
+// lam_att); emission reads the real (u, v).  Dielectrics (attenuation 1)
+// and metals (their albedo; a metal ignores its texture) fetch nothing, and
+// the normal integrator has no TEX instance.  The extra cost is one uv and
+// at most two 3-byte loads per image hit, through L1/L2; textures never
+// change a path, so the counting instance runs without TEX.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -shared -Xcompiler -fPIC  (plain C interface, loaded with ctypes;
 //        ops/_cuda.py).
@@ -82,6 +107,12 @@ constexpr float BIG = 3.4028235e38f;   // ops/intersect.py BIG
 constexpr float BIG_CUT = 1e37f;       // t >= BIG_CUT is a miss
 constexpr float TRI_EPSILON = 1e-6f;
 constexpr float TWO_PI = 6.283185307179586f;
+// get_sphere_uv's constants: float32 pi and the float32 reciprocals that the
+// plain version multiplies by
+constexpr float PI_F = 3.141592653589793f;
+constexpr float HALF_PI = 1.5707963267948966f;
+constexpr float INV_PI = 0.3183098861837907f;
+constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr int PRIM_CHUNK = 16;         // prims per chunk box
 constexpr int CHUNKS_PER_SUPER = 16;   // SUPER_T = 256 prims per super box
 constexpr int SPH_COLS = 16;  // cx cy cz r2 1/r | 9 material | 2 pad
@@ -100,11 +131,14 @@ constexpr int BLOCK = 128;
 enum Integrator { PATH = 0, LAMBERT = 1, NORMAL = 2 };
 enum Flags {
   BACKFACE_ONLY = 1, NO_T_CLIP = 2, BACK_CULLING = 4, DIE_REF_COSINE = 8,
-  LAMBERT_UNNORM = 16, INJECTED = 32
+  LAMBERT_UNNORM = 16, INJECTED = 32, LAMBERT_ZERO_UV = 64
 };
 // material kinds and texture kinds (models/materials.py, models/textures.py)
 constexpr float K_METAL = 1.f, K_DIELECTRIC = 2.f, K_LIGHT = 3.f;
-constexpr float TEX_CHECKER = 1.f;
+constexpr float TEX_CHECKER = 1.f, TEX_IMAGE = 2.f;
+constexpr float K_LAMBERTIAN = 0.f;
+// an image material's block: image id, w, h in the color0 slots
+constexpr int M_IMG = 3, M_W = 4, M_H = 5;
 
 struct Params {
   const float* sph; const float* sph_box; const float* sph_super;
@@ -122,6 +156,9 @@ struct Params {
   const int* sph_map; const int* tri_map;  // table row -> scene id
   int* winners;                            // [max_depth + 1, n] (K7)
   int n_rects, n_tsph, n_ttri, n_spheres, n_triangles;
+  // kernel mode K9: the packed images uint8[I, img_h, img_w, 3]
+  const uint8_t* images;
+  int img_h, img_w;
 };
 
 // jnp.minimum / jnp.maximum semantics: NaN in, NaN out (fminf would drop it)
@@ -338,7 +375,8 @@ __device__ __forceinline__ bool tsph_test(const Params& P, const float* row,
 // Moller-Trumbore on the object-space ray against object-space vertices,
 // the quirk gates on the transformed direction (megakernel.py:1284-1321).
 __device__ __forceinline__ bool ttri_test(const Params& P, const float* row,
-                                          const Ray& x, float& tn) {
+                                          const Ray& x, float& tn,
+                                          float* uv = nullptr) {
   const float e1x = __ldg(row + TTRI_E1), e1y = __ldg(row + TTRI_E1 + 1),
               e1z = __ldg(row + TTRI_E1 + 2);
   const float e2x = __ldg(row + TTRI_E2), e2y = __ldg(row + TTRI_E2 + 1),
@@ -357,6 +395,7 @@ __device__ __forceinline__ bool ttri_test(const Params& P, const float* row,
   const float qz = sx * e1y - sy * e1x;
   const float v = f * (x.dx * qx + x.dy * qy + x.dz * qz);
   tn = f * (e2x * qx + e2y * qy + e2z * qz);
+  if (uv) { uv[0] = u; uv[1] = v; }
   bool valid = (fabsf(a) >= TRI_EPSILON) && (u >= 0.f) && (u <= 1.f) &&
                (v >= 0.f) && (u + v <= 1.f);
   if (P.flags & BACK_CULLING) valid = valid && (a >= TRI_EPSILON);
@@ -403,10 +442,24 @@ __device__ void xform_hit(const Params& P, const Ray& r, float inv_raw,
   }
 }
 
+// get_sphere_uv (texture.h:45-50) of a unit normal, as the plain version
+// computes it: theta = asin(z) clamped (the poles +-pi/2; a NaN z gives 0).
+__device__ __forceinline__ void sphere_uv(const float n[3], float uv[2]) {
+  const float z = n[2] > 1.f ? 1.f : (n[2] < -1.f ? -1.f : n[2]);
+  const float theta = fabsf(z) < 1.f ? asinf(z)
+                    : (z > 0.f ? HALF_PI : (z < 0.f ? -HALF_PI : 0.f));
+  const float phi = atan2f(n[2], n[0]);
+  uv[0] = 1.f - (phi + PI_F) * INV_TWO_PI;
+  uv[1] = (theta + HALF_PI) * INV_PI;
+}
+
 // The rect / TRS winner's record: object-space point, rotated normal,
-// material block (recomputed with the sweep's arithmetic).
+// material block (recomputed with the sweep's arithmetic); with TEX and an
+// image material its (u, v).
+template <bool TEX>
 __device__ void load_xwinner(const Params& P, const Ray& r, const XHit& xh,
-                             float p[3], float n[3], float m[9]) {
+                             float p[3], float n[3], float m[9],
+                             float uv[2]) {
   const float* row = xh.cls == 1 ? P.rect + (size_t)xh.idx * RECT_COLS
                    : xh.cls == 2 ? P.tsph + (size_t)xh.idx * TSPH_COLS
                                  : P.ttri + (size_t)xh.idx * TTRI_COLS;
@@ -414,7 +467,7 @@ __device__ void load_xwinner(const Params& P, const Ray& r, const XHit& xh,
   float tn;
   if (xh.cls == 1) rect_test(P, row, x, tn);
   else if (xh.cls == 2) tsph_test(P, row, x, tn);
-  else ttri_test(P, row, x, tn);
+  else ttri_test(P, row, x, tn, TEX ? uv : nullptr);
   p[0] = x.ox + tn * x.dx;
   p[1] = x.oy + tn * x.dy;
   p[2] = x.oz + tn * x.dz;
@@ -430,6 +483,39 @@ __device__ void load_xwinner(const Params& P, const Ray& r, const XHit& xh,
     for (int k = 0; k < 3; ++k) n[k] = __ldg(row + k0 + k);
   }
   for (int k = 0; k < 9; ++k) m[k] = __ldg(row + X_MAT + k);
+  if constexpr (TEX) {
+    if (m[1] == TEX_IMAGE) {
+      if (xh.cls == 1) {
+        uv[0] = p[0] + 0.5f;
+        uv[1] = p[1] + 0.5f;
+      } else if (xh.cls == 2) {
+        sphere_uv(n, uv);
+      }
+    }
+  }
+}
+
+// Moller-Trumbore (u, v) of a triangle winner, recomputed from its row with
+// tri_chunk's arithmetic.
+__device__ __forceinline__ void tri_uv(const Params& P, int idx, const Ray& r,
+                                       float uv[2]) {
+  const float* row = P.tri + (size_t)idx * TRI_COLS;
+  const float4 r0 = __ldg(reinterpret_cast<const float4*>(row));
+  const float4 r1 = __ldg(reinterpret_cast<const float4*>(row + 4));
+  const float4 r2 = __ldg(reinterpret_cast<const float4*>(row + 8));
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.f / a;
+  const float sx = r.ox - r0.x, sy = r.oy - r0.y, sz = r.oz - r0.z;
+  uv[0] = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  uv[1] = f * (r.dx * qx + r.dy * qy + r.dz * qz);
 }
 
 // The winner's id in the scene's prim id space [spheres | triangles |
@@ -480,6 +566,44 @@ __device__ __forceinline__ void mat_decode(const float m[9], float px,
     att[k] = is_die ? 1.f : (is_met ? m[3 + k] : tex);
     em[k] = is_light ? tex : 0.f;
   }
+}
+
+// The nearest texel of an image material's block at (u, v)
+// (texture.h:65-76).  fmaxf drops a NaN, so a NaN coordinate lands on 0.
+__device__ __forceinline__ void texel(const Params& P, const float m[9],
+                                      float u, float v, float out[3]) {
+  const float w = m[M_W], h = m[M_H];
+  const int i = (int)fminf(fmaxf(u * w, 0.f), w - 1.f);
+  const int j = (int)fminf(fmaxf((1.f - v) * h - 0.001f, 0.f), h - 1.f);
+  const uint8_t* px =
+      P.images + (((size_t)(int)m[M_IMG] * P.img_h + j) * P.img_w + i) * 3;
+  for (int k = 0; k < 3; ++k)
+    out[k] = __fdiv_rn((float)__ldg(px + k), 255.f);
+}
+
+// mat_decode with image textures (K9).  The path integrator never uses a
+// light's attenuation, so it fetches only the texel each term needs.
+template <int INTEG>
+__device__ __forceinline__ void mat_decode_tex(const Params& P,
+                                               const float m[9],
+                                               const float p[3],
+                                               const float uv[2],
+                                               float att[3], float em[3]) {
+  const bool lam = m[0] == K_LAMBERTIAN, light = m[0] == K_LIGHT;
+  if (m[1] != TEX_IMAGE || !(lam || light)) {
+    mat_decode(m, p[0], p[1], p[2], att, em);
+    return;
+  }
+  const bool zero_uv = P.flags & LAMBERT_ZERO_UV;
+  float real[3] = {0.f, 0.f, 0.f};
+  if (light || !zero_uv) texel(P, m, uv[0], uv[1], real);
+  if (lam || INTEG == LAMBERT) {
+    if (zero_uv) texel(P, m, 0.f, 0.f, att);
+    else for (int k = 0; k < 3; ++k) att[k] = real[k];
+  } else {
+    for (int k = 0; k < 3; ++k) att[k] = 0.f;   // a light ends the path
+  }
+  for (int k = 0; k < 3; ++k) em[k] = light ? real[k] : 0.f;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11).
@@ -609,13 +733,16 @@ __device__ __forceinline__ Hit trace_hit(const Params& P, const Ray& r,
   return h;
 }
 
-template <bool XFORM>
+// The winner's point, normal and material block; with TEX and an image
+// material also its (u, v).
+template <bool XFORM, bool TEX>
 __device__ __forceinline__ void surface(const Params& P, const Ray& r,
                                         const Hit& h, const XHit& xh,
-                                        float p[3], float n[3], float m[9]) {
+                                        float p[3], float n[3], float m[9],
+                                        float uv[2]) {
   if constexpr (XFORM) {
     if (xh.cls) {
-      load_xwinner(P, r, xh, p, n, m);
+      load_xwinner<TEX>(P, r, xh, p, n, m, uv);
       return;
     }
   }
@@ -623,9 +750,24 @@ __device__ __forceinline__ void surface(const Params& P, const Ray& r,
   p[1] = r.oy + h.t * r.dy;
   p[2] = r.oz + h.t * r.dz;
   load_winner(P, h, p[0], p[1], p[2], n, m);
+  if constexpr (TEX) {
+    if (m[1] == TEX_IMAGE) {
+      if (h.tri) tri_uv(P, h.idx, r, uv);
+      else sphere_uv(n, uv);
+    }
+  }
 }
 
-template <int INTEG, bool COUNT, bool XFORM, bool WINNERS>
+// The winner's attenuation and emission.
+template <int INTEG, bool TEX>
+__device__ __forceinline__ void decode(const Params& P, const float m[9],
+                                       const float p[3], const float uv[2],
+                                       float att[3], float em[3]) {
+  if constexpr (TEX) mat_decode_tex<INTEG>(P, m, p, uv, att, em);
+  else mat_decode(m, p[0], p[1], p[2], att, em);
+}
+
+template <int INTEG, bool COUNT, bool XFORM, bool WINNERS, bool TEX>
 __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   Counts cnt{0, 0, 0, 0, 0, 0};
@@ -650,11 +792,11 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
           for (int k = 0; k < 3; ++k) res[k] += thr[k] * s[k];
           break;
         }
-        float p[3], n[3], m[9], att[3], em[3], dir[3];
-        surface<XFORM>(P, r, h, xh, p, n, m);
+        float p[3], n[3], m[9], att[3], em[3], dir[3], uv[2];
+        surface<XFORM, TEX>(P, r, h, xh, p, n, m, uv);
         if constexpr (WINNERS)
           P.winners[(size_t)step * P.n + i] = scene_id(P, h, xh);
-        mat_decode(m, p[0], p[1], p[2], att, em);
+        decode<INTEG, TEX>(P, m, p, uv, att, em);
         bool cont = false;
         if (step < P.max_depth && m[0] != K_LIGHT) {   // render.h:57
           const float4 s = (P.flags & INJECTED)
@@ -689,13 +831,13 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
       if (!hit) {
         res[0] = s[0]; res[1] = s[1]; res[2] = s[2];
       } else {
-        float p[3], n[3], m[9];
-        surface<XFORM>(P, r, h, xh, p, n, m);
+        float p[3], n[3], m[9], uv[2];
+        surface<XFORM, TEX>(P, r, h, xh, p, n, m, uv);
         if (INTEG == NORMAL) {
           res[0] = n[0]; res[1] = n[1]; res[2] = n[2];
         } else {
           float att[3], em[3];
-          mat_decode(m, p[0], p[1], p[2], att, em);
+          decode<INTEG, TEX>(P, m, p, uv, att, em);
           const float scale = (P.flags & LAMBERT_UNNORM) ? 1.f : inv_dlen;
           const float tq =
               fmaxf((r.dx * n[0] + r.dy * n[1] + r.dz * n[2]) * scale, 0.f);
@@ -718,18 +860,30 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(
     reinterpret_cast<float4*>(out)[i] = draw(seed, (uint32_t)i, step);
 }
 
+// The production instances: TEX when the caller passes the images (K9; the
+// normal integrator reads no texture and has no TEX instance).
+template <int INTEG, bool XFORM, bool TEX>
+void launch_production(const Params& P, cudaStream_t s, dim3 grid) {
+  if constexpr (INTEG == PATH) {
+    if (P.winners)
+      mega_kernel<PATH, false, XFORM, true, TEX><<<grid, BLOCK, 0, s>>>(P);
+    else
+      mega_kernel<PATH, false, XFORM, false, TEX><<<grid, BLOCK, 0, s>>>(P);
+  } else {
+    mega_kernel<INTEG, false, XFORM, false, TEX><<<grid, BLOCK, 0, s>>>(P);
+  }
+}
+
 template <int INTEG, bool XFORM>
 void launch_mega(const Params& P, cudaStream_t s) {
   const dim3 grid((P.n + BLOCK - 1) / BLOCK);
   if (P.counts) {
-    mega_kernel<INTEG, true, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
-  } else if constexpr (INTEG == PATH) {
-    if (P.winners)
-      mega_kernel<PATH, false, XFORM, true><<<grid, BLOCK, 0, s>>>(P);
-    else
-      mega_kernel<PATH, false, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
+    mega_kernel<INTEG, true, XFORM, false, false><<<grid, BLOCK, 0, s>>>(P);
+  } else if constexpr (INTEG != NORMAL) {
+    if (P.images) launch_production<INTEG, XFORM, true>(P, s, grid);
+    else launch_production<INTEG, XFORM, false>(P, s, grid);
   } else {
-    mega_kernel<INTEG, false, XFORM, false><<<grid, BLOCK, 0, s>>>(P);
+    launch_production<INTEG, XFORM, false>(P, s, grid);
   }
 }
 
@@ -751,10 +905,15 @@ extern "C" int crt_mega_trace(
     int n_tri_supers, int n_rects, int n_tsph, int n_ttri, int n_spheres,
     int n_triangles, int integrator, int max_depth, float t_min,
     float t_max, float ambient, int flags, unsigned long long seed,
-    void* cuda_stream) {
+    const void* images, int img_h, int img_w, void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
     return (int)cudaErrorInvalidValue;
+  if (images && (integrator == NORMAL || counts))
+    return (int)cudaErrorInvalidValue;
   Params P;
+  P.images = static_cast<const uint8_t*>(images);
+  P.img_h = img_h;
+  P.img_w = img_w;
   P.rect = static_cast<const float*>(rect);
   P.tsph = static_cast<const float*>(tsph);
   P.ttri = static_cast<const float*>(ttri);

@@ -10,7 +10,9 @@
   * ``fill_icosphere_scene``: a 5,120-triangle subdivided icosahedron on a
     checker ground sphere, the triangle frame of the main-path check (it
     fills 20 super boxes and 320 chunk boxes, so the two-level triangle
-    cull runs);
+    cull runs); ``fill_tex_icosphere_scene`` puts bench.py's 128x128
+    procedural image on it (a stand-in for bench.py's textured bunny,
+    whose asset the repository does not hold);
   * ``fill_trs_showcase``: runtime-TRS spheres (one checker), a runtime-TRS
     metal triangle, a ground sphere and a rect light (the showcase of
     tests/test_transform_prims.py), every rect / TRS path of kernel mode
@@ -154,9 +156,41 @@ def fill_icosphere_scene(b):
 
 def icosphere_scene(aspect: float, device=None):
     """(Scene, Camera) of ``fill_icosphere_scene``."""
-    cam = make_camera((0, 1.6, 4.5), (0, 0.9, 0), (0, 1, 0), 40.0, aspect,
-                      0.0, 10.0, device=device)
-    return fill_icosphere_scene(SceneBuilder()).build(device), cam
+    return fill_icosphere_scene(SceneBuilder()).build(device), \
+        _icosphere_camera(aspect, device)
+
+
+def _icosphere_camera(aspect: float, device=None):
+    return make_camera((0, 1.6, 4.5), (0, 0.9, 0), (0, 1, 0), 40.0, aspect,
+                       0.0, 10.0, device=device)
+
+
+def _bench_texture() -> np.ndarray:
+    """bench.py's 128x128 procedural image (bench.py:131-134),
+    uint8[128, 128, 3]."""
+    jj, ii = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    return np.stack([(ii * 5 + jj * 3) % 256, (ii * 11) % 256,
+                     (jj * 7) % 256], -1).astype(np.uint8)
+
+
+def fill_tex_icosphere_scene(b):
+    """``fill_icosphere_scene`` with the mesh on a lambertian textured by
+    ``_bench_texture``: its Moller-Trumbore (u, v) picks the texel."""
+    pts, faces = icosphere(4)
+    m = b.materials
+    b.add_sphere((0, -1000, 0), 1000.0, m.lambertian(
+        tex_id=m.textures.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    b.add_mesh(pts, faces,
+               m.lambertian(tex_id=m.textures.image(_bench_texture())),
+               reverse_winding=False, position=(0, 1, 0))
+    return b
+
+
+def tex_icosphere_scene(aspect: float, device=None):
+    """(Scene, Camera) of ``fill_tex_icosphere_scene``, the icosphere's
+    camera."""
+    return fill_tex_icosphere_scene(SceneBuilder()).build(device), \
+        _icosphere_camera(aspect, device)
 
 
 def fill_trs_showcase(b):

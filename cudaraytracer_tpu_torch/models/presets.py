@@ -4,10 +4,9 @@ same scene).
   three_spheres  - lambertian / metal / dielectric trio on a ground sphere.
   random_spheres - the "One Weekend" final scene (484 spheres at n = 22).
   light_box      - an emissive rect over a checker floor and a metal sphere.
+  textured_globe - an image-textured globe under an image-textured rect
+                   light (kernel modes K8 and K9 in the fused engine).
   fbx_walk_camera - the FBX pipeline's camera (createScene.h:160).
-
-``textured_globe`` holds image textures, kernel mode K9, which comes with
-slice 5.
 """
 
 from __future__ import annotations
@@ -42,8 +41,8 @@ def random_spheres(aspect: float = 16 / 9, seed: int = 7, n: int = 22,
     """'One Weekend' final scene: n x n grid of small random spheres + 3 big.
 
     textured=True swaps ~1 in 5 small lambertians (and the big left sphere)
-    to a procedural image texture; the fused engine raises on it until
-    slice 5."""
+    to a shared procedural 128x64 image texture, the headline frame with
+    images (kernel mode K9 in the fused engine)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
@@ -107,9 +106,40 @@ def light_box(aspect: float = 1.0, device=None):
 
 
 def textured_globe(aspect: float = 16 / 9, device=None):
-    raise NotImplementedError(
-        "textured_globe holds image textures (kernel mode K9): ROADMAP "
-        "Queue 1 item 17 (slice 5)")
+    """Image-textured lambertian globe (a procedural lat/long swirl) and an
+    image-textured overhead rect light over a checker floor, beside a glass
+    and a metal sphere: the ImageTexture showcase (texture.h:54-76).  The
+    globe's image is texture 0, so the glass and the metal sphere's default
+    tex_id points at it: a metal ignores it."""
+    device = resolve_device(device)
+    b = SceneBuilder()
+    m = b.materials
+    # procedural "earth-like" texture: latitude bands + longitudinal swirl
+    h, w = 128, 256
+    jj, ii = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    lat = jj / (h - 1.0)
+    lon = ii / (w - 1.0)
+    swirl = 0.5 + 0.5 * np.sin(12.0 * np.pi * lon + 6.0 * np.sin(
+        4.0 * np.pi * lat))
+    land = (swirl * (1.0 - lat) > 0.35)
+    img = np.where(land[..., None],
+                   np.stack([0.25 + 0.5 * lat] * 3, -1) * [0.9, 0.7, 0.3],
+                   np.stack([0.1 + 0.2 * lat, 0.3 + 0.3 * lat,
+                             0.7 + 0.25 * lat], -1))
+    globe_tex = m.textures.image((img * 255).astype(np.uint8))
+    glow = (np.full((16, 16, 3), 255) * np.linspace(
+        0.6, 1.0, 16)[:, None, None]).astype(np.uint8)
+    light_tex = m.textures.image(glow)
+    b.add_sphere((0, -100.5, -3), 100.0, m.lambertian(
+        m.textures.checker((.8, .8, .8), (.25, .3, .25))))
+    b.add_sphere((0, 0.05, -3), 0.6, m.lambertian(tex_id=globe_tex))
+    b.add_sphere((-1.3, 0, -3), 0.5, m.dielectric(1.5))
+    b.add_sphere((1.3, 0, -3), 0.5, m.metal((0.85, 0.8, 0.75), fuzz=0.03))
+    b.add_rect(m.diffuse_light(tex_id=light_tex), position=(0, 2.0, -3),
+               rotation=(90, 0, 0), scale=(2.5, 2.5, 1))
+    cam = make_camera((0, 0.5, 1.4), (0, 0.15, -3), (0, 1, 0), 50.0,
+                      aspect, 0.0, 4.5, device=device)
+    return b.build(device), cam
 
 
 def fbx_walk_camera(aspect: float = 2.0, device=None) -> Camera:

@@ -5,8 +5,8 @@ render.h:119-121: ``shade`` (the path tracer, render.h:48-67),
 ``LambertShade`` (render.h:70-87) and ``shade_normal`` (render.h:90-103).
 
 Three engines run them:
-  * ``engine='mega'``: all three in the fused kernel K1
-    (``ops/megakernel.py``), forward only;
+  * ``engine='mega'``: all three in the fused kernel (``ops/megakernel.py``;
+    K1, with rects / TRS prims K8, with image textures K9), forward only;
   * ``engine='wavefront'`` (the default): one intersection per bounce over
     the whole ray batch, then differentiable shading in tensor ops
     (``trace_path``, ``lambert_shade``, ``shade_normal``).  The intersector
@@ -185,6 +185,18 @@ def _bounce(scene, cfg, isect_fn, step, win, o, d, tm, throughput,
             torch.where(alive & hits.hit, hits.prim.to(torch.int32), -1))
 
 
+def _draws(cfg: RenderConfig, step: int, n: int, dev, samples, seed,
+           generator):
+    """One bounce's (ball, prob) draws, in the order of precedence of the
+    module docstring."""
+    if samples is not None:
+        return samples.ball[step], samples.prob[step]
+    if cfg.wavefront_tpu_prng:
+        draws = _mk.scatter_draws(torch.empty(n, 4, device=dev), seed, step)
+        return draws[:, :3], draws[:, 3]
+    return _mat.scatter_draws(n, generator, dev)
+
+
 def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
                intersect_fn=None, samples: Optional[SampleStream] = None,
                seed: Optional[int] = None,
@@ -228,14 +240,7 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     use_ckpt = checkpoint and torch.is_grad_enabled()
     recorded = []
     for step in range(cfg.max_depth + 1):
-        if samples is not None:
-            ball, prob = samples.ball[step], samples.prob[step]
-        elif cfg.wavefront_tpu_prng:
-            draws = _mk.scatter_draws(torch.empty(n, 4, device=dev), seed,
-                                      step)
-            ball, prob = draws[:, :3], draws[:, 3]
-        else:
-            ball, prob = _mat.scatter_draws(n, generator, dev)
+        ball, prob = _draws(cfg, step, n, dev, samples, seed, generator)
         body = functools.partial(
             _bounce, scene, cfg, primary_fn if step == 0 else bounce_fn,
             step, winners[step] if winners is not None else None)
@@ -250,6 +255,32 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
         return radiance
     return radiance, _winners_to_scene(torch.stack(recorded), n_s, n_t,
                                        s_order, t_order)
+
+
+@torch.no_grad()
+def replay_misses(scene: Scene, rays: Rays, cfg: RenderConfig,
+                  winners: Tensor, samples: Optional[SampleStream] = None,
+                  seed: Optional[int] = None) -> Tensor:
+    """bool[N]: the rays whose replay of recorded winners (the mega_diff
+    backward's ``trace_path(winners=)``, on the same draws) meets, at some
+    bounce, a winner that fails its own test on the replayed ray
+    (``megakernel.winner_valid``): where the replay's arithmetic and the
+    kernel's rounded a decision apart (ROADMAP Queue 3)."""
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    throughput = torch.ones(n, 3, device=dev)
+    radiance = torch.zeros(n, 3, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    o, d, tm = rays
+    missed = torch.zeros(n, dtype=torch.bool, device=dev)
+    for step in range(cfg.max_depth + 1):
+        missed |= ~_mk.winner_valid(scene, Rays(o, d, tm), winners[step],
+                                    cfg)
+        ball, prob = _draws(cfg, step, n, dev, samples, seed, None)
+        o, d, tm, throughput, radiance, alive, _ = _bounce(
+            scene, cfg, None, step, winners[step], o, d, tm, throughput,
+            radiance, alive, ball, prob)
+    return missed
 
 
 def lambert_shade(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -286,9 +317,13 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
               generator: Optional[torch.Generator] = None,
               seed: Optional[int] = None, intersect_fn=None) -> Tensor:
     """Radiance float32[N, 3] of the rays under cfg.integrator and
-    cfg.engine.  The fused engines raise on scenes their kernel does not
-    take yet (image textures, streamed sizes), naming the slice that brings
-    them; nothing falls back to the wavefront."""
+    cfg.engine, as JAX ``integrate`` routes them (integrators.py:399-441):
+    under engine='mega' all three integrators go to the fused kernel (image
+    scenes too, in kernel mode K9; normal reads no texture); under
+    engine='mega_diff' the path goes to ``trace_path_mega_diff`` and
+    lambert and normal to the wavefront.  The fused engines raise on scenes
+    their kernel does not take yet (streamed sizes), naming the slice that
+    brings them; nothing falls back to the wavefront."""
     check_supported(cfg)
     if cfg.engine == "mega_diff" and cfg.integrator == "path":
         return _mk.trace_path_mega_diff(scene, rays, cfg, tables=tables,

@@ -8,7 +8,13 @@ kernel's modes ported so far:
     reference TransformRay after the sphere and triangle sweeps;
   * K7: the path integrator records each bounce's winner in the scene's
     prim ids, for the replay backward of ``engine='mega_diff'``
-    (``trace_path_mega_diff``).
+    (``trace_path_mega_diff``);
+  * K9: image textures, the texel fetched in the bounce loop at the
+    winner's (u, v).  The JAX package dumps ten planes per bounce and
+    multiplies the texels back in outside its kernel (deferred texturing,
+    ``trace_path_mega_tex``), because a TPU kernel cannot gather texels; a
+    CUDA thread loads them, so the port has no plane dump and no
+    reconstruction pass.
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
 prims in the same (optionally Morton) order, the same per-prim columns, the
@@ -22,7 +28,10 @@ scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
     tile), and the rect / TRS tables no padding at all: a thread walks
     their rows one by one, with no chunks and no 1024-per-class cap;
   * no segment boxes or MXU coefficients: those serve kernel modes K6 and
-    K12, later slices.
+    K12, later slices;
+  * no texture info table: an image material's block carries its image id,
+    w and h in the colour slots it does not use, and the kernel reads the
+    scene's packed images in place (``MegaTables.images``).
 Masks are bools, not f32; the sweep carries no attributes (the winner's row
 is loaded after it).
 
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -66,6 +76,8 @@ MAX_VMEM_PRIMS = 8192
 S_CX, S_CY, S_CZ, S_R2, S_INVR, S_MAT = 0, 1, 2, 3, 4, 5
 T_V0, T_E1, T_E2, T_N, T_MAT = 0, 3, 6, 9, 12
 N_MAT_COMPS = 9             # kind, tex kind, aux, color0 rgb, color1 rgb
+# an image material's block: image id, w, h in the color0 slots
+M_IMG, M_W, M_H = 3, 4, 5
 SPH_COLS, TRI_COLS = 16, 24
 # Rect and runtime-TRS rows share a head: position, scale, the row-major
 # rotation matrix (vec3.h:200-217), the material block.
@@ -80,15 +92,22 @@ C_SPH, C_TRI, C_RECT, C_TSPH, C_TTRI = 0, 1, 2, 3, 4
 INTEGRATOR_IDS = {"path": 0, "lambert": 1, "normal": 2}
 F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
 F_DIE_REF_COSINE, F_LAMBERT_UNNORM, F_INJECTED = 8, 16, 32
+F_LAMBERT_ZERO_UV = 64
+# get_sphere_uv's constants as float32 products (the fused paths multiply by
+# the reciprocals, so that the kernel and its plain version round alike on
+# the card, where PyTorch turns a division by a scalar into a multiply)
+PI, HALF_PI = math.pi, math.pi / 2.0
+INV_PI, INV_TWO_PI = 1.0 / math.pi, 1.0 / (2.0 * math.pi)
 # tests counted by the counting variant: boxes, spheres, triangles, rects,
 # TRS spheres, TRS triangles
 N_COUNTS = 6
 
 # Launches of each kernel since the last reset_launch_counts(): the fused
-# kernel without and with the rect / TRS sweeps (K1, K8), its winner-
-# recording form (K7), and the draws (K2).
+# kernel in its main-path form (K1: none of the modes below), a launch
+# adding one to each mode it runs: the rect / TRS sweeps (K8), the winner
+# recording (K7), the texel fetch (K9); and the draws (K2).
 LAUNCHES = {"mega_trace": 0, "mega_trace_xform": 0, "mega_winners": 0,
-            "scatter_draws": 0}
+            "mega_trace_tex": 0, "scatter_draws": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,6 +127,8 @@ class MegaTables(NamedTuple):
     ttri: Tensor       # float32[TT, 40]
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
+    images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
+                       # by reference (I = 1: none registered, the dummy)
     n_spheres: int     # the scene's counts (the id offsets of the winners)
     n_triangles: int
 
@@ -121,17 +142,21 @@ def float_tables(tables: MegaTables) -> list:
 
 
 def table_bytes(tables: MegaTables) -> int:
-    """Bytes of every table the kernel reads."""
+    """Bytes of every table the kernel reads, the images aside (the texels
+    a launch fetches are counted by the caller)."""
     return sum(t.numel() * t.element_size() for t in tables
-               if isinstance(t, torch.Tensor))
+               if isinstance(t, torch.Tensor) and t is not tables.images)
+
+
+def has_images(tables: MegaTables) -> bool:
+    """The scene registers an image texture: launches take kernel mode K9
+    (the normal integrator aside, which reads no texture)."""
+    return tables.images.shape[0] > 1
 
 
 def _unsupported(scene: Scene) -> Optional[str]:
     """Why the ported kernel modes cannot render the scene (naming the
     ROADMAP item that brings it), or None."""
-    if scene.textures.images.shape[0] > 1:
-        return ("image textures (kernel mode K9) are not ported yet: "
-                "ROADMAP Queue 1 item 17 (slice 5)")
     if max(scene.n_spheres, scene.n_triangles) > MAX_VMEM_PRIMS:
         return (f"more than {MAX_VMEM_PRIMS} prims of one type need the "
                 "streamed form (kernel mode K6): ROADMAP Queue 1 item 18 "
@@ -141,8 +166,8 @@ def _unsupported(scene: Scene) -> Optional[str]:
 
 def megakernel_supported(scene: Scene) -> bool:
     """Scenes the ported kernel modes serve: spheres and triangles (up to
-    MAX_VMEM_PRIMS each), rects and runtime-TRS prims (any count), constant
-    and checker textures."""
+    MAX_VMEM_PRIMS each), rects and runtime-TRS prims (any count), constant,
+    checker and image textures."""
     return _unsupported(scene) is None
 
 
@@ -191,13 +216,20 @@ def _mat_lanes(scene: Scene, mat_id: Tensor) -> Tensor:
     """float32[N, 9] per-prim material block: kind, texture kind, aux
     (metal fuzz | dielectric ref_idx), color0, color1.  Metal's attenuation
     is its albedo, folded into color0 with a constant texture kind
-    (megakernel.py:259-287)."""
+    (megakernel.py:259-287): a metal ignores textures, also when its
+    default tex_id points at an image.  An image texture uses neither
+    colour, so its block carries the image id, w and h in color0."""
     m, t = scene.materials, scene.textures
     mat_id = mat_id.long()
     kind = m.kind[mat_id]
     tex_id = m.tex_id[mat_id].long()
     is_metal = kind == _mat.METAL
+    img = t.image_id[tex_id].long()
+    img_block = torch.cat([img[:, None], t.image_wh[img]], 1).to(
+        torch.float32)
+    is_img = (t.kind[tex_id] == _tex.IMAGE) & ~is_metal
     c0 = torch.where(is_metal[:, None], m.albedo[mat_id], t.color0[tex_id])
+    c0 = torch.where(is_img[:, None], img_block, c0)
     tex_kind = torch.where(is_metal, _tex.CONSTANT, t.kind[tex_id])
     aux = torch.where(is_metal, m.fuzz[mat_id], m.ref_idx[mat_id])
     return torch.cat([kind.to(torch.float32)[:, None],
@@ -303,7 +335,7 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
                                 n, n_w], 1), TTRI_COLS)
     return MegaTables(*(x.contiguous() for x in (
         sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
-        sph_map, tri_map)), n_s, n_t)
+        sph_map, tri_map, scene.textures.images)), n_s, n_t)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -332,7 +364,8 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_crt_declared", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.crt_mega_trace.argtypes = (
-            [vp] * 17 + [ci] * 11 + [cf] * 3 + [ci, ctypes.c_uint64, vp])
+            [vp] * 17 + [ci] * 11 + [cf] * 3
+            + [ci, ctypes.c_uint64, vp, ci, ci, vp])
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
@@ -371,6 +404,7 @@ def _flags(cfg: RenderConfig, injected: bool) -> int:
             | (F_BACK_CULLING if q.triangle_back_culling else 0)
             | (F_DIE_REF_COSINE if q.dielectric_reference_cosine else 0)
             | (F_LAMBERT_UNNORM if q.lambert_unnormalized_dot else 0)
+            | (F_LAMBERT_ZERO_UV if q.lambertian_zero_uv else 0)
             | (F_INJECTED if injected else 0))
 
 
@@ -385,7 +419,13 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     counts: optional int64[6] CUDA tensor that the kernel adds its box,
     sphere, triangle, rect, TRS-sphere and TRS-triangle tests to
     (measurement only: given, a separately compiled counting variant runs;
-    the production variants count nothing)."""
+    the production variants count nothing).  The counting variant fetches no
+    texel: textures never change a path (every material's scatter and its
+    end are independent of the colour), so it makes the tests of the
+    launch it stands for, and its radiance is not the scene's.
+
+    A scene with images takes kernel mode K9 (the normal integrator, which
+    reads no texture, aside)."""
     n = origin.shape[0]
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))
@@ -396,6 +436,12 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         if t.device != origin.device:
             raise ValueError(f"{name} is on {t.device}, rays on "
                              f"{origin.device}")
+    tex = has_images(tables) and cfg.integrator != "normal"
+    if tex:
+        _require_cuda("images", tables.images, torch.uint8)
+        if tables.images.device != origin.device:
+            raise ValueError(f"images are on {tables.images.device}, rays "
+                             f"on {origin.device}")
     if stream is not None:
         _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n, 4))
     if counts is not None and (counts.dtype != torch.int64
@@ -430,11 +476,15 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             float(np.float32(cfg.t_max)),
             float(cfg.quirks.ambient_on_absorb),
             _flags(cfg, stream is not None), seed & (2 ** 64 - 1),
-            cuda_stream)
+            tables.images.data_ptr() if tex and counts is None else None,
+            tables.images.shape[1], tables.images.shape[2], cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
-        LAUNCHES["mega_winners" if want_winners
-                 else "mega_trace_xform" if n_x else "mega_trace"] += 1
+        modes = [k for k, on in (("mega_trace_xform", n_x),
+                                 ("mega_winners", want_winners),
+                                 ("mega_trace_tex", tex)) if on]
+        for k in modes or ["mega_trace"]:
+            LAUNCHES[k] += 1
     return (out, winners) if want_winners else out
 
 
@@ -650,40 +700,60 @@ def _tsph_test(rows, xo, xd, t_min, t_max, quirks):
     return ok0 | ok1, torch.where(ok0, t0, t1)
 
 
-def _ttri_test(rows, xo, xd, t_min, t_max, quirks):
-    """Moller-Trumbore on the object-space ray with the quirk gates on the
-    transformed direction against the object normal -> (valid, native
-    t)."""
-    ox, oy, oz = xo
-    dx, dy, dz = xd
-    e1x, e1y, e1z = (rows[..., TTRI_E1 + k] for k in range(3))
-    e2x, e2y, e2z = (rows[..., TTRI_E2 + k] for k in range(3))
+def _mt(o, d, v0, e1, e2):
+    """Moller-Trumbore in the kernel's order of operations -> (determinant,
+    u, v, t); every argument a 3-list of components."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     hx = dy * e2z - dz * e2y
     hy = dz * e2x - dx * e2z
     hz = dx * e2y - dy * e2x
     a = e1x * hx + e1y * hy + e1z * hz
     f = 1.0 / a
-    sx = ox - rows[..., TTRI_V0]
-    sy = oy - rows[..., TTRI_V0 + 1]
-    sz = oz - rows[..., TTRI_V0 + 2]
+    sx, sy, sz = ox - v0[0], oy - v0[1], oz - v0[2]
     u = f * (sx * hx + sy * hy + sz * hz)
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
     qz = sx * e1y - sy * e1x
     v = f * (dx * qx + dy * qy + dz * qz)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
+    return a, u, v, t
+
+
+def _cols(rows: Tensor, k0: int) -> list:
+    return [rows[..., k0 + k] for k in range(3)]
+
+
+def _ttri_mt(rows, xo, xd):
+    return _mt(xo, xd, _cols(rows, TTRI_V0), _cols(rows, TTRI_E1),
+               _cols(rows, TTRI_E2))
+
+
+def _mt_valid(a, u, v, t, d, nrm, t_min, t_max, quirks):
+    """The Moller-Trumbore hit test with the quirk gates (triangle.h:61-94;
+    the backface gate on direction d against normal nrm, 3-lists)."""
     valid = ((a.abs() >= TRI_EPSILON) & (u >= 0.0) & (u <= 1.0)
              & (v >= 0.0) & (u + v <= 1.0))
     if quirks.triangle_back_culling:
         valid &= a >= TRI_EPSILON
     if quirks.triangle_backface_only:
-        valid &= (dx * rows[..., TTRI_NOBJ] + dy * rows[..., TTRI_NOBJ + 1]
-                  + dz * rows[..., TTRI_NOBJ + 2]) >= 0.0
+        valid &= (d[0] * nrm[0] + d[1] * nrm[1] + d[2] * nrm[2]) >= 0.0
     if quirks.triangle_no_t_clip:
         valid &= t < t_max
     else:
         valid &= (t > t_min) & (t < t_max)
-    return valid, t
+    return valid
+
+
+def _ttri_test(rows, xo, xd, t_min, t_max, quirks):
+    """Moller-Trumbore on the object-space ray with the quirk gates on the
+    transformed direction against the object normal -> (valid, native
+    t)."""
+    a, u, v, t = _ttri_mt(rows, xo, xd)
+    return _mt_valid(a, u, v, t, xd, _cols(rows, TTRI_NOBJ), t_min, t_max,
+                     quirks), t
 
 
 # (winner class, table field, test) of the transform-tested classes, in
@@ -699,15 +769,31 @@ class _Winner(NamedTuple):
     p: Tensor      # float32[N, 3] hit point (object space for rect / TRS)
     n: Tensor      # float32[N, 3] normal
     m: Tensor      # float32[N, 9] material block
+    uv: Optional[tuple]   # (u, v) float32[N] each, when asked
+
+
+def _sphere_uv(n: Tensor) -> tuple:
+    """get_sphere_uv (texture.h:45-50) of unit normals float32[N, 3], the
+    z-theta form of intersect._sphere_record: phi = atan2(z, x), theta =
+    asin(z) clamped (the poles +-pi/2, a NaN z gives 0), the divisions
+    written as products by float32 reciprocals."""
+    z = torch.clamp(n[:, 2], -1.0, 1.0)
+    pole = torch.where(z > 0.0, HALF_PI, torch.where(z < 0.0, -HALF_PI, 0.0))
+    theta = torch.where(z.abs() < 1.0, torch.asin(z), pole)
+    phi = torch.atan2(n[:, 2], n[:, 0])
+    return 1.0 - (phi + PI) * INV_TWO_PI, (theta + HALF_PI) * INV_PI
 
 
 def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
-                 cfg: RenderConfig) -> _Winner:
+                 cfg: RenderConfig, want_uv: bool = False) -> _Winner:
     """Brute-force closest hit over the same tables with the same formulas
     and the same order: spheres, then triangles (a triangle wins only when
     strictly nearer), then rects, TRS spheres and TRS triangles, each
     compared as native t times 1 / |raw d| and winning only when strictly
-    nearer; min returns the first row on ties.  Then the winner's record."""
+    nearer; min returns the first row on ties.  Then the winner's record,
+    with want_uv its texture (u, v): the sphere z-theta of the normal,
+    Moller-Trumbore (u, v) for triangles, the object-space (x, y) + 0.5 for
+    rects (intersect.finalize_hits' definitions)."""
     n = o.shape[0]
     # the kernel takes t_min / t_max as float32
     t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
@@ -754,6 +840,12 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
                     srow[:, S_MAT:S_MAT + N_MAT_COMPS])
     oc = [o[:, k] for k in range(3)]
     dc = [d[:, k] for k in range(3)]
+    uv = None
+    if want_uv:
+        su, sv = _sphere_uv(s_n)
+        _, tu, tv, _ = _mt(oc, dc, _cols(trow, T_V0), _cols(trow, T_E1),
+                           _cols(trow, T_E2))
+        uv = (torch.where(is_t[:, 0], tu, su), torch.where(is_t[:, 0], tv, sv))
     for c, name, test in _XFORM:
         rows = getattr(tables, name)
         win = cls == c
@@ -775,7 +867,65 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
         p = torch.where(w3, xp, p)
         nrm = torch.where(w3, xn, nrm)
         m = torch.where(w3, row[:, X_MAT:X_MAT + N_MAT_COMPS], m)
-    return _Winner(t, cls, idx, p, nrm, m)
+        if want_uv:
+            if c == C_RECT:
+                xu, xv = xp[:, 0] + 0.5, xp[:, 1] + 0.5
+            elif c == C_TSPH:
+                xu, xv = _sphere_uv(xn)
+            else:
+                _, xu, xv, _ = _ttri_mt(row, xo, xd)
+            uv = (torch.where(win, xu, uv[0]), torch.where(win, xv, uv[1]))
+    return _Winner(t, cls, idx, p, nrm, m, uv)
+
+
+def winner_valid(scene: Scene, rays: Rays, winner: Tensor,
+                 cfg: RenderConfig) -> Tensor:
+    """bool[N]: whether each recorded winner (scene prim ids, -1 for a
+    miss, which counts as valid) passes the kernel's own test on these rays,
+    in the plain version's arithmetic.  The mega_diff replay
+    (``intersect.replay_hits``) follows the recorded winners without
+    testing them again, so a False marks a ray whose replay has left the
+    path the kernel traced (ROADMAP Queue 3)."""
+    tables = build_mega_tables(scene)          # scene order: row = id
+    t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
+    w = winner.long()
+    oc = [rays.origin[:, k] for k in range(3)]
+    dc = [rays.direction[:, k] for k in range(3)]
+    n_s, n_t = tables.n_spheres, tables.n_triangles
+    ok = w < 0
+    if n_s:
+        row = tables.sph[w.clamp(0, n_s - 1)]
+        ocx, ocy, ocz = (oc[k] - row[:, S_CX + k] for k in range(3))
+        dx, dy, dz = dc
+        a = dx * dx + dy * dy + dz * dz
+        b = ocx * dx + ocy * dy + ocz * dz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - row[:, S_R2]
+        disc = b * b - a * c
+        has = disc > 0.0
+        sq = torch.sqrt(torch.where(has, disc, 0.0))
+        inv_a = 1.0 / a
+        t0, t1 = (-b - sq) * inv_a, (-b + sq) * inv_a
+        valid = has & (((t0 < t_max) & (t0 > t_min))
+                       | ((t1 < t_max) & (t1 > t_min)))
+        ok |= (w >= 0) & (w < n_s) & valid
+    if n_t:
+        row = tables.tri[(w - n_s).clamp(0, n_t - 1)]
+        a, u, v, t = _mt(oc, dc, _cols(row, T_V0), _cols(row, T_E1),
+                         _cols(row, T_E2))
+        valid = _mt_valid(a, u, v, t, dc, _cols(row, T_N), t_min, t_max,
+                          cfg.quirks)
+        ok |= (w >= n_s) & (w < n_s + n_t) & valid
+    base = n_s + n_t
+    for _, name, test in _XFORM:
+        rows = getattr(tables, name)
+        k = rows.shape[0]
+        if k:
+            row = rows[(w - base).clamp(0, k - 1)]
+            valid, _ = test(row, *_xray(row, oc, dc), t_min, t_max,
+                            cfg.quirks)
+            ok |= (w >= base) & (w < base + k) & valid
+        base += k
+    return ok
 
 
 def _scene_ids(tables: MegaTables, win: _Winner) -> Tensor:
@@ -795,15 +945,34 @@ def _scene_ids(tables: MegaTables, win: _Winner) -> Tensor:
     return ids.to(torch.int32)
 
 
-def _decode(m: Tensor, p: Tensor):
-    """(attenuation, emission) float32[N, 3] (megakernel.py:533-556)."""
+def _decode(m: Tensor, p: Tensor, images: Optional[Tensor] = None,
+            uv: Optional[tuple] = None, zero_uv: bool = True):
+    """(attenuation, emission) float32[N, 3] (megakernel.py:533-556).
+
+    images (kernel mode K9): the packed images, the blocks of image
+    materials holding (image id, w, h) in color0.  The attenuation reads
+    the texel at (0, 0) under the lambertian_zero_uv quirk (material.h:67)
+    and at the hit's (u, v) otherwise, for lights too (the lambert
+    integrator's att term, scatter's lam_att); the emission always at the
+    hit's (u, v)."""
     kind, c0, c1 = m[:, 0:1], m[:, 3:6], m[:, 6:9]
     odd = (m[:, 1:2] == float(_tex.CHECKER)) & (
         _tex.checker_sines(p)[:, None] < 0.0)
-    tex = torch.where(odd, c1, c0)
+    tex_att = tex_em = torch.where(odd, c1, c0)
+    if images is not None:
+        is_img = m[:, 1] == float(_tex.IMAGE)
+        img = torch.where(is_img, m[:, M_IMG], 0.0)
+        w = torch.where(is_img, m[:, M_W], 1.0)
+        h = torch.where(is_img, m[:, M_H], 1.0)
+        u, v = uv
+        real = _tex.texel(images, img, w, h, u, v)
+        at = (_tex.texel(images, img, w, h, torch.zeros_like(u),
+                         torch.zeros_like(v)) if zero_uv else real)
+        tex_att = torch.where(is_img[:, None], at, tex_att)
+        tex_em = torch.where(is_img[:, None], real, tex_em)
     att = torch.where(kind == float(_mat.DIELECTRIC), 1.0,
-                      torch.where(kind == float(_mat.METAL), c0, tex))
-    em = torch.where(kind == float(_mat.DIFFUSE_LIGHT), tex, 0.0)
+                      torch.where(kind == float(_mat.METAL), c0, tex_att))
+    em = torch.where(kind == float(_mat.DIFFUSE_LIGHT), tex_em, 0.0)
     return att, em
 
 
@@ -868,14 +1037,20 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
     """Radiance float32[N, 3] of one chunk of rays (and, with want_winners,
     its winners int32[max_depth + 1, N])."""
     q = cfg.quirks
+    tex = has_images(tables) and cfg.integrator != "normal"
+    images = tables.images if tex else None
+
+    def decode(win):
+        return _decode(win.m, win.p, images, win.uv, q.lambertian_zero_uv)
+
     if cfg.integrator != "path":
         inv_dlen = _inv_len(d)
-        win = _sweep_plain(tables, o, d, inv_dlen, cfg)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex)
         hit = win.t < BIG_CUT
         sky = _sky(d, inv_dlen)
         if cfg.integrator == "normal":
             return torch.where(hit[:, None], win.n, sky)
-        att, em = _decode(win.m, win.p)
+        att, em = decode(win)
         scale = 1.0 if q.lambert_unnormalized_dot else inv_dlen
         tq = torch.clamp((d[:, 0] * win.n[:, 0] + d[:, 1] * win.n[:, 1]
                           + d[:, 2] * win.n[:, 2]) * scale, min=0.0)
@@ -890,12 +1065,12 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
                          device=o.device)
     for step in range(cfg.max_depth + 1):
         inv_dlen = _inv_len(d)
-        win = _sweep_plain(tables, o, d, inv_dlen, cfg)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex)
         hit = win.t < BIG_CUT
         if want_winners:
             winners[step] = torch.where(alive & hit,
                                         _scene_ids(tables, win), -1)
-        att, em = _decode(win.m, win.p)
+        att, em = decode(win)
         if stream is not None:
             ball, prob = stream[step, :, 0:3], stream[step, :, 3]
         else:

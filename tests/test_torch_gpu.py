@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the fused kernel K1, its rect / TRS mode K8 and winner mode K7, the draws
-K2 (csrc/megakernel.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), and the
-wavefront render, the fit and the mega_diff fit through them.
+the fused kernel K1, its rect / TRS mode K8, winner mode K7 and image
+texture mode K9, the draws K2 (csrc/megakernel.cu), the sweeps K3, K4 and
+K5 (csrc/sweeps.cu), and the wavefront render, the fit and the mega_diff
+fit through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -12,7 +13,11 @@ JAX nor the JAX package, so it also runs on a machine without them:
 
 Tolerance: the kernels are built without FMA contraction, so they round
 like the plain versions; every ray must agree to 1e-5 (kernel against
-plain), the draws to 1e-5, and the sweeps' idx exactly.  A fit step on the
+plain), the draws to 1e-5, and the sweeps' idx exactly.  K9 allows the rays
+whose texel flipped at an edge (its atan2f / asinf against PyTorch's,
+within rounding of a texel boundary), at most max(2, n / 10^4) of them.
+The fused engine against the wavefront on one injected stream: at most
+max(2, n / 200) rays over 1e-3.  A fit step on the
 card against the CPU: the loss to rtol 1e-5 and each gradient to 1e-3 of
 its largest entry (the card sums the scatter-adds with atomics and the
 means in another order).
@@ -258,11 +263,12 @@ def _frame(name, dev):
     return scene, cam, cfg
 
 
-def _first_launch(cam, cfg, dev, seed):
+def _first_launch(cam, cfg, dev, seed, index=0):
     pix = swizzled_pixels(cfg.width, cfg.height, device=dev)
+    per = cfg.ray_chunk // cfg.samples
     return generate_pixel_rays(
         cam, cfg.width, cfg.height, cfg.samples,
-        pix[:cfg.ray_chunk // cfg.samples],
+        pix[index * per:(index + 1) * per],
         generator=torch.Generator(device=dev).manual_seed(seed))
 
 
@@ -393,6 +399,153 @@ def test_mega_diff_fit_step_on_the_card_matches_the_cpu(cuda):
     # may change from run to run
     assert float((got[0] - got[1]).abs().max()) <= 1e-6 * float(
         got[1].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Kernel mode K9 (image textures)
+# ---------------------------------------------------------------------------
+
+def _tex_frame(name, dev):
+    """(scene, camera, cfg, launch index) of a full-size image frame: the
+    middle launch of random_spheres with images 1920x1080x16 (fixed or
+    reference quirks) and of the textured icosphere 1280x720x8 (fixed), the
+    first of textured_globe 1280x720x16 (reference)."""
+    if name.startswith("tex_spheres"):
+        scene, cam = presets.random_spheres(16 / 9, textured=True,
+                                            device=dev)
+        quirks = (Quirks.fixed() if name.endswith("fixed")
+                  else Quirks.reference())
+        cfg = RenderConfig(width=1920, height=1080, samples=16,
+                           max_depth=DEPTH, quirks=quirks, engine="mega")
+        return scene, cam, cfg, 63
+    if name == "tex_icosphere":
+        scene, cam = cs.tex_icosphere_scene(16 / 9, device=dev)
+        cfg = RenderConfig(width=1280, height=720, samples=8,
+                           max_depth=DEPTH, quirks=Quirks.fixed(),
+                           engine="mega")
+        return scene, cam, cfg, 14
+    scene, cam = presets.textured_globe(16 / 9, device=dev)
+    cfg = RenderConfig(width=1280, height=720, samples=16, max_depth=DEPTH,
+                       engine="mega")
+    return scene, cam, cfg, 0
+
+
+def _assert_texels_match(got, ref):
+    """Every ray to 1e-5 except at most max(2, n / 10^4) flipped texels."""
+    assert torch.isfinite(got).all()
+    n = got.shape[0]
+    flips = int(((got - ref).abs().amax(dim=1) > ATOL).sum())
+    assert flips <= max(2, n // 10 ** 4), flips
+
+
+TEX_FRAMES = ["tex_spheres_fixed", "tex_spheres_reference", "tex_icosphere",
+              "textured_globe"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", TEX_FRAMES)
+def test_tex_kernel_matches_plain_on_a_full_launch(cuda, frame):
+    """K9: one full 2^18-ray launch of each image frame, the three
+    integrators on an injected stream (normal takes the instance without
+    TEX) and the path on in-kernel draws."""
+    scene, cam, cfg, k = _tex_frame(frame, cuda)
+    rays = _first_launch(cam, cfg, cuda, 23, k)
+    n = rays.origin.shape[0]
+    assert n == cfg.ray_chunk
+    tables = mk.morton_tables(scene)
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(6),
+                                   n, DEPTH, cuda)
+    st = mk.stream_tensor(stream, n, DEPTH + 1)
+    mk.reset_launch_counts()
+    for integrator in INTEGRATORS:
+        c = dataclasses.replace(cfg, integrator=integrator)
+        got = mk.trace_path_mega(scene, rays, c, tables=tables,
+                                 samples=stream)
+        _assert_texels_match(got, mk.trace_path_mega_plain(tables, rays, c,
+                                                           st))
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8)
+    _assert_texels_match(got, mk.trace_path_mega_plain(tables, rays, cfg,
+                                                       None, 8))
+    assert mk.LAUNCHES["mega_trace_tex"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["tex_spheres_fixed", "textured_globe"])
+def test_tex_winners_match_plain(cuda, frame):
+    """K7 on K9: the winners of one full launch equal the plain version's on
+    every ray and bounce, and recording leaves the radiance unchanged."""
+    scene, cam, cfg, k = _tex_frame(frame, cuda)
+    rays = _first_launch(cam, cfg, cuda, 29, k)
+    tables = mk.morton_tables(scene)
+    got, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=31,
+                                  want_winners=True)
+    plain = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=31)
+    ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 31,
+                                         want_winners=True)
+    assert torch.equal(got, plain)
+    _assert_texels_match(got, ref)
+    assert torch.equal(win, wref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", TEX_FRAMES[1:])
+def test_tex_fused_matches_the_wavefront(cuda, frame):
+    """The fused engine (K9) and the wavefront (sweeps, images read by
+    tensor ops) on the same 2^18 rays and injected stream."""
+    scene, cam, cfg, k = _tex_frame(frame, cuda)
+    rays = _first_launch(cam, cfg, cuda, 37, k)
+    n = rays.origin.shape[0]
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(
+        38), n, DEPTH, cuda)
+    wcfg = dataclasses.replace(cfg, engine="wavefront")
+    with torch.no_grad():
+        wave = integ.integrate(scene, rays, wcfg, samples=stream,
+                               intersect_fn=sweep_intersector_pair(wcfg))
+    mega = mk.trace_path_mega(scene, rays, cfg, tables=mk.morton_tables(scene),
+                              samples=stream)
+    assert torch.isfinite(wave).all()
+    assert int(((wave - mega).abs().amax(dim=1) > 1e-3).sum()) <= max(
+        2, n // 200)
+
+
+@pytest.mark.gpu
+def test_mega_diff_on_images_card_matches_the_cpu(cuda):
+    """One mega_diff value-and-grad (K7 and K9 forward, replay backward
+    reading the images) on textured_globe at 64x32x2 on one injected
+    stream: loss and gradients on the card against the plain CPU run."""
+    w, h, spp, depth = 64, 32, 2, 4
+    n = w * h * spp
+    cfg = train.fit_config(RenderConfig(width=w, height=h, samples=spp,
+                                        max_depth=depth, gamma=False,
+                                        engine="mega_diff"))
+    gen = torch.Generator().manual_seed(3)
+    _, cam_cpu = presets.textured_globe(2.0, device="cpu")
+    rays = generate_pixel_rays(cam_cpu, w, h, spp, generator=gen)
+    stream = stream_from_generator(gen, n, depth, "cpu")
+    out = []
+    for dev in ("cpu", cuda):
+        scene, cam = presets.textured_globe(2.0, device=dev)
+        r = type(rays)(*(x.to(dev) for x in rays))
+        st = integ.SampleStream(stream.ball.to(dev), stream.prob.to(dev))
+        pix = torch.arange(w * h, device=dev)
+        with torch.no_grad():
+            target = render_pixels(scene, cam, cfg, pix, rays=r, samples=st)
+        params = {"albedo": (scene.textures.color0 * 0.6 + 0.1)
+                  .requires_grad_(),
+                  "centers": (scene.spheres.center + 0.05).requires_grad_()}
+        mk.reset_launch_counts()
+        loss, grads = train.value_and_grad(scene, params, cam, cfg, pix,
+                                           target, rays=r, samples=st)
+        if dev is cuda:
+            assert mk.LAUNCHES["mega_winners"] > 0
+            assert mk.LAUNCHES["mega_trace_tex"] > 0
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (l_cpu, g_cpu), (l_dev, g_dev) = out
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        assert scale > 0
+        assert float((g_dev[k] - g_cpu[k]).abs().max()) <= 1e-3 * scale, k
 
 
 # ---------------------------------------------------------------------------

@@ -170,9 +170,20 @@ def test_cli_renders_obj(tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     (["--compact-after", "2"], "item 19"),
-    (["--scene", "textured_globe"], "slice 5"),
+    (["--obj", "BIG_OBJ", "--accel", "mega"], "slice 6"),
 ])
 def test_cli_rejects_unported(tmp_path, argv, err):
+    """Knobs and scenes the port does not take yet raise, naming the item
+    or slice that brings them: the compaction knob, and an OBJ mesh above
+    the fused engine's table-resident size (streamed, kernel mode K6)."""
+    if "BIG_OBJ" in argv:
+        n = 8200
+        obj = tmp_path / "big.obj"
+        obj.write_text("".join(f"v {i} 0 {i % 7}\nv {i} 1 0\nv {i} 0 1\n"
+                               for i in range(n))
+                       + "".join(f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}\n"
+                                 for i in range(n)))
+        argv = [str(obj) if a == "BIG_OBJ" else a for a in argv]
     with pytest.raises(NotImplementedError, match=err):
         app.main(["--cpu", "--width", "8", "--height", "4", "--spp", "1",
                   "--out", str(tmp_path / "x.png")] + argv)

@@ -64,15 +64,12 @@ def test_fbx_walk_camera_matches_jax():
 
 @pytest.mark.parametrize("name", ["light_box", "textured_globe"])
 def test_slice5_presets_raise(name):
-    """textured_globe (image textures, kernel mode K9) still raises, naming
-    slice 5; light_box (a rect, kernel mode K8) builds the JAX preset's
-    scene and camera."""
-    if name == "textured_globe":
-        with pytest.raises(NotImplementedError, match="K9.*slice 5"):
-            tpresets.textured_globe(device="cpu")
-        return
-    js, jc = jpresets.light_box(aspect=2.0)
-    ts, tc = tpresets.light_box(aspect=2.0, device="cpu")
+    """light_box (a rect, kernel mode K8) and textured_globe (image
+    textures on a sphere and a rect light, kernel modes K8 and K9) build
+    the JAX presets' scenes and cameras, and the fused engine takes both;
+    neither raises any more."""
+    js, jc = getattr(jpresets, name)(aspect=2.0)
+    ts, tc = getattr(tpresets, name)(aspect=2.0, device="cpu")
     _assert_records_equal(ts, _np_tree(js))
     for a, b in zip(tc, _np_tree(jc)):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-6)
@@ -163,7 +160,8 @@ def test_eval_texture_matches_jax():
     p = rng.uniform(-3, 3, (256, 3)).astype(np.float32)
     zero = np.zeros(256, np.float32)
     ref = np.asarray(jtex.eval_texture(jt, tid, zero, zero, p))
-    got = ttex.eval_texture(tt, torch.from_numpy(tid), torch.from_numpy(p))
+    got = ttex.eval_texture(tt, torch.from_numpy(tid), torch.from_numpy(zero),
+                            torch.from_numpy(zero), torch.from_numpy(p))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -261,10 +259,13 @@ def test_morton_tables_icosphere_match_jax():
 
 
 def test_engine_raises_on_image_textures_and_streamed_sizes():
+    """Image textures are ported (kernel mode K9): the fused engine takes
+    random_spheres(textured=True) and its tables hold the scene's images;
+    scenes above the table-resident size still raise, naming slice 6."""
     ts, _ = tpresets.random_spheres(textured=True, device="cpu")
-    assert not tmk.megakernel_supported(ts)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tmk.build_mega_tables(ts)
+    assert tmk.megakernel_supported(ts)
+    tables = tmk.build_mega_tables(ts)
+    assert tables.images is ts.textures.images and tmk.has_images(tables)
     b = SceneBuilder()
     m = b.materials.lambertian(color=(1, 1, 1))
     pts, faces = _mesh(7, 50, tmk.MAX_VMEM_PRIMS + 1)

@@ -264,7 +264,8 @@ def test_rects_and_trs_raise():
     """Rects and runtime-TRS prims no longer raise: both intersectors take
     them, fold them after the spheres and triangles, and agree (the rect
     of this scene sits behind the sphere on the first ray and alone on the
-    second); image textures still raise in the engine, naming slice 5."""
+    second); image textures no longer raise either: the fused engine's
+    tables take them and hold the scene's images."""
     from cudaraytracer_tpu_torch.models.scene import SceneBuilder
     b = SceneBuilder()
     m = b.materials.lambertian(color=(0.5, 0.5, 0.5))
@@ -280,8 +281,7 @@ def test_rects_and_trs_raise():
     assert hits[0].prim.tolist() == [0, 1, 2] == hits[1].prim.tolist()
     torch.testing.assert_close(hits[0].t, hits[1].t)
     tb, _ = tpresets.random_spheres(textured=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tmk.build_mega_tables(tb)
+    assert tmk.has_images(tmk.build_mega_tables(tb))
 
 
 # ---------------------------------------------------------------------------
