@@ -10,8 +10,11 @@ the wavefront render (engine='wavefront': the sweep kernels K3
 sphere_sweep and K4 triangle_sweep, the draws kernel K2 scatter_draws), the
 single-device fit through the wavefront (K5 sphere_sweep_attrs, K2) and
 through engine='mega_diff' (K1 recording its winners, K7 mega_winners, and
-the replay backward on K2 draws).  A launch counts once for each mode it
-runs (K7, K8, K9), or as mega_trace when it runs none.
+the replay backward on K2 draws), and the render of scenes above 8,192
+prims of a type (the segment level K6 mega_stream, the bounce windows of
+the compaction drivers K10 mega_window, the front-to-back shells K11
+mega_f2b).  A launch counts once for each mode it runs (K6-K11), or as
+mega_trace when it runs none.
 
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
@@ -45,6 +48,13 @@ Phases (each prints lines; any failure raises and exits nonzero):
          most max(2, n / 10^4), printed), winners equal (K7 on K9), the
          launch timed beside the same launch with the images swapped for
          constant textures, its bound with 3 bytes per texel fetched;
+       * K6 on (m)'s first 2^18-ray launch (three integrators injected,
+         the path on in-kernel draws with the winners of K7 on K6), on the
+         9,216-sphere field's 2^18 rays and on 2^16 rays of (n) (lambert);
+         K11: shells 8 against 0 on (m)'s launch, radiance and winners
+         equal; K10: a window's dump and a resumed window against the
+         plain version, dump + resume and the compaction drivers
+         (phased, compact) bit-equal to the monolithic launch;
   4. draws: the scatter_draws kernel against its plain version at the
      main path's 2^18 rays and over 2^22 samples against the unit-ball and
      uniform distributions;
@@ -88,12 +98,27 @@ Phases (each prints lines; any failure raises and exits nonzero):
        (l) textured_globe 1280x720x16, depth 8, reference quirks, fused
            (K8 and K9); through engine='mega_diff' without and with a
            gradient (K7, K8, K9); one mega_diff fit step at (e)'s shape;
-     then ROADMAP Queue 3's replay divergence on (g)'s and (l)'s first
-     launch: the rays whose replay meets a recorded winner that the
-     replayed ray misses (printed, never a failure);
+       (m) big_field: 5 x 5 icospheres, 128,000 triangles, 1280x720x8,
+           path 8, fixed quirks, fused, Morton tables, through three
+           routes: the default (phased every 2 bounces, octants, 8 shells:
+           K6, K10, K11), compact_auto off (monolithic K6) and monolithic
+           with 8 shells; the three frames must be equal; each route also
+           over the frame's rays in one call against its bound;
+       (n) big1m: 12 x 17 icospheres, 1,044,480 triangles, 1280x720x8,
+           lambert, fixed quirks, fused (monolithic K6), and one launch
+           over the frame's rays against its bound;
+     then the replay divergence on (g)'s and (l)'s first launch: the rays
+     whose replay meets a recorded winner that the replayed ray misses
+     (must be 0: the replay takes its decisions and rays from the plain
+     version);
   8. the last line: {"ok": true, "device": {...}}.
 
 Writes its PNGs and the build log under chip_smoke_out/.
+
+    python3 chip_smoke.py --ab [--root DIR]
+
+times only what compares two commits on one card (``ab_main``), with the
+package of the checkout at DIR (default: this one).
 """
 
 from __future__ import annotations
@@ -128,6 +153,11 @@ FLOP_TRI = 46      # h 9, a 5, 1/a, s 3, u 6, q 9, v 6, t 6, 1 add
 # 1/a, two roots 4, 8 compares and selects, mul, compare), TRS triangle 64
 # (Moller-Trumbore 46, the backface dot 6, 10 compares, mul, compare)
 FLOP_XFORM = (46 + 16, 46 + 34, 46 + 64)
+# K11, per top-level box a ray's shells rank (counted once per sweep, as
+# the order needs it; the kernel's recomputation in each pass is not
+# charged): its distance (clip 6, sub 3, mul 3, add 2), the scan's min and
+# max (2) and its shell index (sub, mul, floor, 2 compares)
+FLOP_DIST = 21
 OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
 N_ATTRS = 21       # K5's attribute row: centre, radius, mat, 16 decode
 
@@ -206,30 +236,49 @@ def bound(flops: float, bytes_: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def launch_bound(tables, n: int, tests, out_bytes: int = 12,
+def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
                  extra_bytes: int = 0) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that made ``tests``
-    (box, sphere, triangle, rect, TRS sphere, TRS triangle): their FLOPs
-    against the rays in, ``out_bytes`` per ray out, the tables and
-    ``extra_bytes`` (K9: 3 per texel fetched)."""
+    (count_tests): their FLOPs (box, segment and box-distance tests
+    included) against the rays in, ``out_bytes`` per ray out, the box and
+    rect / TRS tables, the sphere and triangle rows of the chunks whose
+    prims were tested, and ``extra_bytes`` (K9: 3 per texel fetched; K10:
+    the state a window reads)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    n_box, n_sph, n_tri = tests[:3]
-    flops = (n_box * FLOP_BOX + n_sph * FLOP_SPHERE + n_tri * FLOP_TRI
-             + sum(c * f for c, f in zip(tests[3:], FLOP_XFORM)))
-    return bound(flops, n * (24 + out_bytes) + mk.table_bytes(tables)
-                 + extra_bytes)
+    flops = (tests["box"] * FLOP_BOX + tests["seg"] * FLOP_BOX
+             + tests["sph"] * FLOP_SPHERE + tests["tri"] * FLOP_TRI
+             + tests["dist"] * FLOP_DIST
+             + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
+                                                FLOP_XFORM)))
+    rows = (tests["touched_sph_chunks"] * mk.PRIM_CHUNK * mk.SPH_COLS * 4
+            + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * mk.TRI_COLS * 4)
+    tables_bytes = (mk.table_bytes(tables) - tables.sph.nbytes
+                    - tables.tri.nbytes + rows)
+    return bound(flops, n * (24 + out_bytes) + tables_bytes + extra_bytes)
 
 
-def count_tests(tables, rays, cfg, seed) -> list:
-    """The tests of one path launch (the kernel's counting variant): box,
-    sphere, triangle, rect, TRS sphere, TRS triangle."""
+def count_tests(tables, rays, cfg, seed, window=None) -> dict:
+    """The tests of one launch (the kernel's counting variant), by name
+    (megakernel.COUNT_NAMES), and the chunks whose prims it tested."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
                          device=rays.origin.device)
+    n_sc = tables.sph_box.shape[0]
+    touched = torch.zeros(max(n_sc + tables.tri_box.shape[0], 1),
+                          dtype=torch.uint8, device=rays.origin.device)
     mk._launch_mega(tables, rays.origin.contiguous(),
                     rays.direction.contiguous(), cfg, None, seed,
-                    counts=counts)
-    return counts.tolist()
+                    counts=counts, touched=touched,
+                    window=window if window is not None else mk.WHOLE)
+    return counted_tests(counts, touched, n_sc)
+
+
+def counted_tests(counts, touched, n_sph_chunks: int) -> dict:
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    out = dict(zip(mk.COUNT_NAMES, counts.tolist()))
+    out["touched_sph_chunks"] = int(touched[:n_sph_chunks].sum())
+    out["touched_tri_chunks"] = int(touched[n_sph_chunks:].sum())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +508,8 @@ def one_bounce(scene, rays, cfg, seed: int, gen):
     draws = mk.scatter_draws(torch.empty(n, 4, device=o.device), seed, 0)
     with torch.no_grad():
         o2, d2, t2, _, _, cont, _ = integ._bounce(
-            scene, cfg, sweep_intersector(cfg, coherent=True), 0, None, o, d,
-            tm,
+            scene, cfg, sweep_intersector(cfg, coherent=True), 0, None, None,
+            o, d, tm,
             torch.ones(n, 3, device=o.device),
             torch.zeros(n, 3, device=o.device),
             torch.ones(n, dtype=torch.bool, device=o.device),
@@ -917,9 +966,9 @@ def fit_grad_parity(dev, engine: str = "wavefront",
     return worst, g_dev
 
 
-def kernel_at_frame_shape(dev, f: Frame, gen):
-    """The kernel alone over a whole frame's rays in one launch, and the
-    tests these rays need (one extra counting launch)."""
+def frame_launch(dev, f: Frame, gen, reps: int = 3) -> tuple:
+    """(min ms over reps, rays): the kernel alone over a whole frame's rays
+    in one launch, in-kernel draws."""
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.render import swizzled_pixels
@@ -928,7 +977,16 @@ def kernel_at_frame_shape(dev, f: Frame, gen):
     rays = generate_pixel_rays(f.camera, c.width, c.height, c.samples, pix,
                                generator=gen)
     ms, _ = cuda_ms(lambda: mk.trace_path_mega(f.scene, rays, c,
-                                               tables=f.tables, seed=11))
+                                               tables=f.tables, seed=11),
+                    reps=reps)
+    return ms, rays
+
+
+def kernel_at_frame_shape(dev, f: Frame, gen):
+    """The kernel alone over a whole frame's rays in one launch, and the
+    tests these rays need (one extra counting launch)."""
+    c = f.cfg
+    ms, rays = frame_launch(dev, f, gen)
     tests = count_tests(f.tables, rays, c, 11)
     n = rays.origin.shape[0]
     bound, bound_by = launch_bound(f.tables, n, tests)
@@ -1235,7 +1293,7 @@ def replay_divergence(dev, f: Frame, index: int = 0) -> int:
     """ROADMAP Queue 3's risk, counted: the rays of one 2^18-ray mega_diff
     launch whose replay (the backward's trace_path on the recorded winners,
     K2 draws of the same seed) meets a recorded winner that fails its own
-    test on the replayed ray at some bounce.  Printed; does not fail."""
+    test on the replayed ray at some bounce (the caller requires 0)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops.integrators import replay_misses
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -1253,10 +1311,11 @@ def replay_divergence(dev, f: Frame, index: int = 0) -> int:
     return missed
 
 
-def tex_fit_step(dev) -> dict:
-    """One mega_diff fit step on textured_globe at (e)'s 512x256x4 shape
+def tex_fit_step(dev, steps: int = 5) -> dict:
+    """The mega_diff fit step on textured_globe at (e)'s 512x256x4 shape
     (depth 4, no gamma, SGD on albedo and centres, tables rebuilt from the
-    params): a warm-up step, then one timed step."""
+    params): a warm-up step, then ``steps`` timed steps from the same
+    start (host clock around a step that ends in a read of the loss)."""
     from cudaraytracer_tpu_torch.parallel.train import make_fit_step
     scene, cam, cfg, rays, target, p0 = fit_scene("textured_globe", dev,
                                                   "mega_diff")
@@ -1269,17 +1328,297 @@ def tex_fit_step(dev) -> dict:
     run(p0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    loss, p1 = run(p0)
-    loss = float(loss)
-    dt = time.perf_counter() - t0
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, p1 = run(p0)
+        loss = float(loss)
+        times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"[fit mega_diff] textured_globe one step: loss {loss:.6e}, "
-          f"{dt:.4f} s, peak {peak / 2 ** 30:.2f} GiB")
+    med = sorted(times)[len(times) // 2]
+    print(f"[fit mega_diff] textured_globe: loss {loss:.6e}, "
+          f"{min(times):.4f} s/step (min of {steps}, median {med:.4f}), "
+          f"peak {peak / 2 ** 30:.2f} GiB")
     check(math.isfinite(loss) and loss > 0.0, f"textured_globe loss {loss}")
     check(all(bool(torch.isfinite(v).all()) for v in p1.values()),
           "textured_globe fit step: non-finite params")
-    return {"s_per_step": dt, "loss": loss, "peak_gib": peak / 2 ** 30}
+    return {"s_per_step": min(times), "median_s": med, "steps_s": times,
+            "loss": loss, "peak_gib": peak / 2 ** 30}
+
+
+# ---------------------------------------------------------------------------
+# Kernel modes K6 (segment level), K10 (bounce windows), K11 (shells)
+# ---------------------------------------------------------------------------
+
+N_BIG1M_CHECK = 1 << 16     # rays of (n) held against the plain version
+
+
+def stream_frames(dev) -> list:
+    """(m) big_field: 5 x 5 icospheres, 128,000 triangles, 1280x720x8, path
+    depth 8, fixed quirks (the default route: phased every 2 bounces,
+    octants, 8 shells); (n) big1m: 12 x 17 icospheres, 1,044,480
+    triangles, 1280x720x8, lambert, fixed quirks (monolithic K6).  Fused,
+    Morton tables."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.ops.megakernel import morton_tables
+    sm, cm = cs.big_field_scene(1280 / 720, device=dev)
+    sn, cn = cs.big1m_scene(1280 / 720, device=dev)
+    check(sm.n_triangles == 128000 and sn.n_triangles == 1044480,
+          "field sizes")
+    cfg_m = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
+                         quirks=Quirks.fixed(), engine="mega")
+    cfg_n = dataclasses.replace(cfg_m, integrator="lambert")
+    return [Frame("big_field", sm, cm, cfg_m, morton_tables(sm)),
+            Frame("big1m", sn, cn, cfg_n, morton_tables(sn))]
+
+
+def sphere_field_frame(dev):
+    """The 9,216-sphere field (segment level over spheres), its Morton
+    tables and 2^18 rays cast from above."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    from cudaraytracer_tpu_torch.ops.megakernel import morton_tables
+    scene = cs.fill_sphere_field(SceneBuilder()).build(dev)
+    rays = make_rays(*cs.sphere_field_rays(1 << 18), device=dev)
+    cfg = RenderConfig(max_depth=DEPTH, engine="mega")
+    return Frame("sphere_field", scene, None, cfg, morton_tables(scene)), rays
+
+
+def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
+                 plain=None, window=None, out_bytes: int = 12,
+                 extra_bytes: int = 0) -> dict:
+    """One launch with in-kernel draws: kernel against the plain version
+    (timed once, or ``plain`` = (ms, result) measured already), its
+    tests and bound."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    w = window if window is not None else mk.WHOLE
+    ms, got = cuda_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, cfg, tables=f.tables, seed=seed, window=w))
+    if plain is None:
+        plain = cuda_ms(lambda: mk.trace_path_mega_plain(
+            f.tables, rays, cfg, None, seed, window=w), reps=1, warmup=0)
+    plain_ms, ref = plain
+    out[key] = max(out.get(key, 0.0), compare(label, got, ref))
+    tests = count_tests(f.tables, rays, cfg, seed, window)
+    b, by = launch_bound(f.tables, rays.origin.shape[0], tests, out_bytes,
+                         extra_bytes)
+    print(f"[stream] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b:.4f} ms ({by}), tests {tests}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "tests": tests, "rays": rays.origin.shape[0], "got": got}
+
+
+def phase_stream_parity(dev, sframes) -> dict:
+    """K6, K10 and K11 against the plain version on the card: (m)'s first
+    2^18-ray launch (path: three integrators on an injected stream, the
+    path on in-kernel draws with the winners of K7 on K6), the sphere
+    field's 2^18 rays, 2^16 rays of (n) (lambert: the plain brute force
+    over 1M triangles at 2^18 rays would take minutes); K10: a window's
+    dump and a resumed window against the plain version, the compaction
+    drivers equal to the monolithic launch; K11: shells 8 against 0,
+    equal radiance and winners."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    fm, fn = sframes
+    gen = torch.Generator(device=dev).manual_seed(23)
+    err = {}
+    res = {}
+    rays = first_chunk(fm, gen)
+    n = rays.origin.shape[0]
+    check(n == 1 << 18 and fm.tables.tri_seg.shape[0] == 63,
+          "(m)'s launch and segments")
+    stream = stream_from_generator(gen, n, DEPTH, dev)
+    st = mk.stream_tensor(stream, n, DEPTH + 1)
+    got_inj = None
+    for integrator in INTEGRATORS:
+        cfg = dataclasses.replace(fm.cfg, integrator=integrator)
+        got = mk.trace_path_mega(fm.scene, rays, cfg, tables=fm.tables,
+                                 samples=stream)
+        ref = mk.trace_path_mega_plain(fm.tables, rays, cfg, st)
+        err["mega_stream"] = max(err.get("mega_stream", 0.0), compare(
+            f"K6 big_field launch 0 {integrator} injected", got, ref))
+        got_inj = got if integrator == "path" else got_inj
+    seed = mk.draw_seed(gen)
+    plain = cuda_ms(lambda: mk.trace_path_mega_plain(
+        fm.tables, rays, fm.cfg, None, seed, True), reps=1, warmup=0)
+    ref, wref = plain[1]
+    k6 = timed_parity("K6 big_field launch 0 path in-kernel draws", fm,
+                      rays, fm.cfg, seed, err, "mega_stream",
+                      (plain[0], ref))
+    got = k6.pop("got")
+    got_w, win = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
+                                    seed=seed, want_winners=True)
+    compare_ids("K7+K6 big_field launch 0", win, wref)
+    check(torch.equal(got_w, got), "K7 changed K6's radiance")
+    res["mega_stream"] = k6
+    # K11: shells 8 against table order
+    cfg8 = dataclasses.replace(fm.cfg, mega_f2b_shells=8)
+    k11 = timed_parity("K11 big_field launch 0 shells 8", fm, rays, cfg8,
+                       seed, err, "mega_f2b", (plain[0], ref))
+    got8 = k11.pop("got")
+    got8_w, win8 = mk.trace_path_mega(fm.scene, rays, cfg8,
+                                      tables=fm.tables, seed=seed,
+                                      want_winners=True)
+    check(torch.equal(got8, got) and torch.equal(got8_w, got),
+          "K11: shells 8 changed the radiance")
+    compare_ids("K11 shells 8 against 0", win8, win)
+    print("[stream] K11 shells 8 against 0: radiance and winners equal")
+    res["mega_f2b"] = k11
+    # K10: a dumped window, a resumed window, the drivers
+    w0 = mk.Window(0, 2, None, None, True)
+    a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
+                           seed=seed, window=w0)
+    err["mega_window"] = compare("K10 big_field window [0, 2) dump", a,
+                                 mk.trace_path_mega_plain(
+                                     fm.tables, rays, fm.cfg, None, seed,
+                                     window=w0))
+    r2 = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(), rays.time)
+    w1 = mk.Window(2, 2, a[:, 9:13].contiguous())
+    k10 = timed_parity("K10 big_field window [2, 4) resumed", fm, r2,
+                       fm.cfg, seed, err, "mega_window", window=w1,
+                       extra_bytes=16 * n)
+    k10.pop("got")
+    rest = mk.trace_path_mega(fm.scene, r2, fm.cfg, tables=fm.tables,
+                              seed=seed, window=mk.Window(
+                                  2, None, a[:, 9:13].contiguous()))
+    check(torch.equal(a[:, :3] + rest, got), "K10: dump + resume differs "
+          "from the unbroken launch")
+    drivers = {
+        "phased every 2, octants, shells 8": lambda: mk.trace_path_mega_phased(
+            fm.scene, rays, cfg8, tables=fm.tables, compact_every=2,
+            seed=seed, octants=True),
+        "phased every 1, partition": lambda: mk.trace_path_mega_phased(
+            fm.scene, rays, fm.cfg, tables=fm.tables, compact_every=1,
+            seed=seed, octants=False),
+        "compact after 1": lambda: mk.trace_path_mega_compact(
+            fm.scene, rays, fm.cfg, tables=fm.tables, primary_steps=1,
+            seed=seed)}
+    for label, run in drivers.items():
+        ms, out = cuda_ms(run, reps=1)
+        check(torch.equal(out, got), f"K10 {label}: differs from the "
+              "monolithic launch")
+        print(f"[stream] K10 {label}: bit-equal to the monolithic launch, "
+              f"{ms:.4f} ms")
+        k10[label] = ms
+    ph = mk.trace_path_mega_phased(fm.scene, rays, cfg8, tables=fm.tables,
+                                   compact_every=2, samples=stream,
+                                   octants=True)
+    check(torch.equal(ph, got_inj), "K10 phased differs under injection")
+    print("[stream] K10 phased, injected stream: bit-equal to monolithic")
+    res["mega_window"] = k10
+    # K6 over spheres: the 9,216-sphere field
+    fs, rays_s = sphere_field_frame(dev)
+    check(fs.tables.sph_seg.shape[0] == 5, "sphere field segments")
+    ns = rays_s.origin.shape[0]
+    stream = stream_from_generator(gen, ns, DEPTH, dev)
+    st = mk.stream_tensor(stream, ns, DEPTH + 1)
+    for integrator in INTEGRATORS:
+        cfg = dataclasses.replace(fs.cfg, integrator=integrator)
+        got = mk.trace_path_mega(fs.scene, rays_s, cfg, tables=fs.tables,
+                                 samples=stream)
+        err["mega_stream"] = max(err["mega_stream"], compare(
+            f"K6 sphere_field {integrator} injected", got,
+            mk.trace_path_mega_plain(fs.tables, rays_s, cfg, st)))
+    res["sphere_field"] = timed_parity(
+        "K6 sphere_field path in-kernel draws", fs, rays_s, fs.cfg,
+        mk.draw_seed(gen), err, "mega_stream")
+    res["sphere_field"].pop("got")
+    # K6 at the ceiling: 2^16 rays of (n), lambert
+    rays_n = first_chunk(fn, gen, middle_chunk(fn))
+    rays_n = Rays(*(x[:N_BIG1M_CHECK] for x in rays_n))
+    check(fn.tables.tri_seg.shape[0] == 510, "(n)'s segments")
+    res["big1m"] = timed_parity(
+        f"K6 big1m {N_BIG1M_CHECK} rays lambert", fn, rays_n, fn.cfg, 0,
+        err, "mega_stream")
+    res["big1m"].pop("got")
+    for k in ("mega_stream", "mega_window", "mega_f2b"):
+        res[k]["max_abs_err"] = err[k]
+    return res
+
+
+def route_at_frame_shape(dev, f: Frame, gen) -> dict:
+    """f's route (select_mega under f.cfg) over the whole frame's rays in
+    one call (its launches, and the regrouping between windows), timed;
+    its tests counted by running the same route with the counting
+    variant in every launch."""
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.render import swizzled_pixels
+    c = f.cfg
+    pix = swizzled_pixels(c.width, c.height, device=dev)
+    rays = generate_pixel_rays(f.camera, c.width, c.height, c.samples, pix,
+                               generator=gen)
+    n = rays.origin.shape[0]
+    ms, _ = cuda_ms(lambda: integ.integrate(f.scene, rays, c,
+                                            tables=f.tables, seed=11),
+                    reps=2)
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64, device=dev)
+    n_sc = f.tables.sph_box.shape[0]
+    touched = torch.zeros(max(n_sc + f.tables.tri_box.shape[0], 1),
+                          dtype=torch.uint8, device=dev)
+    windows = []
+    real = mk._trace
+
+    def counting(tables, o, d, cfg, stream, seed, want_winners=False,
+                 window=mk.WHOLE):
+        windows.append(window.steps(cfg))
+        return mk._launch_mega(tables, o.contiguous(), d.contiguous(), cfg,
+                               stream, seed, counts=counts, touched=touched,
+                               window=window)
+
+    mk._trace = counting
+    try:
+        integ.integrate(f.scene, rays, c, tables=f.tables, seed=11)
+    finally:
+        mk._trace = real
+    tests = counted_tests(counts, touched, n_sc)
+    # a window after the first reads the state and ray ids (20 B) and every
+    # window but the last writes the 13-float state (52 B)
+    k = len(windows)
+    b, by = launch_bound(f.tables, n, tests, 12,
+                         (k - 1) * n * (24 + 20 + 52 - 12))
+    return {"ms": ms, "bound_ms": b, "bound_by": by, "tests": tests,
+            "rays": n, "launches": k}
+
+
+def render_routes(dev, fm: Frame) -> tuple:
+    """(m) through its three routes, each counted from zero: the default
+    (select_mega: phased every 2 bounces, octants, 8 shells), compact_auto
+    off (monolithic K6) and monolithic with 8 shells; a fresh generator of
+    one seed each, so the three frames must be equal bit for bit."""
+    routes = (("default", fm.cfg, ("mega_stream", "mega_window", "mega_f2b")),
+              ("monolithic", dataclasses.replace(fm.cfg, compact_auto=False),
+               ("mega_stream",)),
+              ("monolithic_f2b8", dataclasses.replace(
+                  fm.cfg, compact_auto=False, mega_f2b_shells=8),
+               ("mega_stream", "mega_f2b")))
+    out, launches, imgs = {}, {}, []
+    for name, cfg, need in routes:
+        f = fm._replace(name=f"big_field_{name}", cfg=cfg)
+        (ms, img, peak), l_r = counted(
+            f"(m) big_field {name}",
+            lambda: render_frame(dev, f, torch.Generator(
+                device=dev).manual_seed(31)), need)
+        k = route_at_frame_shape(dev, f, torch.Generator(
+            device=dev).manual_seed(32))
+        print(f"[main] (m) big_field {name}: {ms / 1e3:.4f} s/frame, peak "
+              f"{peak / 2 ** 30:.2f} GiB; the route over the frame's "
+              f"{k['rays']} rays in one call {k['ms']:.3f} ms "
+              f"({k['launches']} launches), bound {k['bound_ms']:.3f} ms "
+              f"({k['bound_by']}), tests {k['tests']}")
+        out[name] = {"frame_s": ms / 1e3, "peak_gib": peak / 2 ** 30,
+                     "launches": l_r, "frame_launch": k}
+        launches[name] = l_r
+        imgs.append(img)
+    check(all(torch.equal(i, imgs[0]) for i in imgs),
+          "(m)'s three routes gave different frames")
+    print("[main] (m)'s three routes: equal frames")
+    return out, launches
 
 
 def counted(name: str, fn, need):
@@ -1331,6 +1670,9 @@ def main() -> int:
     tframes = tex_frames(dev)
     fj, fk, fl = tframes
     tparity = phase_tex_parity(dev, tframes)
+    sframes = stream_frames(dev)
+    fm, fn = sframes
+    sparity = phase_stream_parity(dev, sframes)
     sweeps = phase_sweep_parity(dev, frames)
     draws = phase_draws(dev, fa.cfg.ray_chunk)
     phase_cross_engine(dev, [(fa, 0), (fb, middle_chunk(fb)), (fh, 0),
@@ -1444,14 +1786,27 @@ def main() -> int:
                           lambda: tex_fit_step(dev),
                           ("mega_trace_tex", "mega_winners",
                            "scatter_draws"))
+    routes_m, l_m = render_routes(dev, fm)
+    (ms_n, _, peak_n), l_n = counted(
+        "(n) big1m fused, lambert", lambda: render_frame(dev, fn, gen),
+        ("mega_stream",))
+    kn = kernel_at_frame_shape(dev, fn, gen)
+    print(f"[main] (n) big1m: {ms_n / 1e3:.4f} s/frame, peak "
+          f"{peak_n / 2 ** 30:.2f} GiB; one launch over {kn['rays']} rays "
+          f"{kn['ms']:.3f} ms, bound {kn['bound_ms']:.3f} ms "
+          f"({kn['bound_by']}), tests {kn['tests']}")
     per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
                 "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i,
                 "j": l_j, "k_fused": l_k, "k_wavefront": l_kw,
-                "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf}
+                "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf,
+                **{f"m_{k}": v for k, v in l_m.items()}, "n": l_n}
     launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
-    # ROADMAP Queue 3: replays that leave the recorded path, (g) and (l)
+    # the replay's divergence from the recorded path, (g) and (l): the
+    # replay takes its decisions and rays from the plain version, so none
     replay_g = replay_divergence(dev, fa)
     replay_l = replay_divergence(dev, fl)
+    check(replay_g == 0 and replay_l == 0, "the mega_diff replay left the "
+          "recorded path")
 
     # ---- the fused kernel alone over a whole frame's rays ----
     ka = kernel_at_frame_shape(dev, fa, gen)
@@ -1532,6 +1887,25 @@ def main() -> int:
         "tests": tj["tests"], "other_launches": tparity,
         "j_frame_s": ms_j / 1e3, "k_frame_s": ms_k / 1e3,
         "l_frame_s": ms_l / 1e3})
+    for key, line, what in (
+            ("mega_stream", 919, "(m)'s first launch: 262144 rays of the "
+             "128,000-triangle field 1280x720x8, path 8, fixed quirks, "
+             "in-kernel draws, 63 segments, table order"),
+            ("mega_window", 1607, "(m)'s first 262144 rays, the window [2, 4) "
+             "resumed from the dump of [0, 2), in-kernel draws"),
+            ("mega_f2b", 795, "(m)'s first launch with 8 front-to-back "
+             "shells over its 63 segments, in-kernel draws")):
+        k = sparity.pop(key)
+        k.pop("rays")
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+            "replaces": f"cudaraytracer_tpu/ops/megakernel.py:{line}",
+            "launches": launches[key], "max_abs_err": k.pop("max_abs_err"),
+            "ms": k.pop("ms"), "plain_ms": k.pop("plain_ms"),
+            "bound_ms": k.pop("bound_ms"), "bound_by": k.pop("bound_by"),
+            "library_ms": None, "ms_at": what, **k})
+    rows[-3]["other_launches"] = sparity
     paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
              "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
              "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
@@ -1551,6 +1925,9 @@ def main() -> int:
              "l_mega_diff_forward": mdiff_l, "l_mega_diff_fit": fit_l,
              "l_grad_rel_card_vs_cpu": grad_rel_l,
              "replay_divergence": {"g": replay_g, "l": replay_l},
+             "m_big_field": routes_m,
+             "n_big1m": {"frame_s": ms_n / 1e3, "peak_gib": peak_n / 2 ** 30,
+                         "frame_launch": kn},
              "launches_per_path": per_path}
     print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1561,5 +1938,40 @@ def main() -> int:
     return 0
 
 
+def ab_main(root: str) -> int:
+    """``--ab``: the timings that compare two commits on one card, for the
+    package of the checkout at ``root``: K1's frame-sized launches of (a)
+    and (b) (min of 5) and (l)'s mega_diff fit step (min and median of 5).
+    Run the parent's checkout (an unpacked ``git archive``, whose kernels
+    build there) and this one in turns, in one call each way (parent,
+    change, change, parent).  Prints one JSON line, checks nothing else."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    import cudaraytracer_tpu_torch as pkg
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"package": os.path.dirname(os.path.abspath(pkg.__file__)),
+           "card": smi}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for f in main_frames(dev):
+        out[f"{f.name}_frame_launch_ms"] = frame_launch(dev, f, gen, 5)[0]
+    out["l_fit"] = tex_fit_step(dev)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        import argparse
+        ap = argparse.ArgumentParser(description=ab_main.__doc__)
+        ap.add_argument("--ab", action="store_true", required=True)
+        ap.add_argument("--root", default=ROOT,
+                        help="import cudaraytracer_tpu_torch from this "
+                             "checkout")
+        sys.exit(ab_main(ap.parse_args().root))
     sys.exit(main())

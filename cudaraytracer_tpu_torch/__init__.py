@@ -16,7 +16,12 @@ Ported so far:
     (``csrc/sweeps.cu``, ``ops/sweeps.py``) inside autograd Functions, the
     per-bounce draws kernel, hit records, materials and integrators as
     tensor ops (``ops/intersect.py``, ``ops/integrators.py``),
-    ``parallel/train.py`` and ``apps/fit.py``.
+    ``parallel/train.py`` and ``apps/fit.py``;
+  * the differentiable fused engine (``engine='mega_diff'``), rects and
+    runtime-TRS prims, image textures;
+  * scenes above 8,192 prims of a type (the segment level), the
+    compaction drivers and their routing (``ops.megakernel.select_mega``)
+    and front-to-back shells.
 """
 
 from .config import Quirks, RenderConfig

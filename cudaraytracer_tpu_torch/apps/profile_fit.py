@@ -1,16 +1,21 @@
 """Where a fit step's time goes on the card: ``make_fit_step`` at the
-bench's fit shape (three_spheres 512x256x4, path depth 4, no gamma, SGD at
-lr 0.5 on albedo and centres, the same rays and draws every step), through
-the wavefront (the sweep kernels) or ``--engine mega_diff`` (the fused
-forward recording its winners, the replay backward).
+bench's fit shape (three_spheres, or ``--scene textured_globe``, 512x256x4,
+path depth 4, no gamma, SGD at lr 0.5 on albedo and centres, the same rays
+and draws every step), through the wavefront (the sweep kernels) or
+``--engine mega_diff`` (the fused forward recording its winners, the replay
+backward).
 
 Seconds per step (min of 3 after a warm-up step, host clock around a step
 that ends in a read of the loss), then one step under ``torch.profiler``:
-device time by kernel, host time by operator, and the device's busy share
-(profiled device time over the unprofiled step).  Prints a few lines and,
-last, one JSON object.
+device time by kernel, host time by operator, the device's busy share
+(profiled device time over the unprofiled step), and the share of the
+replay's reference bounces (``megakernel.replay_reference``, host time
+with its operators, and the device time of what they launched) and of the
+table builds (``build_mega_tables``).  Prints a few lines and, last, one
+JSON object.
 
-    python -m cudaraytracer_tpu_torch.apps.profile_fit --engine mega_diff
+    python -m cudaraytracer_tpu_torch.apps.profile_fit --engine mega_diff \
+        --scene textured_globe
 """
 
 from __future__ import annotations
@@ -23,6 +28,45 @@ import time
 
 from .profile_render import _times, _top
 
+# functions whose calls the profiled step labels, to give their share
+LABELLED = ("replay_reference", "build_mega_tables")
+
+
+def _labelled(mk):
+    """Wrap LABELLED of the megakernel module in profiler ranges (its own
+    callers look them up in the module, so they see the wrappers) -> the
+    originals, to put back."""
+    import functools
+
+    import torch
+    saved = {}
+    for name in LABELLED:
+        fn = saved[name] = getattr(mk, name)
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **k)
+
+        setattr(mk, name, functools.wraps(fn)(wrap))
+    return saved
+
+
+def _label_times(prof) -> dict:
+    """{label: {calls, host_ms (with its operators), device_ms (of the
+    kernels launched inside)}}, from the host's ranges (the profiler also
+    puts each range on the device's timeline, gaps included)."""
+    import torch
+    out = {}
+    for e in prof.events():
+        if (e.name in LABELLED
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            row = out.setdefault(e.name, {"calls": 0, "host_ms": 0.0,
+                                          "device_ms": 0.0})
+            row["calls"] += 1
+            row["host_ms"] += e.cpu_time_total / 1e3
+            row["device_ms"] += e.device_time_total / 1e3
+    return out
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
@@ -31,6 +75,8 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--scene", default="three_spheres",
+                    choices=["three_spheres", "textured_globe"])
     args = ap.parse_args(argv)
 
     import torch
@@ -39,6 +85,7 @@ def main(argv=None):
     from ..core.camera import generate_pixel_rays
     from ..core.device import resolve_device
     from ..models import presets
+    from ..ops import megakernel as mk
     from ..ops.render import render_pixels, sweep_intersector_pair
     from ..parallel.train import fit_config, make_fit_step
 
@@ -48,7 +95,7 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(smi)
     w, h, spp = args.width, args.height, args.spp
-    scene, cam = presets.three_spheres(aspect=w / h, device=dev)
+    scene, cam = getattr(presets, args.scene)(aspect=w / h, device=dev)
     rays = generate_pixel_rays(cam, w, h, spp, generator=torch.Generator(
         device=dev).manual_seed(0))
     rows = []
@@ -81,13 +128,21 @@ def main(argv=None):
             best = min(best, time.perf_counter() - t0)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            run()
-            prof_s = time.perf_counter() - t0
+        saved = _labelled(mk)
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run()
+                prof_s = time.perf_counter() - t0
+        finally:
+            for name, fn in saved.items():
+                setattr(mk, name, fn)
         kernels, host = _times(prof)
+        for name in LABELLED:                 # a range, not a kernel
+            kernels.pop(name, None)
         device_ms = sum(kernels.values()) / 1e3
         row = {"engine": engine, "s_per_step": best,
+               "labelled": _label_times(prof),
                "profiled_step_s": prof_s,
                "device_ms": device_ms if kernels else None,
                "busy_share": device_ms / 1e3 / best if kernels else None,
@@ -101,11 +156,16 @@ def main(argv=None):
         print(f"{engine}: {best:.4f} s/step; profiled step {prof_s:.3f} s, "
               f"device {device_ms:.1f} ms, busy {busy}, "
               f"{row['n_kernel_launches']} device events")
+        for name, t in row["labelled"].items():
+            print(f"  {name}: {t['calls']} calls, host {t['host_ms']:.2f} "
+                  f"ms ({t['host_ms'] / 1e3 / prof_s:.1%} of the profiled "
+                  f"step), device {t['device_ms']:.2f} ms")
         for what in ("top_kernels_ms", "top_host_ms"):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "power": smi, "shape": [w, h, spp], "rows": rows}))
+                      "power": smi, "scene": args.scene,
+                      "shape": [w, h, spp], "rows": rows}))
     return 0
 
 

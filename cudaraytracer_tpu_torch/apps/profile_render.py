@@ -1,10 +1,11 @@
 """Where a frame's time goes on the card: random_spheres (``--textured``:
-with images), textured_globe or the textured icosphere (``--scene``)
-through ``render_image`` at several ``ray_chunk`` sizes, on the fused
-engine (the default), on the wavefront through the sweep kernels
-(``--engine wavefront``), or through ``--engine mega_diff`` (with
-``--grad`` the sphere centres require a gradient, so the forward records
-its winners).
+with images), textured_globe, the textured icosphere or the 128,000- and
+1,044,480-triangle fields (``--scene``) through ``render_image`` at
+several ``ray_chunk`` sizes, on the fused engine (the default; on the
+fields ``--no-compact-auto`` takes the monolithic route in place of the
+phased one), on the wavefront through the sweep kernels (``--engine
+wavefront``), or through ``--engine mega_diff`` (with ``--grad`` the
+sphere centres require a gradient, so the forward records its winners).
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
 events), then one frame under ``torch.profiler``: device time by kernel and
@@ -22,6 +23,8 @@ and, last, one JSON object.
         --engine mega_diff --grad --ray-chunk 262144
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --scene tex_icosphere --width 1280 --height 720 --spp 8 --fixed
+    python -m cudaraytracer_tpu_torch.apps.profile_render \
+        --scene big_field --width 1280 --height 720 --spp 8 --fixed
 """
 
 from __future__ import annotations
@@ -68,7 +71,12 @@ def main(argv=None):
                     choices=["mega", "wavefront", "mega_diff"])
     ap.add_argument("--scene", default="random_spheres",
                     choices=["random_spheres", "textured_globe",
-                             "tex_icosphere"])
+                             "tex_icosphere", "big_field", "big1m"])
+    ap.add_argument("--integrator", default="path",
+                    choices=["path", "lambert", "normal"])
+    ap.add_argument("--no-compact-auto", action="store_true",
+                    help="cfg.compact_auto off: the fields' path render "
+                         "runs monolithic")
     ap.add_argument("--textured", action="store_true",
                     help="random_spheres with about 1 in 5 small "
                          "lambertians on an image")
@@ -93,8 +101,9 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(smi)
     aspect = args.width / args.height
-    if args.scene == "tex_icosphere":
-        scene, cam = check_scenes.tex_icosphere_scene(aspect, device=dev)
+    if args.scene in ("tex_icosphere", "big_field", "big1m"):
+        scene, cam = getattr(check_scenes, args.scene + "_scene")(
+            aspect, device=dev)
     elif args.scene == "textured_globe":
         scene, cam = presets.textured_globe(aspect, device=dev)
     else:
@@ -112,8 +121,9 @@ def main(argv=None):
     for chunk in args.ray_chunk:
         cfg = RenderConfig(width=args.width, height=args.height,
                            samples=args.spp, max_depth=args.max_depth,
-                           quirks=quirks, engine=args.engine,
-                           ray_chunk=chunk)
+                           integrator=args.integrator, quirks=quirks,
+                           engine=args.engine, ray_chunk=chunk,
+                           compact_auto=not args.no_compact_auto)
         gen = torch.Generator(device=dev).manual_seed(0)
         isect = None if mega else sweep_intersector(cfg)
 
@@ -163,6 +173,8 @@ def main(argv=None):
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "power": smi, "scene": args.scene,
                       "textured": args.textured, "engine": args.engine,
+                      "integrator": args.integrator,
+                      "compact_auto": not args.no_compact_auto,
                       "grad": args.grad, "rows": rows}))
     return 0
 

@@ -23,9 +23,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scene", default="three_spheres",
                     choices=["three_spheres", "random_spheres", "light_box",
-                             "textured_globe", "tex_icosphere"],
+                             "textured_globe", "tex_icosphere", "big_field",
+                             "big1m"],
                     help="tex_icosphere: a 5,120-triangle icosphere on "
-                         "bench.py's 128x128 procedural image")
+                         "bench.py's 128x128 procedural image; big_field, "
+                         "big1m: 5 x 5 and 12 x 17 copies of the "
+                         "icosphere, 128,000 and 1,044,480 triangles")
     ap.add_argument("--textured", action="store_true",
                     help="random_spheres: about 1 in 5 small lambertians "
                          "on a procedural image")
@@ -43,11 +46,15 @@ def main(argv=None):
                          "engine on the sweep kernels (the JAX CLI's "
                          "'pallas'); bruteforce: the wavefront engine on "
                          "brute-force tensor ops; auto: mega where the "
-                         "kernel takes the scene, else sweeps (bvh comes "
-                         "with a later slice)")
+                         "kernel takes the scene (up to 2^20 spheres or "
+                         "triangles, above 8,192 through its segment "
+                         "level), else sweeps (bvh comes with a later "
+                         "slice)")
     ap.add_argument("--compact-after", type=int, default=0,
-                    help="mega engine: sort the wavefront after N bounces "
-                         "(not ported yet: rejected when > 0)")
+                    help="mega engine, path integrator: sort the wavefront "
+                         "after N bounces (kernel mode K10); a scene of "
+                         "2^16 prims or more takes the phased octant route "
+                         "on its own (cfg.compact_auto)")
     ap.add_argument("--quirks", default="reference",
                     choices=["reference", "fixed"])
     ap.add_argument("--seed", type=int, default=0)
@@ -85,8 +92,9 @@ def main(argv=None):
         c = pts.mean(0)
         cam = make_camera(c + [0, 0.1 * ext[1], 2.2 * ext.max()], c,
                           (0, 1, 0), 40.0, aspect, 0.0, 10.0, device=device)
-    elif args.scene == "tex_icosphere":
-        scene, cam = check_scenes.tex_icosphere_scene(aspect, device=device)
+    elif args.scene in ("tex_icosphere", "big_field", "big1m"):
+        scene, cam = getattr(check_scenes, args.scene + "_scene")(
+            aspect, device=device)
     else:
         kw = {"textured": True} if args.textured else {}
         scene, cam = getattr(presets, args.scene)(aspect=aspect,

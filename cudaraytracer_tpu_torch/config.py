@@ -136,17 +136,9 @@ def check_supported(cfg: RenderConfig) -> None:
         raise ValueError(
             f"wavefront_sphere_cull={cfg.wavefront_sphere_cull!r}: expected "
             "'morton', 'primary', or 'off'")
-    if cfg.compact_after > 0 or cfg.compact_every > 0:
-        raise NotImplementedError(
-            "compact_after / compact_every (octant compaction, kernel mode "
-            "K10) are not ported yet: ROADMAP Queue 1 item 19 (slice 6)")
-    if cfg.mega_f2b_shells > 0:
-        raise NotImplementedError(
-            "mega_f2b_shells (kernel mode K11) is not ported yet: ROADMAP "
-            "Queue 2 K11, after slice 6")
     if cfg.mega_mxu:
         raise NotImplementedError(
             "mega_mxu (kernel mode K12) is not ported yet: ROADMAP Queue 2 "
-            "K12, after slice 6")
+            "K12, the next slice")
     if cfg.dtype != "float32":
         raise NotImplementedError("the port renders in float32 only")

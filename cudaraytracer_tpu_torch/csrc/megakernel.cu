@@ -2,9 +2,9 @@
 // ray in one thread.
 //
 // Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, launched
-// there by _mega_call through its single pl.pallas_call, in four of its
-// modes, each a compile-time parameter of mega_kernel<INTEG, COUNT, XFORM,
-// WINNERS, TEX>:
+// there by _mega_call through its single pl.pallas_call, in seven of its
+// modes.  Five are compile-time parameters of mega_kernel<INTEG, COUNT,
+// XFORM, WINNERS, TEX, SHELLS>:
 //   * K1, the main-path form (spheres + triangles, tables resident,
 //     integrator path / lambert / normal, in-kernel draws or an injected
 //     (ball, prob) stream): XFORM = WINNERS = false;
@@ -18,6 +18,16 @@
 //   * K9, TEX (path and lambert): image textures, the texel fetched in the
 //     bounce loop (what want_tex, megakernel.py:1574-1596 and :1720-1743,
 //     and _deferred_texture_radiance :2254 compute together).
+//   * K11, SHELLS (f2b, shelled :795): the triangle sweep's top-level
+//     boxes visited in B passes by distance from the ray origin.
+// Two are runtime parameters that every instance serves:
+//   * K6, the segment level (stream_tri / stream_sph, megakernel.py:669-726
+//     and :919-972): above 8,192 prims of a type the table gets one box per
+//     SEG_T = 2048 prims, tested before the super and chunk boxes;
+//   * K10, the bounce window (resume / dump_state / step_lo / n_steps,
+//     megakernel.py:1607-1646): global steps [step_lo, step_lo + n_steps),
+//     an optional resumed (thr, alive) state, an optional 13-float dump of
+//     the ray state, and an optional ray id that keys the draws.
 // Also exposes that kernel's draw transform as a kernel of its own,
 // scatter_draws (ops/pallas_intersect.py::_draws_kernel).
 //
@@ -26,7 +36,8 @@
 // the ray reaches), and divergence, since neighbouring rays reach different
 // chunks and end their paths at different bounces.  Memory traffic is small:
 // a ray is read once and its radiance written once, and the tables (tens of
-// KB to a few hundred KB) stay in L1/L2.
+// KB to a few hundred KB) stay in L1/L2; above 8,192 prims (K6) they grow
+// to 12 MB at 128k triangles (inside the 50 MB L2) and 100 MB at 1M.
 //
 // What the simple design does about that:
 //   * one thread per ray, the bounce loop in registers, as the reference
@@ -94,6 +105,40 @@
 // at most two 3-byte loads per image hit, through L1/L2; textures never
 // change a path, so the counting instance runs without TEX.
 //
+// K6.  A GPU has no VMEM to stream into: the TPU kernel's per-segment DMA
+// becomes a third box level over the same global-memory tables.  When
+// n_tri_segs > 0 the thread tests each segment box, then that segment's 8
+// super boxes, then each super's 16 chunk boxes, every level gated by the
+// slab test against the running best_t; the same for spheres when
+// n_sph_segs > 0 (their super level is then always on).  Segments, supers
+// and chunks are walked in table order with a strict <, so the first prim
+// still wins ties.
+//
+// K10.  The path integrator runs global steps [step_lo, step_lo + n_steps):
+// the depth budget (render.h:57) tests the global step.  With a state
+// float32[n, 4] (thr rgb, alive) the thread resumes from it, else it starts
+// with thr 1 and alive.  With dump the output is float32[n, 13] [rad | o | d
+// | thr | alive], the radiance of this window only, the ray the next window
+// starts from and the throughput.  With ray_id int32[n] the draws are keyed
+// by (seed, ray_id[i], step) and the injected stream is read at row
+// ray_id[i] of its n_stream rows, so a render whose windows see the rays in
+// any order (the compaction drivers) is bit-identical to the monolithic one.
+// (The TPU kernel keys its draws by tile and lane, megakernel.py:1895-1900.)
+//
+// K11.  With f2b = B > 0 (the SHELLS instances: as a runtime branch the
+// shell loop raised the K1 path instance's spill from 40 to 134 bytes and
+// its frame-sized launch by 3% on an H100) the triangle sweep's top-level
+// boxes (segments when there are any, supers otherwise) are visited in B
+// passes: a scan
+// finds the least and greatest squared distance from the ray origin to a
+// box, and pass s visits the boxes whose shell index min(floor((d2 - dmin)
+// * B / max(dmax - dmin, 1e-30)), B - 1) is s, each box exactly once.  The
+// TPU kernel measures from its tile's alive-origin centroid; here a thread
+// is the unit of culling, so it measures from its own origin.  A triangle
+// that ties the best t exactly wins when its row is lower, so the result
+// does not depend on the visit order (a box whose near face lies exactly at
+// best_t is still culled: JAX's caveat, megakernel.py:768-772).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -shared -Xcompiler -fPIC  (plain C interface, loaded with ctypes;
 //        ops/_cuda.py).
@@ -115,6 +160,8 @@ constexpr float INV_PI = 0.3183098861837907f;
 constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr int PRIM_CHUNK = 16;         // prims per chunk box
 constexpr int CHUNKS_PER_SUPER = 16;   // SUPER_T = 256 prims per super box
+constexpr int SUPERS_PER_SEG = 8;      // SEG_T = 2048 prims per segment box
+constexpr int DUMP_COLS = 13;          // K10's dump: rad o d thr alive
 constexpr int SPH_COLS = 16;  // cx cy cz r2 1/r | 9 material | 2 pad
 constexpr int TRI_COLS = 24;  // v0 e1 e2 n | 9 material | 3 pad
 constexpr int BOX_COLS = 8;   // lo.xyz hi.xyz | 2 pad
@@ -144,10 +191,12 @@ struct Params {
   const float* sph; const float* sph_box; const float* sph_super;
   const float* tri; const float* tri_box; const float* tri_super;
   const float* o; const float* d;
-  const float* stream;        // [max_depth + 1, n, 4] when INJECTED
-  float* out;                 // [n, 3]
-  unsigned long long* counts; // optional [3]: box, sphere, triangle tests;
-                              // given, the counting variant runs
+  const float* stream;        // [max_depth + 1, n_stream, 4] when INJECTED
+  float* out;                 // [n, 3], or [n, 13] with dump (K10)
+  unsigned long long* counts; // optional [8]: the tests of Counts; given,
+                              // the counting variant runs
+  unsigned char* touched;     // counting variant: 1 per chunk whose prims
+                              // were tested, [sphere chunks | tri chunks]
   unsigned long long seed;
   int n, n_sph_chunks, n_sph_supers, n_tri_supers, max_depth, flags;
   float t_min, t_max, ambient;
@@ -159,6 +208,14 @@ struct Params {
   // kernel mode K9: the packed images uint8[I, img_h, img_w, 3]
   const uint8_t* images;
   int img_h, img_w;
+  // kernel mode K6: segment boxes, float32[n_segs, 8] (0: no segment level)
+  const float* sph_seg; const float* tri_seg;
+  int n_sph_segs, n_tri_segs;
+  int f2b;                    // K11: shells (0: table order)
+  // kernel mode K10
+  int step_lo, n_steps, n_stream, dump;
+  const float* state;         // optional [n, 4] thr rgb, alive
+  const int* ray_id;          // optional [n]
 };
 
 // jnp.minimum / jnp.maximum semantics: NaN in, NaN out (fminf would drop it)
@@ -201,7 +258,14 @@ struct XHit {
   int idx;
 };
 
-struct Counts { unsigned long long box, sph, tri, rect, tsph, ttri; };
+// box: chunk and super slab tests; seg: segment slab tests (K6); dist: the
+// top-level boxes the shells rank (K11), one distance and one shell index
+// each: the work the order needs (tri_shells recomputes the distance in
+// every pass, which is not counted)
+struct Counts {
+  unsigned long long box, sph, tri, rect, tsph, ttri, seg, dist;
+};
+constexpr int N_COUNTS = 8;
 
 // Sphere quadratic over one chunk (megakernel.py:620-652): half-b form,
 // strict disc > 0, each root times 1/a; nearest root inside (t_min, t_max).
@@ -256,63 +320,175 @@ __device__ __forceinline__ void tri_chunk(const Params& P, const Ray& r,
       valid = valid && (r.dx * r2.y + r.dy * r2.z + r.dz * r2.w) >= 0.f;
     if (P.flags & NO_T_CLIP) valid = valid && (t < P.t_max);
     else valid = valid && (t > P.t_min) && (t < P.t_max);
-    if (valid && t < h.t) { h.t = t; h.idx = base + k; h.tri = true; }
+    // a lower row wins an exact tie: the table-order result for any visit
+    // order of the boxes (K11)
+    if (valid && (t < h.t || (t == h.t && h.tri && base + k < h.idx))) {
+      h.t = t; h.idx = base + k; h.tri = true;
+    }
   }
 }
 
-// Closest hit over the sphere chunks (one or two box levels) and the
-// triangle supers and chunks.  COUNT adds the tests made to cnt (a
-// measurement-only variant; the production launches carry none of it).
+// One sphere chunk: its box, then its 16 spheres.
 template <bool COUNT>
+__device__ __forceinline__ void sphere_box_chunk(const Params& P,
+                                                 const Ray& r, float ix,
+                                                 float iy, float iz, float a,
+                                                 float inv_a, int c, Hit& h,
+                                                 Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (slab(P.sph_box + (size_t)c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+           h.t, P.t_min)) {
+    if (COUNT) {
+      cnt.sph += PRIM_CHUNK;
+      P.touched[c] = 1;
+    }
+    sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
+  }
+}
+
+// One sphere super box, then its 16 chunks.
+template <bool COUNT>
+__device__ __forceinline__ void sphere_super(const Params& P, const Ray& r,
+                                             float ix, float iy, float iz,
+                                             float a, float inv_a, int s,
+                                             Hit& h, Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (!slab(P.sph_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+            iz, h.t, P.t_min))
+    return;
+  for (int j = 0; j < CHUNKS_PER_SUPER; ++j)
+    sphere_box_chunk<COUNT>(P, r, ix, iy, iz, a, inv_a,
+                            s * CHUNKS_PER_SUPER + j, h, cnt);
+}
+
+// One triangle super box, then its 16 chunk boxes and their triangles.
+template <bool COUNT>
+__device__ __forceinline__ void tri_super(const Params& P, const Ray& r,
+                                          float ix, float iy, float iz,
+                                          float lo_cut, int s, Hit& h,
+                                          Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (!slab(P.tri_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+            iz, h.t, lo_cut))
+    return;
+  for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
+    const int c = s * CHUNKS_PER_SUPER + j;
+    if (COUNT) ++cnt.box;
+    if (slab(P.tri_box + (size_t)c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+             h.t, lo_cut)) {
+      if (COUNT) {
+        cnt.tri += PRIM_CHUNK;
+        P.touched[P.n_sph_chunks + c] = 1;
+      }
+      tri_chunk(P, r, c * PRIM_CHUNK, h);
+    }
+  }
+}
+
+// Top-level triangle box j: a segment and its 8 supers (K6), or a super.
+template <bool COUNT>
+__device__ __forceinline__ void tri_top(const Params& P, const Ray& r,
+                                        float ix, float iy, float iz,
+                                        float lo_cut, int j, Hit& h,
+                                        Counts& cnt) {
+  if (P.n_tri_segs == 0) {
+    tri_super<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
+    return;
+  }
+  if (COUNT) ++cnt.seg;
+  if (!slab(P.tri_seg + (size_t)j * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+            h.t, lo_cut))
+    return;
+  for (int u = 0; u < SUPERS_PER_SEG; ++u)
+    tri_super<COUNT>(P, r, ix, iy, iz, lo_cut, j * SUPERS_PER_SEG + u, h,
+                     cnt);
+}
+
+// Squared distance from the point (mx, my, mz) to a box (megakernel.py
+// box_dist2: the point clipped into the box).
+__device__ __forceinline__ float box_dist2(const float* box, float mx,
+                                           float my, float mz) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(box));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(box + 4));
+  const float qx = fminf(fmaxf(mx, a.x), a.w) - mx;
+  const float qy = fminf(fmaxf(my, a.y), b.x) - my;
+  const float qz = fminf(fmaxf(mz, a.z), b.y) - mz;
+  return qx * qx + qy * qy + qz * qz;
+}
+
+// K11: the shell of a box, min(floor((d2 - dmin) * scale), B - 1); a NaN
+// distance lands in shell 0, so every box is visited once.
+__device__ __forceinline__ int shell_of(float d2, float dmin, float scale,
+                                        int shells) {
+  const float q = floorf((d2 - dmin) * scale);
+  return q >= 0.f ? (q < (float)(shells - 1) ? (int)q : shells - 1) : 0;
+}
+
+// K11: the triangles' top-level boxes in f2b distance shells, each box
+// visited once.
+template <bool COUNT>
+__device__ __forceinline__ void tri_shells(const Params& P, const Ray& r,
+                                           float ix, float iy, float iz,
+                                           float lo_cut, Hit& h,
+                                           Counts& cnt) {
+  const bool segs = P.n_tri_segs > 0;
+  const int n_top = segs ? P.n_tri_segs : P.n_tri_supers;
+  const float* top = segs ? P.tri_seg : P.tri_super;
+  float dmin = 3.4e38f, dmax = 0.f;
+  for (int j = 0; j < n_top; ++j) {
+    const float d2 = box_dist2(top + (size_t)j * BOX_COLS, r.ox, r.oy, r.oz);
+    dmin = fminf(dmin, d2);
+    dmax = fmaxf(dmax, d2);
+  }
+  const float scale = (float)P.f2b / fmaxf(dmax - dmin, 1e-30f);
+  if (COUNT) cnt.dist += (unsigned long long)n_top;
+  for (int s = 0; s < P.f2b; ++s) {
+    for (int j = 0; j < n_top; ++j) {
+      const float d2 = box_dist2(top + (size_t)j * BOX_COLS, r.ox, r.oy,
+                                 r.oz);
+      if (shell_of(d2, dmin, scale, P.f2b) == s)
+        tri_top<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
+    }
+  }
+}
+
+// Closest hit over the sphere chunks (one, two or three box levels) and the
+// triangle segments (K6), supers and chunks, the triangles' top level in
+// shells with SHELLS (K11, P.f2b > 0).  COUNT adds the tests made to cnt (a
+// measurement-only variant; the production launches carry none of it).
+template <bool COUNT, bool SHELLS>
 __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   Hit h{BIG, -1, false};
   const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
   if (P.n_sph_chunks > 0) {
     const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     const float inv_a = 1.f / a;
-    if (P.n_sph_supers == 0) {
-      for (int c = 0; c < P.n_sph_chunks; ++c) {
-        if (COUNT) ++cnt.box;
-        if (slab(P.sph_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
-                 h.t, P.t_min)) {
-          if (COUNT) cnt.sph += PRIM_CHUNK;
-          sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
-        }
-      }
-    } else {
-      for (int s = 0; s < P.n_sph_supers; ++s) {
-        if (COUNT) ++cnt.box;
-        if (!slab(P.sph_super + s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
-                  h.t, P.t_min))
+    if (P.n_sph_segs > 0) {
+      for (int g = 0; g < P.n_sph_segs; ++g) {
+        if (COUNT) ++cnt.seg;
+        if (!slab(P.sph_seg + (size_t)g * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+                  iz, h.t, P.t_min))
           continue;
-        for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
-          const int c = s * CHUNKS_PER_SUPER + j;
-          if (COUNT) ++cnt.box;
-          if (slab(P.sph_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
-                   h.t, P.t_min)) {
-            if (COUNT) cnt.sph += PRIM_CHUNK;
-            sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
-          }
-        }
+        for (int u = 0; u < SUPERS_PER_SEG; ++u)
+          sphere_super<COUNT>(P, r, ix, iy, iz, a, inv_a,
+                              g * SUPERS_PER_SEG + u, h, cnt);
       }
+    } else if (P.n_sph_supers == 0) {
+      for (int c = 0; c < P.n_sph_chunks; ++c)
+        sphere_box_chunk<COUNT>(P, r, ix, iy, iz, a, inv_a, c, h, cnt);
+    } else {
+      for (int s = 0; s < P.n_sph_supers; ++s)
+        sphere_super<COUNT>(P, r, ix, iy, iz, a, inv_a, s, h, cnt);
     }
   }
   if (P.n_tri_supers > 0) {
     const float lo_cut = (P.flags & NO_T_CLIP) ? -BIG : P.t_min;
-    for (int s = 0; s < P.n_tri_supers; ++s) {
-      if (COUNT) ++cnt.box;
-      if (!slab(P.tri_super + s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
-                h.t, lo_cut))
-        continue;
-      for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
-        const int c = s * CHUNKS_PER_SUPER + j;
-        if (COUNT) ++cnt.box;
-        if (slab(P.tri_box + c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
-                 h.t, lo_cut)) {
-          if (COUNT) cnt.tri += PRIM_CHUNK;
-          tri_chunk(P, r, c * PRIM_CHUNK, h);
-        }
-      }
+    if constexpr (SHELLS) {
+      tri_shells<COUNT>(P, r, ix, iy, iz, lo_cut, h, cnt);
+    } else {
+      const int n_top = P.n_tri_segs > 0 ? P.n_tri_segs : P.n_tri_supers;
+      for (int j = 0; j < n_top; ++j)
+        tri_top<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
     }
   }
   return h;
@@ -654,8 +830,9 @@ __device__ __forceinline__ void sky(float dy, float inv_dlen, float out[3]) {
 }
 
 __device__ __forceinline__ void add_counts(const Params& P, Counts c) {
-  unsigned long long v[6] = {c.box, c.sph, c.tri, c.rect, c.tsph, c.ttri};
-  for (int k = 0; k < 6; ++k) {
+  unsigned long long v[N_COUNTS] = {c.box, c.sph, c.tri, c.rect,
+                                    c.tsph, c.ttri, c.seg, c.dist};
+  for (int k = 0; k < N_COUNTS; ++k) {
     for (int off = 16; off > 0; off >>= 1)
       v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
     if ((threadIdx.x & 31) == 0) atomicAdd(P.counts + k, v[k]);
@@ -721,11 +898,11 @@ __device__ __forceinline__ bool scatter(const Params& P, const Ray& r,
 
 // The closest hit and the winner's point, normal and material.  K1's form
 // (XFORM false) is the code of the main path; XFORM adds K8.
-template <bool COUNT, bool XFORM>
+template <bool COUNT, bool XFORM, bool SHELLS>
 __device__ __forceinline__ Hit trace_hit(const Params& P, const Ray& r,
                                          float inv_dlen, XHit& xh,
                                          Counts& cnt) {
-  Hit h = closest_hit<COUNT>(P, r, cnt);
+  Hit h = closest_hit<COUNT, SHELLS>(P, r, cnt);
   if constexpr (XFORM) {
     xh = XHit{0, 0};
     xform_hit<COUNT>(P, r, inv_dlen, h, xh, cnt);
@@ -767,10 +944,11 @@ __device__ __forceinline__ void decode(const Params& P, const float m[9],
   else mat_decode(m, p[0], p[1], p[2], att, em);
 }
 
-template <int INTEG, bool COUNT, bool XFORM, bool WINNERS, bool TEX>
+template <int INTEG, bool COUNT, bool XFORM, bool WINNERS, bool TEX,
+          bool SHELLS>
 __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  Counts cnt{0, 0, 0, 0, 0, 0};
+  Counts cnt{0, 0, 0, 0, 0, 0, 0, 0};
   if (i < P.n) {
     Ray r{P.o[3 * (size_t)i], P.o[3 * (size_t)i + 1], P.o[3 * (size_t)i + 2],
           P.d[3 * (size_t)i], P.d[3 * (size_t)i + 1], P.d[3 * (size_t)i + 2]};
@@ -778,18 +956,31 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
     XHit xh{0, 0};
     if (INTEG == PATH) {
       // render.h:48-67: emitted + attenuation * recursion; ambient on
-      // absorb; sky on miss.  Step i is recursion depth max_depth - i.
+      // absorb; sky on miss.  Step i is recursion depth max_depth - i.  The
+      // window (K10) runs global steps [step_lo, step_lo + n_steps).
       float thr[3] = {1.f, 1.f, 1.f};
+      bool alive = true;
+      if (P.state) {
+        const float4 st = __ldg(reinterpret_cast<const float4*>(P.state) + i);
+        thr[0] = st.x;
+        thr[1] = st.y;
+        thr[2] = st.z;
+        alive = st.w > 0.f;
+      }
+      const uint32_t rid = P.ray_id ? (uint32_t)__ldg(P.ray_id + i)
+                                    : (uint32_t)i;
       res[0] = res[1] = res[2] = 0.f;
-      int step = 0;
-      for (; step <= P.max_depth; ++step) {
+      const int step_hi = P.step_lo + P.n_steps;
+      int step = P.step_lo;
+      for (; alive && step < step_hi; ++step) {
         const float inv_dlen =
             1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-        const Hit h = trace_hit<COUNT, XFORM>(P, r, inv_dlen, xh, cnt);
+        const Hit h = trace_hit<COUNT, XFORM, SHELLS>(P, r, inv_dlen, xh, cnt);
         if (!(h.t < BIG_CUT)) {
           float s[3];
           sky(r.dy, inv_dlen, s);
           for (int k = 0; k < 3; ++k) res[k] += thr[k] * s[k];
+          alive = false;
           break;
         }
         float p[3], n[3], m[9], att[3], em[3], dir[3], uv[2];
@@ -801,14 +992,15 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
         if (step < P.max_depth && m[0] != K_LIGHT) {   // render.h:57
           const float4 s = (P.flags & INJECTED)
               ? __ldg(reinterpret_cast<const float4*>(
-                    P.stream + ((size_t)step * P.n + i) * 4))
-              : draw(P.seed, (uint32_t)i, (uint32_t)step);
+                    P.stream + ((size_t)step * P.n_stream + rid) * 4))
+              : draw(P.seed, rid, (uint32_t)step);
           cont = scatter(P, r, n, m, inv_dlen, s, dir);
         }
         const float amb = cont ? 0.f : P.ambient;
         for (int k = 0; k < 3; ++k) res[k] += thr[k] * (em[k] + amb);
         if (!cont) {
           ++step;
+          alive = false;
           break;
         }
         for (int k = 0; k < 3; ++k) thr[k] *= att[k];
@@ -819,12 +1011,19 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
         for (; step <= P.max_depth; ++step)
           P.winners[(size_t)step * P.n + i] = -1;
       }
+      if (P.dump) {                     // [rad | o | d | thr | alive]
+        float* q = P.out + (size_t)i * DUMP_COLS;
+        const float v[DUMP_COLS] = {res[0], res[1], res[2], r.ox, r.oy, r.oz,
+                                    r.dx, r.dy, r.dz, thr[0], thr[1], thr[2],
+                                    alive ? 1.f : 0.f};
+        for (int k = 0; k < DUMP_COLS; ++k) q[k] = v[k];
+      }
     } else {
       // LambertShade (render.h:70-87) and shade_normal (render.h:90-103):
       // one intersection.
       const float inv_dlen =
           1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-      const Hit h = trace_hit<COUNT, XFORM>(P, r, inv_dlen, xh, cnt);
+      const Hit h = trace_hit<COUNT, XFORM, SHELLS>(P, r, inv_dlen, xh, cnt);
       const bool hit = h.t < BIG_CUT;
       float s[3];
       sky(r.dy, inv_dlen, s);
@@ -846,9 +1045,11 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
         }
       }
     }
-    P.out[3 * (size_t)i] = res[0];
-    P.out[3 * (size_t)i + 1] = res[1];
-    P.out[3 * (size_t)i + 2] = res[2];
+    if (!P.dump) {
+      P.out[3 * (size_t)i] = res[0];
+      P.out[3 * (size_t)i + 1] = res[1];
+      P.out[3 * (size_t)i + 2] = res[2];
+    }
   }
   if (COUNT) add_counts(P, cnt);
 }
@@ -862,35 +1063,47 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(
 
 // The production instances: TEX when the caller passes the images (K9; the
 // normal integrator reads no texture and has no TEX instance).
-template <int INTEG, bool XFORM, bool TEX>
+template <int INTEG, bool XFORM, bool TEX, bool SHELLS>
 void launch_production(const Params& P, cudaStream_t s, dim3 grid) {
   if constexpr (INTEG == PATH) {
     if (P.winners)
-      mega_kernel<PATH, false, XFORM, true, TEX><<<grid, BLOCK, 0, s>>>(P);
+      mega_kernel<PATH, false, XFORM, true, TEX, SHELLS>
+          <<<grid, BLOCK, 0, s>>>(P);
     else
-      mega_kernel<PATH, false, XFORM, false, TEX><<<grid, BLOCK, 0, s>>>(P);
+      mega_kernel<PATH, false, XFORM, false, TEX, SHELLS>
+          <<<grid, BLOCK, 0, s>>>(P);
   } else {
-    mega_kernel<INTEG, false, XFORM, false, TEX><<<grid, BLOCK, 0, s>>>(P);
+    mega_kernel<INTEG, false, XFORM, false, TEX, SHELLS>
+        <<<grid, BLOCK, 0, s>>>(P);
   }
 }
 
-template <int INTEG, bool XFORM>
+template <int INTEG, bool XFORM, bool SHELLS>
 void launch_mega(const Params& P, cudaStream_t s) {
   const dim3 grid((P.n + BLOCK - 1) / BLOCK);
   if (P.counts) {
-    mega_kernel<INTEG, true, XFORM, false, false><<<grid, BLOCK, 0, s>>>(P);
+    mega_kernel<INTEG, true, XFORM, false, false, SHELLS>
+        <<<grid, BLOCK, 0, s>>>(P);
   } else if constexpr (INTEG != NORMAL) {
-    if (P.images) launch_production<INTEG, XFORM, true>(P, s, grid);
-    else launch_production<INTEG, XFORM, false>(P, s, grid);
+    if (P.images) launch_production<INTEG, XFORM, true, SHELLS>(P, s, grid);
+    else launch_production<INTEG, XFORM, false, SHELLS>(P, s, grid);
   } else {
-    launch_production<INTEG, XFORM, false>(P, s, grid);
+    launch_production<INTEG, XFORM, false, SHELLS>(P, s, grid);
   }
 }
 
+// K8 and K11 pick the instance: the shell passes are their own instances,
+// so that their registers stay out of the main path's (K1) code.
 template <int INTEG>
 void launch_mega(const Params& P, cudaStream_t s) {
-  if (P.n_rects + P.n_tsph + P.n_ttri > 0) launch_mega<INTEG, true>(P, s);
-  else launch_mega<INTEG, false>(P, s);
+  const bool xform = P.n_rects + P.n_tsph + P.n_ttri > 0;
+  if (P.f2b > 0) {
+    if (xform) launch_mega<INTEG, true, true>(P, s);
+    else launch_mega<INTEG, false, true>(P, s);
+  } else {
+    if (xform) launch_mega<INTEG, true, false>(P, s);
+    else launch_mega<INTEG, false, false>(P, s);
+  }
 }
 
 }  // namespace
@@ -905,10 +1118,20 @@ extern "C" int crt_mega_trace(
     int n_tri_supers, int n_rects, int n_tsph, int n_ttri, int n_spheres,
     int n_triangles, int integrator, int max_depth, float t_min,
     float t_max, float ambient, int flags, unsigned long long seed,
-    const void* images, int img_h, int img_w, void* cuda_stream) {
+    const void* images, int img_h, int img_w, const void* sph_seg,
+    const void* tri_seg, int n_sph_segs, int n_tri_segs, int f2b,
+    int step_lo, int n_steps, const void* state, const void* ray_id,
+    int n_stream, int dump, void* touched, void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
     return (int)cudaErrorInvalidValue;
   if (images && (integrator == NORMAL || counts))
+    return (int)cudaErrorInvalidValue;
+  if (step_lo < 0 || n_steps < 1 || step_lo + n_steps > max_depth + 1 ||
+      f2b < 0 || (counts && !touched))
+    return (int)cudaErrorInvalidValue;
+  const bool window = state || dump || step_lo != 0 ||
+                      n_steps != max_depth + 1;
+  if (window && (integrator != PATH || winners))
     return (int)cudaErrorInvalidValue;
   Params P;
   P.images = static_cast<const uint8_t*>(images);
@@ -936,6 +1159,7 @@ extern "C" int crt_mega_trace(
   P.stream = static_cast<const float*>(stream);
   P.out = static_cast<float*>(out);
   P.counts = static_cast<unsigned long long*>(counts);
+  P.touched = static_cast<unsigned char*>(touched);
   P.seed = seed;
   P.n = n;
   P.n_sph_chunks = n_sph_chunks;
@@ -946,6 +1170,17 @@ extern "C" int crt_mega_trace(
   P.t_min = t_min;
   P.t_max = t_max;
   P.ambient = ambient;
+  P.sph_seg = static_cast<const float*>(sph_seg);
+  P.tri_seg = static_cast<const float*>(tri_seg);
+  P.n_sph_segs = n_sph_segs;
+  P.n_tri_segs = n_tri_segs;
+  P.f2b = n_tri_supers > 0 ? f2b : 0;
+  P.step_lo = step_lo;
+  P.n_steps = n_steps;
+  P.n_stream = n_stream;
+  P.dump = dump;
+  P.state = static_cast<const float*>(state);
+  P.ray_id = static_cast<const int*>(ray_id);
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   switch (integrator) {

@@ -20,7 +20,18 @@
   * ``fill_trs_field``: ``k`` each of TRS spheres, TRS triangles and rects
     scattered in front of the camera (the generator of
     tests/test_transform_prims.py:168-207), above the JAX engine's
-    1024-per-class cap when k > 1024.
+    1024-per-class cap when k > 1024;
+  * scenes above the table-resident size (8,192 prims of a type), which
+    take the segment level (kernel mode K6): ``fill_icosphere_field``, a
+    grid of the 5,120-triangle icosphere laid out as bench.py lays out its
+    bunnies (``big_field_scene``: 5 x 5 copies, 128,000 triangles, in place
+    of bench.py's 124k-triangle big_field; ``big1m_scene``: 12 x 17 copies,
+    1,044,480 triangles, under the 2^20 ceiling, in place of its big1m,
+    whose 14 x 15 grid would exceed it); ``fill_terrain``, a 10,368-triangle
+    height field with a metal sphere (tests/test_megakernel.py:202-230);
+    ``fill_sphere_field``, 96 x 96 = 9,216 small spheres
+    (tests/test_megakernel.py:790-806); with ``terrain_rays`` and
+    ``sphere_field_rays``, the rays those tests cast.
 
 The ``fill_*`` functions take a SceneBuilder and return it, so the same
 scene can be built by any builder with this package's interface.
@@ -254,3 +265,110 @@ def trs_field_scene(k: int, aspect: float, device=None):
     cam = make_camera((0, 0.3, 1), (0, 0.3, -3), vfov=60, aspect=aspect,
                       focus_dist=4.0, device=device)
     return fill_trs_field(SceneBuilder(), k).build(device), cam
+
+
+def fill_icosphere_field(b, nx: int, nz: int):
+    """nx x nz copies of the 5,120-triangle unit icosphere on one
+    lambertian (0.65, 0.05, 0.05), offset as bench.py:93-114 offsets its
+    bunnies: x = (i - nx // 2) * 1.15 * extent, z = -j * 1.3 * extent.
+    Outward face normals with the reversed winding of bench.py's add_mesh
+    calls.  Returns (builder, extent float32[3])."""
+    from ..utils.obj_loader import face_normals
+    pts, faces = icosphere(4)
+    ext = pts.max(0) - pts.min(0)
+    nrm = face_normals(pts, faces)
+    mat = b.materials.lambertian(color=(0.65, 0.05, 0.05))
+    copies, offsets = [], []
+    for i in range(nx):
+        for j in range(nz):
+            copies.append(faces + len(pts) * len(copies))
+            offsets.append(pts + np.array([(i - nx // 2) * 1.15 * ext[0],
+                                           0.0, -j * 1.3 * ext[2]],
+                                          np.float32))
+    b.add_mesh(np.concatenate(offsets), np.concatenate(copies), mat,
+               normals=np.tile(nrm, (nx * nz, 1)), reverse_winding=True)
+    return b, ext
+
+
+def field_scene(nx: int, nz: int, aspect: float, device=None):
+    """(Scene, Camera) of ``fill_icosphere_field`` with bench.py's field
+    camera: from (0, 2.2, 3.2) toward (0, 0.35, -(nz // 2) * 1.3 * extent),
+    vfov 50, focus 10, no aperture."""
+    b, ext = fill_icosphere_field(SceneBuilder(), nx, nz)
+    cam = make_camera((0, 2.2, 3.2),
+                      (0.0, 0.35, float(-(nz // 2) * 1.3 * ext[2])),
+                      (0, 1, 0), 50.0, aspect, 0.0, 10.0, device=device)
+    return b.build(device), cam
+
+
+def big_field_scene(aspect: float, device=None):
+    """5 x 5 icospheres, 128,000 triangles: the phased octant route."""
+    return field_scene(5, 5, aspect, device)
+
+
+def big1m_scene(aspect: float, device=None):
+    """12 x 17 icospheres, 1,044,480 triangles."""
+    return field_scene(12, 17, aspect, device)
+
+
+def fill_terrain(b, n: int = 72):
+    """A 2 n^2-triangle height field facing down (visible under the
+    backface quirk) and a metal sphere above it."""
+    xs = np.linspace(-5, 5, n + 1)
+    zs = np.linspace(-10, 0, n + 1)
+    X, Z = np.meshgrid(xs, zs)
+    Y = 0.3 * np.sin(X * 1.3) * np.cos(Z * 1.1)
+    mat = b.materials.lambertian(color=(0.7, 0.5, 0.3))
+    P = np.stack([X, Y, Z], axis=-1).astype(np.float32)
+    v0 = P[:-1, :-1].reshape(-1, 3)
+    v1 = P[:-1, 1:].reshape(-1, 3)
+    v2 = P[1:, :-1].reshape(-1, 3)
+    v3 = P[1:, 1:].reshape(-1, 3)
+    tris = np.concatenate([np.stack([v0, v1, v3], 1),
+                           np.stack([v0, v3, v2], 1)])
+    nrm = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+    nrm[nrm[:, 1] > 0] *= -1.0
+    for t, nn in zip(tris, nrm):
+        b.add_triangle(t[0], t[1], t[2], mat, normal=nn)
+    b.add_sphere((0, 2.0, -5), 0.8, b.materials.metal((0.9, 0.9, 0.9), 0.1))
+    return b
+
+
+def terrain_rays(n: int, seed: int = 0):
+    """(origins, directions) float32[n, 3] from (0, 4, 2) down onto the
+    terrain."""
+    rng = np.random.default_rng(seed)
+    o = np.tile(np.array([[0, 4.0, 2.0]], np.float32), (n, 1))
+    d = np.stack([rng.uniform(-0.6, 0.6, n), -np.ones(n),
+                  rng.uniform(-1.6, -0.4, n)], 1).astype(np.float32)
+    return o, d
+
+
+def fill_sphere_field(b, nx: int = 96, nz: int = 96):
+    """nx x nz spheres of radius 0.11 on a gentle height field, lambertian,
+    metal and checker in turn."""
+    xs = np.linspace(-12, 12, nx)
+    zs = np.linspace(-24, -2, nz)
+    X, Z = np.meshgrid(xs, zs)
+    Y = 0.25 * np.sin(X * 0.9) * np.cos(Z * 0.7)
+    centers = np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1).astype(
+        np.float32)
+    m = b.materials
+    mats = [m.lambertian(color=(0.7, 0.3, 0.3)),
+            m.metal((0.9, 0.9, 0.9), 0.05),
+            m.lambertian(m.textures.checker((0.9, 0.9, 0.9),
+                                            (0.1, 0.1, 0.1)))]
+    for i, c in enumerate(centers):
+        b.add_sphere(c, 0.11, mats[i % 3])
+    return b
+
+
+def sphere_field_rays(n: int, seed: int = 3):
+    """(origins, directions) float32[n, 3] from (0, 3, 2) down onto the
+    sphere field."""
+    rng = np.random.default_rng(seed)
+    o = np.tile(np.array([[0, 3.0, 2.0]], np.float32), (n, 1))
+    d = np.stack([rng.uniform(-0.8, 0.8, n), -np.ones(n),
+                  rng.uniform(-2.0, -0.5, n)], 1).astype(np.float32)
+    return o, d

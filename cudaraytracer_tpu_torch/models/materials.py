@@ -51,6 +51,16 @@ class ScatterResult(NamedTuple):
     attenuation: Tensor  # float32[N, 3]
 
 
+class ScatterDecisions(NamedTuple):
+    """The discrete choices of a scatter, made elsewhere and imposed (the
+    mega_diff replay takes them from the plain version's arithmetic, so it
+    follows the path the kernel traced)."""
+
+    met_ok: Tensor       # bool[N] metal: dot(dir, n) > 0
+    exiting: Tensor      # bool[N] dielectric: dot(d, n) > 0
+    reflect: Tensor      # bool[N] dielectric: reflect, not refract
+
+
 class DecodedMaterials(NamedTuple):
     """Per-lane material and texture fields, decoded by one row gather of
     ``decode_table`` (the JAX package's consolidated form; the port keeps
@@ -155,14 +165,16 @@ def scatter(mat: MaterialTable, tex: TextureTable, mat_id: Tensor,
             ball: Tensor, prob: Tensor,
             dielectric_reference_cosine: bool = True,
             lambertian_zero_uv: bool = True,
-            dec: Optional[DecodedMaterials] = None) -> ScatterResult:
+            dec: Optional[DecodedMaterials] = None,
+            decide: Optional[ScatterDecisions] = None) -> ScatterResult:
     """Branch-free scatter for a batch of hits (materials.py:199-279 of the
     JAX package): all four material models are evaluated on the same draws
     and the result is selected by the material kind.
 
     ball / prob: the step's draws (float32[N, 3] unit-ball sample, float32[N]
     uniform), made by the caller.  dec: optional pre-decoded rows, shared
-    with ``emitted``."""
+    with ``emitted``.  decide: optional discrete choices to take in place of
+    the ones these tensor ops would make."""
     if dec is None:
         dec = decode_materials(mat, tex, mat_id)
     kind = dec.kind
@@ -173,13 +185,14 @@ def scatter(mat: MaterialTable, tex: TextureTable, mat_id: Tensor,
     # METAL (material.h:81-92)
     reflected = v3.reflect(v3.unit_vector(d_in), normal)
     met_dir = reflected + dec.fuzz[..., None] * ball
-    met_ok = v3.dot(met_dir, normal) > 0.0
+    met_ok = (v3.dot(met_dir, normal) > 0.0 if decide is None
+              else decide.met_ok)
 
     # DIELECTRIC (material.h:104-141)
     ri = dec.ref_idx
     d_dot_n = v3.dot(d_in, normal)
     d_len = v3.length(d_in)
-    exiting = d_dot_n > 0.0
+    exiting = d_dot_n > 0.0 if decide is None else decide.exiting
     outward_normal = torch.where(exiting[..., None], -normal, normal)
     ni_over_nt = torch.where(exiting, ri, 1.0 / ri)
     cos_plain = torch.where(exiting, d_dot_n / d_len, -d_dot_n / d_len)
@@ -195,8 +208,8 @@ def scatter(mat: MaterialTable, tex: TextureTable, mat_id: Tensor,
     refr_ok, refracted = v3.refract(d_in, outward_normal, ni_over_nt)
     reflect_prob = torch.where(refr_ok, v3.schlick(cosine, ri), 1.0)
     die_reflected = v3.reflect(d_in, normal)   # material.h:107, raw dir
-    die_dir = torch.where((prob < reflect_prob)[..., None], die_reflected,
-                          refracted)
+    reflect = prob < reflect_prob if decide is None else decide.reflect
+    die_dir = torch.where(reflect[..., None], die_reflected, refracted)
 
     kindc = kind[..., None]
     out_dir = torch.where(kindc == float(METAL), met_dir, lam_dir)

@@ -6,7 +6,11 @@ render.h:119-121: ``shade`` (the path tracer, render.h:48-67),
 
 Three engines run them:
   * ``engine='mega'``: all three in the fused kernel (``ops/megakernel.py``;
-    K1, with rects / TRS prims K8, with image textures K9), forward only;
+    K1, with rects / TRS prims K8, with image textures K9, above 8,192
+    prims of a type the segment level K6), forward only, routed by
+    ``megakernel.select_mega``: the path integrator through the
+    compaction drivers' bounce windows (K10) under cfg.compact_every,
+    cfg.compact_after or, at 2^16 prims and more, cfg.compact_auto;
   * ``engine='wavefront'`` (the default): one intersection per bounce over
     the whole ray batch, then differentiable shading in tensor ops
     (``trace_path``, ``lambert_shade``, ``shade_normal``).  The intersector
@@ -143,16 +147,47 @@ def _winners_to_scene(w: Tensor, n_s: int, n_t: int, s_order, t_order):
     return w
 
 
-def _bounce(scene, cfg, isect_fn, step, win, o, d, tm, throughput,
-            radiance, alive, ball, prob):
+def _follow(ref: Tensor, x: Tensor, hit: Tensor) -> Tensor:
+    """On the lanes that hit, ref's value with x's gradient: ref + (x -
+    x.detach()); x on the others (a miss lane's record is not finite)."""
+    if x.dim() > hit.dim():
+        hit = hit[:, None]
+    return torch.where(hit, ref + (x - x.detach()), x)
+
+
+def _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob):
+    """The plain version's bounce on this step's recorded winners, or None
+    without winners; made outside the bounce's checkpoint, so that the
+    backward's recompute does not make it again."""
+    if winners is None:
+        return None
+    return _mk.replay_reference(ref_tables, o.detach(), d.detach(),
+                                winners[step], cfg, ball, prob)
+
+
+def _bounce(scene, cfg, isect_fn, step, win, ref, o, d, tm,
+            throughput, radiance, alive, ball, prob):
     """One wavefront bounce (integrators.py:236-317): intersect (or replay
     the recorded winners ``win``), shade, scatter; returns the next (o, d,
     time, throughput, radiance, alive) and this bounce's winners (-1 where
-    the lane was dead or missed)."""
+    the lane was dead or missed).
+
+    A replay follows the path the kernel traced: ``ref``, the plain
+    version's bounce on the same winners (``_replay_ref``: the scene's
+    tables in scene order, the same rays and draws), makes every discrete
+    decision (the sphere root, the material's scatter choices) and gives
+    the values of the hit point, normal, (u, v) and scattered direction,
+    while their gradients come from the differentiable tensor ops."""
     rays = Rays(o, d, tm)
+    decide = None
     if win is not None:
         hits = _isect.replay_hits(scene, rays, win, cfg.t_min, cfg.t_max,
-                                  cfg.quirks)
+                                  cfg.quirks, ref.near)
+        hits = hits._replace(p=_follow(ref.p, hits.p, hits.hit),
+                             normal=_follow(ref.n, hits.normal, hits.hit),
+                             u=_follow(ref.uv[0], hits.u, hits.hit),
+                             v=_follow(ref.uv[1], hits.v, hits.hit))
+        decide = ref.decide
     else:
         hits = _intersect(scene, rays, cfg, isect_fn,
                           alive=alive if step > 0 else None)
@@ -165,7 +200,10 @@ def _bounce(scene, cfg, isect_fn, step, win, o, d, tm, throughput,
     sc = _mat.scatter(scene.materials, scene.textures, hits.mat, rays,
                       hits.p, hits.normal, hits.u, hits.v, ball, prob,
                       cfg.quirks.dielectric_reference_cosine,
-                      cfg.quirks.lambertian_zero_uv, dec=dec)
+                      cfg.quirks.lambertian_zero_uv, dec=dec, decide=decide)
+    out_dir = sc.scattered.direction
+    if ref is not None:
+        out_dir = _follow(ref.direction, out_dir, hits.hit)
     sky = background_sky(d)
     can_recurse = step < cfg.max_depth            # render.h:57 depth > 0
     continues = alive & hits.hit & sc.ok & can_recurse
@@ -179,7 +217,7 @@ def _bounce(scene, cfg, isect_fn, step, win, o, d, tm, throughput,
     c3 = continues[:, None]
     throughput = torch.where(c3, throughput * sc.attenuation, throughput)
     return (torch.where(c3, sc.scattered.origin, o),
-            torch.where(c3, sc.scattered.direction, d),
+            torch.where(c3, out_dir, d),
             torch.where(continues, sc.scattered.time, tm),
             throughput, radiance, continues,
             torch.where(alive & hits.hit, hits.prim.to(torch.int32), -1))
@@ -238,12 +276,15 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     o, d, tm = rays
     use_ckpt = checkpoint and torch.is_grad_enabled()
+    ref_tables = (_mk.build_mega_tables(scene) if winners is not None
+                  else None)
     recorded = []
     for step in range(cfg.max_depth + 1):
         ball, prob = _draws(cfg, step, n, dev, samples, seed, generator)
         body = functools.partial(
             _bounce, scene, cfg, primary_fn if step == 0 else bounce_fn,
-            step, winners[step] if winners is not None else None)
+            step, winners[step] if winners is not None else None,
+            _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob))
         state = (o, d, tm, throughput, radiance, alive, ball, prob)
         if use_ckpt:
             out = _checkpoint(body, *state, use_reentrant=False)
@@ -266,21 +307,36 @@ def replay_misses(scene: Scene, rays: Rays, cfg: RenderConfig,
     bounce, a winner that fails its own test on the replayed ray
     (``megakernel.winner_valid``): where the replay's arithmetic and the
     kernel's rounded a decision apart (ROADMAP Queue 3)."""
+    missed = torch.zeros(rays.origin.shape[0], dtype=torch.bool,
+                         device=rays.origin.device)
+    for step, o, d, _ in replay_rays(scene, rays, cfg, winners, samples,
+                                     seed):
+        missed |= ~_mk.winner_valid(scene, Rays(o, d, rays.time),
+                                    winners[step], cfg)
+    return missed
+
+
+@torch.no_grad()
+def replay_rays(scene: Scene, rays: Rays, cfg: RenderConfig,
+                winners: Tensor, samples: Optional[SampleStream] = None,
+                seed: Optional[int] = None):
+    """Yield (step, origin, direction, alive) of the replay of recorded
+    winners (the mega_diff backward's ``trace_path(winners=)``, on the same
+    draws) at the start of each bounce."""
     n = rays.origin.shape[0]
     dev = rays.origin.device
+    ref_tables = _mk.build_mega_tables(scene)
     throughput = torch.ones(n, 3, device=dev)
     radiance = torch.zeros(n, 3, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     o, d, tm = rays
-    missed = torch.zeros(n, dtype=torch.bool, device=dev)
     for step in range(cfg.max_depth + 1):
-        missed |= ~_mk.winner_valid(scene, Rays(o, d, tm), winners[step],
-                                    cfg)
+        yield step, o, d, alive
         ball, prob = _draws(cfg, step, n, dev, samples, seed, None)
         o, d, tm, throughput, radiance, alive, _ = _bounce(
-            scene, cfg, None, step, winners[step], o, d, tm, throughput,
-            radiance, alive, ball, prob)
-    return missed
+            scene, cfg, None, step, winners[step],
+            _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob),
+            o, d, tm, throughput, radiance, alive, ball, prob)
 
 
 def lambert_shade(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -321,18 +377,19 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
     under engine='mega' all three integrators go to the fused kernel (image
     scenes too, in kernel mode K9; normal reads no texture); under
     engine='mega_diff' the path goes to ``trace_path_mega_diff`` and
-    lambert and normal to the wavefront.  The fused engines raise on scenes
-    their kernel does not take yet (streamed sizes), naming the slice that
-    brings them; nothing falls back to the wavefront."""
+    lambert and normal to the wavefront.  engine='mega' goes through
+    ``megakernel.select_mega`` (the compaction drivers, as JAX routes).  The
+    fused engines raise above MAX_STREAM_PRIMS spheres or triangles, where
+    the JAX package leaves them; nothing falls back to the wavefront."""
     check_supported(cfg)
     if cfg.engine == "mega_diff" and cfg.integrator == "path":
         return _mk.trace_path_mega_diff(scene, rays, cfg, tables=tables,
                                         samples=samples, generator=generator,
                                         seed=seed)
     if cfg.engine == "mega":
-        return _mk.trace_path_mega(scene, rays, cfg, tables=tables,
-                                   samples=samples, generator=generator,
-                                   seed=seed)
+        return _mk.select_mega(scene, rays, cfg, tables=tables,
+                               samples=samples, generator=generator,
+                               seed=seed)
     # the wavefront; also lambert and normal under mega_diff, which pairs
     # only the path integrator with a replay backward (integrators.py:404)
     if cfg.integrator == "path":

@@ -531,9 +531,11 @@ def _rotate(m, v: Tensor) -> Tensor:
                        -1)
 
 
-def _tsph_roots(xo: Tensor, xd: Tensor, r: Tensor, t_min, t_max):
+def _tsph_roots(xo: Tensor, xd: Tensor, r: Tensor, t_min, t_max,
+                near: Optional[Tensor] = None):
     """Native t of a TRS sphere already chosen per ray: the near root when
-    it is in the window, else the far one (never BIG)."""
+    it is in the window (or where ``near`` says so), else the far one
+    (never BIG)."""
     b = _sw._dot(xo, xd)
     a = _sw._dot(xd, xd)
     c = _sw._dot(xo, xo) - r * r
@@ -542,8 +544,9 @@ def _tsph_roots(xo: Tensor, xd: Tensor, r: Tensor, t_min, t_max):
     sq = torch.where(disc > 0.0, torch.sqrt(disc_safe), 0.0)
     t0 = (-b - sq) / a
     t1 = (-b + sq) / a
-    ok0 = (disc > 0.0) & (t0 < t_max) & (t0 > t_min)
-    return torch.where(ok0, t0, t1)
+    if near is None:
+        near = (disc > 0.0) & (t0 < t_max) & (t0 > t_min)
+    return torch.where(near, t0, t1)
 
 
 def _ttri_single(xo: Tensor, xd: Tensor, xrow: Tensor):
@@ -564,12 +567,14 @@ def _ttri_single(xo: Tensor, xd: Tensor, xrow: Tensor):
 
 
 def finalize_hits(scene: Scene, rays: Rays, best_t: Tensor,
-                  best_idx: Tensor, t_min, t_max, quirks: Quirks) -> Hits:
+                  best_idx: Tensor, t_min, t_max, quirks: Quirks,
+                  near: Optional[Tensor] = None) -> Hits:
     """The full hit record of each ray's winner only (intersect.py:688):
     one row gather over [spheres | triangles] and one over the transform-
     tested classes, then the winner's continuous quantities.  Rect and TRS
     winners record the OBJECT-space point (the reference's rec.p), the
-    rotated normal and, for rects, the plane's (x, y) + 0.5 as (u, v)."""
+    rotated normal and, for rects, the plane's (x, y) + 0.5 as (u, v).
+    near: the TRS spheres' root choice made elsewhere (``replay_hits``)."""
     n = rays.origin.shape[0]
     n_s, n_t = scene.n_spheres, scene.n_triangles
     n_r, n_ts, n_tt = scene.n_rects, scene.n_t_spheres, scene.n_t_triangles
@@ -627,7 +632,7 @@ def finalize_hits(scene: Scene, rays: Rays, best_t: Tensor,
         is_ts = hit & (best_idx >= base) & (best_idx < base + n_ts)
         # non-winner lanes may pair with a row whose radius column is 0
         r = torch.where(is_ts, xrow[:, 10], 1.0)
-        ts_nat = _tsph_roots(xo, xd, r, t_min, t_max)
+        ts_nat = _tsph_roots(xo, xd, r, t_min, t_max, near)
         ps = xo + ts_nat[:, None] * xd
         tsn = _rotate(m, ps / r[:, None])
         normal = torch.where(is_ts[:, None], tsn, normal)
@@ -654,11 +659,11 @@ def finalize_hits(scene: Scene, rays: Rays, best_t: Tensor,
 # ---------------------------------------------------------------------------
 
 def _sphere_single(rays: Rays, center: Tensor, radius: Tensor, t_min,
-                   t_max) -> Tensor:
+                   t_max, near: Optional[Tensor] = None) -> Tensor:
     """Nearest in-window root of one already-chosen sphere per ray
     (intersect.py:971), the far root when neither is in the window, so a
     recorded winner never gives an overflowing t; double-where for the
-    non-winner lanes."""
+    non-winner lanes.  near: the root choice made elsewhere."""
     oc = rays.origin - center
     d = rays.direction
     a = _sw._dot(d, d)
@@ -669,12 +674,13 @@ def _sphere_single(rays: Rays, center: Tensor, radius: Tensor, t_min,
     sq = torch.where(disc > 0.0, torch.sqrt(disc_safe), 0.0)
     t0 = (-b - sq) / a
     t1 = (-b + sq) / a
-    ok0 = (disc > 0.0) & (t0 < t_max) & (t0 > t_min)
-    return torch.where(ok0, t0, t1)
+    if near is None:
+        near = (disc > 0.0) & (t0 < t_max) & (t0 > t_min)
+    return torch.where(near, t0, t1)
 
 
 def replay_hits(scene: Scene, rays: Rays, winner: Tensor, t_min, t_max,
-                quirks: Quirks) -> Hits:
+                quirks: Quirks, near: Optional[Tensor] = None) -> Hits:
     """The hit record of a winner decided in advance (intersect.py:851):
     winner int32[N] in the Hits.prim id space, -1 for a miss.  Gathers each
     ray's one prim and recomputes only its continuous quantities (t, p,
@@ -683,7 +689,8 @@ def replay_hits(scene: Scene, rays: Rays, winner: Tensor, t_min, t_max,
     The validity windows are NOT applied again: the winner passed them when
     it was recorded, and a test repeated in float32 could turn a real t
     into BIG (whose point overflows and NaNs the backward).  The sphere
-    root choice is made again (near root in the window, else the far one).
+    root choice is made again (near root in the window, else the far one),
+    or taken from ``near`` bool[N] (sphere and TRS sphere winners).
     Rect and TRS t are native t over |raw d|, as the sweeps compare them."""
     t_min, t_max = _f32(t_min), _f32(t_max)
     n = rays.origin.shape[0]
@@ -695,7 +702,8 @@ def replay_hits(scene: Scene, rays: Rays, winner: Tensor, t_min, t_max,
         row = _mat.gather_rows(_prim_rows(scene)[0],
                                winner.long().clamp(0, n_s + n_t - 1))
     if n_s:
-        ts = _sphere_single(rays, row[:, 0:3], row[:, 3], t_min, t_max)
+        ts = _sphere_single(rays, row[:, 0:3], row[:, 3], t_min, t_max,
+                            near)
         best_t = torch.where(hit & (winner < n_s), ts, best_t)
     if n_t:
         tt, _, _ = _tri_single(rays, row[:, 0:3], row[:, 3:6], row[:, 6:9])
@@ -716,11 +724,11 @@ def replay_hits(scene: Scene, rays: Rays, winner: Tensor, t_min, t_max,
         if n_ts:
             is_ts = hit & (winner >= base) & (winner < base + n_ts)
             r = torch.where(is_ts, xrow[:, 10], 1.0)
-            ts_ = _tsph_roots(xo, xd, r, t_min, t_max)
+            ts_ = _tsph_roots(xo, xd, r, t_min, t_max, near)
             best_t = torch.where(is_ts, _t_cmp(is_ts, ts_, raw_len), best_t)
         if n_tt:
             ttt, _, _ = _ttri_single(xo, xd, xrow)
             is_tt = hit & (winner >= base + n_ts)
             best_t = torch.where(is_tt, _t_cmp(is_tt, ttt, raw_len), best_t)
     return finalize_hits(scene, rays, torch.where(hit, best_t, BIG), winner,
-                         t_min, t_max, quirks)
+                         t_min, t_max, quirks, near)

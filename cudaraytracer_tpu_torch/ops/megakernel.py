@@ -14,7 +14,18 @@ kernel's modes ported so far:
     multiplies the texels back in outside its kernel (deferred texturing,
     ``trace_path_mega_tex``), because a TPU kernel cannot gather texels; a
     CUDA thread loads them, so the port has no plane dump and no
-    reconstruction pass.
+    reconstruction pass;
+  * K6: above MAX_VMEM_PRIMS spheres or triangles the tables get a third,
+    top box level, one box per SEG_T prims (the JAX kernel streams such
+    tables from HBM segment by segment; a GPU thread reads them from
+    global memory, so only the segment cull is left);
+  * K10: the path integrator in a window of global bounces, resumed from a
+    (thr, alive) state and dumping the ray state for the next window, its
+    draws keyed by a ray id: the compaction drivers
+    ``trace_path_mega_phased`` and ``trace_path_mega_compact``, chosen by
+    ``select_mega`` as JAX chooses them;
+  * K11: ``cfg.mega_f2b_shells``, the triangle sweep's top-level boxes
+    visited front to back in distance shells.
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
 prims in the same (optionally Morton) order, the same per-prim columns, the
@@ -27,8 +38,7 @@ scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
   * box tables get no extra padding to a multiple of 8 rows (a TPU sublane
     tile), and the rect / TRS tables no padding at all: a thread walks
     their rows one by one, with no chunks and no 1024-per-class cap;
-  * no segment boxes or MXU coefficients: those serve kernel modes K6 and
-    K12, later slices;
+  * no MXU coefficients: those serve kernel mode K12, a later slice;
   * no texture info table: an image material's block carries its image id,
     w and h in the colour slots it does not use, and the kernel reads the
     scene's packed images in place (``MegaTables.images``).
@@ -67,10 +77,19 @@ Tensor = torch.Tensor
 
 BIG_CUT = 1e37              # t >= BIG_CUT is a miss (megakernel.py:84-88)
 SUPER_T = 256               # prims per super box (16 chunks)
+SEG_T = 2048                # prims per segment box (8 supers, K6)
 SPH_SUPER_MIN = 1024        # spheres get the super level above this count
-# The table-resident form (K1) serves up to this many spheres or triangles;
-# larger scenes stream (kernel mode K6, slice 6).
+# Above this many spheres or triangles a type's table gets the segment
+# level (kernel mode K6); the fused engine serves up to MAX_STREAM_PRIMS.
 MAX_VMEM_PRIMS = 8192
+MAX_STREAM_PRIMS = 1 << 20
+# The path integrator on a scene with at least this many spheres or
+# triangles takes the phased octant route under cfg.compact_auto
+# (select_mega).  Module constants, so tests can lower them.
+AUTO_COMPACT_TRIS = 1 << 16
+# Octant key (trace_path_mega_phased): Morton bits above this shift form the
+# coarse origin cell, then 3 direction-octant bits, then fine Morton.
+_OCT_COARSE_SHIFT = 18
 
 # Table columns (the JAX lane layout, cut to the used width)
 S_CX, S_CY, S_CZ, S_R2, S_INVR, S_MAT = 0, 1, 2, 3, 4, 5
@@ -98,16 +117,20 @@ F_LAMBERT_ZERO_UV = 64
 # the card, where PyTorch turns a division by a scalar into a multiply)
 PI, HALF_PI = math.pi, math.pi / 2.0
 INV_PI, INV_TWO_PI = 1.0 / math.pi, 1.0 / (2.0 * math.pi)
-# tests counted by the counting variant: boxes, spheres, triangles, rects,
-# TRS spheres, TRS triangles
-N_COUNTS = 6
+# tests counted by the counting variant: chunk and super boxes, spheres,
+# triangles, rects, TRS spheres, TRS triangles, segment boxes (K6), the
+# top-level boxes ranked by the shells, once per ray and sweep (K11)
+N_COUNTS = 8
+COUNT_NAMES = ("box", "sph", "tri", "rect", "tsph", "ttri", "seg", "dist")
 
 # Launches of each kernel since the last reset_launch_counts(): the fused
 # kernel in its main-path form (K1: none of the modes below), a launch
 # adding one to each mode it runs: the rect / TRS sweeps (K8), the winner
-# recording (K7), the texel fetch (K9); and the draws (K2).
+# recording (K7), the texel fetch (K9), the segment level (K6), a bounce
+# window (K10), front-to-back shells (K11); and the draws (K2).
 LAUNCHES = {"mega_trace": 0, "mega_trace_xform": 0, "mega_winners": 0,
-            "mega_trace_tex": 0, "scatter_draws": 0}
+            "mega_trace_tex": 0, "mega_stream": 0, "mega_window": 0,
+            "mega_f2b": 0, "scatter_draws": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +148,9 @@ class MegaTables(NamedTuple):
     rect: Tensor       # float32[R, 28]
     tsph: Tensor       # float32[TS, 28]
     ttri: Tensor       # float32[TT, 40]
+    sph_seg: Tensor    # float32[S_pad / 2048, 8] above MAX_VMEM_PRIMS
+                       # spheres (K6), else [0, 8]
+    tri_seg: Tensor    # float32[T_pad / 2048, 8] likewise for triangles
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
     images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
@@ -134,7 +160,7 @@ class MegaTables(NamedTuple):
 
 
 FLOAT_TABLES = ("sph", "sph_box", "sph_super", "tri", "tri_box",
-                "tri_super", "rect", "tsph", "ttri")
+                "tri_super", "rect", "tsph", "ttri", "sph_seg", "tri_seg")
 
 
 def float_tables(tables: MegaTables) -> list:
@@ -157,17 +183,18 @@ def has_images(tables: MegaTables) -> bool:
 def _unsupported(scene: Scene) -> Optional[str]:
     """Why the ported kernel modes cannot render the scene (naming the
     ROADMAP item that brings it), or None."""
-    if max(scene.n_spheres, scene.n_triangles) > MAX_VMEM_PRIMS:
-        return (f"more than {MAX_VMEM_PRIMS} prims of one type need the "
-                "streamed form (kernel mode K6): ROADMAP Queue 1 item 18 "
-                "(slice 6)")
+    if max(scene.n_spheres, scene.n_triangles) > MAX_STREAM_PRIMS:
+        return (f"more than MAX_STREAM_PRIMS = {MAX_STREAM_PRIMS} spheres or "
+                "triangles: above this ceiling the JAX package leaves the "
+                "fused engine, and the port's fused engines raise")
     return None
 
 
 def megakernel_supported(scene: Scene) -> bool:
     """Scenes the ported kernel modes serve: spheres and triangles (up to
-    MAX_VMEM_PRIMS each), rects and runtime-TRS prims (any count), constant,
-    checker and image textures."""
+    MAX_STREAM_PRIMS each, with the segment level above MAX_VMEM_PRIMS),
+    rects and runtime-TRS prims (any count), constant, checker and image
+    textures."""
     return _unsupported(scene) is None
 
 
@@ -254,7 +281,12 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
 
     tri_order / sph_order: optional host permutations (morton_order,
     mega_sphere_order) that make each chunk's box spatially compact, so
-    that the box culling prunes."""
+    that the box culling prunes.
+
+    Above MAX_VMEM_PRIMS of a type (megakernel.py:339-393 of the JAX
+    package): its rows are padded (repeat-last) to a SEG_T multiple, it
+    gets one segment box per SEG_T rows, and spheres get the super level
+    whatever their count."""
     reason = _unsupported(scene)
     if reason:
         raise NotImplementedError(reason)
@@ -269,8 +301,11 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
              else torch.arange(n, device=dev))
         return pad_rows(m.to(torch.int32), mult)
 
-    sph_two_level = n_s > SPH_SUPER_MIN
-    sph_mult = SUPER_T if sph_two_level else PRIM_CHUNK
+    stream_sph, stream_tri = n_s > MAX_VMEM_PRIMS, n_t > MAX_VMEM_PRIMS
+    sph_two_level = n_s > SPH_SUPER_MIN or stream_sph
+    sph_mult = (SEG_T if stream_sph
+                else SUPER_T if sph_two_level else PRIM_CHUNK)
+    tri_mult = SEG_T if stream_tri else SUPER_T
     empty_box = torch.zeros(0, BOX_COLS, device=dev)
     no_map = torch.zeros(0, dtype=torch.int32, device=dev)
     if n_s:
@@ -287,10 +322,12 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         sph_box = group_boxes(lo, hi, PRIM_CHUNK, sph_mult)
         sph_super = (group_boxes(lo, hi, SUPER_T, sph_mult) if sph_two_level
                      else empty_box)
+        sph_seg = (group_boxes(lo, hi, SEG_T, sph_mult) if stream_sph
+                   else empty_box)
         sph_map = row_map(n_s, sph_order, sph_mult)
     else:
         sph = torch.zeros(0, SPH_COLS, device=dev)
-        sph_box = sph_super = empty_box
+        sph_box = sph_super = sph_seg = empty_box
         sph_map = no_map
     if n_t:
         tr = scene.triangles
@@ -300,15 +337,17 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
             v0, v1, v2, nrm, tmat = v0[o], v1[o], v2[o], nrm[o], tmat[o]
         cols = torch.cat([v0, v1 - v0, v2 - v0, nrm, _mat_lanes(scene, tmat)],
                          dim=1)
-        tri = widen(pad_rows(cols, SUPER_T), TRI_COLS)
+        tri = widen(pad_rows(cols, tri_mult), TRI_COLS)
         lo = torch.minimum(torch.minimum(v0, v1), v2)
         hi = torch.maximum(torch.maximum(v0, v1), v2)
-        tri_box = group_boxes(lo, hi, PRIM_CHUNK, SUPER_T)
-        tri_super = group_boxes(lo, hi, SUPER_T, SUPER_T)
-        tri_map = row_map(n_t, tri_order, SUPER_T)
+        tri_box = group_boxes(lo, hi, PRIM_CHUNK, tri_mult)
+        tri_super = group_boxes(lo, hi, SUPER_T, tri_mult)
+        tri_seg = (group_boxes(lo, hi, SEG_T, tri_mult) if stream_tri
+                   else empty_box)
+        tri_map = row_map(n_t, tri_order, tri_mult)
     else:
         tri = torch.zeros(0, TRI_COLS, device=dev)
-        tri_box = tri_super = empty_box
+        tri_box = tri_super = tri_seg = empty_box
         tri_map = no_map
     rect = torch.zeros(0, RECT_COLS, device=dev)
     tsph = torch.zeros(0, TSPH_COLS, device=dev)
@@ -335,7 +374,8 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
                                 n, n_w], 1), TTRI_COLS)
     return MegaTables(*(x.contiguous() for x in (
         sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
-        sph_map, tri_map, scene.textures.images)), n_s, n_t)
+        sph_seg, tri_seg, sph_map, tri_map, scene.textures.images)), n_s,
+        n_t)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -365,7 +405,8 @@ def _library() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.crt_mega_trace.argtypes = (
             [vp] * 17 + [ci] * 11 + [cf] * 3
-            + [ci, ctypes.c_uint64, vp, ci, ci, vp])
+            + [ci, ctypes.c_uint64, vp, ci, ci]
+            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 2)
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
@@ -408,25 +449,79 @@ def _flags(cfg: RenderConfig, injected: bool) -> int:
             | (F_INJECTED if injected else 0))
 
 
+class Window(NamedTuple):
+    """A bounce window of the path integrator (kernel mode K10): global
+    steps [step_lo, step_lo + n_steps), resumed from ``state``
+    float32[N, 4] (thr rgb, alive; None: thr 1, every ray alive), dumping
+    float32[N, 13] [rad | o | d | thr | alive] when ``dump``.  ``ray_id``
+    int32[N] keys the draws (seed, ray_id, step) and picks the injected
+    stream's row; None keys them by position."""
+    step_lo: int = 0
+    n_steps: Optional[int] = None
+    state: Optional[Tensor] = None
+    ray_id: Optional[Tensor] = None
+    dump: bool = False
+
+    def steps(self, cfg: RenderConfig) -> int:
+        return (self.n_steps if self.n_steps is not None
+                else cfg.max_depth + 1 - self.step_lo)
+
+    def partial(self, cfg: RenderConfig) -> bool:
+        """Whether this is more than the whole path from scratch."""
+        return (self.state is not None or self.dump or self.step_lo != 0
+                or self.steps(cfg) != cfg.max_depth + 1)
+
+
+WHOLE = Window()
+
+
+def _check_window(win: Window, cfg: RenderConfig, n: int,
+                  want_winners: bool) -> int:
+    """Validate a window against the config and the ray count -> its step
+    count."""
+    steps = win.steps(cfg)
+    if win.step_lo < 0 or steps < 1 or win.step_lo + steps > cfg.max_depth + 1:
+        raise ValueError(f"window [{win.step_lo}, {win.step_lo + steps}) "
+                         f"outside the {cfg.max_depth + 1} bounce steps")
+    if win.partial(cfg) and (cfg.integrator != "path" or want_winners):
+        raise ValueError("a bounce window needs the path integrator and "
+                         "records no winners")
+    if win.state is not None and tuple(win.state.shape) != (n, 4):
+        raise ValueError(f"state of shape {tuple(win.state.shape)}, "
+                         f"expected ({n}, 4)")
+    if win.ray_id is not None and tuple(win.ray_id.shape) != (n,):
+        raise ValueError(f"ray_id of shape {tuple(win.ray_id.shape)}, "
+                         f"expected ({n},)")
+    return steps
+
+
 def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                  cfg: RenderConfig, stream: Optional[Tensor], seed: int,
                  counts: Optional[Tensor] = None,
-                 want_winners: bool = False):
-    """One launch of the CUDA kernel -> radiance float32[N, 3], and with
-    want_winners (path only) the winners int32[max_depth + 1, N] in scene
-    prim ids, -1 for a miss or a dead lane.
+                 want_winners: bool = False, window: Window = WHOLE,
+                 touched: Optional[Tensor] = None):
+    """One launch of the CUDA kernel -> radiance float32[N, 3] (with
+    ``window.dump`` the state float32[N, 13]), and with want_winners (path
+    only) the winners int32[max_depth + 1, N] in scene prim ids, -1 for a
+    miss or a dead lane.
 
-    counts: optional int64[6] CUDA tensor that the kernel adds its box,
-    sphere, triangle, rect, TRS-sphere and TRS-triangle tests to
-    (measurement only: given, a separately compiled counting variant runs;
-    the production variants count nothing).  The counting variant fetches no
-    texel: textures never change a path (every material's scatter and its
-    end are independent of the colour), so it makes the tests of the
+    stream: optional injected draws float32[max_depth + 1, R, 4], read at
+    row window.ray_id[i] (R = N without ray ids).  The triangle sweep visits
+    its top-level boxes in cfg.mega_f2b_shells shells (K11).
+
+    counts: optional int64[N_COUNTS] CUDA tensor that the kernel adds its
+    tests to (COUNT_NAMES), and the optional ``touched`` uint8[max(sphere
+    chunks + triangle chunks, 1)] that it sets to 1 for each chunk whose
+    prims it tested (measurement only: given, a separately compiled counting variant runs;
+    the production variants count nothing).  The counting variant fetches
+    no texel: textures never change a path (every material's scatter and
+    its end are independent of the colour), so it makes the tests of the
     launch it stands for, and its radiance is not the scene's.
 
     A scene with images takes kernel mode K9 (the normal integrator, which
     reads no texture, aside)."""
     n = origin.shape[0]
+    steps = _check_window(window, cfg, n, want_winners)
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))
     for name in FLOAT_TABLES + ("sph_map", "tri_map"):
@@ -442,32 +537,46 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         if tables.images.device != origin.device:
             raise ValueError(f"images are on {tables.images.device}, rays "
                              f"on {origin.device}")
+    n_stream = n
     if stream is not None:
-        _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n, 4))
-    if counts is not None and (counts.dtype != torch.int64
-                               or tuple(counts.shape) != (N_COUNTS,)
-                               or not counts.is_cuda):
-        raise ValueError(f"counts must be an int64[{N_COUNTS}] CUDA tensor")
+        if window.ray_id is not None:
+            n_stream = stream.shape[1]
+        _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n_stream, 4))
+    if window.state is not None:
+        _require_cuda_f32("state", window.state, (n, 4))
+    if window.ray_id is not None:
+        _require_cuda("ray_id", window.ray_id, torch.int32, (n,))
+    if counts is not None:
+        n_chunks = max(tables.sph_box.shape[0] + tables.tri_box.shape[0], 1)
+        _require_cuda("counts", counts, torch.int64, (N_COUNTS,))
+        if touched is None:
+            touched = torch.zeros(n_chunks, dtype=torch.uint8,
+                                  device=origin.device)
+        _require_cuda("touched", touched, torch.uint8, (n_chunks,))
     if want_winners and (cfg.integrator != "path" or counts is not None):
         raise ValueError("winners are recorded by the path integrator's "
                          "production variant only")
-    if n >= 2 ** 31:
+    if n >= 2 ** 31 or n_stream >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one launch")
-    out = torch.empty((n, 3), dtype=torch.float32, device=origin.device)
+    out = torch.empty((n, 13 if window.dump else 3), dtype=torch.float32,
+                      device=origin.device)
     winners = (torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=origin.device) if want_winners else None)
     n_x = sum(getattr(tables, k).shape[0] for k in ("rect", "tsph", "ttri"))
+    n_segs = tables.sph_seg.shape[0] + tables.tri_seg.shape[0]
+    f2b = cfg.mega_f2b_shells if tables.tri.shape[0] else 0
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
     lib = _library()
     with torch.cuda.device(origin.device):
         cuda_stream = torch.cuda.current_stream().cuda_stream
         code = lib.crt_mega_trace(
-            *(t.data_ptr() for t in float_tables(tables)),
+            *(getattr(tables, k).data_ptr() for k in FLOAT_TABLES[:9]),
             tables.sph_map.data_ptr(), tables.tri_map.data_ptr(),
-            origin.data_ptr(), direction.data_ptr(),
-            stream.data_ptr() if stream is not None else None,
-            out.data_ptr(),
-            winners.data_ptr() if winners is not None else None,
-            counts.data_ptr() if counts is not None else None,
+            origin.data_ptr(), direction.data_ptr(), ptr(stream),
+            out.data_ptr(), ptr(winners), ptr(counts),
             n, tables.sph_box.shape[0], tables.sph_super.shape[0],
             tables.tri_super.shape[0], tables.rect.shape[0],
             tables.tsph.shape[0], tables.ttri.shape[0], tables.n_spheres,
@@ -477,12 +586,19 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             float(cfg.quirks.ambient_on_absorb),
             _flags(cfg, stream is not None), seed & (2 ** 64 - 1),
             tables.images.data_ptr() if tex and counts is None else None,
-            tables.images.shape[1], tables.images.shape[2], cuda_stream)
+            tables.images.shape[1], tables.images.shape[2],
+            tables.sph_seg.data_ptr(), tables.tri_seg.data_ptr(),
+            tables.sph_seg.shape[0], tables.tri_seg.shape[0], f2b,
+            window.step_lo, steps, ptr(window.state), ptr(window.ray_id),
+            n_stream, int(window.dump), ptr(touched), cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
         modes = [k for k, on in (("mega_trace_xform", n_x),
                                  ("mega_winners", want_winners),
-                                 ("mega_trace_tex", tex)) if on]
+                                 ("mega_trace_tex", tex),
+                                 ("mega_stream", n_segs),
+                                 ("mega_window", window.partial(cfg)),
+                                 ("mega_f2b", f2b)) if on]
         for k in modes or ["mega_trace"]:
             LAUNCHES[k] += 1
     return (out, winners) if want_winners else out
@@ -518,20 +634,49 @@ def scatter_draws_plain(n: int, seed: int, step: int, device) -> Tensor:
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _resolve_seed(cfg: RenderConfig, injected: bool, seed: Optional[int],
+                  generator: Optional[torch.Generator]) -> int:
+    """The in-kernel draws' seed: given, or drawn from the generator (the
+    path integrator without an injected stream); 0 where nothing draws."""
+    if cfg.integrator == "path" and not injected and seed is None:
+        if generator is None:
+            raise ValueError("the path integrator needs samples, a seed or "
+                             "a generator")
+        seed = draw_seed(generator)
+    return 0 if seed is None else seed
+
+
+def _trace(tables: MegaTables, o: Tensor, d: Tensor, cfg: RenderConfig,
+           stream: Optional[Tensor], seed: int, want_winners: bool = False,
+           window: Window = WHOLE):
+    """The kernel on CUDA rays, its plain version on CPU rays."""
+    if o.device.type == "cpu":
+        return trace_path_mega_plain(tables, Rays(o, d, o.new_zeros(0)),
+                                     cfg, stream, seed, want_winners,
+                                     window)
+    return _launch_mega(tables, o.contiguous(), d.contiguous(), cfg, stream,
+                        seed, want_winners=want_winners, window=window)
+
+
 def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
                     tables: Optional[MegaTables] = None, samples=None,
                     generator: Optional[torch.Generator] = None,
-                    seed: Optional[int] = None, want_winners: bool = False):
+                    seed: Optional[int] = None, want_winners: bool = False,
+                    window: Window = WHOLE):
     """Fused integrator (cfg.integrator: path / lambert / normal) ->
     radiance float32[N, 3].
 
-    samples: optional injected SampleStream (ball [D+1, N, 3], prob
-    [D+1, N]); otherwise the path integrator draws in-kernel from ``seed``,
-    itself drawn from ``generator`` when not given.  lambert and normal draw
-    nothing.  want_winners (path only): return (radiance, winners
-    int32[max_depth + 1, N]), each bounce's winner in the scene's prim ids
-    [spheres | triangles | rects | t_spheres | t_triangles], -1 for a miss
-    or a dead lane (megakernel.py:2731-2793)."""
+    samples: optional injected SampleStream (ball [D+1, R, 3], prob
+    [D+1, R], R = N unless the window has ray ids); otherwise the path
+    integrator draws in-kernel from ``seed``, itself drawn from
+    ``generator`` when not given.  lambert and normal draw nothing.
+    want_winners (path only): return (radiance, winners int32[max_depth +
+    1, N]), each bounce's winner in the scene's prim ids [spheres |
+    triangles | rects | t_spheres | t_triangles], -1 for a miss or a dead
+    lane (megakernel.py:2731-2793).  window (path only, kernel mode K10):
+    a bounce window, its dump float32[N, 13] returned in place of the
+    radiance when it dumps.  cfg.mega_f2b_shells orders the triangle
+    sweep's top-level boxes (K11)."""
     check_supported(cfg)
     if want_winners and cfg.integrator != "path":
         raise ValueError("want_winners needs the path integrator")
@@ -539,20 +684,13 @@ def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
         tables = build_mega_tables(scene)
     n = rays.origin.shape[0]
     injected = samples is not None and cfg.integrator == "path"
-    if cfg.integrator == "path" and not injected and seed is None:
-        if generator is None:
-            raise ValueError("the path integrator needs samples, a seed or "
-                             "a generator")
-        seed = draw_seed(generator)
-    seed = 0 if seed is None else seed
-    stream = (stream_tensor(samples, n, cfg.max_depth + 1) if injected
-              else None)
-    if rays.origin.device.type == "cpu":
-        return trace_path_mega_plain(tables, rays, cfg, stream, seed,
-                                     want_winners)
-    return _launch_mega(tables, rays.origin.contiguous(),
-                        rays.direction.contiguous(), cfg, stream, seed,
-                        want_winners=want_winners)
+    seed = _resolve_seed(cfg, injected, seed, generator)
+    stream = None
+    if injected:
+        rows = n if window.ray_id is None else samples.prob.shape[1]
+        stream = stream_tensor(samples, rows, cfg.max_depth + 1)
+    return _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
+                  want_winners, window)
 
 
 def _leaves(record) -> list:
@@ -656,6 +794,190 @@ def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
 
 
 # ---------------------------------------------------------------------------
+# The compaction drivers (kernel mode K10) and their routing
+# ---------------------------------------------------------------------------
+
+def _morton_u32(x: Tensor, y: Tensor, z: Tensor) -> Tensor:
+    """30-bit Morton code of coordinates quantized over their own range
+    (megakernel.py:1760) -> int64[N]."""
+    def spread(v):
+        v = v & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    def q(a):
+        lo = a.min()
+        span = torch.clamp(a.max() - lo, min=1e-20)
+        return torch.clamp((a - lo) / span * 1023.0, 0.0, 1023.0).to(
+            torch.int64)
+
+    return (spread(q(x)) << 2) | (spread(q(y)) << 1) | spread(q(z))
+
+
+DEAD_KEY = 2 ** 31 - 2      # the sort key of a dead ray: last
+
+
+def _partition_alive_first(alive_f: Tensor) -> Tensor:
+    """Stable alive-first partition (megakernel.py:1848): two cumsums and
+    one scatter, no sort -> int64[N] order such that x[order] holds every
+    alive lane before every dead lane, each group in its old order."""
+    alive = alive_f > 0.0
+    alive_i = alive.to(torch.int64)
+    n_alive = alive_i.sum()
+    pos = torch.where(alive, torch.cumsum(alive_i, 0) - 1,
+                      n_alive + torch.cumsum(1 - alive_i, 0) - 1)
+    order = torch.empty_like(pos)
+    order[pos] = torch.arange(pos.shape[0], device=pos.device)
+    return order
+
+
+def _octant_order(state: Tensor) -> Tensor:
+    """The octant regrouping of a dumped wavefront float32[N, 13]
+    (megakernel.py:1962-1976): alive rays by (coarse origin cell, direction
+    octant, fine origin Morton), dead rays last -> int64[N] (stable)."""
+    o, d = state[:, 3:6], state[:, 6:9]
+    code = _morton_u32(o[:, 0], o[:, 1], o[:, 2]) & 0x3FFFFFFF
+    oct_ = (((d[:, 0] < 0).to(torch.int64) << 2)
+            | ((d[:, 1] < 0).to(torch.int64) << 1)
+            | (d[:, 2] < 0).to(torch.int64))
+    cs = _OCT_COARSE_SHIFT
+    key = (((code >> cs) << cs) | (oct_ << (cs - 3))
+           | ((code >> 3) & ((1 << (cs - 3)) - 1)))
+    return torch.argsort(torch.where(state[:, 12] > 0.0, key, DEAD_KEY),
+                         stable=True)
+
+
+def _driver_setup(scene: Scene, rays: Rays, cfg: RenderConfig, tables,
+                  samples, generator, seed):
+    """(tables, stream, seed, ray ids) of a compaction driver."""
+    check_supported(cfg)
+    if cfg.integrator != "path":
+        raise ValueError("the compaction drivers run the path integrator")
+    if tables is None:
+        tables = build_mega_tables(scene)
+    n = rays.origin.shape[0]
+    injected = samples is not None
+    stream = (stream_tensor(samples, n, cfg.max_depth + 1) if injected
+              else None)
+    ids = torch.arange(n, dtype=torch.int32, device=rays.origin.device)
+    return tables, stream, _resolve_seed(cfg, injected, seed, generator), ids
+
+
+def trace_path_mega_phased(scene: Scene, rays: Rays, cfg: RenderConfig,
+                           tables: Optional[MegaTables] = None,
+                           compact_every: int = 1, samples=None,
+                           generator: Optional[torch.Generator] = None,
+                           seed: Optional[int] = None,
+                           octants: Optional[bool] = None,
+                           first_window: Optional[int] = None) -> Tensor:
+    """The fused path in windows of ``compact_every`` bounces (the first
+    ``first_window`` long when given), the wavefront regrouped between
+    windows (megakernel.py:1867): a stable alive-first partition, or with
+    ``octants`` (default cfg.compact_octants) a sort of the alive rays by
+    (coarse origin cell, direction octant, fine origin Morton), dead rays
+    last.  Each window is one launch of kernel mode K10 that resumes the
+    state the last one dumped -> radiance float32[N, 3].
+
+    The draws are keyed by each ray's own id (the injected stream's row, or
+    (seed, id, step) in the kernel), so the result is bit-identical to
+    ``trace_path_mega`` for any window length and order, under injected and
+    in-kernel draws alike.  (The TPU kernel keys its draws by tile and lane:
+    there only the injected form is exact.)"""
+    if compact_every < 1:
+        raise ValueError(f"compact_every must be >= 1; got {compact_every}")
+    if octants is None:
+        octants = cfg.compact_octants
+    tables, stream, seed, idx = _driver_setup(scene, rays, cfg, tables,
+                                              samples, generator, seed)
+    total = cfg.max_depth + 1
+    rad = torch.zeros_like(rays.origin)      # in the current arrangement
+    o, d, state = rays.origin, rays.direction, None
+    step_lo, phase = 0, 0
+    while step_lo < total:
+        length = (first_window if phase == 0 and first_window
+                  else compact_every)
+        n_steps = min(length, total - step_lo)
+        last = step_lo + n_steps >= total
+        out = _trace(tables, o, d, cfg, stream, seed, window=Window(
+            step_lo, n_steps, state, idx, not last))
+        rad = rad + out[:, 0:3]
+        if last:
+            break
+        order = (_octant_order(out) if octants
+                 else _partition_alive_first(out[:, 12]))
+        out = out[order]
+        o, d = out[:, 3:6].contiguous(), out[:, 6:9].contiguous()
+        state = out[:, 9:13].contiguous()
+        rad, idx = rad[order], idx[order]
+        step_lo += n_steps
+        phase += 1
+    return torch.empty_like(rad).index_copy_(0, idx.long(), rad)
+
+
+def trace_path_mega_compact(scene: Scene, rays: Rays, cfg: RenderConfig,
+                            tables: Optional[MegaTables] = None,
+                            primary_steps: int = 1, samples=None,
+                            generator: Optional[torch.Generator] = None,
+                            seed: Optional[int] = None) -> Tensor:
+    """Two windows with one sort between them (megakernel.py:1779): the
+    first ``primary_steps`` bounces, then the rest on the wavefront sorted
+    dead last and alive by the Morton code of the scatter origin ->
+    radiance float32[N, 3], bit-identical to ``trace_path_mega`` (the draws
+    are keyed by ray id)."""
+    if not 0 < primary_steps <= cfg.max_depth:
+        raise ValueError(
+            f"compact_after/primary_steps must be in [1, max_depth] "
+            f"(= [1, {cfg.max_depth}]); got {primary_steps}: the second "
+            "window needs at least one remaining bounce step")
+    tables, stream, seed, ids = _driver_setup(scene, rays, cfg, tables,
+                                              samples, generator, seed)
+    a = _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
+               window=Window(0, primary_steps, None, ids, True))
+    code = _morton_u32(a[:, 3], a[:, 4], a[:, 5]) & 0x3FFFFFFF
+    order = torch.argsort(torch.where(a[:, 12] > 0.0, code, DEAD_KEY),
+                          stable=True)
+    s = a[order]
+    rad_b = _trace(tables, s[:, 3:6].contiguous(), s[:, 6:9].contiguous(),
+                   cfg, stream, seed, window=Window(
+                       primary_steps, None, s[:, 9:13].contiguous(),
+                       ids[order]))
+    return a[:, 0:3] + torch.empty_like(rad_b).index_copy_(0, order, rad_b)
+
+
+def select_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
+                tables: Optional[MegaTables] = None, samples=None,
+                generator: Optional[torch.Generator] = None,
+                seed: Optional[int] = None) -> Tensor:
+    """Route an engine='mega' render as the JAX package does
+    (megakernel.py:1991): cfg.compact_every phasing, a cfg.compact_after
+    split, or under cfg.compact_auto, for the path integrator on a scene
+    with at least AUTO_COMPACT_TRIS spheres or triangles, phasing every 2
+    bounces with octant regrouping and 8 front-to-back shells unless
+    cfg.mega_f2b_shells is set; otherwise one monolithic launch per chunk.
+    lambert and normal always run monolithic (only the path carries
+    mid-path state)."""
+    is_path = cfg.integrator == "path"
+    compact_every, octants = cfg.compact_every, None
+    if (cfg.compact_auto and not compact_every and not cfg.compact_after
+            and max(scene.n_triangles, scene.n_spheres) >= AUTO_COMPACT_TRIS
+            and is_path):
+        compact_every, octants = 2, True
+        if not cfg.mega_f2b_shells:
+            cfg = dataclasses.replace(cfg, mega_f2b_shells=8)
+    kw = dict(tables=tables, samples=samples, generator=generator, seed=seed)
+    if compact_every > 0 and is_path:
+        return trace_path_mega_phased(scene, rays, cfg,
+                                      compact_every=compact_every,
+                                      octants=octants, **kw)
+    if cfg.compact_after > 0 and is_path:
+        return trace_path_mega_compact(scene, rays, cfg,
+                                       primary_steps=cfg.compact_after, **kw)
+    return trace_path_mega(scene, rays, cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
 
@@ -681,9 +1003,9 @@ def _rect_test(rows, xo, xd, t_min, t_max, quirks):
     return valid, t
 
 
-def _tsph_test(rows, xo, xd, t_min, t_max, quirks):
+def _tsph_roots(rows, xo, xd, t_min, t_max):
     """sphere.h:27-55 on the object-space ray, the half-b quadratic times
-    1/a -> (valid, native t: the near root in the window, else the far)."""
+    1/a -> (near root in the window, far root in the window, t0, t1)."""
     ox, oy, oz = xo
     dx, dy, dz = xd
     b = ox * dx + oy * dy + oz * dz
@@ -695,8 +1017,13 @@ def _tsph_test(rows, xo, xd, t_min, t_max, quirks):
     inv_a = 1.0 / a
     t0 = (-b - sq) * inv_a
     t1 = (-b + sq) * inv_a
-    ok0 = has & (t0 < t_max) & (t0 > t_min)
-    ok1 = has & (t1 < t_max) & (t1 > t_min)
+    return (has & (t0 < t_max) & (t0 > t_min),
+            has & (t1 < t_max) & (t1 > t_min), t0, t1)
+
+
+def _tsph_test(rows, xo, xd, t_min, t_max, quirks):
+    """-> (valid, native t: the near root in the window, else the far)."""
+    ok0, ok1, t0, t1 = _tsph_roots(rows, xo, xd, t_min, t_max)
     return ok0 | ok1, torch.where(ok0, t0, t1)
 
 
@@ -827,6 +1154,16 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
         t = torch.where(w, x_t, t)
         cls = torch.where(w, c, cls)
         idx = torch.where(w, x_i, idx)
+    return _record(tables, o, d, t, cls, idx, cfg, want_uv)
+
+
+def _record(tables: MegaTables, o: Tensor, d: Tensor, t: Tensor,
+            cls: Tensor, idx: Tensor, cfg: RenderConfig,
+            want_uv: bool) -> _Winner:
+    """The record of each ray's winner (class ``cls``, table row ``idx``,
+    at ``t``): point, normal, material block and, with want_uv, (u, v)."""
+    n = o.shape[0]
+    t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
     # the winner's record: sphere and triangle rows loaded after the sweep
     p = o + t[:, None] * d
     srow = (tables.sph[idx.clamp(max=tables.sph.shape[0] - 1)]
@@ -878,21 +1215,24 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
     return _Winner(t, cls, idx, p, nrm, m, uv)
 
 
-def winner_valid(scene: Scene, rays: Rays, winner: Tensor,
-                 cfg: RenderConfig) -> Tensor:
-    """bool[N]: whether each recorded winner (scene prim ids, -1 for a
-    miss, which counts as valid) passes the kernel's own test on these rays,
-    in the plain version's arithmetic.  The mega_diff replay
-    (``intersect.replay_hits``) follows the recorded winners without
-    testing them again, so a False marks a ray whose replay has left the
-    path the kernel traced (ROADMAP Queue 3)."""
-    tables = build_mega_tables(scene)          # scene order: row = id
+def _winner_hits(tables: MegaTables, o: Tensor, d: Tensor, winner: Tensor,
+                 inv_raw: Tensor, cfg: RenderConfig):
+    """Each recorded winner (scene prim ids on tables in scene order, -1 for
+    a miss) tested on its ray in the plain version's arithmetic ->
+    (valid: passes the kernel's test, a miss counting as valid; t: its t,
+    the far root of a sphere when neither root is in the window; cls, idx:
+    its class and table row; near: a sphere's or TRS sphere's near root is
+    the one in the window)."""
     t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
     w = winner.long()
-    oc = [rays.origin[:, k] for k in range(3)]
-    dc = [rays.direction[:, k] for k in range(3)]
+    oc = [o[:, k] for k in range(3)]
+    dc = [d[:, k] for k in range(3)]
     n_s, n_t = tables.n_spheres, tables.n_triangles
-    ok = w < 0
+    valid = w < 0
+    t = torch.full(w.shape, BIG, dtype=o.dtype, device=o.device)
+    cls = torch.zeros_like(w)
+    idx = torch.zeros_like(w)
+    near = torch.zeros_like(valid)
     if n_s:
         row = tables.sph[w.clamp(0, n_s - 1)]
         ocx, ocy, ocz = (oc[k] - row[:, S_CX + k] for k in range(3))
@@ -905,27 +1245,85 @@ def winner_valid(scene: Scene, rays: Rays, winner: Tensor,
         sq = torch.sqrt(torch.where(has, disc, 0.0))
         inv_a = 1.0 / a
         t0, t1 = (-b - sq) * inv_a, (-b + sq) * inv_a
-        valid = has & (((t0 < t_max) & (t0 > t_min))
-                       | ((t1 < t_max) & (t1 > t_min)))
-        ok |= (w >= 0) & (w < n_s) & valid
+        ok0 = has & (t0 < t_max) & (t0 > t_min)
+        ok1 = has & (t1 < t_max) & (t1 > t_min)
+        is_s = (w >= 0) & (w < n_s)
+        valid |= is_s & (ok0 | ok1)
+        t = torch.where(is_s, torch.where(ok0, t0, t1), t)
+        near = torch.where(is_s, ok0, near)
+        idx = torch.where(is_s, w, idx)
     if n_t:
         row = tables.tri[(w - n_s).clamp(0, n_t - 1)]
-        a, u, v, t = _mt(oc, dc, _cols(row, T_V0), _cols(row, T_E1),
-                         _cols(row, T_E2))
-        valid = _mt_valid(a, u, v, t, dc, _cols(row, T_N), t_min, t_max,
-                          cfg.quirks)
-        ok |= (w >= n_s) & (w < n_s + n_t) & valid
+        a, u, v, tt = _mt(oc, dc, _cols(row, T_V0), _cols(row, T_E1),
+                          _cols(row, T_E2))
+        is_t = (w >= n_s) & (w < n_s + n_t)
+        valid |= is_t & _mt_valid(a, u, v, tt, dc, _cols(row, T_N), t_min,
+                                  t_max, cfg.quirks)
+        t = torch.where(is_t, tt, t)
+        cls = torch.where(is_t, C_TRI, cls)
+        idx = torch.where(is_t, w - n_s, idx)
     base = n_s + n_t
-    for _, name, test in _XFORM:
+    for c, name, test in _XFORM:
         rows = getattr(tables, name)
         k = rows.shape[0]
         if k:
             row = rows[(w - base).clamp(0, k - 1)]
-            valid, _ = test(row, *_xray(row, oc, dc), t_min, t_max,
-                            cfg.quirks)
-            ok |= (w >= base) & (w < base + k) & valid
+            xo, xd = _xray(row, oc, dc)
+            is_x = (w >= base) & (w < base + k)
+            ok, tn = test(row, xo, xd, t_min, t_max, cfg.quirks)
+            valid |= is_x & ok
+            t = torch.where(is_x, tn * inv_raw, t)
+            cls = torch.where(is_x, c, cls)
+            idx = torch.where(is_x, w - base, idx)
+            if c == C_TSPH:
+                near = torch.where(is_x, _tsph_roots(row, xo, xd, t_min,
+                                                     t_max)[0], near)
         base += k
-    return ok
+    return valid, t, cls, idx, near
+
+
+def winner_valid(scene: Scene, rays: Rays, winner: Tensor,
+                 cfg: RenderConfig) -> Tensor:
+    """bool[N]: whether each recorded winner (scene prim ids, -1 for a
+    miss, which counts as valid) passes the kernel's own test on these rays,
+    in the plain version's arithmetic.  A False marks a ray whose replay
+    (``intersect.replay_hits``, which follows the recorded winners without
+    testing them again) has left the path the kernel traced."""
+    tables = build_mega_tables(scene)          # scene order: row = id
+    return _winner_hits(tables, rays.origin, rays.direction, winner,
+                        _inv_len(rays.direction), cfg)[0]
+
+
+class ReplayRef(NamedTuple):
+    """The plain version's bounce on recorded winners (``replay_reference``),
+    what the mega_diff replay takes its discrete decisions and its rays
+    from."""
+    valid: Tensor        # bool[N] the winner passes its test
+    near: Tensor         # bool[N] a sphere's near root is the one taken
+    p: Tensor            # float32[N, 3] hit point
+    n: Tensor            # float32[N, 3] normal
+    uv: tuple            # (u, v) float32[N] each
+    ok: Tensor           # bool[N] the material scatters
+    direction: Tensor    # float32[N, 3] scattered direction
+    decide: _mat.ScatterDecisions
+
+
+@torch.no_grad()
+def replay_reference(tables: MegaTables, o: Tensor, d: Tensor,
+                     winner: Tensor, cfg: RenderConfig, ball: Tensor,
+                     prob: Tensor) -> ReplayRef:
+    """One bounce of the plain version (the kernel's arithmetic, which the
+    plain version matches bit for bit on the card) on recorded winners
+    int32[N] in scene prim ids, with tables in scene order: the winner's t,
+    record and scatter, O(N), no sweep."""
+    inv_dlen = _inv_len(d)
+    valid, t, cls, idx, near = _winner_hits(tables, o, d, winner, inv_dlen,
+                                            cfg)
+    win = _record(tables, o, d, torch.where(winner >= 0, t, BIG), cls, idx,
+                  cfg, True)
+    ok, out, decide = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
+                               cfg.quirks.dielectric_reference_cosine)
+    return ReplayRef(valid, near, win.p, win.n, win.uv, ok, out, decide)
 
 
 def _scene_ids(tables: MegaTables, win: _Winner) -> Tensor:
@@ -984,7 +1382,7 @@ def _sky(d: Tensor, inv_dlen: Tensor) -> Tensor:
 
 def _scatter(d, nrm, m, inv_dlen, ball, prob, ref_cosine: bool):
     """Branch-free scatter of the four materials (megakernel.py:1464-1531)
-    -> (ok, direction)."""
+    -> (ok, direction, the discrete decisions)."""
     kind, aux = m[:, 0:1], m[:, 2:3]
     is_met = kind == float(_mat.METAL)
     is_die = kind == float(_mat.DIELECTRIC)
@@ -1020,11 +1418,13 @@ def _scatter(d, nrm, m, inv_dlen, ball, prob, ref_cosine: bool):
     c5 = c5 * c5 * one_c
     refl_p = torch.where(disc > 0.0, r0 + (1.0 - r0) * c5, 1.0)
     dref = d - 2.0 * d_n * nrm
-    die = torch.where(prob[:, None] < refl_p, dref, refr)
+    reflect = prob[:, None] < refl_p
+    die = torch.where(reflect, dref, refr)
     out = torch.where(is_met, met, lam)
     out = torch.where(is_die, die, out)
     ok = (is_met & met_ok) | (~is_met & ~is_light)
-    return ok[:, 0], out
+    return ok[:, 0], out, _mat.ScatterDecisions(met_ok[:, 0], exiting[:, 0],
+                                                reflect[:, 0])
 
 
 def _inv_len(d: Tensor) -> Tensor:
@@ -1033,9 +1433,12 @@ def _inv_len(d: Tensor) -> Tensor:
 
 
 def _plain_rays(tables, o, d, cfg, stream, seed, index,
-                want_winners: bool = False):
-    """Radiance float32[N, 3] of one chunk of rays (and, with want_winners,
-    its winners int32[max_depth + 1, N])."""
+                want_winners: bool = False, window: Window = WHOLE,
+                state: Optional[Tensor] = None):
+    """Radiance float32[N, 3] of one chunk of rays (with window.dump the
+    state float32[N, 13]; with want_winners also the winners int32[max_depth
+    + 1, N]).  index: the rays' ids (the draws' keys); stream: their rows of
+    the injected draws; state: their rows of the window's state."""
     q = cfg.quirks
     tex = has_images(tables) and cfg.integrator != "normal"
     images = tables.images if tex else None
@@ -1058,12 +1461,18 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
         return torch.where(hit[:, None], lit, sky)
 
     n = o.shape[0]
-    thr = torch.ones(n, 3, device=o.device)
+    if state is not None:
+        thr, alive = state[:, 0:3], state[:, 3] > 0.0
+    else:
+        thr = torch.ones(n, 3, device=o.device)
+        alive = torch.ones(n, dtype=torch.bool, device=o.device)
     rad = torch.zeros(n, 3, device=o.device)
-    alive = torch.ones(n, dtype=torch.bool, device=o.device)
     winners = torch.full((cfg.max_depth + 1, n), -1, dtype=torch.int32,
                          device=o.device)
-    for step in range(cfg.max_depth + 1):
+    lo = window.step_lo
+    for step in range(lo, lo + window.steps(cfg)):
+        if not bool(alive.any()):
+            break
         inv_dlen = _inv_len(d)
         win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex)
         hit = win.t < BIG_CUT
@@ -1075,8 +1484,8 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
             ball, prob = stream[step, :, 0:3], stream[step, :, 3]
         else:
             ball, prob = _rng.counter_draws(seed, index, step)
-        ok, out = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
-                           q.dielectric_reference_cosine)
+        ok, out, _ = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
+                              q.dielectric_reference_cosine)
         sky = _sky(d, inv_dlen)
         can_rec = step < cfg.max_depth            # render.h:57 depth > 0
         cont = alive & hit & ok & can_rec
@@ -1091,39 +1500,51 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
         o = torch.where(c3, win.p, o)
         d = torch.where(c3, out, d)
         alive = cont
-        if not bool(alive.any()):
-            break
+    if window.dump:
+        return torch.cat([rad, o, d, thr, alive[:, None].to(rad.dtype)], 1)
     return (rad, winners) if want_winners else rad
 
 
 def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
                           stream: Optional[Tensor] = None, seed: int = 0,
-                          want_winners: bool = False):
+                          want_winners: bool = False,
+                          window: Window = WHOLE):
     """Plain PyTorch version of the kernel on the same tables: brute-force
     sweeps with the same formulas and a Python loop over the bounces with
     alive masks -> radiance float32[N, 3] (and, with want_winners, the
-    winners int32[max_depth + 1, N] as the kernel records them).
+    winners int32[max_depth + 1, N] as the kernel records them).  The box
+    levels (K6) and the visit order (K11) change no result, so the sweep
+    stays brute force.
 
-    stream: optional float32[max_depth + 1, N, 4] injected draws; otherwise
-    the counter-based draws of ``seed`` (the kernel's numbers)."""
+    stream: optional float32[max_depth + 1, R, 4] injected draws, row
+    window.ray_id[i] for ray i (R = N without ray ids); otherwise the
+    counter-based draws of ``seed`` keyed by the ray ids (the kernel's
+    numbers).  window: the bounce window (kernel mode K10); with dump the
+    result is the state float32[N, 13]."""
     if want_winners and cfg.integrator != "path":
         raise ValueError("want_winners needs the path integrator")
     n = rays.origin.shape[0]
+    _check_window(window, cfg, n, want_winners)
+    dev = rays.origin.device
+    ids = (window.ray_id.long() if window.ray_id is not None
+           else torch.arange(n, device=dev))
     width = max(sum(t.shape[0] for t in float_tables(tables)), 1)
     chunk = max(256, (1 << 22) // width)
     out = []
     for lo in range(0, n, chunk):
         hi = min(n, lo + chunk)
-        index = torch.arange(lo, hi, device=rays.origin.device)
+        index = ids[lo:hi]
         out.append(_plain_rays(
             tables, rays.origin[lo:hi], rays.direction[lo:hi], cfg,
-            stream[:, lo:hi] if stream is not None else None, seed, index,
-            want_winners))
+            stream[:, index] if stream is not None else None, seed, index,
+            want_winners, window,
+            window.state[lo:hi] if window.state is not None else None))
+    cols = 13 if window.dump else 3
     if not want_winners:
-        return (torch.cat(out) if out else rays.origin.new_zeros(0, 3))
+        return (torch.cat(out) if out else rays.origin.new_zeros(0, cols))
     if not out:
         return (rays.origin.new_zeros(0, 3),
                 torch.zeros(cfg.max_depth + 1, 0, dtype=torch.int32,
-                            device=rays.origin.device))
+                            device=dev))
     return (torch.cat([r for r, _ in out]),
             torch.cat([w for _, w in out], dim=1))

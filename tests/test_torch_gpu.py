@@ -213,10 +213,11 @@ def test_counting_variant_matches_production(cuda):
                               9, counts=counts)
     plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
     assert torch.equal(counted, plain)
-    n_box, n_sph, n_tri, n_rect, n_tsph, n_ttri = counts.tolist()
+    n_box, n_sph, n_tri, n_rect, n_tsph, n_ttri, n_seg, n_dist = \
+        counts.tolist()
     assert n_box > 0 and n_sph > 0 and n_tri > 0
     assert n_sph % 16 == 0 and n_tri % 16 == 0
-    assert n_rect == n_tsph == n_ttri == 0
+    assert n_rect == n_tsph == n_ttri == n_seg == n_dist == 0
     # K8's counting variant: every rect / TRS row once per ray and bounce
     scene, cam = cs.trs_showcase_scene(2.0, device=cuda)
     tables = mk.morton_tables(scene)
@@ -225,7 +226,7 @@ def test_counting_variant_matches_production(cuda):
                               9, counts=counts)
     plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
     assert torch.equal(counted, plain)
-    n_rect, n_tsph, n_ttri = counts.tolist()[3:]
+    n_rect, n_tsph, n_ttri = counts.tolist()[3:6]
     assert n_rect > 0 and n_tsph == 2 * n_rect and n_ttri == n_rect
 
 
@@ -569,7 +570,7 @@ def _bounced(scene, rays, cfg, seed):
                              seed, 0)
     with torch.no_grad():
         o, d, t, _, _, cont, _ = integ._bounce(
-            scene, cfg, sweep_intersector(cfg, True), 0, None, *rays,
+            scene, cfg, sweep_intersector(cfg, True), 0, None, None, *rays,
             torch.ones_like(rays.origin), torch.zeros_like(rays.origin),
             torch.ones(n, dtype=torch.bool, device=rays.origin.device),
             draws[:, :3], draws[:, 3])
@@ -774,3 +775,113 @@ def test_sweeps_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         sw.launch_triangle_sweep(o, o, torch.zeros(16, 9, device=cuda), None,
                                  None, T_MIN, T_MAX, Quirks.fixed())
+
+
+# ---------------------------------------------------------------------------
+# Kernel modes K6 (segment level), K10 (bounce windows), K11 (shells)
+# ---------------------------------------------------------------------------
+
+def _big_field_launch(dev, seed=5):
+    """(scene, Morton tables, cfg, rays) of the first 2^18-ray launch of
+    the 128,000-triangle field at 1280x720x8, path depth 8, fixed quirks."""
+    scene, cam = cs.big_field_scene(16 / 9, device=dev)
+    cfg = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
+                       quirks=Quirks.fixed(), engine="mega")
+    return scene, mk.morton_tables(scene), cfg, _first_launch(cam, cfg, dev,
+                                                              seed)
+
+
+def _rays_from_numpy(o, d, dev):
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    return make_rays(o, d, device=dev)
+
+
+@pytest.mark.gpu
+def test_segment_level_matches_plain_on_the_big_field(cuda):
+    """K6 on one full main-path launch of the 128,000-triangle field: every
+    ray to 1e-5 of the plain version's brute force, under injected and
+    in-kernel draws, and the winners of K7 on K6 equal."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    assert tables.tri_seg.shape == (63, 8)
+    n = rays.origin.shape[0]
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(
+        6), n, DEPTH, cuda)
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables,
+                             samples=stream)
+    _assert_rays_match(got, mk.trace_path_mega_plain(
+        tables, rays, cfg, mk.stream_tensor(stream, n, DEPTH + 1)))
+    got, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=21,
+                                  want_winners=True)
+    ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 21, True)
+    _assert_rays_match(got, ref)
+    assert torch.equal(win, wref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integrator", INTEGRATORS)
+def test_segment_level_matches_plain_on_the_sphere_field(cuda, integrator):
+    """K6 over spheres: 9,216 spheres (segments, supers and chunks), 2^16
+    rays from above, injected draws."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    scene = cs.fill_sphere_field(SceneBuilder()).build(cuda)
+    tables = mk.morton_tables(scene)
+    assert tables.sph_seg.shape == (5, 8) and tables.sph_super.shape[0] == 40
+    rays = _rays_from_numpy(*cs.sphere_field_rays(1 << 16), cuda)
+    cfg = RenderConfig(max_depth=DEPTH, integrator=integrator, engine="mega")
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(
+        7), 1 << 16, DEPTH, cuda)
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables,
+                             samples=stream)
+    _assert_rays_match(got, mk.trace_path_mega_plain(
+        tables, rays, cfg, mk.stream_tensor(stream, 1 << 16, DEPTH + 1)))
+
+
+@pytest.mark.gpu
+def test_phased_and_compact_equal_monolithic_on_the_card(cuda):
+    """K10: the compaction drivers on the card are bit-equal to the
+    monolithic launch with in-kernel draws (keyed by ray id), for every
+    window length, with and without octant regrouping."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    rays = type(rays)(*(x[:1 << 16] for x in rays))
+    want = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8)
+    for every in (1, 2, 3):
+        for octants in (False, True):
+            got = mk.trace_path_mega_phased(scene, rays, cfg, tables=tables,
+                                            compact_every=every, seed=8,
+                                            octants=octants)
+            assert torch.equal(got, want), (every, octants)
+    got = mk.trace_path_mega_compact(scene, rays, cfg, tables=tables,
+                                     primary_steps=2, seed=8)
+    assert torch.equal(got, want)
+    # a window's dump resumed equals the unbroken launch, and the plain
+    # version's window
+    w0 = mk.Window(0, 3, None, None, True)
+    a = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8,
+                           window=w0)
+    _assert_rays_match(a, mk.trace_path_mega_plain(tables, rays, cfg, None,
+                                                   8, window=w0))
+    b = mk.trace_path_mega(scene, type(rays)(a[:, 3:6].contiguous(),
+                                             a[:, 6:9].contiguous(),
+                                             rays.time), cfg,
+                           tables=tables, seed=8,
+                           window=mk.Window(3, None, a[:, 9:13].contiguous()))
+    assert torch.equal(a[:, :3] + b, want)
+
+
+@pytest.mark.gpu
+def test_shells_equal_table_order_on_the_card(cuda):
+    """K11: eight front-to-back shells over the field's 63 segments give the
+    table-order radiance and winners bit for bit; the routed default
+    (select_mega: phased, octants, shells 8) equals the monolithic launch."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    want, wwin = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=9,
+                                    want_winners=True)
+    before = mk.LAUNCHES["mega_f2b"]
+    got, win = mk.trace_path_mega(
+        scene, rays, dataclasses.replace(cfg, mega_f2b_shells=8),
+        tables=tables, seed=9, want_winners=True)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["mega_f2b"] == before + 1
+    assert torch.equal(got, want) and torch.equal(win, wwin)
+    routed = integ.integrate(scene, rays, cfg, tables=tables, seed=9)
+    assert torch.equal(routed, want)

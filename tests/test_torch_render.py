@@ -169,13 +169,13 @@ def test_cli_renders_obj(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--compact-after", "2"], "item 19"),
-    (["--obj", "BIG_OBJ", "--accel", "mega"], "slice 6"),
+    (["--compact-after", "2"], "mega"),
+    (["--obj", "BIG_OBJ", "--accel", "mega"], "mega"),
 ])
-def test_cli_rejects_unported(tmp_path, argv, err):
-    """Knobs and scenes the port does not take yet raise, naming the item
-    or slice that brings them: the compaction knob, and an OBJ mesh above
-    the fused engine's table-resident size (streamed, kernel mode K6)."""
+def test_cli_rejects_unported(tmp_path, argv, err, capsys):
+    """What the CLI once rejected renders now: the compaction knob (the
+    compact driver, kernel mode K10) and an OBJ mesh above the fused
+    engine's table-resident size (the segment level, kernel mode K6)."""
     if "BIG_OBJ" in argv:
         n = 8200
         obj = tmp_path / "big.obj"
@@ -184,9 +184,11 @@ def test_cli_rejects_unported(tmp_path, argv, err):
                        + "".join(f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}\n"
                                  for i in range(n)))
         argv = [str(obj) if a == "BIG_OBJ" else a for a in argv]
-    with pytest.raises(NotImplementedError, match=err):
-        app.main(["--cpu", "--width", "8", "--height", "4", "--spp", "1",
-                  "--out", str(tmp_path / "x.png")] + argv)
+    out = tmp_path / "x.png"
+    assert app.main(["--cpu", "--width", "8", "--height", "4", "--spp", "1",
+                     "--out", str(out)] + argv) == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert f"{err} on cpu" in capsys.readouterr().out
 
 
 def test_jax_scene_renders_through_port_entry():

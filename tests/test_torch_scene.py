@@ -258,10 +258,12 @@ def test_morton_tables_icosphere_match_jax():
     assert tt.tri_super.shape == (20, 8) and tt.sph.shape == (16, 16)
 
 
-def test_engine_raises_on_image_textures_and_streamed_sizes():
+def test_engine_raises_on_image_textures_and_streamed_sizes(monkeypatch):
     """Image textures are ported (kernel mode K9): the fused engine takes
-    random_spheres(textured=True) and its tables hold the scene's images;
-    scenes above the table-resident size still raise, naming slice 6."""
+    random_spheres(textured=True) and its tables hold the scene's images.
+    Scenes above the table-resident size take the segment level (K6); only
+    above MAX_STREAM_PRIMS (lowered here) does the fused engine raise,
+    naming the ceiling."""
     ts, _ = tpresets.random_spheres(textured=True, device="cpu")
     assert tmk.megakernel_supported(ts)
     tables = tmk.build_mega_tables(ts)
@@ -271,6 +273,11 @@ def test_engine_raises_on_image_textures_and_streamed_sizes():
     pts, faces = _mesh(7, 50, tmk.MAX_VMEM_PRIMS + 1)
     b.add_mesh(pts, faces, m)
     big = b.build("cpu")
+    assert tmk.megakernel_supported(big)
+    tables = tmk.build_mega_tables(big)
+    assert tables.tri.shape[0] == 10240 and tables.tri_seg.shape == (5, 8)
+    monkeypatch.setattr(tmk, "MAX_STREAM_PRIMS", tmk.MAX_VMEM_PRIMS)
+    assert not tmk.megakernel_supported(big)
     cfg = RenderConfig(engine="mega", width=4, height=2, samples=1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="MAX_STREAM_PRIMS"):
         tinteg.integrate(big, None, cfg)
