@@ -10,11 +10,13 @@ the wavefront render (engine='wavefront': the sweep kernels K3
 sphere_sweep and K4 triangle_sweep, the draws kernel K2 scatter_draws), the
 single-device fit through the wavefront (K5 sphere_sweep_attrs, K2) and
 through engine='mega_diff' (K1 recording its winners, K7 mega_winners, and
-the replay backward on K2 draws), and the render of scenes above 8,192
+the replay backward on K2 draws), the render of scenes above 8,192
 prims of a type (the segment level K6 mega_stream, the bounce windows of
 the compaction drivers K10 mega_window, the front-to-back shells K11
-mega_f2b).  A launch counts once for each mode it runs (K6-K11), or as
-mega_trace when it runs none.
+mega_f2b, the bilinear triangle sweep K12 mega_mxu under cfg.mega_mxu), and
+the skinned-animation driver apps/animate.py (its mega pipeline on K1 and
+K6, its pallas pipeline on K4).  A launch counts once for each mode it runs
+(K6-K12), or as mega_trace when it runs none.
 
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
@@ -55,6 +57,14 @@ Phases (each prints lines; any failure raises and exits nonzero):
          equal; K10: a window's dump and a resumed window against the
          plain version, dump + resume and the compaction drivers
          (phased, compact) bit-equal to the monolithic launch;
+       * K12 on (m)'s first 2^18-ray launch under mega_mxu (three
+         integrators injected, the path on in-kernel draws, timed beside
+         monolithic K6 on the same rays), on 2^16 rays of (n) (lambert) and
+         on the terrain's 2^18 rays under the reference quirks (the d.n
+         block, the no-t-clip window); the phased driver bit-equal to the
+         monolithic launch under K12; K12's bounds charge the triangle
+         tests the closest hit needs (K6's counting instance on the same
+         rays), and its own count of tests is printed beside them;
   4. draws: the scatter_draws kernel against its plain version at the
      main path's 2^18 rays and over 2^22 samples against the unit-ball and
      uniform distributions;
@@ -107,6 +117,19 @@ Phases (each prints lines; any failure raises and exits nonzero):
        (n) big1m: 12 x 17 icospheres, 1,044,480 triangles, 1280x720x8,
            lambert, fixed quirks, fused (monolithic K6), and one launch
            over the frame's rays against its bound;
+       (q) (m) under mega_mxu (K12) through select_mega's route and
+           monolithic, each over the frame's rays against its bound;
+       (r) (n) under mega_mxu, lambert, and one frame-sized launch;
+       (o) apps/animate.py's loop on skinned_capsule (the 5,120-triangle
+           icosphere as a two-bone capsule): 31 frames at its defaults,
+           1024x512x4, depth 8, lambert, --pipeline mega (K1), the tables
+           rebuilt every frame; median update, table build and rendering
+           s/frame, peak memory, the last frame's mean and mesh share;
+       (p) the same on skinned_field (big_field's 128,000 triangles on two
+           bones, K6);
+     then animate.main on an ASCII FBX of the capsule's bind pose, 3 frames
+     each of the mega, pallas and list pipelines at 256x128x2 (CSV and
+     PNGs);
      then the replay divergence on (g)'s and (l)'s first launch: the rays
      whose replay meets a recorded winner that the replayed ray misses
      (must be 0: the replay takes its decisions and rays from the plain
@@ -132,6 +155,7 @@ import sys
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -158,6 +182,16 @@ FLOP_XFORM = (46 + 16, 46 + 34, 46 + 64)
 # charged): its distance (clip 6, sub 3, mul 3, add 2), the scan's min and
 # max (2) and its shell index (sub, mul, floor, 2 compares)
 FLOP_DIST = 21
+# K12, per triangle test the closest hit needs (K6's count on the same
+# rays: K12 itself tests every triangle of a reached super, which the chunk
+# boxes would cull, and the bound charges only the needed tests): its
+# bilinear forms, each product and each sum of a non-zero term (a 5, t_num
+# 6, u_num 11, v_num 11), then 1 / a, three products, |a| and 9 compares
+# and the best-t compare (14); under backface_only also d.n (5) and its
+# compare.  (The TPU's dense (5 * 256 x 10) @ (10 x 128) matmul charges
+# 19 per form, its zero terms included.)
+FLOP_MXU = 47
+FLOP_MXU_DN = 6
 OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
 N_ATTRS = 21       # K5's attribute row: centre, radius, mat, 16 decode
 
@@ -236,41 +270,75 @@ def bound(flops: float, bytes_: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def mxu_blocks(tables, cfg) -> int:
+    """The coefficient blocks a K12 launch reads per triangle (4, or 5 under
+    backface_only), 0 for a launch that does not take K12."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    if cfg is None or not mk.launch_modes(tables, cfg, False)[1]:
+        return 0
+    return mk.N_Q if cfg.quirks.triangle_backface_only else mk.N_Q - 1
+
+
+def counting_cfg(tables, cfg):
+    """The config whose counting instance counts the tests that a launch
+    under ``cfg`` needs: under K12, which tests every triangle of a reached
+    super, K6's (the chunk boxes cull inside a super; no shells), else
+    ``cfg`` itself."""
+    if not mxu_blocks(tables, cfg):
+        return cfg
+    return dataclasses.replace(cfg, mega_mxu=False, mega_f2b_shells=0)
+
+
 def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
-                 extra_bytes: int = 0) -> tuple:
-    """(bound ms, bound_by) of one launch over n rays that made ``tests``
+                 extra_bytes: int = 0, cfg=None) -> tuple:
+    """(bound ms, bound_by) of one launch over n rays that needed ``tests``
     (count_tests): their FLOPs (box, segment and box-distance tests
     included) against the rays in, ``out_bytes`` per ray out, the box and
     rect / TRS tables, the sphere and triangle rows of the chunks whose
-    prims were tested, and ``extra_bytes`` (K9: 3 per texel fetched; K10:
-    the state a window reads)."""
+    prims were tested (under K12, which ``cfg`` decides: the coefficient
+    rows of those chunks, 40 bytes per block), and ``extra_bytes`` (K9: 3
+    per texel fetched; K10: the state a window reads)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
+    q = mxu_blocks(tables, cfg)
+    tri_flops = (FLOP_MXU + (FLOP_MXU_DN if q == mk.N_Q else 0) if q
+                 else FLOP_TRI)
     flops = (tests["box"] * FLOP_BOX + tests["seg"] * FLOP_BOX
-             + tests["sph"] * FLOP_SPHERE + tests["tri"] * FLOP_TRI
+             + tests["sph"] * FLOP_SPHERE + tests["tri"] * tri_flops
              + tests["dist"] * FLOP_DIST
              + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
                                                 FLOP_XFORM)))
+    tri_row = q * mk.N_FEAT * 4 if q else mk.TRI_COLS * 4
     rows = (tests["touched_sph_chunks"] * mk.PRIM_CHUNK * mk.SPH_COLS * 4
-            + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * mk.TRI_COLS * 4)
+            + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * tri_row)
     tables_bytes = (mk.table_bytes(tables) - tables.sph.nbytes
-                    - tables.tri.nbytes + rows)
+                    - tables.tri.nbytes - tables.tri_coef.nbytes + rows)
     return bound(flops, n * (24 + out_bytes) + tables_bytes + extra_bytes)
 
 
 def count_tests(tables, rays, cfg, seed, window=None) -> dict:
-    """The tests of one launch (the kernel's counting variant), by name
-    (megakernel.COUNT_NAMES), and the chunks whose prims it tested."""
+    """The tests one launch needs (the counting variant under
+    ``counting_cfg``), by name (megakernel.COUNT_NAMES), and the chunks whose
+    prims it tested.  Under K12 also ``tri_done``: the triangle tests that
+    K12's own counting instance makes, every triangle of a reached super."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
-                         device=rays.origin.device)
     n_sc = tables.sph_box.shape[0]
-    touched = torch.zeros(max(n_sc + tables.tri_box.shape[0], 1),
-                          dtype=torch.uint8, device=rays.origin.device)
-    mk._launch_mega(tables, rays.origin.contiguous(),
-                    rays.direction.contiguous(), cfg, None, seed,
-                    counts=counts, touched=touched,
-                    window=window if window is not None else mk.WHOLE)
-    return counted_tests(counts, touched, n_sc)
+
+    def counted(c):
+        counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
+                             device=rays.origin.device)
+        touched = torch.zeros(max(n_sc + tables.tri_box.shape[0], 1),
+                              dtype=torch.uint8, device=rays.origin.device)
+        mk._launch_mega(tables, rays.origin.contiguous(),
+                        rays.direction.contiguous(), c, None, seed,
+                        counts=counts, touched=touched,
+                        window=window if window is not None else mk.WHOLE)
+        return counted_tests(counts, touched, n_sc)
+
+    need = counting_cfg(tables, cfg)
+    out = counted(need)
+    if need is not cfg:
+        out["tri_done"] = counted(cfg)["tri"]
+    return out
 
 
 def counted_tests(counts, touched, n_sph_chunks: int) -> dict:
@@ -989,7 +1057,7 @@ def kernel_at_frame_shape(dev, f: Frame, gen):
     ms, rays = frame_launch(dev, f, gen)
     tests = count_tests(f.tables, rays, c, 11)
     n = rays.origin.shape[0]
-    bound, bound_by = launch_bound(f.tables, n, tests)
+    bound, bound_by = launch_bound(f.tables, n, tests, cfg=c)
     return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
             "tests": tests, "rays": n}
 
@@ -1404,7 +1472,7 @@ def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
     out[key] = max(out.get(key, 0.0), compare(label, got, ref))
     tests = count_tests(f.tables, rays, cfg, seed, window)
     b, by = launch_bound(f.tables, rays.origin.shape[0], tests, out_bytes,
-                         extra_bytes)
+                         extra_bytes, cfg)
     print(f"[stream] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b:.4f} ms ({by}), tests {tests}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
@@ -1540,11 +1608,220 @@ def phase_stream_parity(dev, sframes) -> dict:
     return res
 
 
+def mxu_frame(f: Frame) -> Frame:
+    """f under cfg.mega_mxu, with Morton tables that hold K12's
+    coefficients."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    return f._replace(name=f"{f.name}_mxu",
+                      cfg=dataclasses.replace(f.cfg, mega_mxu=True),
+                      tables=mk.morton_tables(f.scene, mxu=True))
+
+
+def phase_mxu_parity(dev, sframes, mframes) -> dict:
+    """K12 against the plain version on the card: (m)'s first 2^18 rays
+    (path, lambert and normal on an injected stream, the path on in-kernel
+    draws, timed beside monolithic K6 on the same rays), 2^16 rays of (n)
+    (lambert), and the terrain's 2^18 rays under the reference quirks (the
+    d.n block and the no-t-clip window); the phased driver bit-equal to
+    the monolithic launch under K12, injected and in-kernel.  mframes:
+    ``mxu_frame`` of each of ``sframes``."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.rays import Rays, make_rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    fm, fn = mframes
+    gen = torch.Generator(device=dev).manual_seed(41)
+    err, res = {"mega_mxu": 0.0}, {}
+
+    def injected(label, f, rays):
+        n = rays.origin.shape[0]
+        stream = stream_from_generator(gen, n, DEPTH, dev)
+        st = mk.stream_tensor(stream, n, DEPTH + 1)
+        out = None
+        for integrator in INTEGRATORS:
+            cfg = dataclasses.replace(f.cfg, integrator=integrator)
+            got = mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                     samples=stream)
+            err["mega_mxu"] = max(err["mega_mxu"], compare(
+                f"K12 {label} {integrator} injected", got,
+                mk.trace_path_mega_plain(f.tables, rays, cfg, st)))
+            out = got if integrator == "path" else out
+        return stream, out
+
+    rays = first_chunk(fm, gen)
+    n = rays.origin.shape[0]
+    check(n == 1 << 18 and fm.tables.tri_coef.shape == (
+        mk.N_Q * fm.tables.tri.shape[0], mk.N_FEAT), "(m)'s K12 tables")
+    stream, got_inj = injected("big_field launch 0", fm, rays)
+    seed = mk.draw_seed(gen)
+    k12 = timed_parity("K12 big_field launch 0 path in-kernel draws", fm,
+                       rays, fm.cfg, seed, err, "mega_mxu")
+    got = k12.pop("got")
+    k6_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
+        sframes[0].scene, rays, sframes[0].cfg, tables=sframes[0].tables,
+        seed=seed))
+    k12["k6_ms_same_rays"] = k6_ms
+    print(f"[mxu] (m)'s first 2^18 rays: K12 {k12['ms']:.4f} ms against "
+          f"monolithic K6 {k6_ms:.4f} ms on the same rays and draws")
+    for label, out in (
+            ("in-kernel draws", mk.trace_path_mega_phased(
+                fm.scene, rays, fm.cfg, tables=fm.tables, compact_every=2,
+                seed=seed, octants=True)),
+            ("injected stream", mk.trace_path_mega_phased(
+                fm.scene, rays, fm.cfg, tables=fm.tables, compact_every=2,
+                samples=stream, octants=True))):
+        want = got if label == "in-kernel draws" else got_inj
+        check(torch.equal(out, want), f"K12 phased ({label}) differs from "
+              "the monolithic launch")
+        print(f"[mxu] phased every 2, octants, {label}: bit-equal to the "
+              "monolithic launch")
+    res["big_field"] = k12
+    rays_n = first_chunk(fn, gen, middle_chunk(fn))
+    rays_n = Rays(*(x[:N_BIG1M_CHECK] for x in rays_n))
+    res["big1m"] = timed_parity(
+        f"K12 big1m {N_BIG1M_CHECK} rays lambert", fn, rays_n, fn.cfg, 0,
+        err, "mega_mxu")
+    res["big1m"].pop("got")
+    scene = cs.fill_terrain(SceneBuilder()).build(dev)
+    ft = Frame("terrain_mxu", scene, None, RenderConfig(
+        max_depth=DEPTH, engine="mega", mega_mxu=True),
+        mk.morton_tables(scene, mxu=True))
+    check(ft.cfg.quirks.triangle_backface_only
+          and ft.cfg.quirks.triangle_no_t_clip, "terrain under the "
+          "reference quirks")
+    rays_t = make_rays(*cs.terrain_rays(1 << 18), device=dev)
+    injected("terrain reference quirks", ft, rays_t)
+    res["terrain"] = timed_parity("K12 terrain reference quirks path "
+                                  "in-kernel draws", ft, rays_t, ft.cfg,
+                                  mk.draw_seed(gen), err, "mega_mxu")
+    res["terrain"].pop("got")
+    res["max_abs_err"] = err["mega_mxu"]
+    return res
+
+
+def render_mxu_cells(dev, mframes) -> tuple:
+    """(q): (m) under mega_mxu through select_mega's route (compact_auto:
+    phased every 2 bounces with octants, the shells forced off) and
+    monolithic, each over the frame's rays in one call against its bound;
+    (r): (n) under mega_mxu, lambert, and one frame-sized launch.  Each
+    counted from zero; (q)'s two frames must be equal."""
+    fm, fn = mframes
+    out, launches, imgs = {}, {}, []
+    for name, cfg, need in (
+            ("default", fm.cfg, ("mega_mxu", "mega_window")),
+            ("monolithic", dataclasses.replace(fm.cfg, compact_auto=False),
+             ("mega_mxu",))):
+        f = fm._replace(name=f"big_field_mxu_{name}", cfg=cfg)
+        (ms, img, peak), l_r = counted(
+            f"(q) big_field mega_mxu {name}",
+            lambda: render_frame(dev, f, torch.Generator(
+                device=dev).manual_seed(31)), need)
+        check(l_r["mega_f2b"] == 0, "(q): K12 ran front-to-back shells")
+        k = route_at_frame_shape(dev, f, torch.Generator(
+            device=dev).manual_seed(32))
+        print(f"[main] (q) big_field mega_mxu {name}: {ms / 1e3:.4f} "
+              f"s/frame, peak {peak / 2 ** 30:.2f} GiB; the route over the "
+              f"frame's {k['rays']} rays in one call {k['ms']:.3f} ms "
+              f"({k['launches']} launches), bound {k['bound_ms']:.3f} ms "
+              f"({k['bound_by']}), tests {k['tests']}")
+        out[name] = {"frame_s": ms / 1e3, "peak_gib": peak / 2 ** 30,
+                     "launches": l_r, "frame_launch": k}
+        launches[f"q_{name}"] = l_r
+        imgs.append(img)
+    check(torch.equal(imgs[0], imgs[1]), "(q)'s two routes gave different "
+          "frames")
+    (ms_r, _, peak_r), l_r = counted(
+        "(r) big1m mega_mxu, lambert",
+        lambda: render_frame(dev, fn, torch.Generator(
+            device=dev).manual_seed(33)), ("mega_mxu",))
+    kr = kernel_at_frame_shape(dev, fn, torch.Generator(
+        device=dev).manual_seed(34))
+    print(f"[main] (r) big1m mega_mxu: {ms_r / 1e3:.4f} s/frame, peak "
+          f"{peak_r / 2 ** 30:.2f} GiB; one launch over {kr['rays']} rays "
+          f"{kr['ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
+          f"({kr['bound_by']}), tests {kr['tests']}")
+    out["r_big1m"] = {"frame_s": ms_r / 1e3, "peak_gib": peak_r / 2 ** 30,
+                      "frame_launch": kr}
+    launches["r"] = l_r
+    return out, launches
+
+
+def animate_cell(dev, name: str, mesh, camera) -> dict:
+    """(o) / (p): 31 frames of apps/animate.py's loop at its defaults
+    (1024x512x4, depth 8, lambert, --pipeline mega, a PNG a frame): the
+    median update, per-frame table build and rendering s/frame, the CSV's
+    build, peak memory; the last frame's mean and the share of its pixels
+    on the red mesh must pass 10%."""
+    import statistics
+
+    from cudaraytracer_tpu_torch.apps import animate
+    from cudaraytracer_tpu_torch.utils.csvlog import HEADER, MetricsLog
+    csv = os.path.join(OUT_DIR, f"{name}.csv")
+    args = animate.parse_args(["--out", os.path.join(OUT_DIR, name),
+                               "--csv", csv])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = animate.animate(mesh, args, camera=camera)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = MetricsLog.read_csv(csv).rows
+    check(rows[0] == HEADER and len(rows) == 2 + 31, f"{name}: CSV rows")
+    med = {k: statistics.median(getattr(run, k))
+           for k in ("update", "tables", "rendering")}
+    img = run.image
+    mean = float(img.mean())
+    hit = float((img[..., 0] > img[..., 1]).mean())
+    print(f"[main] {name}: {len(run.frames)} frames "
+          f"{args.width}x{args.height}x{args.samples} {args.integrator}, "
+          f"median update {med['update']:.4f} s, table build "
+          f"{med['tables']:.4f} s, rendering {med['rendering']:.4f} s "
+          f"(tables included), build {float(rows[1][3]):.4f} s, peak "
+          f"{peak / 2 ** 30:.2f} GiB; last frame mean {mean:.4f}, on the "
+          f"mesh {hit:.2%}")
+    check(run.frames == list(range(31)), f"{name}: frames {run.frames}")
+    check(bool(np.isfinite(img).all()) and mean > 0.1 and hit > 0.1,
+          f"{name}: mean {mean}, hit fraction {hit}")
+    return {"frames": len(run.frames), "median_update_s": med["update"],
+            "median_tables_s": med["tables"],
+            "median_rendering_s": med["rendering"],
+            "build_s": float(rows[1][3]), "peak_gib": peak / 2 ** 30,
+            "mean": mean, "hit_fraction": hit}
+
+
+def animate_fbx_main() -> None:
+    """apps/animate.py's main() on an ASCII FBX of the capsule's bind pose
+    (3 frames), each of the mega, pallas and list pipelines at 256x128x2:
+    the CSV's header and rows and a PNG a frame."""
+    from cudaraytracer_tpu_torch.apps import animate
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.utils.csvlog import HEADER, MetricsLog
+    cap = cs.skinned_capsule()
+    path = os.path.join(OUT_DIR, "capsule_bind.fbx")
+    cs.write_ascii_fbx(path, cap.points, cap.faces, frames=3)
+    for pipeline in ("mega", "pallas", "list"):
+        out = os.path.join(OUT_DIR, f"fbx_{pipeline}")
+        check(animate.main(["--fbx", path, "--pipeline", pipeline,
+                            "--width", "256", "--height", "128",
+                            "--samples", "2", "--out", out, "--csv",
+                            out + ".csv"]) == 0, f"animate {pipeline}")
+        rows = MetricsLog.read_csv(out + ".csv").rows
+        check(rows[0] == HEADER and [r[0] for r in rows[1:]] == [
+            "", "0", "1", "2"], f"animate {pipeline}: CSV rows {rows}")
+        check(all(float(r[1]) > 0.0 for r in rows[2:]),
+              f"animate {pipeline}: rendering times")
+        check(sorted(os.listdir(out)) == [f"picture_{k}.png"
+                                          for k in range(3)],
+              f"animate {pipeline}: PNGs")
+        print(f"[main] animate.main --pipeline {pipeline} on the capsule's "
+              f"ASCII FBX: 3 frames, CSV and PNGs written")
+
+
 def route_at_frame_shape(dev, f: Frame, gen) -> dict:
     """f's route (select_mega under f.cfg) over the whole frame's rays in
     one call (its launches, and the regrouping between windows), timed;
     its tests counted by running the same route with the counting
-    variant in every launch."""
+    variant in every launch (``counting_cfg``: under K12, K6's)."""
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.ops import integrators as integ
     from cudaraytracer_tpu_torch.ops import megakernel as mk
@@ -1567,9 +1844,9 @@ def route_at_frame_shape(dev, f: Frame, gen) -> dict:
     def counting(tables, o, d, cfg, stream, seed, want_winners=False,
                  window=mk.WHOLE):
         windows.append(window.steps(cfg))
-        return mk._launch_mega(tables, o.contiguous(), d.contiguous(), cfg,
-                               stream, seed, counts=counts, touched=touched,
-                               window=window)
+        return mk._launch_mega(tables, o.contiguous(), d.contiguous(),
+                               counting_cfg(tables, cfg), stream, seed,
+                               counts=counts, touched=touched, window=window)
 
     mk._trace = counting
     try:
@@ -1581,7 +1858,7 @@ def route_at_frame_shape(dev, f: Frame, gen) -> dict:
     # window but the last writes the 13-float state (52 B)
     k = len(windows)
     b, by = launch_bound(f.tables, n, tests, 12,
-                         (k - 1) * n * (24 + 20 + 52 - 12))
+                         (k - 1) * n * (24 + 20 + 52 - 12), c)
     return {"ms": ms, "bound_ms": b, "bound_by": by, "tests": tests,
             "rays": n, "launches": k}
 
@@ -1673,6 +1950,8 @@ def main() -> int:
     sframes = stream_frames(dev)
     fm, fn = sframes
     sparity = phase_stream_parity(dev, sframes)
+    mframes = [mxu_frame(f) for f in sframes]
+    mparity = phase_mxu_parity(dev, sframes, mframes)
     sweeps = phase_sweep_parity(dev, frames)
     draws = phase_draws(dev, fa.cfg.ray_chunk)
     phase_cross_engine(dev, [(fa, 0), (fb, middle_chunk(fb)), (fh, 0),
@@ -1795,11 +2074,25 @@ def main() -> int:
           f"{peak_n / 2 ** 30:.2f} GiB; one launch over {kn['rays']} rays "
           f"{kn['ms']:.3f} ms, bound {kn['bound_ms']:.3f} ms "
           f"({kn['bound_by']}), tests {kn['tests']}")
+    mxu_cells, l_qr = render_mxu_cells(dev, mframes)
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    cell_o, l_o = counted(
+        "(o) skinned_capsule, animate --pipeline mega",
+        lambda: animate_cell(dev, "skinned_capsule", cs.skinned_capsule(),
+                             None), ("mega_trace",))
+    cell_p, l_p = counted(
+        "(p) skinned_field, animate --pipeline mega",
+        lambda: animate_cell(dev, "skinned_field", cs.skinned_field(),
+                             cs.field_camera(2.0, device=dev)),
+        ("mega_stream",))
+    _, l_fbx = counted("animate.main on an ASCII FBX", animate_fbx_main,
+                       ("mega_trace", "triangle_sweep"))
     per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
                 "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i,
                 "j": l_j, "k_fused": l_k, "k_wavefront": l_kw,
                 "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf,
-                **{f"m_{k}": v for k, v in l_m.items()}, "n": l_n}
+                **{f"m_{k}": v for k, v in l_m.items()}, "n": l_n,
+                "o": l_o, "p": l_p, "animate_fbx": l_fbx, **l_qr}
     launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
     # the replay's divergence from the recorded path, (g) and (l): the
     # replay takes its decisions and rays from the plain version, so none
@@ -1906,6 +2199,21 @@ def main() -> int:
             "bound_ms": k.pop("bound_ms"), "bound_by": k.pop("bound_by"),
             "library_ms": None, "ms_at": what, **k})
     rows[-3]["other_launches"] = sparity
+    k12 = mparity["big_field"]
+    k12.pop("rays")
+    rows.append({
+        "name": "mega_mxu", "route": "cuda",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "replaces": "cudaraytracer_tpu/ops/megakernel.py:974",
+        "launches": launches["mega_mxu"],
+        "max_abs_err": mparity["max_abs_err"], "ms": k12.pop("ms"),
+        "plain_ms": k12.pop("plain_ms"), "bound_ms": k12.pop("bound_ms"),
+        "bound_by": k12.pop("bound_by"), "library_ms": None,
+        "ms_at": "(m)'s first launch under mega_mxu: 262144 rays of the "
+                 "128,000-triangle field 1280x720x8, path 8, fixed quirks, "
+                 "in-kernel draws, 63 segments",
+        **k12, "big1m_2_16": mparity["big1m"],
+        "terrain_2_18": mparity["terrain"]})
     paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
              "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
              "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
@@ -1928,6 +2236,10 @@ def main() -> int:
              "m_big_field": routes_m,
              "n_big1m": {"frame_s": ms_n / 1e3, "peak_gib": peak_n / 2 ** 30,
                          "frame_launch": kn},
+             "o_skinned_capsule": cell_o, "p_skinned_field": cell_p,
+             "q_big_field_mxu": {k: v for k, v in mxu_cells.items()
+                                 if k != "r_big1m"},
+             "r_big1m_mxu": mxu_cells["r_big1m"],
              "launches_per_path": per_path}
     print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -136,9 +136,5 @@ def check_supported(cfg: RenderConfig) -> None:
         raise ValueError(
             f"wavefront_sphere_cull={cfg.wavefront_sphere_cull!r}: expected "
             "'morton', 'primary', or 'off'")
-    if cfg.mega_mxu:
-        raise NotImplementedError(
-            "mega_mxu (kernel mode K12) is not ported yet: ROADMAP Queue 2 "
-            "K12, the next slice")
     if cfg.dtype != "float32":
         raise NotImplementedError("the port renders in float32 only")

@@ -2,9 +2,9 @@
 // ray in one thread.
 //
 // Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, launched
-// there by _mega_call through its single pl.pallas_call, in seven of its
-// modes.  Five are compile-time parameters of mega_kernel<INTEG, COUNT,
-// XFORM, WINNERS, TEX, SHELLS>:
+// there by _mega_call through its single pl.pallas_call, in all eight of
+// its modes.  Six are compile-time parameters of mega_kernel<INTEG, COUNT,
+// XFORM, WINNERS, TEX, SHELLS, MXU>:
 //   * K1, the main-path form (spheres + triangles, tables resident,
 //     integrator path / lambert / normal, in-kernel draws or an injected
 //     (ball, prob) stream): XFORM = WINNERS = false;
@@ -19,7 +19,9 @@
 //     bounce loop (what want_tex, megakernel.py:1574-1596 and :1720-1743,
 //     and _deferred_texture_radiance :2254 compute together).
 //   * K11, SHELLS (f2b, shelled :795): the triangle sweep's top-level
-//     boxes visited in B passes by distance from the ray origin.
+//     boxes visited in B passes by distance from the ray origin;
+//   * K12, MXU (tri_sweep_mxu :974-1114, tri_coef :394-418): the streamed
+//     triangle sweep as bilinear forms of the ray's features (below).
 // Two are runtime parameters that every instance serves:
 //   * K6, the segment level (stream_tri / stream_sph, megakernel.py:669-726
 //     and :919-972): above 8,192 prims of a type the table gets one box per
@@ -139,6 +141,26 @@
 // does not depend on the visit order (a box whose near face lies exactly at
 // best_t is still culled: JAX's caveat, megakernel.py:768-772).
 //
+// K12.  Every Moller-Trumbore quantity is bilinear in 10 per-ray features
+// Phi = [d, o, c = d x o, 1]: a = -d.n2 (n2 = e1 x e2), t_num = o.n2 -
+// v0.n2, u_num = d.(v0 x e2) - c.e2, v_num = -d.(v0 x e1) + c.e1 and the
+// backface quirk's d.n.  tri_coef holds per 256-triangle super N_Q blocks
+// of 256 rows of 10 coefficients.  The TPU evaluates a whole super as one
+// (N_Q * 256 x 10) @ (10 x 128 rays) matmul on its MXU.  Hopper has no
+// float32 tensor-core path (TF32 keeps 10 mantissa bits, too few for t), so
+// here a thread computes its Phi once per sweep and, for each segment and
+// super its slab tests reach (no chunk culling inside a super, as on the
+// TPU), walks the super's rows in order: each quantity the sum of its
+// non-zero terms in feature order, then f = 1 / a; u, v, t = u_num * f,
+// v_num * f, t_num * f and the validity gates of megakernel.py:1032-1041.
+// A strict < keeps the lowest row of a tie.  It reads 4 coefficient blocks
+// per triangle (5 under backface_only) through __ldg, 160-200 B: bounded by
+// those loads and ~47 FLOPs per triangle, and it tests every triangle of a
+// reached super where K6 tests only reached chunks.  The MXU
+// instances have WINNERS = TEX = SHELLS = false (JAX forces f2b to 0 and
+// never records winners under it), and every line of K12 sits behind if
+// constexpr, so the other instances compile as before.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -shared -Xcompiler -fPIC  (plain C interface, loaded with ctypes;
 //        ops/_cuda.py).
@@ -161,6 +183,8 @@ constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr int PRIM_CHUNK = 16;         // prims per chunk box
 constexpr int CHUNKS_PER_SUPER = 16;   // SUPER_T = 256 prims per super box
 constexpr int SUPERS_PER_SEG = 8;      // SEG_T = 2048 prims per segment box
+constexpr int SUPER_T = PRIM_CHUNK * CHUNKS_PER_SUPER;
+constexpr int N_FEAT = 10, N_Q = 5;    // K12: Phi, quantities per triangle
 constexpr int DUMP_COLS = 13;          // K10's dump: rad o d thr alive
 constexpr int SPH_COLS = 16;  // cx cy cz r2 1/r | 9 material | 2 pad
 constexpr int TRI_COLS = 24;  // v0 e1 e2 n | 9 material | 3 pad
@@ -216,6 +240,8 @@ struct Params {
   int step_lo, n_steps, n_stream, dump;
   const float* state;         // optional [n, 4] thr rgb, alive
   const int* ray_id;          // optional [n]
+  // kernel mode K12: float32[N_Q * T_pad, N_FEAT] coefficient rows
+  const float* tri_coef;
 };
 
 // jnp.minimum / jnp.maximum semantics: NaN in, NaN out (fminf would drop it)
@@ -452,11 +478,76 @@ __device__ __forceinline__ void tri_shells(const Params& P, const Ray& r,
   }
 }
 
+// K12: the sum of coefficient row q's terms on the features f, left to
+// right (the products JAX's matmul adds beside these are 0 * x).
+__device__ __forceinline__ float form3(const float* q, float f0, float f1,
+                                       float f2) {
+  return (__ldg(q) * f0 + __ldg(q + 1) * f1) + __ldg(q + 2) * f2;
+}
+
+// K12: the triangle segments and supers in table order, each gated by its
+// slab test against the running best_t, every triangle of a reached super
+// tested through its bilinear forms (megakernel.py:974-1114).  COUNT adds
+// each triangle of a reached super as one tri test and marks its chunks.
+template <bool COUNT>
+__device__ __forceinline__ void tri_sweep_mxu(const Params& P, const Ray& r,
+                                              float ix, float iy, float iz,
+                                              float lo_cut, Hit& h,
+                                              Counts& cnt) {
+  const float cx = r.dy * r.oz - r.dz * r.oy;
+  const float cy = r.dz * r.ox - r.dx * r.oz;
+  const float cz = r.dx * r.oy - r.dy * r.ox;
+  constexpr int BLK = SUPER_T * N_FEAT;     // one quantity's rows
+  for (int g = 0; g < P.n_tri_segs; ++g) {
+    if (COUNT) ++cnt.seg;
+    if (!slab(P.tri_seg + (size_t)g * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+              h.t, lo_cut))
+      continue;
+    for (int u = 0; u < SUPERS_PER_SEG; ++u) {
+      const int s = g * SUPERS_PER_SEG + u;
+      if (COUNT) ++cnt.box;
+      if (!slab(P.tri_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+                iz, h.t, lo_cut))
+        continue;
+      if (COUNT) {
+        cnt.tri += SUPER_T;
+        for (int j = 0; j < CHUNKS_PER_SUPER; ++j)
+          P.touched[P.n_sph_chunks + s * CHUNKS_PER_SUPER + j] = 1;
+      }
+      const float* blk = P.tri_coef + (size_t)s * N_Q * BLK;
+      for (int k = 0; k < SUPER_T; ++k) {
+        const float* qa = blk + k * N_FEAT;
+        const float a = form3(qa, r.dx, r.dy, r.dz);
+        if (!(fabsf(a) >= TRI_EPSILON)) continue;
+        if ((P.flags & BACK_CULLING) && !(a >= TRI_EPSILON)) continue;
+        const float* qt = qa + BLK;
+        const float* qu = qt + BLK;
+        const float* qv = qu + BLK;
+        const float tn = form3(qt + 3, r.ox, r.oy, r.oz) + __ldg(qt + 9);
+        const float un = ((form3(qu, r.dx, r.dy, r.dz) + __ldg(qu + 6) * cx)
+                          + __ldg(qu + 7) * cy) + __ldg(qu + 8) * cz;
+        const float vn = ((form3(qv, r.dx, r.dy, r.dz) + __ldg(qv + 6) * cx)
+                          + __ldg(qv + 7) * cy) + __ldg(qv + 8) * cz;
+        const float f = 1.f / a;
+        const float uu = un * f, vv = vn * f, t = tn * f;
+        bool valid = (uu >= 0.f) && (uu <= 1.f) && (vv >= 0.f) &&
+                     (uu + vv <= 1.f);
+        if (P.flags & BACKFACE_ONLY)
+          valid = valid && form3(qv + BLK, r.dx, r.dy, r.dz) >= 0.f;
+        if (P.flags & NO_T_CLIP) valid = valid && (t < P.t_max);
+        else valid = valid && (t > P.t_min) && (t < P.t_max);
+        if (valid && t < h.t) { h.t = t; h.idx = s * SUPER_T + k; h.tri = true; }
+      }
+    }
+  }
+}
+
 // Closest hit over the sphere chunks (one, two or three box levels) and the
 // triangle segments (K6), supers and chunks, the triangles' top level in
-// shells with SHELLS (K11, P.f2b > 0).  COUNT adds the tests made to cnt (a
-// measurement-only variant; the production launches carry none of it).
-template <bool COUNT, bool SHELLS>
+// shells with SHELLS (K11, P.f2b > 0), or their bilinear sweep with MXU
+// (K12).  COUNT adds the tests made to cnt (a measurement-only variant; the
+// production launches carry none of it).
+template <bool COUNT, bool SHELLS, bool MXU>
 __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   Hit h{BIG, -1, false};
   const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
@@ -483,7 +574,9 @@ __device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt) {
   }
   if (P.n_tri_supers > 0) {
     const float lo_cut = (P.flags & NO_T_CLIP) ? -BIG : P.t_min;
-    if constexpr (SHELLS) {
+    if constexpr (MXU) {
+      tri_sweep_mxu<COUNT>(P, r, ix, iy, iz, lo_cut, h, cnt);
+    } else if constexpr (SHELLS) {
       tri_shells<COUNT>(P, r, ix, iy, iz, lo_cut, h, cnt);
     } else {
       const int n_top = P.n_tri_segs > 0 ? P.n_tri_segs : P.n_tri_supers;
@@ -898,11 +991,11 @@ __device__ __forceinline__ bool scatter(const Params& P, const Ray& r,
 
 // The closest hit and the winner's point, normal and material.  K1's form
 // (XFORM false) is the code of the main path; XFORM adds K8.
-template <bool COUNT, bool XFORM, bool SHELLS>
+template <bool COUNT, bool XFORM, bool SHELLS, bool MXU>
 __device__ __forceinline__ Hit trace_hit(const Params& P, const Ray& r,
                                          float inv_dlen, XHit& xh,
                                          Counts& cnt) {
-  Hit h = closest_hit<COUNT, SHELLS>(P, r, cnt);
+  Hit h = closest_hit<COUNT, SHELLS, MXU>(P, r, cnt);
   if constexpr (XFORM) {
     xh = XHit{0, 0};
     xform_hit<COUNT>(P, r, inv_dlen, h, xh, cnt);
@@ -945,7 +1038,7 @@ __device__ __forceinline__ void decode(const Params& P, const float m[9],
 }
 
 template <int INTEG, bool COUNT, bool XFORM, bool WINNERS, bool TEX,
-          bool SHELLS>
+          bool SHELLS, bool MXU = false>
 __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   Counts cnt{0, 0, 0, 0, 0, 0, 0, 0};
@@ -975,7 +1068,8 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
       for (; alive && step < step_hi; ++step) {
         const float inv_dlen =
             1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-        const Hit h = trace_hit<COUNT, XFORM, SHELLS>(P, r, inv_dlen, xh, cnt);
+        const Hit h =
+            trace_hit<COUNT, XFORM, SHELLS, MXU>(P, r, inv_dlen, xh, cnt);
         if (!(h.t < BIG_CUT)) {
           float s[3];
           sky(r.dy, inv_dlen, s);
@@ -1023,7 +1117,8 @@ __global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
       // one intersection.
       const float inv_dlen =
           1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-      const Hit h = trace_hit<COUNT, XFORM, SHELLS>(P, r, inv_dlen, xh, cnt);
+      const Hit h =
+          trace_hit<COUNT, XFORM, SHELLS, MXU>(P, r, inv_dlen, xh, cnt);
       const bool hit = h.t < BIG_CUT;
       float s[3];
       sky(r.dy, inv_dlen, s);
@@ -1092,12 +1187,28 @@ void launch_mega(const Params& P, cudaStream_t s) {
   }
 }
 
-// K8 and K11 pick the instance: the shell passes are their own instances,
-// so that their registers stay out of the main path's (K1) code.
+// K12's instances: no winners, texels or shells; a counting one each.
+template <int INTEG, bool XFORM>
+void launch_mxu(const Params& P, cudaStream_t s) {
+  const dim3 grid((P.n + BLOCK - 1) / BLOCK);
+  if (P.counts)
+    mega_kernel<INTEG, true, XFORM, false, false, false, true>
+        <<<grid, BLOCK, 0, s>>>(P);
+  else
+    mega_kernel<INTEG, false, XFORM, false, false, false, true>
+        <<<grid, BLOCK, 0, s>>>(P);
+}
+
+// K8, K11 and K12 pick the instance: the shell passes and the bilinear
+// sweep are their own instances, so that their registers stay out of the
+// main path's (K1) code.
 template <int INTEG>
 void launch_mega(const Params& P, cudaStream_t s) {
   const bool xform = P.n_rects + P.n_tsph + P.n_ttri > 0;
-  if (P.f2b > 0) {
+  if (P.tri_coef) {
+    if (xform) launch_mxu<INTEG, true>(P, s);
+    else launch_mxu<INTEG, false>(P, s);
+  } else if (P.f2b > 0) {
     if (xform) launch_mega<INTEG, true, true>(P, s);
     else launch_mega<INTEG, false, true>(P, s);
   } else {
@@ -1121,7 +1232,8 @@ extern "C" int crt_mega_trace(
     const void* images, int img_h, int img_w, const void* sph_seg,
     const void* tri_seg, int n_sph_segs, int n_tri_segs, int f2b,
     int step_lo, int n_steps, const void* state, const void* ray_id,
-    int n_stream, int dump, void* touched, void* cuda_stream) {
+    int n_stream, int dump, const void* tri_coef, void* touched,
+    void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
     return (int)cudaErrorInvalidValue;
   if (images && (integrator == NORMAL || counts))
@@ -1132,6 +1244,10 @@ extern "C" int crt_mega_trace(
   const bool window = state || dump || step_lo != 0 ||
                       n_steps != max_depth + 1;
   if (window && (integrator != PATH || winners))
+    return (int)cudaErrorInvalidValue;
+  // K12 (taken when tri_coef is given) runs on streamed triangles only,
+  // records no winners, fetches no texel and visits no shells
+  if (tri_coef && (n_tri_segs <= 0 || winners || images || f2b))
     return (int)cudaErrorInvalidValue;
   Params P;
   P.images = static_cast<const uint8_t*>(images);
@@ -1181,6 +1297,7 @@ extern "C" int crt_mega_trace(
   P.dump = dump;
   P.state = static_cast<const float*>(state);
   P.ray_id = static_cast<const int*>(ray_id);
+  P.tri_coef = static_cast<const float*>(tri_coef);
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   switch (integrator) {

@@ -31,7 +31,18 @@
     height field with a metal sphere (tests/test_megakernel.py:202-230);
     ``fill_sphere_field``, 96 x 96 = 9,216 small spheres
     (tests/test_megakernel.py:790-806); with ``terrain_rays`` and
-    ``sphere_field_rays``, the rays those tests cast.
+    ``sphere_field_rays``, the rays those tests cast;
+  * skinned stand-ins for the reference's animated FBX character
+    (low_walking.fbx, which the repository does not hold), 31 frames each,
+    the reference's frames 0-30 (kernel.cu:50-51), as loader-shaped
+    ``SkinnedMesh`` records for ``apps/animate.py``: ``skinned_capsule``,
+    the 5,120-triangle icosphere stretched into a capsule in
+    ``presets.fbx_walk_camera``'s view, its upper bone bending to 60
+    degrees (the resident tables, kernel mode K1), and ``skinned_field``,
+    big_field's 128,000 triangles as one mesh whose two halves sway on two
+    bones under ``field_camera`` (the segment level, K6, with the tables
+    rebuilt every frame); ``write_ascii_fbx`` writes a mesh's bind pose as
+    an ASCII FBX for the driver's loader.
 
 The ``fill_*`` functions take a SceneBuilder and return it, so the same
 scene can be built by any builder with this package's interface.
@@ -42,7 +53,10 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.camera import make_camera
+from ..utils.fbx_loader import SkinnedMesh
 from .scene import SceneBuilder
+
+ANIM_FRAMES = 31            # the reference animates frames 0-30
 
 
 def mixed_scene(device=None):
@@ -267,17 +281,14 @@ def trs_field_scene(k: int, aspect: float, device=None):
     return fill_trs_field(SceneBuilder(), k).build(device), cam
 
 
-def fill_icosphere_field(b, nx: int, nz: int):
-    """nx x nz copies of the 5,120-triangle unit icosphere on one
-    lambertian (0.65, 0.05, 0.05), offset as bench.py:93-114 offsets its
-    bunnies: x = (i - nx // 2) * 1.15 * extent, z = -j * 1.3 * extent.
-    Outward face normals with the reversed winding of bench.py's add_mesh
-    calls.  Returns (builder, extent float32[3])."""
+def icosphere_field_mesh(nx: int, nz: int):
+    """nx x nz copies of the 5,120-triangle unit icosphere, offset as
+    bench.py:93-114 offsets its bunnies: x = (i - nx // 2) * 1.15 * extent,
+    z = -j * 1.3 * extent, copy i * nz + j -> (points float32[P, 3], faces
+    int32[T, 3], outward face normals float32[T, 3], extent float32[3])."""
     from ..utils.obj_loader import face_normals
     pts, faces = icosphere(4)
     ext = pts.max(0) - pts.min(0)
-    nrm = face_normals(pts, faces)
-    mat = b.materials.lambertian(color=(0.65, 0.05, 0.05))
     copies, offsets = [], []
     for i in range(nx):
         for j in range(nz):
@@ -285,20 +296,35 @@ def fill_icosphere_field(b, nx: int, nz: int):
             offsets.append(pts + np.array([(i - nx // 2) * 1.15 * ext[0],
                                            0.0, -j * 1.3 * ext[2]],
                                           np.float32))
-    b.add_mesh(np.concatenate(offsets), np.concatenate(copies), mat,
-               normals=np.tile(nrm, (nx * nz, 1)), reverse_winding=True)
+    return (np.concatenate(offsets), np.concatenate(copies),
+            np.tile(face_normals(pts, faces), (nx * nz, 1)), ext)
+
+
+def fill_icosphere_field(b, nx: int, nz: int):
+    """``icosphere_field_mesh`` on one lambertian (0.65, 0.05, 0.05), with
+    the reversed winding of bench.py's add_mesh calls.  Returns (builder,
+    extent float32[3])."""
+    pts, faces, nrm, ext = icosphere_field_mesh(nx, nz)
+    mat = b.materials.lambertian(color=(0.65, 0.05, 0.05))
+    b.add_mesh(pts, faces, mat, normals=nrm, reverse_winding=True)
     return b, ext
 
 
+def field_camera(aspect: float, nz: int = 5, device=None):
+    """bench.py's field camera over nz rows of icospheres: from (0, 2.2,
+    3.2) toward (0, 0.35, -(nz // 2) * 1.3 * extent), vfov 50, focus 10, no
+    aperture."""
+    pts, _ = icosphere(4)
+    ext = pts.max(0) - pts.min(0)
+    return make_camera((0, 2.2, 3.2),
+                       (0.0, 0.35, float(-(nz // 2) * 1.3 * ext[2])),
+                       (0, 1, 0), 50.0, aspect, 0.0, 10.0, device=device)
+
+
 def field_scene(nx: int, nz: int, aspect: float, device=None):
-    """(Scene, Camera) of ``fill_icosphere_field`` with bench.py's field
-    camera: from (0, 2.2, 3.2) toward (0, 0.35, -(nz // 2) * 1.3 * extent),
-    vfov 50, focus 10, no aperture."""
-    b, ext = fill_icosphere_field(SceneBuilder(), nx, nz)
-    cam = make_camera((0, 2.2, 3.2),
-                      (0.0, 0.35, float(-(nz // 2) * 1.3 * ext[2])),
-                      (0, 1, 0), 50.0, aspect, 0.0, 10.0, device=device)
-    return b.build(device), cam
+    """(Scene, Camera) of ``fill_icosphere_field`` under ``field_camera``."""
+    b, _ = fill_icosphere_field(SceneBuilder(), nx, nz)
+    return b.build(device), field_camera(aspect, nz, device)
 
 
 def big_field_scene(aspect: float, device=None):
@@ -372,3 +398,103 @@ def sphere_field_rays(n: int, seed: int = 3):
     d = np.stack([rng.uniform(-0.8, 0.8, n), -np.ones(n),
                   rng.uniform(-2.0, -0.5, n)], 1).astype(np.float32)
     return o, d
+
+
+def _rotation_about(axis: int, degrees, pivot) -> np.ndarray:
+    """float64[F, 4, 4] rotations by ``degrees`` float[F] about the x, y or
+    z axis through ``pivot`` (column convention, p' = M [p; 1])."""
+    a = np.radians(np.asarray(degrees, np.float64))
+    c, s = np.cos(a), np.sin(a)
+    i, j = [(1, 2), (2, 0), (0, 1)][axis]
+    m = np.tile(np.eye(4), (a.shape[0], 1, 1))
+    m[:, i, i], m[:, j, j], m[:, i, j], m[:, j, i] = c, c, -s, s
+    p = np.asarray(pivot, np.float64)
+    m[:, :3, 3] = p - np.einsum("fij,j->fi", m[:, :3, :3], p)
+    return m
+
+
+def _skinned(points, faces, normals, weights, mats, joints,
+             degrees) -> SkinnedMesh:
+    """A loader-shaped record of two bones about z: bind pose, weights
+    float[P, 2], the per-frame vertex transforms float[F, 2, 4, 4], each
+    bone at its joint with its z rotation float[F, 2] in degrees."""
+    f = mats.shape[0]
+    joints = np.asarray(joints, np.float32)
+    rot = np.zeros((f, 2, 3), np.float32)
+    rot[:, :, 2] = degrees
+    return SkinnedMesh(
+        points=np.asarray(points, np.float32),
+        faces=np.asarray(faces, np.int32),
+        normals=np.asarray(normals, np.float32), bone_names=["lower", "upper"],
+        weights=np.asarray(weights, np.float32), bone_default_t=joints,
+        bone_default_r=np.zeros((2, 3), np.float32), frame_count=f,
+        vertex_transforms=mats.astype(np.float32),
+        bone_now_t=np.tile(joints, (f, 1, 1)), bone_now_r=rot)
+
+
+def skinned_capsule(frames: int = ANIM_FRAMES) -> SkinnedMesh:
+    """The 5,120-triangle icosphere stretched into a capsule 660 units tall
+    and 360 wide, standing at the origin of fbx_walk_camera's view (about a
+    fifth of the frame), on two bones: the lower holds still, the upper
+    bends about z through the waist (y = 150) from 0 to 60 degrees over the
+    frames.  A vertex's weight passes from the lower to the upper bone over
+    the middle fifth of the height."""
+    from ..utils.obj_loader import face_normals
+    pts, faces = icosphere(4)
+    pts = (pts * np.array([180.0, 330.0, 180.0], np.float32)
+           + np.array([0.0, 150.0, 0.0], np.float32))
+    s = (pts[:, 1] - pts[:, 1].min()) / np.ptp(pts[:, 1])
+    up = np.clip((s - 0.4) / 0.2, 0.0, 1.0)
+    bend = np.linspace(0.0, 60.0, frames)
+    mats = np.stack([np.tile(np.eye(4), (frames, 1, 1)),
+                     _rotation_about(2, bend, (0.0, 150.0, 0.0))], 1)
+    return _skinned(pts, faces, face_normals(pts, faces),
+                    np.stack([1.0 - up, up], 1), mats,
+                    [(0.0, -180.0, 0.0), (0.0, 150.0, 0.0)],
+                    np.stack([np.zeros(frames), bend], 1))
+
+
+def skinned_field(frames: int = ANIM_FRAMES) -> SkinnedMesh:
+    """big_field's 5 x 5 icospheres (128,000 triangles) as one mesh: the
+    two columns left of x = 0 on one bone, the other three on the other,
+    each half swaying about z through a pivot under its middle (y = -1),
+    +-8 degrees in opposite phase, one period over the frames.  Render
+    under ``field_camera``."""
+    pts, faces, nrm, _ = icosphere_field_mesh(5, 5)
+    per_copy = len(pts) // 25
+    left = np.repeat(np.arange(25) // 5 < 2, per_copy)
+    sway = 8.0 * np.sin(np.linspace(0.0, 2.0 * np.pi, frames))
+    joints = [(-3.45, -1.0, -5.2), (2.3, -1.0, -5.2)]
+    mats = np.stack([_rotation_about(2, sway, joints[0]),
+                     _rotation_about(2, -sway, joints[1])], 1)
+    return _skinned(pts, faces, nrm, np.stack([left, ~left], 1), mats,
+                    joints, np.stack([sway, -sway], 1))
+
+
+def write_ascii_fbx(path: str, points, faces, frames: int = 3) -> None:
+    """Write a mesh's bind pose as an ASCII FBX 7.4 file (one Geometry and
+    its Model, no skin, a take of ``frames`` frames at 60 fps), the way
+    tests/test_fbx.py:175-216 writes one: ``utils.fbx_loader`` reads back
+    the same points and faces, normals from the winding and ``frames``
+    frames of the bind pose."""
+    from ..utils.fbx_parser import KTIME_PER_SECOND
+    pts = np.asarray(points, np.float32).reshape(-1)
+    f = np.asarray(faces, np.int64).copy()
+    f[:, 2] = ~f[:, 2]                    # a polygon's last index, negated
+    stop = frames * (KTIME_PER_SECOND // 60)
+    with open(path, "w") as out:
+        out.write("; FBX 7.4.0 project file\n"
+                  "FBXHeaderExtension:  {\n    FBXHeaderVersion: 1003\n"
+                  "    FBXVersion: 7400\n}\nObjects:  {\n"
+                  '    Geometry: 1000, "Geometry::mesh", "Mesh" {\n'
+                  f"        Vertices: *{pts.size} {{\n            a: "
+                  + ",".join(repr(float(v)) for v in pts) + "\n        }\n"
+                  f"        PolygonVertexIndex: *{f.size} {{\n            a: "
+                  + ",".join(str(int(v)) for v in f.reshape(-1))
+                  + "\n        }\n    }\n"
+                  '    Model: 2000, "Model::mesh", "Mesh" {\n'
+                  "        Version: 232\n    }\n}\n"
+                  'Connections:  {\n    C: "OO",1000,2000\n'
+                  '    C: "OO",2000,0\n}\n'
+                  f'Takes:  {{\n    Take: "bind" {{\n'
+                  f"        LocalTime: 0,{stop}\n    }}\n}}\n")

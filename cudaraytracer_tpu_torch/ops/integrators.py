@@ -378,15 +378,20 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
     scenes too, in kernel mode K9; normal reads no texture); under
     engine='mega_diff' the path goes to ``trace_path_mega_diff`` and
     lambert and normal to the wavefront.  engine='mega' goes through
-    ``megakernel.select_mega`` (the compaction drivers, as JAX routes).  The
-    fused engines raise above MAX_STREAM_PRIMS spheres or triangles, where
-    the JAX package leaves them; nothing falls back to the wavefront."""
+    ``megakernel.select_mega`` (the compaction drivers, as JAX routes).  A
+    scene the fused engine does not serve (above MAX_STREAM_PRIMS spheres
+    or triangles) renders on the wavefront under either fused engine, as
+    in JAX, and ``tables`` is dropped there; the wavefront launches its own
+    kernels on CUDA rays."""
     check_supported(cfg)
-    if cfg.engine == "mega_diff" and cfg.integrator == "path":
+    fused = cfg.engine in ("mega", "mega_diff")
+    if fused and not _mk.megakernel_supported(scene):
+        fused, tables = False, None
+    if fused and cfg.engine == "mega_diff" and cfg.integrator == "path":
         return _mk.trace_path_mega_diff(scene, rays, cfg, tables=tables,
                                         samples=samples, generator=generator,
                                         seed=seed)
-    if cfg.engine == "mega":
+    if fused and cfg.engine == "mega":
         return _mk.select_mega(scene, rays, cfg, tables=tables,
                                samples=samples, generator=generator,
                                seed=seed)

@@ -25,7 +25,11 @@ kernel's modes ported so far:
     ``trace_path_mega_phased`` and ``trace_path_mega_compact``, chosen by
     ``select_mega`` as JAX chooses them;
   * K11: ``cfg.mega_f2b_shells``, the triangle sweep's top-level boxes
-    visited front to back in distance shells.
+    visited front to back in distance shells;
+  * K12: ``cfg.mega_mxu`` on streamed triangle tables, the triangle sweep
+    as bilinear forms of 10 per-ray features Phi = [d, o, d x o, 1],
+    evaluated from the coefficient rows ``tri_coef`` one 256-triangle super
+    at a time (``_use_mxu`` routes it as JAX's ``_mega_call`` does).
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
 prims in the same (optionally Morton) order, the same per-prim columns, the
@@ -38,7 +42,9 @@ scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
   * box tables get no extra padding to a multiple of 8 rows (a TPU sublane
     tile), and the rect / TRS tables no padding at all: a thread walks
     their rows one by one, with no chunks and no 1024-per-class cap;
-  * no MXU coefficients: those serve kernel mode K12, a later slice;
+  * K12's coefficients ``tri_coef`` (``mxu=True``) are dense, float32[N_Q
+    * T_pad, 10] in JAX's row order and values, not JAX's 128-lane rows
+    (2,560 B per triangle, 2.7 GB at a million): 200 B per triangle;
   * no texture info table: an image material's block carries its image id,
     w and h in the colour slots it does not use, and the kernel reads the
     scene's packed images in place (``MegaTables.images``).
@@ -87,6 +93,18 @@ MAX_STREAM_PRIMS = 1 << 20
 # triangles takes the phased octant route under cfg.compact_auto
 # (select_mega).  Module constants, so tests can lower them.
 AUTO_COMPACT_TRIS = 1 << 16
+# K12: per-ray features Phi = [d | o | c = d x o | 1], and the quantities
+# per triangle, one block of SUPER_T coefficient rows each per super:
+# a = -d.n2 (n2 = e1 x e2), t_num = o.n2 - v0.n2, u_num = d.(v0 x e2) - c.e2,
+# v_num = -d.(v0 x e1) + c.e1, d.n (the backface quirk)
+N_FEAT = 10
+N_Q = 5
+# The features each quantity's coefficients are non-zero on, in feature
+# order: the sum of these terms, left to right, is its value (JAX's matmul
+# adds JAX's zero coefficients too, which changes at most the sign of a 0).
+Q_A, Q_T, Q_U, Q_V, Q_DN = range(N_Q)
+Q_TERMS = ((0, 1, 2), (3, 4, 5, 9), (0, 1, 2, 6, 7, 8), (0, 1, 2, 6, 7, 8),
+           (0, 1, 2))
 # Octant key (trace_path_mega_phased): Morton bits above this shift form the
 # coarse origin cell, then 3 direction-octant bits, then fine Morton.
 _OCT_COARSE_SHIFT = 18
@@ -127,10 +145,11 @@ COUNT_NAMES = ("box", "sph", "tri", "rect", "tsph", "ttri", "seg", "dist")
 # kernel in its main-path form (K1: none of the modes below), a launch
 # adding one to each mode it runs: the rect / TRS sweeps (K8), the winner
 # recording (K7), the texel fetch (K9), the segment level (K6), a bounce
-# window (K10), front-to-back shells (K11); and the draws (K2).
+# window (K10), front-to-back shells (K11), the bilinear triangle sweep
+# (K12); and the draws (K2).
 LAUNCHES = {"mega_trace": 0, "mega_trace_xform": 0, "mega_winners": 0,
             "mega_trace_tex": 0, "mega_stream": 0, "mega_window": 0,
-            "mega_f2b": 0, "scatter_draws": 0}
+            "mega_f2b": 0, "mega_mxu": 0, "scatter_draws": 0}
 
 
 def reset_launch_counts() -> None:
@@ -151,6 +170,8 @@ class MegaTables(NamedTuple):
     sph_seg: Tensor    # float32[S_pad / 2048, 8] above MAX_VMEM_PRIMS
                        # spheres (K6), else [0, 8]
     tri_seg: Tensor    # float32[T_pad / 2048, 8] likewise for triangles
+    tri_coef: Tensor   # float32[N_Q * T_pad, N_FEAT] K12's coefficients
+                       # (built with mxu=True), else [0, N_FEAT]
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
     images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
@@ -181,12 +202,13 @@ def has_images(tables: MegaTables) -> bool:
 
 
 def _unsupported(scene: Scene) -> Optional[str]:
-    """Why the ported kernel modes cannot render the scene (naming the
-    ROADMAP item that brings it), or None."""
+    """Why the fused engine does not serve the scene, or None.  Above the
+    ceiling ``integrators.integrate`` renders on the wavefront, as JAX's
+    does; the fused entry points themselves raise."""
     if max(scene.n_spheres, scene.n_triangles) > MAX_STREAM_PRIMS:
         return (f"more than MAX_STREAM_PRIMS = {MAX_STREAM_PRIMS} spheres or "
-                "triangles: above this ceiling the JAX package leaves the "
-                "fused engine, and the port's fused engines raise")
+                "triangles: the fused engine serves scenes up to this "
+                "ceiling (integrate renders larger ones on the wavefront)")
     return None
 
 
@@ -233,10 +255,17 @@ def mega_orders(host) -> tuple:
     return tri, sph
 
 
-def morton_tables(scene: Scene) -> MegaTables:
+def mxu_wanted(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether renders of ``scene`` under ``cfg`` can take kernel mode K12,
+    so that their tables need the coefficients: cfg.mega_mxu on a scene
+    with streamed triangles (JAX :2754)."""
+    return bool(cfg.mega_mxu) and scene.n_triangles > MAX_VMEM_PRIMS
+
+
+def morton_tables(scene: Scene, mxu: bool = False) -> MegaTables:
     """``build_mega_tables`` with both prim types in Morton order: the
     tables every entry point renders from."""
-    return build_mega_tables(scene, *mega_orders(to_numpy(scene)))
+    return build_mega_tables(scene, *mega_orders(to_numpy(scene)), mxu=mxu)
 
 
 def _mat_lanes(scene: Scene, mat_id: Tensor) -> Tensor:
@@ -274,7 +303,8 @@ def _xform_head(scene: Scene, trs, mat: Tensor):
 
 @torch.no_grad()
 def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
-                      sph_order: Optional[np.ndarray] = None) -> MegaTables:
+                      sph_order: Optional[np.ndarray] = None,
+                      mxu: bool = False) -> MegaTables:
     """Pack the scene into the kernel's tables, on the scene's device (no
     autograd: the tables are a packing of the scene, and gradients reach
     the scene through the replay, ``trace_path_mega_diff``).
@@ -286,7 +316,9 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     Above MAX_VMEM_PRIMS of a type (megakernel.py:339-393 of the JAX
     package): its rows are padded (repeat-last) to a SEG_T multiple, it
     gets one segment box per SEG_T rows, and spheres get the super level
-    whatever their count."""
+    whatever their count.
+
+    mxu: also build K12's coefficient rows ``tri_coef`` (``_tri_coef``)."""
     reason = _unsupported(scene)
     if reason:
         raise NotImplementedError(reason)
@@ -308,6 +340,7 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     tri_mult = SEG_T if stream_tri else SUPER_T
     empty_box = torch.zeros(0, BOX_COLS, device=dev)
     no_map = torch.zeros(0, dtype=torch.int32, device=dev)
+    no_coef = torch.zeros(0, N_FEAT, device=dev)
     if n_s:
         sp = scene.spheres
         center, radius, smat = sp.center, sp.radius, sp.mat
@@ -345,10 +378,13 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         tri_seg = (group_boxes(lo, hi, SEG_T, tri_mult) if stream_tri
                    else empty_box)
         tri_map = row_map(n_t, tri_order, tri_mult)
+        tri_coef = (_tri_coef(v0, v1 - v0, v2 - v0, nrm, tri_mult) if mxu
+                    else no_coef)
     else:
         tri = torch.zeros(0, TRI_COLS, device=dev)
         tri_box = tri_super = tri_seg = empty_box
         tri_map = no_map
+        tri_coef = no_coef
     rect = torch.zeros(0, RECT_COLS, device=dev)
     tsph = torch.zeros(0, TSPH_COLS, device=dev)
     ttri = torch.zeros(0, TTRI_COLS, device=dev)
@@ -374,8 +410,37 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
                                 n, n_w], 1), TTRI_COLS)
     return MegaTables(*(x.contiguous() for x in (
         sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
-        sph_seg, tri_seg, sph_map, tri_map, scene.textures.images)), n_s,
-        n_t)
+        sph_seg, tri_seg, tri_coef, sph_map, tri_map,
+        scene.textures.images)), n_s, n_t)
+
+
+def _tri_coef(v0: Tensor, e1: Tensor, e2: Tensor, nrm: Tensor,
+              mult: int) -> Tensor:
+    """K12's coefficient rows (megakernel.py:394-418 of the JAX package):
+    per triangle the N_Q quantities' coefficients on Phi, padded (repeat
+    last) to ``mult`` rows, then per SUPER_T rows quantity-major ->
+    float32[N_Q * T_pad, N_FEAT].  The cross products are spelled out
+    (jnp.cross's component formulas)."""
+    def cross(a, b):
+        return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], 1)
+
+    n2 = cross(e1, e2)
+    z1 = torch.zeros_like(v0[:, :1])
+    z3 = torch.zeros_like(v0)
+    v0_n2 = (v0[:, 0] * n2[:, 0] + v0[:, 1] * n2[:, 1]
+             + v0[:, 2] * n2[:, 2])[:, None]
+    q = torch.stack([
+        torch.cat([-n2, z3, z3, z1], 1),                       # a
+        torch.cat([z3, n2, z3, -v0_n2], 1),                    # t_num
+        torch.cat([cross(v0, e2), z3, -e2, z1], 1),            # u_num
+        torch.cat([-cross(v0, e1), z3, e1, z1], 1),            # v_num
+        torch.cat([nrm, z3, z3, z1], 1)], 1)                   # d.n
+    q = pad_rows(q, mult)
+    n_pad = q.shape[0]
+    return (q.reshape(n_pad // SUPER_T, SUPER_T, N_Q, N_FEAT)
+            .transpose(1, 2).reshape(n_pad * N_Q, N_FEAT))
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -406,7 +471,7 @@ def _library() -> ctypes.CDLL:
         lib.crt_mega_trace.argtypes = (
             [vp] * 17 + [ci] * 11 + [cf] * 3
             + [ci, ctypes.c_uint64, vp, ci, ci]
-            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 2)
+            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 3)
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
@@ -436,6 +501,35 @@ def _require_cuda(name: str, x: Tensor, dtype=torch.float32,
 
 def _require_cuda_f32(name: str, x: Tensor, shape=None) -> None:
     _require_cuda(name, x, torch.float32, shape)
+
+
+def _use_mxu(tables: MegaTables, cfg: RenderConfig,
+             want_winners: bool) -> bool:
+    """Whether a launch takes kernel mode K12, as JAX's ``_mega_call``
+    decides (:2605-2618): cfg.mega_mxu on streamed triangle tables (above
+    MAX_VMEM_PRIMS), never while recording winners (K7) or fetching texels
+    (K9; JAX's want_tex implies want_winners).  Tables without the
+    coefficients raise."""
+    mxu = (bool(cfg.mega_mxu) and tables.n_triangles > MAX_VMEM_PRIMS
+           and not want_winners
+           and not (has_images(tables) and cfg.integrator != "normal"))
+    if mxu and tables.tri_coef.shape[0] != N_Q * tables.tri.shape[0]:
+        raise ValueError(
+            "cfg.mega_mxu requires coefficient tables: rebuild with "
+            "build_mega_tables(scene, ..., mxu=True)")
+    return mxu
+
+
+def launch_modes(tables: MegaTables, cfg: RenderConfig,
+                 want_winners: bool) -> tuple:
+    """(tex, mxu, f2b) of a launch on these tables: whether it fetches
+    texels (K9: a scene with images, the normal integrator aside), takes
+    the bilinear sweep (K12, ``_use_mxu``) and how many front-to-back
+    shells order its triangle sweep (K11: none without triangles or under
+    K12, JAX :2643)."""
+    mxu = _use_mxu(tables, cfg, want_winners)
+    f2b = cfg.mega_f2b_shells if tables.tri.shape[0] and not mxu else 0
+    return has_images(tables) and cfg.integrator != "normal", mxu, f2b
 
 
 def _flags(cfg: RenderConfig, injected: bool) -> int:
@@ -507,7 +601,9 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
 
     stream: optional injected draws float32[max_depth + 1, R, 4], read at
     row window.ray_id[i] (R = N without ray ids).  The triangle sweep visits
-    its top-level boxes in cfg.mega_f2b_shells shells (K11).
+    its top-level boxes in cfg.mega_f2b_shells shells (K11), or under
+    ``_use_mxu`` evaluates the coefficient rows in table order with no
+    shells (K12).
 
     counts: optional int64[N_COUNTS] CUDA tensor that the kernel adds its
     tests to (COUNT_NAMES), and the optional ``touched`` uint8[max(sphere
@@ -531,7 +627,7 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         if t.device != origin.device:
             raise ValueError(f"{name} is on {t.device}, rays on "
                              f"{origin.device}")
-    tex = has_images(tables) and cfg.integrator != "normal"
+    tex, mxu, f2b = launch_modes(tables, cfg, want_winners)
     if tex:
         _require_cuda("images", tables.images, torch.uint8)
         if tables.images.device != origin.device:
@@ -562,9 +658,14 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                       device=origin.device)
     winners = (torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=origin.device) if want_winners else None)
+    if mxu:
+        _require_cuda_f32("tri_coef", tables.tri_coef,
+                          (N_Q * tables.tri.shape[0], N_FEAT))
+        if tables.tri_coef.device != origin.device:
+            raise ValueError(f"tri_coef is on {tables.tri_coef.device}, "
+                             f"rays on {origin.device}")
     n_x = sum(getattr(tables, k).shape[0] for k in ("rect", "tsph", "ttri"))
     n_segs = tables.sph_seg.shape[0] + tables.tri_seg.shape[0]
-    f2b = cfg.mega_f2b_shells if tables.tri.shape[0] else 0
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
@@ -590,7 +691,9 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             tables.sph_seg.data_ptr(), tables.tri_seg.data_ptr(),
             tables.sph_seg.shape[0], tables.tri_seg.shape[0], f2b,
             window.step_lo, steps, ptr(window.state), ptr(window.ray_id),
-            n_stream, int(window.dump), ptr(touched), cuda_stream)
+            n_stream, int(window.dump),
+            tables.tri_coef.data_ptr() if mxu else None,
+            ptr(touched), cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
         modes = [k for k, on in (("mega_trace_xform", n_x),
@@ -598,7 +701,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                                  ("mega_trace_tex", tex),
                                  ("mega_stream", n_segs),
                                  ("mega_window", window.partial(cfg)),
-                                 ("mega_f2b", f2b)) if on]
+                                 ("mega_f2b", f2b),
+                                 ("mega_mxu", mxu)) if on]
         for k in modes or ["mega_trace"]:
             LAUNCHES[k] += 1
     return (out, winners) if want_winners else out
@@ -676,12 +780,15 @@ def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
     lane (megakernel.py:2731-2793).  window (path only, kernel mode K10):
     a bounce window, its dump float32[N, 13] returned in place of the
     radiance when it dumps.  cfg.mega_f2b_shells orders the triangle
-    sweep's top-level boxes (K11)."""
+    sweep's top-level boxes (K11); cfg.mega_mxu takes kernel mode K12 on
+    streamed triangles (``_use_mxu``), the tables built here with the
+    coefficients when none are given (JAX :2754)."""
     check_supported(cfg)
     if want_winners and cfg.integrator != "path":
         raise ValueError("want_winners needs the path integrator")
     if tables is None:
-        tables = build_mega_tables(scene)
+        tables = build_mega_tables(
+            scene, mxu=mxu_wanted(scene, cfg) and not want_winners)
     n = rays.origin.shape[0]
     injected = samples is not None and cfg.integrator == "path"
     seed = _resolve_seed(cfg, injected, seed, generator)
@@ -777,16 +884,19 @@ def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
     check_supported(cfg)
     if cfg.integrator != "path":
         raise ValueError("engine='mega_diff' pairs only the path integrator")
+    leaves = _leaves(scene)
+    grad_at = [k for k, x in enumerate(leaves) if x.requires_grad]
+    grad = torch.is_grad_enabled() and bool(grad_at)
     if tables is None:
-        tables = build_mega_tables(scene)
+        # a recording forward never runs K12 (JAX :2609)
+        tables = build_mega_tables(scene, mxu=mxu_wanted(scene, cfg) and not (
+            grad and cfg.mega_replay_bwd))
     if samples is None and seed is None:
         if generator is None:
             raise ValueError("the path integrator needs samples, a seed or "
                              "a generator")
         seed = draw_seed(generator)
-    leaves = _leaves(scene)
-    grad_at = [k for k, x in enumerate(leaves) if x.requires_grad]
-    if not (torch.is_grad_enabled() and grad_at):
+    if not grad:
         return trace_path_mega(scene, rays, cfg, tables=tables,
                                samples=samples, seed=seed)
     call = _DiffCall(scene, rays, cfg, tables, samples, seed, grad_at)
@@ -856,7 +966,7 @@ def _driver_setup(scene: Scene, rays: Rays, cfg: RenderConfig, tables,
     if cfg.integrator != "path":
         raise ValueError("the compaction drivers run the path integrator")
     if tables is None:
-        tables = build_mega_tables(scene)
+        tables = build_mega_tables(scene, mxu=mxu_wanted(scene, cfg))
     n = rays.origin.shape[0]
     injected = samples is not None
     stream = (stream_tensor(samples, n, cfg.max_depth + 1) if injected
@@ -1112,7 +1222,8 @@ def _sphere_uv(n: Tensor) -> tuple:
 
 
 def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
-                 cfg: RenderConfig, want_uv: bool = False) -> _Winner:
+                 cfg: RenderConfig, want_uv: bool = False,
+                 mxu: bool = False) -> _Winner:
     """Brute-force closest hit over the same tables with the same formulas
     and the same order: spheres, then triangles (a triangle wins only when
     strictly nearer), then rects, TRS spheres and TRS triangles, each
@@ -1120,7 +1231,8 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
     nearer; min returns the first row on ties.  Then the winner's record,
     with want_uv its texture (u, v): the sphere z-theta of the normal,
     Moller-Trumbore (u, v) for triangles, the object-space (x, y) + 0.5 for
-    rects (intersect.finalize_hits' definitions)."""
+    rects (intersect.finalize_hits' definitions).  mxu: the triangles by
+    ``_tri_sweep_mxu_plain`` (K12)."""
     n = o.shape[0]
     # the kernel takes t_min / t_max as float32
     t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
@@ -1131,7 +1243,9 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
         s = tables.sph
         s_t, s_i = sphere_candidates_t(o, d, s[:, S_CX:S_CZ + 1], s[:, S_R2],
                                        t_min, t_max).min(dim=1)
-    if tables.tri.shape[0]:
+    if tables.tri.shape[0] and mxu:
+        t_t, t_i = _tri_sweep_mxu_plain(tables, o, d, s_t, cfg)
+    elif tables.tri.shape[0]:
         tr = tables.tri
         t_t, t_i = triangle_candidates_t(
             o, d, tr[:, T_V0:T_V0 + 3], tr[:, T_E1:T_E1 + 3],
@@ -1155,6 +1269,90 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
         cls = torch.where(w, c, cls)
         idx = torch.where(w, x_i, idx)
     return _record(tables, o, d, t, cls, idx, cfg, want_uv)
+
+
+def _slab_plain(box: Tensor, o: Tensor, inv: Tensor, best: Tensor,
+                lo_cut: float) -> Tensor:
+    """The kernel's negated slab test of rays float32[N, 3] (origins and 1
+    / d) against one box float32[8] -> bool[N]: reachable unless it lies
+    behind lo_cut or starts at or beyond ``best``; NaN keeps it."""
+    t0 = (box[0:3] - o) * inv
+    t1 = (box[3:6] - o) * inv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    return ~((far < near) | (far < lo_cut) | (near >= best))
+
+
+def _bilinear(coef: Tensor, phi: Tensor, q: int) -> Tensor:
+    """Quantity q of every row of a super's coefficient block coef
+    float32[N_Q, SUPER_T, N_FEAT] on rays' features phi float32[M, N_FEAT]
+    -> float32[M, SUPER_T]: the sum of its non-zero terms in feature order,
+    each product rounded, as the kernel adds them (no matmul: cuBLAS would
+    sum in its own order, or in TF32)."""
+    out = None
+    for k in Q_TERMS[q]:
+        term = coef[q, :, k] * phi[:, k:k + 1]
+        out = term if out is None else out + term
+    return out
+
+
+def _tri_sweep_mxu_plain(tables: MegaTables, o: Tensor, d: Tensor,
+                         best: Tensor, cfg: RenderConfig) -> tuple:
+    """Plain version of K12's triangle sweep: the segments and, inside a
+    reached segment, its supers in table order, each slab-tested against
+    the ray's running best t (from ``best``, the spheres' result), every
+    reached super evaluated whole from its coefficient rows; the epilogue
+    of megakernel.py:1032-1041; the lowest row wins a tie and a super's
+    winner takes the ray only when strictly nearer -> (t float32[N], BIG
+    where no triangle took the ray; row int64[N])."""
+    n = o.shape[0]
+    q = cfg.quirks
+    t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
+    lo_cut = -BIG if q.triangle_no_t_clip else t_min
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    phi = torch.stack([dx, dy, dz, ox, oy, oz, dy * oz - dz * oy,
+                       dz * ox - dx * oz, dx * oy - dy * ox,
+                       torch.ones_like(dx)], 1)
+    inv = 1.0 / d
+    best = best.clone()
+    row = torch.zeros(n, dtype=torch.int64, device=o.device)
+    won = torch.zeros(n, dtype=torch.bool, device=o.device)
+    coef = tables.tri_coef.view(-1, N_Q, SUPER_T, N_FEAT)
+    per_seg = SEG_T // SUPER_T
+    for g in range(tables.tri_seg.shape[0]):
+        at = torch.nonzero(_slab_plain(tables.tri_seg[g], o, inv, best,
+                                       lo_cut))[:, 0]
+        for s in range(g * per_seg, (g + 1) * per_seg):
+            if not at.numel():
+                break
+            r = at[_slab_plain(tables.tri_super[s], o[at], inv[at], best[at],
+                               lo_cut)]
+            if not r.numel():
+                continue
+            c, f = coef[s], phi[r]
+            a = _bilinear(c, f, Q_A)
+            inv_a = 1.0 / a
+            u = _bilinear(c, f, Q_U) * inv_a
+            v = _bilinear(c, f, Q_V) * inv_a
+            t = _bilinear(c, f, Q_T) * inv_a
+            valid = ((a.abs() >= TRI_EPSILON) & (u >= 0.0) & (u <= 1.0)
+                     & (v >= 0.0) & (u + v <= 1.0))
+            if q.triangle_back_culling:
+                valid &= a >= TRI_EPSILON
+            if q.triangle_backface_only:
+                valid &= _bilinear(c, f, Q_DN) >= 0.0
+            if q.triangle_no_t_clip:
+                valid &= t < t_max
+            else:
+                valid &= (t > t_min) & (t < t_max)
+            t_s, k_s = torch.where(valid, t, BIG).min(dim=1)
+            take = t_s < best[r]
+            best[r] = torch.where(take, t_s, best[r])
+            row[r] = torch.where(take, s * SUPER_T + k_s, row[r])
+            won[r] |= take
+    return torch.where(won, best, BIG), row
 
 
 def _record(tables: MegaTables, o: Tensor, d: Tensor, t: Tensor,
@@ -1434,11 +1632,12 @@ def _inv_len(d: Tensor) -> Tensor:
 
 def _plain_rays(tables, o, d, cfg, stream, seed, index,
                 want_winners: bool = False, window: Window = WHOLE,
-                state: Optional[Tensor] = None):
+                state: Optional[Tensor] = None, mxu: bool = False):
     """Radiance float32[N, 3] of one chunk of rays (with window.dump the
     state float32[N, 13]; with want_winners also the winners int32[max_depth
     + 1, N]).  index: the rays' ids (the draws' keys); stream: their rows of
-    the injected draws; state: their rows of the window's state."""
+    the injected draws; state: their rows of the window's state; mxu: the
+    triangle sweep of K12."""
     q = cfg.quirks
     tex = has_images(tables) and cfg.integrator != "normal"
     images = tables.images if tex else None
@@ -1448,7 +1647,7 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
 
     if cfg.integrator != "path":
         inv_dlen = _inv_len(d)
-        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex, mxu)
         hit = win.t < BIG_CUT
         sky = _sky(d, inv_dlen)
         if cfg.integrator == "normal":
@@ -1474,7 +1673,7 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
         if not bool(alive.any()):
             break
         inv_dlen = _inv_len(d)
-        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex)
+        win = _sweep_plain(tables, o, d, inv_dlen, cfg, tex, mxu)
         hit = win.t < BIG_CUT
         if want_winners:
             winners[step] = torch.where(alive & hit,
@@ -1520,16 +1719,27 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
     window.ray_id[i] for ray i (R = N without ray ids); otherwise the
     counter-based draws of ``seed`` keyed by the ray ids (the kernel's
     numbers).  window: the bounce window (kernel mode K10); with dump the
-    result is the state float32[N, 13]."""
+    result is the state float32[N, 13].  Under ``_use_mxu`` the triangles
+    take K12's sweep (``_tri_sweep_mxu_plain``), whose supers are visited
+    as the kernel's slab tests reach them: its forms differ from
+    Moller-Trumbore in rounding, so only the same visits give the same
+    winners."""
     if want_winners and cfg.integrator != "path":
         raise ValueError("want_winners needs the path integrator")
     n = rays.origin.shape[0]
     _check_window(window, cfg, n, want_winners)
+    mxu = _use_mxu(tables, cfg, want_winners)
     dev = rays.origin.device
     ids = (window.ray_id.long() if window.ray_id is not None
            else torch.arange(n, device=dev))
-    width = max(sum(t.shape[0] for t in float_tables(tables)), 1)
-    chunk = max(256, (1 << 22) // width)
+    if mxu:       # a super's [rays, SUPER_T] planes in place of [rays, T]
+        width = max(tables.sph.shape[0] + SUPER_T
+                    + sum(getattr(tables, k).shape[0]
+                          for k in ("rect", "tsph", "ttri")), 1)
+        chunk = max(256, (1 << 24) // width)
+    else:
+        width = max(sum(t.shape[0] for t in float_tables(tables)), 1)
+        chunk = max(256, (1 << 22) // width)
     out = []
     for lo in range(0, n, chunk):
         hi = min(n, lo + chunk)
@@ -1538,7 +1748,7 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
             tables, rays.origin[lo:hi], rays.direction[lo:hi], cfg,
             stream[:, index] if stream is not None else None, seed, index,
             want_winners, window,
-            window.state[lo:hi] if window.state is not None else None))
+            window.state[lo:hi] if window.state is not None else None, mxu))
     cols = 13 if window.dump else 3
     if not want_winners:
         return (torch.cat(out) if out else rays.origin.new_zeros(0, cols))

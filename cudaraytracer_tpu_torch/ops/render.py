@@ -111,9 +111,11 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
 
     rays: optional Rays of n * cfg.samples rays (a pixel's samples
     adjacent); samples: optional SampleStream over the same rays.
-    tables: the fused engines' tables (built when not given; the
-    mega_diff backward gives them no gradient, so a fit passes tables built
-    from its current scene);
+    tables: the fused engines' tables (built when not given and the fused
+    engine serves the scene, ``megakernel_supported``; above that ceiling
+    ``integrate`` renders on the wavefront.  The mega_diff backward gives
+    them no gradient, so a fit passes tables built from its current
+    scene);
     intersect_fn: the wavefront's intersector (brute force when None)."""
     device = scene.device
     if generator is None:
@@ -121,8 +123,8 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
     if pixel_index is None:
         pixel_index = torch.arange(cfg.width * cfg.height, device=device)
     mega = cfg.engine in ("mega", "mega_diff")
-    if mega and tables is None:
-        tables = _mk.build_mega_tables(scene)
+    if mega and tables is None and _mk.megakernel_supported(scene):
+        tables = _mk.build_mega_tables(scene, mxu=_mk.mxu_wanted(scene, cfg))
     spp = cfg.samples
     n_pix = pixel_index.shape[0]
     pix_chunk = max(1, min(cfg.ray_chunk // spp, n_pix))

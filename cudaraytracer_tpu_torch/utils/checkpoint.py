@@ -1,6 +1,7 @@
 """Fit checkpoints: parameters and the optimizer step saved as NPZ (the
 port's own copy of the JAX package's ``utils/checkpoint.py``, same file
-format, so a checkpoint written by either package loads in the other).
+format, so a checkpoint written by either package loads in the other), and
+the animation's resume point (``next_frame``).
 
 Atomic writes (tmp + rename) so an interrupt never leaves a torn checkpoint.
 """
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -52,3 +54,20 @@ def load_params(path: str) -> Tuple[Dict[str, Any], int, Dict[str, Any]]:
                                key=lambda n: int(n.rsplit(".", 1)[1]))
                 params[k] = tuple(z[p] for p in parts)
     return params, meta["step"], meta.get("extra", {})
+
+
+def next_frame(out_dir: str, begin_frame: int = 0) -> int:
+    """The first frame index from ``begin_frame`` on without a
+    picture_<n>.png in ``out_dir``: where an animation resumes (the
+    reference's manual beginFrame, kernel.cu:50-51, made automatic)."""
+    if not os.path.isdir(out_dir):
+        return begin_frame
+    have = set()
+    for name in os.listdir(out_dir):
+        m = re.fullmatch(r"picture_(\d+)\.png", name)
+        if m:
+            have.add(int(m.group(1)))
+    f = begin_frame
+    while f in have:
+        f += 1
+    return f

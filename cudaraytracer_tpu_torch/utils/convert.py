@@ -5,10 +5,14 @@ The JAX package's parameters, given as numpy arrays (for example
 both packages compute on the same numbers.  Only field names are read: any
 nested object with the JAX ``Scene`` / ``Camera`` field names will do.
 Fit parameters (a dict of arrays, ``parallel/train.py``) go across with
-``params_from_numpy`` and back with ``params_to_numpy``.
+``params_from_numpy`` and back with ``params_to_numpy``; a JAX
+``SkinnedMesh`` (the FBX loader's numpy arrays) with
+``skinned_mesh_from_numpy``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from ..models.scene import (Rectangles, Scene, Spheres, Triangles, TSpheres,
                             TTriangles)
 from ..models.textures import TextureTable
 from ..models.transform import TRS
+from .fbx_loader import SkinnedMesh
 
 # NamedTuple fields that hold another record
 _NESTED = {
@@ -82,3 +87,15 @@ def params_to_numpy(params) -> dict:
     """The inverse of params_from_numpy: a dict of numpy arrays."""
     return {k: tuple(to_numpy(x) for x in v) if isinstance(v, tuple)
             else to_numpy(v) for k, v in params.items()}
+
+
+def skinned_mesh_from_numpy(mesh) -> SkinnedMesh:
+    """A JAX ``SkinnedMesh`` (or any object with its field names) -> the
+    port's ``SkinnedMesh``, its arrays copied as numpy arrays of the same
+    dtypes; ``models.mesh.device_mesh`` takes it to the card."""
+    def copy(v):
+        return np.array(v) if isinstance(v, np.ndarray) else (
+            list(v) if isinstance(v, list) else v)
+
+    return SkinnedMesh(**{f.name: copy(getattr(mesh, f.name))
+                          for f in dataclasses.fields(SkinnedMesh)})

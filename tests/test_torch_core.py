@@ -230,8 +230,6 @@ def test_config_defaults_match_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(wavefront_compact=True), "item 22"),
-    (dict(engine="mega_diff", mega_mxu=True), "K12"),
-    (dict(engine="mega", mega_mxu=True), "K12"),
 ])
 def test_config_rejects_unported_knobs(kw, item):
     cfg = tconfig.RenderConfig(width=8, height=4, samples=1, **kw)
@@ -240,6 +238,22 @@ def test_config_rejects_unported_knobs(kw, item):
     scene, cam = tpresets.three_spheres(device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         trender.render_image(scene, cam, cfg)
+
+
+@pytest.mark.parametrize("engine", ["mega_diff", "mega"])
+def test_config_admits_mega_mxu(engine):
+    """cfg.mega_mxu (kernel mode K12) is ported: admitted under both fused
+    engines; a scene without streamed triangles renders as without it."""
+    cfg = tconfig.RenderConfig(width=8, height=4, samples=1, engine=engine,
+                               mega_mxu=True)
+    tconfig.check_supported(cfg)
+    scene, cam = tpresets.three_spheres(device="cpu")
+    got = trender.render_image(scene, cam, cfg,
+                               generator=torch.Generator().manual_seed(3))
+    want = trender.render_image(scene, cam,
+                                dataclasses.replace(cfg, mega_mxu=False),
+                                generator=torch.Generator().manual_seed(3))
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kw", [

@@ -253,9 +253,15 @@ def test_fit_rejects_unported_modes():
     cfg = RenderConfig(width=8, height=4, samples=1)
     with pytest.raises(NotImplementedError, match="slice 7"):
         ttrain.make_fit_step(scene, cam, cfg, dp=2)
-    with pytest.raises(NotImplementedError, match="K12"):
-        ttrain.make_fit_step(scene, cam, dataclasses.replace(
-            cfg, engine="mega_diff", mega_mxu=True))
+    # mega_mxu (K12) is ported: a mega_diff fit step under it runs (the
+    # recording forward takes the Moller-Trumbore sweep, JAX :2609)
+    step = ttrain.make_fit_step(scene, cam, dataclasses.replace(
+        cfg, engine="mega_diff", mega_mxu=True, gamma=False), lr=0.5)
+    params = {"albedo": (scene.textures.color0 * 0.7 + 0.1).requires_grad_()}
+    loss, out = step(params, torch.zeros(cfg.width * cfg.height, 3),
+                     torch.Generator().manual_seed(7))
+    assert np.isfinite(float(loss))
+    assert not torch.equal(out["albedo"], params["albedo"])
     with pytest.raises(ValueError, match="forward only"):
         ttrain.make_fit_step(scene, cam, dataclasses.replace(cfg,
                                                              engine="mega"))

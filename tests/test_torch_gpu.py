@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the fused kernel K1, its rect / TRS mode K8, winner mode K7 and image
-texture mode K9, the draws K2 (csrc/megakernel.cu), the sweeps K3, K4 and
-K5 (csrc/sweeps.cu), and the wavefront render, the fit and the mega_diff
-fit through them.
+the fused kernel K1, its rect / TRS mode K8, winner mode K7, image texture
+mode K9, segment level K6, windows K10, shells K11 and bilinear triangle
+sweep K12, the draws K2 (csrc/megakernel.cu), the sweeps K3, K4 and K5
+(csrc/sweeps.cu), and the wavefront render, the fit, the mega_diff fit and
+the animation driver through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -885,3 +886,96 @@ def test_shells_equal_table_order_on_the_card(cuda):
     assert torch.equal(got, want) and torch.equal(win, wwin)
     routed = integ.integrate(scene, rays, cfg, tables=tables, seed=9)
     assert torch.equal(routed, want)
+
+
+# ---------------------------------------------------------------------------
+# Kernel mode K12 (cfg.mega_mxu) and the animation driver
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_mxu_sweep_matches_plain_on_the_terrain(cuda, profile):
+    """K12 on the 10,368-triangle terrain (2^16 rays from above): every ray
+    to 1e-5 of the plain version's bilinear sweep, three integrators on an
+    injected stream and the path on in-kernel draws; under the reference
+    quirks it runs the d.n block and the no-t-clip window.  The launch
+    counts as K12 and K6, never as K11, also with shells asked."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    scene = cs.fill_terrain(SceneBuilder()).build(cuda)
+    tables = mk.morton_tables(scene, mxu=True)
+    n = 1 << 16
+    rays = _rays_from_numpy(*cs.terrain_rays(n), cuda)
+    base = RenderConfig(max_depth=DEPTH, engine="mega", mega_mxu=True,
+                        mega_f2b_shells=8, quirks=getattr(Quirks, profile)())
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(
+        8), n, DEPTH, cuda)
+    st = mk.stream_tensor(stream, n, DEPTH + 1)
+    for integrator in INTEGRATORS:
+        cfg = dataclasses.replace(base, integrator=integrator)
+        mk.reset_launch_counts()
+        got = mk.trace_path_mega(scene, rays, cfg, tables=tables,
+                                 samples=stream)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES["mega_mxu"] == 1 and mk.LAUNCHES["mega_f2b"] == 0
+        _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg,
+                                                         st))
+    got = mk.trace_path_mega(scene, rays, base, tables=tables, seed=31)
+    _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, base,
+                                                     None, 31))
+
+
+@pytest.mark.gpu
+def test_mxu_sweep_matches_plain_on_the_big_field(cuda):
+    """K12 on 2^16 rays of the 128,000-triangle field's first launch:
+    every ray to 1e-5 of the plain version, the phased driver (octants)
+    bit-equal to the monolithic launch; tables without coefficients
+    raise."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    rays = type(rays)(*(x[:1 << 16] for x in rays))
+    cfg = dataclasses.replace(cfg, mega_mxu=True)
+    with pytest.raises(ValueError, match="mxu=True"):
+        mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=4)
+    tables = mk.morton_tables(scene, mxu=True)
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=4)
+    _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg, None,
+                                                     4))
+    ph = mk.trace_path_mega_phased(scene, rays, cfg, tables=tables,
+                                   compact_every=2, seed=4, octants=True)
+    assert torch.equal(ph, got)
+
+
+@pytest.mark.gpu
+def test_animate_runs_on_the_card(cuda, tmp_path):
+    """apps/animate.py's loop on the card, 2 frames of the skinned capsule
+    at 64x32x1: the mega pipeline launches the fused kernel, pallas the
+    triangle sweep, and the three pipelines' frames agree with each other
+    to 1e-4 and with the CPU's in their mean and mesh share."""
+    from cudaraytracer_tpu_torch.apps import animate
+    cap = cs.skinned_capsule()
+    images = {}
+    for pipeline in ("mega", "pallas", "list"):
+        argv = ["--width", "64", "--height", "32", "--samples", "1",
+                "--frames", "2", "--begin-frame", "29", "--pipeline",
+                pipeline, "--out", str(tmp_path / pipeline), "--csv",
+                str(tmp_path / f"{pipeline}.csv")]
+        mk.reset_launch_counts()
+        sw.reset_launch_counts()
+        run = animate.animate(cap, animate.parse_args(argv))
+        assert run.frames == [29, 30]
+        if pipeline == "mega":
+            assert mk.LAUNCHES["mega_trace"] == 2
+        if pipeline == "pallas":
+            assert sw.LAUNCHES["triangle_sweep"] >= 2
+        images[pipeline] = run.image
+        assert (tmp_path / pipeline / "picture_30.png").exists()
+    cpu = animate.animate(cap, animate.parse_args(argv + [
+        "--pipeline", "mega", "--cpu", "--no-png", "--out",
+        str(tmp_path / "cpu"), "--csv", str(tmp_path / "cpu.csv")]))
+    for pipeline in ("pallas", "list"):
+        assert abs(images[pipeline] - images["mega"]).max() <= 1e-4
+    # the card's generator (Philox) and the CPU's (Mersenne Twister) jitter
+    # the camera rays apart: the frames agree in their means
+    assert abs(float(cpu.image.mean()) - float(images["mega"].mean())) <= 0.01
+    hit = (images["mega"][..., 0] > images["mega"][..., 1]).mean()
+    assert hit > 0.1
+    assert abs((cpu.image[..., 0] > cpu.image[..., 1]).mean() - hit) <= 0.02

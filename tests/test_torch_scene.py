@@ -7,6 +7,8 @@ cameras (atol 1e-6: torch and XLA round the basis normalisation apart by an
 ulp).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -17,15 +19,20 @@ from cudaraytracer_tpu.models import textures as jtex
 from cudaraytracer_tpu.models.scene import SceneBuilder as JSceneBuilder
 from cudaraytracer_tpu.ops import megakernel as jmk
 from cudaraytracer_tpu_torch.config import RenderConfig
+from cudaraytracer_tpu_torch.core.camera import make_camera
+from cudaraytracer_tpu_torch.core.rays import make_rays
 from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.models import textures as ttex
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
 from cudaraytracer_tpu_torch.ops import integrators as tinteg
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
+from cudaraytracer_tpu_torch.ops.integrators import SampleStream
+from cudaraytracer_tpu_torch.ops.render import render_image
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    scene_from_numpy, to_numpy)
 from test_megakernel import _mixed_scene
+from test_torch_megakernel import _stream_np
 
 
 def _np_tree(x):
@@ -261,9 +268,11 @@ def test_morton_tables_icosphere_match_jax():
 def test_engine_raises_on_image_textures_and_streamed_sizes(monkeypatch):
     """Image textures are ported (kernel mode K9): the fused engine takes
     random_spheres(textured=True) and its tables hold the scene's images.
-    Scenes above the table-resident size take the segment level (K6); only
-    above MAX_STREAM_PRIMS (lowered here) does the fused engine raise,
-    naming the ceiling."""
+    Scenes above the table-resident size take the segment level (K6).
+    Above MAX_STREAM_PRIMS (lowered here) the fused entry points raise,
+    naming the ceiling, and ``integrate`` renders on the wavefront under
+    both fused engines, as JAX's does, dropping the tables it was given;
+    so does ``render_image``, which then builds no tables."""
     ts, _ = tpresets.random_spheres(textured=True, device="cpu")
     assert tmk.megakernel_supported(ts)
     tables = tmk.build_mega_tables(ts)
@@ -278,6 +287,31 @@ def test_engine_raises_on_image_textures_and_streamed_sizes(monkeypatch):
     assert tables.tri.shape[0] == 10240 and tables.tri_seg.shape == (5, 8)
     monkeypatch.setattr(tmk, "MAX_STREAM_PRIMS", tmk.MAX_VMEM_PRIMS)
     assert not tmk.megakernel_supported(big)
-    cfg = RenderConfig(engine="mega", width=4, height=2, samples=1)
+    cfg = RenderConfig(engine="mega", width=4, height=2, samples=1,
+                       max_depth=2)
+    rng = np.random.default_rng(4)
+    n = 32
+    rays = make_rays(np.tile([[0.0, 0.0, 3.0]], (n, 1)).astype(np.float32),
+                     np.stack([rng.uniform(-0.4, 0.4, n),
+                               rng.uniform(-0.4, 0.4, n), -np.ones(n)],
+                              1).astype(np.float32), device="cpu")
+    ball, prob = _stream_np(2, n, cfg.max_depth)
+    stream = SampleStream(torch.from_numpy(ball), torch.from_numpy(prob))
     with pytest.raises(NotImplementedError, match="MAX_STREAM_PRIMS"):
-        tinteg.integrate(big, None, cfg)
+        tmk.trace_path_mega(big, rays, cfg, samples=stream)
+    want = tinteg.trace_path(big, rays, dataclasses.replace(
+        cfg, engine="wavefront"), samples=stream)
+    assert float(want.abs().sum()) > 0.0
+    for engine in ("mega", "mega_diff"):
+        got = tinteg.integrate(big, rays, dataclasses.replace(
+            cfg, engine=engine), tables=tables, samples=stream)
+        assert torch.equal(got, want), engine
+    camera = make_camera((0.0, 0.0, 3.0), (0.0, 0.0, 0.0), vfov=40.0,
+                         aspect=2.0, device="cpu")
+    want = render_image(big, camera, dataclasses.replace(
+        cfg, engine="wavefront"))
+    assert float(want.sum()) > 0.0
+    for engine in ("mega", "mega_diff"):
+        got = render_image(big, camera, dataclasses.replace(cfg,
+                                                            engine=engine))
+        assert torch.equal(got, want), engine
