@@ -56,7 +56,13 @@ Phases (each prints lines; any failure raises and exits nonzero):
          K11: shells 8 against 0 on (m)'s launch, radiance and winners
          equal; K10: a window's dump and a resumed window against the
          plain version, dump + resume and the compaction drivers
-         (phased, compact) bit-equal to the monolithic launch;
+         (phased, compact) bit-equal to the monolithic launch; K6, K10
+         and K11 under the path integrator run the warp-cooperative
+         sweep (lambert and normal keep one thread per ray), each also
+         timed with the one-thread-per-ray sweep (per_thread), equal
+         radiance required, on (m) the whole path, bounce 0 and bounces
+         1-8; on (m)'s launch the cooperative counting instance must
+         count the per-thread one's tests and touched chunks;
        * K12 on (m)'s first 2^18-ray launch under mega_mxu (three
          integrators injected, the path on in-kernel draws, timed beside
          monolithic K6 on the same rays), on 2^16 rays of (n) (lambert) and
@@ -64,7 +70,9 @@ Phases (each prints lines; any failure raises and exits nonzero):
          block, the no-t-clip window); the phased driver bit-equal to the
          monolithic launch under K12; K12's bounds charge the triangle
          tests the closest hit needs (K6's counting instance on the same
-         rays), and its own count of tests is printed beside them;
+         rays, 96 bytes of coefficients each), and its own count of tests
+         (tri_done) is printed beside them, both held against the
+         per-thread counting instances on (m)'s launch;
   4. draws: the scatter_draws kernel against its plain version at the
      main path's 2^18 rays and over 2^22 samples against the unit-ball and
      uniform distributions;
@@ -116,7 +124,9 @@ Phases (each prints lines; any failure raises and exits nonzero):
            over the frame's rays in one call against its bound;
        (n) big1m: 12 x 17 icospheres, 1,044,480 triangles, 1280x720x8,
            lambert, fixed quirks, fused (monolithic K6), and one launch
-           over the frame's rays against its bound;
+           over the frame's rays against its bound; the frame-sized
+           launches of (m) and (m) with 8 shells, cooperative against one
+           thread per ray;
        (q) (m) under mega_mxu (K12) through select_mega's route and
            monolithic, each over the frame's rays against its bound;
        (r) (n) under mega_mxu, lambert, and one frame-sized launch;
@@ -140,12 +150,14 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
     python3 chip_smoke.py --ab [--root DIR]
 
-times only what compares two commits on one card (``ab_main``), with the
-package of the checkout at DIR (default: this one).
+times only what compares two commits on one card (``ab_main``: K1, K6,
+K10, K11, K12 and the (l) and (p) cells), with the package of the checkout
+at DIR (default: this one).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -270,13 +282,10 @@ def bound(flops: float, bytes_: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def mxu_blocks(tables, cfg) -> int:
-    """The coefficient blocks a K12 launch reads per triangle (4, or 5 under
-    backface_only), 0 for a launch that does not take K12."""
+def takes_mxu(tables, cfg) -> bool:
+    """Whether a launch under ``cfg`` on these tables takes K12."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    if cfg is None or not mk.launch_modes(tables, cfg, False)[1]:
-        return 0
-    return mk.N_Q if cfg.quirks.triangle_backface_only else mk.N_Q - 1
+    return cfg is not None and mk.launch_modes(tables, cfg, False)[1]
 
 
 def counting_cfg(tables, cfg):
@@ -284,7 +293,7 @@ def counting_cfg(tables, cfg):
     under ``cfg`` needs: under K12, which tests every triangle of a reached
     super, K6's (the chunk boxes cull inside a super; no shells), else
     ``cfg`` itself."""
-    if not mxu_blocks(tables, cfg):
+    if not takes_mxu(tables, cfg):
         return cfg
     return dataclasses.replace(cfg, mega_mxu=False, mega_f2b_shells=0)
 
@@ -295,19 +304,21 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
     (count_tests): their FLOPs (box, segment and box-distance tests
     included) against the rays in, ``out_bytes`` per ray out, the box and
     rect / TRS tables, the sphere and triangle rows of the chunks whose
-    prims were tested (under K12, which ``cfg`` decides: the coefficient
-    rows of those chunks, 40 bytes per block), and ``extra_bytes`` (K9: 3
-    per texel fetched; K10: the state a window reads)."""
+    prims were tested (under K12, which ``cfg`` decides: the coefficients
+    of those chunks' triangles, N_COEF floats = 96 bytes each), and
+    ``extra_bytes`` (K9: 3 per texel fetched; K10: the state a window
+    reads)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    q = mxu_blocks(tables, cfg)
-    tri_flops = (FLOP_MXU + (FLOP_MXU_DN if q == mk.N_Q else 0) if q
+    mxu = takes_mxu(tables, cfg)
+    dn = cfg is not None and cfg.quirks.triangle_backface_only
+    tri_flops = (FLOP_MXU + (FLOP_MXU_DN if dn else 0) if mxu
                  else FLOP_TRI)
     flops = (tests["box"] * FLOP_BOX + tests["seg"] * FLOP_BOX
              + tests["sph"] * FLOP_SPHERE + tests["tri"] * tri_flops
              + tests["dist"] * FLOP_DIST
              + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
                                                 FLOP_XFORM)))
-    tri_row = q * mk.N_FEAT * 4 if q else mk.TRI_COLS * 4
+    tri_row = mk.N_COEF * 4 if mxu else mk.TRI_COLS * 4
     rows = (tests["touched_sph_chunks"] * mk.PRIM_CHUNK * mk.SPH_COLS * 4
             + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * tri_row)
     tables_bytes = (mk.table_bytes(tables) - tables.sph.nbytes
@@ -315,15 +326,19 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
     return bound(flops, n * (24 + out_bytes) + tables_bytes + extra_bytes)
 
 
-def count_tests(tables, rays, cfg, seed, window=None) -> dict:
+def count_tests(tables, rays, cfg, seed, window=None,
+                hold: bool = False) -> dict:
     """The tests one launch needs (the counting variant under
     ``counting_cfg``), by name (megakernel.COUNT_NAMES), and the chunks whose
     prims it tested.  Under K12 also ``tri_done``: the triangle tests that
-    K12's own counting instance makes, every triangle of a reached super."""
+    K12's own counting instance makes, every triangle of a reached super.
+    hold: also count with the one-thread-per-ray sweeps (per_thread) and
+    require the same counts and touched chunks, since the cooperative
+    sweeps (K6, K11, K12) make the same (ray, triangle) tests."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     n_sc = tables.sph_box.shape[0]
 
-    def counted(c):
+    def counted(c, per_thread=False):
         counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
                              device=rays.origin.device)
         touched = torch.zeros(max(n_sc + tables.tri_box.shape[0], 1),
@@ -331,13 +346,26 @@ def count_tests(tables, rays, cfg, seed, window=None) -> dict:
         mk._launch_mega(tables, rays.origin.contiguous(),
                         rays.direction.contiguous(), c, None, seed,
                         counts=counts, touched=touched,
-                        window=window if window is not None else mk.WHOLE)
+                        window=window if window is not None else mk.WHOLE,
+                        per_thread=per_thread)
+        return counts, touched
+
+    def held(c):
+        counts, touched = counted(c)
+        if hold:
+            c_pt, t_pt = counted(c, True)
+            check(torch.equal(counts, c_pt) and torch.equal(touched, t_pt),
+                  f"cooperative counts {counts.tolist()} differ from the "
+                  f"per-thread sweep's {c_pt.tolist()}")
         return counted_tests(counts, touched, n_sc)
 
     need = counting_cfg(tables, cfg)
-    out = counted(need)
+    out = held(need)
     if need is not cfg:
-        out["tri_done"] = counted(cfg)["tri"]
+        out["tri_done"] = held(cfg)["tri"]
+    if hold:
+        print(f"[count] the cooperative and per-thread counting instances "
+              f"made the same tests: {out}")
     return out
 
 
@@ -1050,6 +1078,19 @@ def frame_launch(dev, f: Frame, gen, reps: int = 3) -> tuple:
     return ms, rays
 
 
+def frame_against_per_thread(dev, f: Frame, gen) -> dict:
+    """The kernel alone over a whole frame's rays in one launch, the
+    cooperative sweep against one thread per ray (min of 3 each), equal
+    radiance."""
+    ms, rays = frame_launch(dev, f, gen)
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    got = mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables, seed=11)
+    pt = per_thread_ms(f, rays, f.cfg, 11, got)
+    print(f"[coop] {f.name} frame-sized ({rays.origin.shape[0]} rays): "
+          f"cooperative {ms:.3f} ms, one thread per ray {pt:.3f} ms")
+    return {"coop_ms": ms, "per_thread_ms": pt}
+
+
 def kernel_at_frame_shape(dev, f: Frame, gen):
     """The kernel alone over a whole frame's rays in one launch, and the
     tests these rays need (one extra counting launch)."""
@@ -1457,10 +1498,11 @@ def sphere_field_frame(dev):
 
 def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
                  plain=None, window=None, out_bytes: int = 12,
-                 extra_bytes: int = 0) -> dict:
+                 extra_bytes: int = 0, hold: bool = False) -> dict:
     """One launch with in-kernel draws: kernel against the plain version
     (timed once, or ``plain`` = (ms, result) measured already), its
-    tests and bound."""
+    tests (hold: held against the per-thread sweep's, ``count_tests``) and
+    bound."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     w = window if window is not None else mk.WHOLE
     ms, got = cuda_ms(lambda: mk.trace_path_mega(
@@ -1470,13 +1512,54 @@ def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
             f.tables, rays, cfg, None, seed, window=w), reps=1, warmup=0)
     plain_ms, ref = plain
     out[key] = max(out.get(key, 0.0), compare(label, got, ref))
-    tests = count_tests(f.tables, rays, cfg, seed, window)
+    tests = count_tests(f.tables, rays, cfg, seed, window, hold)
     b, by = launch_bound(f.tables, rays.origin.shape[0], tests, out_bytes,
                          extra_bytes, cfg)
     print(f"[stream] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b:.4f} ms ({by}), tests {tests}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "tests": tests, "rays": rays.origin.shape[0], "got": got}
+
+
+def per_thread_ms(f, rays, cfg, seed, got, window=None) -> float:
+    """The same launch with the one-thread-per-ray triangle sweep
+    (``_launch_mega(per_thread=True)``), min of 3: its radiance must equal
+    the cooperative launch's ``got``."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    ms, out = cuda_ms(lambda: mk._launch_mega(
+        f.tables, rays.origin.contiguous(), rays.direction.contiguous(),
+        cfg, None, seed, window=window if window is not None else mk.WHOLE,
+        per_thread=True))
+    check(torch.equal(out, got), f"{f.name}: the per-thread sweep's "
+          "radiance differs from the cooperative one's")
+    return ms
+
+
+def coop_against_per_thread(f, rays, seed) -> dict:
+    """K6 cooperative against one thread per ray on one launch of f (path),
+    the whole path, bounce 0 alone (window [0, 1), coherent camera rays)
+    and bounces 1-8 resumed from its dump (incoherent): ms of each, min of
+    3, their radiance equal."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    out = {}
+    w0 = mk.Window(0, 1, None, None, True)
+    a = None
+    for name, r, w in (("whole", rays, mk.WHOLE), ("bounce_0", rays, w0),
+                       ("bounces_1_8", None, None)):
+        if r is None:
+            r = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(),
+                     rays.time)
+            w = mk.Window(1, None, a[:, 9:13].contiguous())
+        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+            f.scene, r, f.cfg, tables=f.tables, seed=seed, window=w))
+        if name == "bounce_0":
+            a = got
+        pt = per_thread_ms(f, r, f.cfg, seed, got, w)
+        out[name] = {"coop_ms": ms, "per_thread_ms": pt}
+        print(f"[coop] {f.name} {name}: cooperative {ms:.4f} ms, one "
+              f"thread per ray {pt:.4f} ms, equal radiance")
+    return out
 
 
 def phase_stream_parity(dev, sframes) -> dict:
@@ -1516,8 +1599,9 @@ def phase_stream_parity(dev, sframes) -> dict:
     ref, wref = plain[1]
     k6 = timed_parity("K6 big_field launch 0 path in-kernel draws", fm,
                       rays, fm.cfg, seed, err, "mega_stream",
-                      (plain[0], ref))
+                      (plain[0], ref), hold=True)
     got = k6.pop("got")
+    k6["against_per_thread"] = coop_against_per_thread(fm, rays, seed)
     got_w, win = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
                                     seed=seed, want_winners=True)
     compare_ids("K7+K6 big_field launch 0", win, wref)
@@ -1526,8 +1610,9 @@ def phase_stream_parity(dev, sframes) -> dict:
     # K11: shells 8 against table order
     cfg8 = dataclasses.replace(fm.cfg, mega_f2b_shells=8)
     k11 = timed_parity("K11 big_field launch 0 shells 8", fm, rays, cfg8,
-                       seed, err, "mega_f2b", (plain[0], ref))
+                       seed, err, "mega_f2b", (plain[0], ref), hold=True)
     got8 = k11.pop("got")
+    k11["per_thread_ms"] = per_thread_ms(fm, rays, cfg8, seed, got8)
     got8_w, win8 = mk.trace_path_mega(fm.scene, rays, cfg8,
                                       tables=fm.tables, seed=seed,
                                       want_winners=True)
@@ -1549,7 +1634,8 @@ def phase_stream_parity(dev, sframes) -> dict:
     k10 = timed_parity("K10 big_field window [2, 4) resumed", fm, r2,
                        fm.cfg, seed, err, "mega_window", window=w1,
                        extra_bytes=16 * n)
-    k10.pop("got")
+    k10["per_thread_ms"] = per_thread_ms(fm, r2, fm.cfg, seed,
+                                         k10.pop("got"), w1)
     rest = mk.trace_path_mega(fm.scene, r2, fm.cfg, tables=fm.tables,
                               seed=seed, window=mk.Window(
                                   2, None, a[:, 9:13].contiguous()))
@@ -1652,12 +1738,12 @@ def phase_mxu_parity(dev, sframes, mframes) -> dict:
 
     rays = first_chunk(fm, gen)
     n = rays.origin.shape[0]
-    check(n == 1 << 18 and fm.tables.tri_coef.shape == (
-        mk.N_Q * fm.tables.tri.shape[0], mk.N_FEAT), "(m)'s K12 tables")
+    check(n == 1 << 18 and fm.tables.tri_coef.numel() == (
+        mk.N_COEF * fm.tables.tri.shape[0]), "(m)'s K12 tables")
     stream, got_inj = injected("big_field launch 0", fm, rays)
     seed = mk.draw_seed(gen)
     k12 = timed_parity("K12 big_field launch 0 path in-kernel draws", fm,
-                       rays, fm.cfg, seed, err, "mega_mxu")
+                       rays, fm.cfg, seed, err, "mega_mxu", hold=True)
     got = k12.pop("got")
     k6_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
         sframes[0].scene, rays, sframes[0].cfg, tables=sframes[0].tables,
@@ -1738,12 +1824,13 @@ def render_mxu_cells(dev, mframes) -> tuple:
             device=dev).manual_seed(33)), ("mega_mxu",))
     kr = kernel_at_frame_shape(dev, fn, torch.Generator(
         device=dev).manual_seed(34))
+    coef = fn.tables.tri_coef.nbytes
     print(f"[main] (r) big1m mega_mxu: {ms_r / 1e3:.4f} s/frame, peak "
-          f"{peak_r / 2 ** 30:.2f} GiB; one launch over {kr['rays']} rays "
-          f"{kr['ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
-          f"({kr['bound_by']}), tests {kr['tests']}")
+          f"{peak_r / 2 ** 30:.2f} GiB, coefficients {coef} B; one launch "
+          f"over {kr['rays']} rays {kr['ms']:.3f} ms, bound "
+          f"{kr['bound_ms']:.3f} ms ({kr['bound_by']}), tests {kr['tests']}")
     out["r_big1m"] = {"frame_s": ms_r / 1e3, "peak_gib": peak_r / 2 ** 30,
-                      "frame_launch": kr}
+                      "coef_bytes": coef, "frame_launch": kr}
     launches["r"] = l_r
     return out, launches
 
@@ -2074,6 +2161,9 @@ def main() -> int:
           f"{peak_n / 2 ** 30:.2f} GiB; one launch over {kn['rays']} rays "
           f"{kn['ms']:.3f} ms, bound {kn['bound_ms']:.3f} ms "
           f"({kn['bound_by']}), tests {kn['tests']}")
+    frames_pt = {name: frame_against_per_thread(dev, f, gen) for name, f in (
+        ("m", fm), ("m_f2b8", fm._replace(cfg=dataclasses.replace(
+            fm.cfg, mega_f2b_shells=8))))}
     mxu_cells, l_qr = render_mxu_cells(dev, mframes)
     from cudaraytracer_tpu_torch.models import check_scenes as cs
     cell_o, l_o = counted(
@@ -2110,7 +2200,7 @@ def main() -> int:
               f"({k['bound_by']}), tests {k['tests']}")
     ca, cb = parity["random_spheres"], parity["icosphere"]
     mega = {"name": "mega_trace", "route": "cuda",
-            "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+            "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
             "replaces": "cudaraytracer_tpu/ops/megakernel.py:476",
             "launches": launches["mega_trace"],
             "max_abs_err": parity["max_abs_err"],
@@ -2141,7 +2231,7 @@ def main() -> int:
     xh, xs, xi = (xparity[f.name] for f in xframes)
     rows.append({
         "name": "mega_winners", "route": "cuda",
-        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:1445",
         "launches": launches["mega_winners"],
         "max_abs_err": wparity.pop("max_abs_err"), "ms": wparity.pop("ms"),
@@ -2153,7 +2243,7 @@ def main() -> int:
                  "winners", **wparity})
     rows.append({
         "name": "mega_trace_xform", "route": "cuda",
-        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:1186",
         "launches": launches["mega_trace_xform"],
         "max_abs_err": xparity["max_abs_err"], "ms": xh["ms"],
@@ -2166,7 +2256,7 @@ def main() -> int:
     tj = tparity.pop(f"tex_spheres fixed launch {middle_chunk(fj)}")
     rows.append({
         "name": "mega_trace_tex", "route": "cuda",
-        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:1574",
         "launches": launches["mega_trace_tex"],
         "max_abs_err": tparity.pop("max_abs_err"),
@@ -2192,7 +2282,7 @@ def main() -> int:
         k.pop("rays")
         rows.append({
             "name": key, "route": "cuda",
-            "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+            "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
             "replaces": f"cudaraytracer_tpu/ops/megakernel.py:{line}",
             "launches": launches[key], "max_abs_err": k.pop("max_abs_err"),
             "ms": k.pop("ms"), "plain_ms": k.pop("plain_ms"),
@@ -2203,7 +2293,7 @@ def main() -> int:
     k12.pop("rays")
     rows.append({
         "name": "mega_mxu", "route": "cuda",
-        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
+        "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:974",
         "launches": launches["mega_mxu"],
         "max_abs_err": mparity["max_abs_err"], "ms": k12.pop("ms"),
@@ -2236,6 +2326,7 @@ def main() -> int:
              "m_big_field": routes_m,
              "n_big1m": {"frame_s": ms_n / 1e3, "peak_gib": peak_n / 2 ** 30,
                          "frame_launch": kn},
+             "frame_sized_coop_against_per_thread": frames_pt,
              "o_skinned_capsule": cell_o, "p_skinned_field": cell_p,
              "q_big_field_mxu": {k: v for k, v in mxu_cells.items()
                                  if k != "r_big1m"},
@@ -2253,7 +2344,10 @@ def main() -> int:
 def ab_main(root: str) -> int:
     """``--ab``: the timings that compare two commits on one card, for the
     package of the checkout at ``root``: K1's frame-sized launches of (a)
-    and (b) (min of 5) and (l)'s mega_diff fit step (min and median of 5).
+    and (b) (min of 5), (l)'s mega_diff fit step (min and median of 5),
+    K12 on (m)'s first 2^18 rays, the frame-sized launches of K6 on (m) and
+    (n) and of K11 (8 shells) on (m), K10's window [2, 4) on (m)'s first
+    2^18 rays (min of 5 each), and (p)'s median rendering over 31 frames.
     Run the parent's checkout (an unpacked ``git archive``, whose kernels
     build there) and this one in turns, in one call each way (parent,
     change, change, parent).  Prints one JSON line, checks nothing else."""
@@ -2273,8 +2367,44 @@ def ab_main(root: str) -> int:
     for f in main_frames(dev):
         out[f"{f.name}_frame_launch_ms"] = frame_launch(dev, f, gen, 5)[0]
     out["l_fit"] = tex_fit_step(dev)
+    out.update(ab_streamed(dev))
     print(json.dumps(out))
     return 0
+
+
+def ab_streamed(dev) -> dict:
+    """``ab_main``'s K6, K10, K11, K12 and (p) timings."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    fm, fn = stream_frames(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    rays = first_chunk(fm, gen)
+    seed = 12345
+    fq = mxu_frame(fm)
+    out["k12_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
+        fq.scene, rays, fq.cfg, tables=fq.tables, seed=seed), 5)[0]
+    del fq
+    out["k6_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
+        fm.scene, rays, fm.cfg, tables=fm.tables, seed=seed), 5)[0]
+    a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
+                           seed=seed, window=mk.Window(0, 2, None, None,
+                                                       True))
+    r2 = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(), rays.time)
+    w1 = mk.Window(2, 2, a[:, 9:13].contiguous())
+    out["k10_m_window_2_4_ms"] = cuda_ms(lambda: mk.trace_path_mega(
+        fm.scene, r2, fm.cfg, tables=fm.tables, seed=seed, window=w1), 5)[0]
+    out["k6_m_frame_launch_ms"] = frame_launch(dev, fm, gen, 5)[0]
+    out["k11_m_f2b8_frame_launch_ms"] = frame_launch(dev, fm._replace(
+        cfg=dataclasses.replace(fm.cfg, mega_f2b_shells=8)), gen, 5)[0]
+    out["k6_n_frame_launch_ms"] = frame_launch(dev, fn, gen, 5)[0]
+    del fm, fn
+    with contextlib.redirect_stdout(sys.stderr):     # one JSON line out
+        out["p_skinned_field"] = animate_cell(
+            dev, "skinned_field", cs.skinned_field(),
+            cs.field_camera(2.0, device=dev))
+    return out
 
 
 if __name__ == "__main__":

@@ -1,0 +1,1603 @@
+// Fused path tracer for NVIDIA Hopper (sm_90a): the whole bounce loop of one
+// ray in one thread, the triangle sweeps of streamed scenes and K12 shared
+// by the lanes of a warp.  The device code and the launch templates; the C
+// interface and K1's instances are in megakernel.cu, the cooperative and
+// K12 instances in megakernel_coop.cu and megakernel_mxu.cu.
+//
+// Replaces: cudaraytracer_tpu/ops/megakernel.py::_mega_kernel, launched
+// there by _mega_call through its single pl.pallas_call, in all eight of
+// its modes.  Six are compile-time parameters of mega_kernel<INTEG, COUNT,
+// XFORM, WINNERS, TEX, SHELLS, MXU, COOP>:
+//   * K1, the main-path form (spheres + triangles, tables resident,
+//     integrator path / lambert / normal, in-kernel draws or an injected
+//     (ball, prob) stream): XFORM = WINNERS = false;
+//   * K8, XFORM: rects and runtime-TRS spheres and triangles (rect_sweep,
+//     tsph_sweep, ttri_sweep over trs_ray_chunk, _trs_table_sweep and
+//     trs_merge, megakernel.py:1119-1362), after the sphere and triangle
+//     sweeps;
+//   * K7, WINNERS (path only): each bounce's winner in the scene's prim ids
+//     (want_winners, megakernel.py:1445-1615, mapped as _winners_to_scene
+//     :2778 does);
+//   * K9, TEX (path and lambert): image textures, the texel fetched in the
+//     bounce loop (what want_tex, megakernel.py:1574-1596 and :1720-1743,
+//     and _deferred_texture_radiance :2254 compute together).
+//   * K11, SHELLS (f2b, shelled :795): the triangle sweep's top-level
+//     boxes visited in B passes by distance from the ray origin;
+//   * K12, MXU (tri_sweep_mxu :974-1114, tri_coef :394-418): the streamed
+//     triangle sweep as bilinear forms of the ray's features (below).
+// Two are runtime parameters:
+//   * K6, the segment level (stream_tri / stream_sph, megakernel.py:669-726
+//     and :919-972): above 8,192 prims of a type the table gets one box per
+//     SEG_T = 2048 prims, tested before the super and chunk boxes; the
+//     path integrator's launches above 8,192 triangles take the
+//     cooperative instances (COOP, below);
+//   * K10, the bounce window (resume / dump_state / step_lo / n_steps,
+//     megakernel.py:1607-1646): global steps [step_lo, step_lo + n_steps),
+//     an optional resumed (thr, alive) state, an optional 13-float dump of
+//     the ray state, and an optional ray id that keys the draws.
+// Also exposes that kernel's draw transform as a kernel of its own,
+// scatter_draws (ops/pallas_intersect.py::_draws_kernel).
+//
+// What bounds it on this card: FP32 ALU issue on the per-ray sweeps (the
+// sphere quadratic and the Moller-Trumbore test over every chunk whose box
+// the ray reaches), and divergence, since neighbouring rays reach different
+// chunks and end their paths at different bounces.  Memory traffic is small:
+// a ray is read once and its radiance written once, and the tables (tens of
+// KB to a few hundred KB) stay in L1/L2; above 8,192 prims (K6) they grow
+// to 12 MB at 128k triangles (inside the 50 MB L2) and 100 MB at 1M.
+//
+// What the simple design does about that:
+//   * one thread per ray, the bounce loop in registers, as the reference
+//     renderer does (render.h:105-129).  The caller orders rays in 32x16
+//     screen blocks, so the 32 rays of a warp start coherent;
+//   * the TPU kernel's per-tile any() votes become per-thread branches on
+//     the chunk and super boxes (two-level culling), and one best_t is
+//     shared by the sphere and triangle sweeps, so triangles behind the
+//     nearest sphere are culled too;
+//   * the sweep carries only (best_t, best_idx, is_tri); the winner's row is
+//     loaded after the sweep with plain loads (the TPU kernel carried the
+//     attributes through every chunk merge);
+//   * tables are read from global memory through L1/L2.  Staging them in
+//     shared memory, cp.async or TMA is left for later work;
+//   * built with --fmad=false: every product and sum rounds on its own, as
+//     in the plain PyTorch version, so the two agree ray for ray.  With
+//     contraction, grazing hits flip against the plain version and the
+//     normal integrator on random_spheres differs in ~2% of rays at 1e-3
+//     (a sphere's normal scales the quadratic's rounding by |d| / r).
+//
+// Semantics kept from the TPU kernel: BIG sentinel = FLT_MAX, hit means
+// t < 1e37, the negated slab test (NaN keeps a chunk reachable), first prim
+// wins ties within and across chunks, spheres win exact ties against
+// triangles, the half-b quadratic times 1/a with a strict disc > 0, the
+// quirk gates, and the material rules of the reference.
+//
+// K8.  Each thread walks the rect, TRS-sphere and TRS-triangle rows in table
+// order after the sphere and triangle sweeps (which share best_t).  Per row:
+// TransformRay (ScaleRay divides the direction by the scale and renormalizes
+// it and leaves the origin unscaled, RotateRay multiplies origin and
+// direction by the row-major matrix, TranslateRay subtracts the position),
+// the test in the native t of the unit object-space ray, then t_native /
+// |raw d| against best_t with a strict <.  So classes earlier in [spheres |
+// triangles | rects | t_spheres | t_triangles] win exact ties, and the
+// lowest row within a class.  The winner's record is recomputed once after
+// the sweep: the OBJECT-space hit point (the reference's rec.p quirk: also
+// the scattered ray's origin and the checker point), the pre-rotated normal
+// and the material block.  No culling boxes and no per-class cap: the rows
+// are read from global memory through L1/L2, cost O(rows) per ray.
+//
+// K7.  The path integrator writes int32 winners[step * n + i] (step-major,
+// so a warp's stores coalesce): the winner's scene id at each bounce that
+// hits (a light included), -1 at the bounce that misses and at every bounce
+// after the path ended.
+//
+// K9.  The TPU kernel cannot gather texels, so the JAX package runs it with
+// a placeholder albedo, dumps ten planes per bounce and multiplies the
+// texels back in outside the kernel.  Here the thread loads them: an image
+// material's block carries its image id, w and h in the color0 slots (an
+// image uses neither colour), and after the sweep the winner's (u, v) is
+// computed as ops/intersect.py::finalize_hits defines it: get_sphere_uv's
+// z-theta of the unit normal for spheres and TRS spheres (the normal the
+// kernel already has), the Moller-Trumbore (u, v) recomputed for a triangle
+// winner from its row (the JAX deferred pass solves a Gram system instead;
+// the port's kernel, its plain version, the wavefront and the replay all
+// use Moller-Trumbore), and the object-space (x, y) + 0.5 for rects.  The
+// nearest texel: i = int(u * w), j = int((1 - v) * h - 0.001), each
+// clamped to the image's own size (a NaN lands on texel 0), three bytes
+// each divided by 255 and rounded once (the reference's int(data) / 255.0).  Lambertian attenuation reads texel (0, 0) under
+// the lambertian_zero_uv quirk (material.h:67), the real (u, v) otherwise,
+// as does the lambert integrator's att term of an image light (scatter's
+// lam_att); emission reads the real (u, v).  Dielectrics (attenuation 1)
+// and metals (their albedo; a metal ignores its texture) fetch nothing, and
+// the normal integrator has no TEX instance.  The extra cost is one uv and
+// at most two 3-byte loads per image hit, through L1/L2; textures never
+// change a path, so the counting instance runs without TEX.
+//
+// K6.  A GPU has no VMEM to stream into: the TPU kernel's per-segment DMA
+// becomes a third box level over the same global-memory tables.  When
+// n_tri_segs > 0 each ray tests each segment box, then that segment's 8
+// super boxes, then each super's 16 chunk boxes, every level gated by the
+// slab test against the running best_t; the same for spheres when
+// n_sph_segs > 0 (their super level is then always on).  Segments, supers
+// and chunks are walked in table order, so the first prim still wins ties.
+// One thread per ray (still reached for measurement, per_thread) is
+// bounded by divergence: a warp serializes the union of its lanes' reached
+// chunks, and on incoherent bounces a reached chunk often has one or two
+// active lanes, each testing 16 triangles alone.  The COOP instances walk
+// the boxes with the warp in lockstep: each lane makes its own ray's slab
+// tests, a ballot gives the rays that reached a chunk, and the lanes split
+// its 16 triangles x those rays, two rays a pass; each ray's least (t,
+// row) comes back through a shared-memory atomicMin on an order-preserving
+// key, and its lane combines it by the rule "nearer, or as near with a
+// lower row" before its next slab test.  So the tests and every decision
+// are the per-thread sweep's.  A chunk that more than COOP_LANE_RAYS rays
+// reached (coherent camera rays) is tested one ray per lane, as before.
+// What bounds it now: the slab tests of the box walk, issued warp-uniform,
+// and the ballots and warp syncs per reached box.  Camera rays gain nothing
+// from the cooperation and pay those (+4% on the 128,000-triangle field's
+// bounce 0, +7% on the 1M-triangle field's lambert frame on an H100), so
+// the lambert and normal integrators, which trace camera rays only, keep
+// one thread per ray, as does every sphere sweep (no main-path scene
+// streams spheres); the COOP instances serve the path integrator on
+// streamed triangles (launch in megakernel.cu).
+//
+// K10.  The path integrator runs global steps [step_lo, step_lo + n_steps):
+// the depth budget (render.h:57) tests the global step.  With a state
+// float32[n, 4] (thr rgb, alive) the thread resumes from it, else it starts
+// with thr 1 and alive.  With dump the output is float32[n, 13] [rad | o | d
+// | thr | alive], the radiance of this window only, the ray the next window
+// starts from and the throughput.  With ray_id int32[n] the draws are keyed
+// by (seed, ray_id[i], step) and the injected stream is read at row
+// ray_id[i] of its n_stream rows, so a render whose windows see the rays in
+// any order (the compaction drivers) is bit-identical to the monolithic one.
+// (The TPU kernel keys its draws by tile and lane, megakernel.py:1895-1900.)
+//
+// K11.  With f2b = B > 0 (the SHELLS instances: as a runtime branch the
+// shell loop raised the K1 path instance's spill from 40 to 134 bytes and
+// its frame-sized launch by 3% on an H100) the triangle sweep's top-level
+// boxes (segments when there are any, supers otherwise) are visited in B
+// passes: a scan
+// finds the least and greatest squared distance from the ray origin to a
+// box, and pass s visits the boxes whose shell index min(floor((d2 - dmin)
+// * B / max(dmax - dmin, 1e-30)), B - 1) is s, each box exactly once.  The
+// TPU kernel measures from its tile's alive-origin centroid; here a thread
+// is the unit of culling, so it measures from its own origin.  A triangle
+// that ties the best t exactly wins when its row is lower, so the result
+// does not depend on the visit order (a box whose near face lies exactly at
+// best_t is still culled: JAX's caveat, megakernel.py:768-772).  Under COOP
+// the warp walks every (shell, box) pair and a lane enters box j in its own
+// ray's shell pass of it.
+//
+// K12.  Every Moller-Trumbore quantity is bilinear in 10 per-ray features
+// Phi = [d, o, c = d x o, 1]: a = -d.n2 (n2 = e1 x e2), t_num = o.n2 -
+// v0.n2, u_num = d.(v0 x e2) - c.e2, v_num = -d.(v0 x e1) + c.e1 and the
+// backface quirk's d.n.  The TPU evaluates a whole super as one (5 * 256 x
+// 10) @ (10 x 128 rays) matmul on its MXU.  Hopper has no float32
+// tensor-core path (TF32 keeps 10 mantissa bits, too few for t), so the
+// product runs on the FP32 cores with exact per-pair arithmetic: each
+// quantity the sum of its non-zero terms in feature order, then f = 1 / a;
+// u, v, t = u_num * f, v_num * f, t_num * f and the validity gates of
+// megakernel.py:1032-1041; every triangle of a super the ray's slab tests
+// reach is tested (no chunk culling inside a super, as on the TPU).
+// tri_coef keeps only the 22 non-zero coefficients (C_A ... C_DN), padded
+// to N_COEF = 24, as 24 planes of 256 floats per super: 96 B a triangle.
+// One thread per ray read 19-22 scalars per triangle test and
+// serialized the union of a warp's reached supers; it stays as the
+// counting instance the cooperative one is held against.  The COOP sweep
+// is the (triangles x rays) product by lanes: the warp walks segments and
+// supers in lockstep, each lane slab-testing its own ray; for a super any
+// lane's ray reached, lane l loads triangle 32 b + l's coefficients into
+// registers (one coalesced 128-byte load per plane and batch b) and tests
+// it against each reached ray in turn, the ray's features broadcast from
+// the warp's shared slot; each ray's least (t, row) returns through the
+// atomicMin key and is taken when strictly nearer, so the lowest row keeps
+// a tie.  Loads per (ray, triangle) pair fall from 19-22 to 22 / R for R
+// reached rays, and every lane tests a real pair however few rays reached
+// the super.  What bounds it now: FP32 issue (~47 FLOPs and 9 shared
+// loads per pair) and the 10x more tests than the closest hit needs that
+// the mode's contract makes.  The MXU instances have WINNERS = TEX =
+// SHELLS = false (JAX forces f2b to 0 and never records winners under it).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -c
+//        -Xcompiler -fPIC for each megakernel*.cu, then nvcc -shared
+//        (plain C interface, loaded with ctypes; ops/_cuda.py).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace crt {
+
+constexpr float BIG = 3.4028235e38f;   // ops/intersect.py BIG
+constexpr float BIG_CUT = 1e37f;       // t >= BIG_CUT is a miss
+constexpr float TRI_EPSILON = 1e-6f;
+constexpr float TWO_PI = 6.283185307179586f;
+// get_sphere_uv's constants: float32 pi and the float32 reciprocals that the
+// plain version multiplies by
+constexpr float PI_F = 3.141592653589793f;
+constexpr float HALF_PI = 1.5707963267948966f;
+constexpr float INV_PI = 0.3183098861837907f;
+constexpr float INV_TWO_PI = 0.15915494309189535f;
+constexpr int PRIM_CHUNK = 16;         // prims per chunk box
+constexpr int CHUNKS_PER_SUPER = 16;   // SUPER_T = 256 prims per super box
+constexpr int SUPERS_PER_SEG = 8;      // SEG_T = 2048 prims per segment box
+constexpr int SUPER_T = PRIM_CHUNK * CHUNKS_PER_SUPER;
+// K12: a triangle's non-zero coefficients (ops/megakernel.py Q_TERMS), each
+// a plane of SUPER_T floats in its super's block: a on d (3), t_num on o
+// and 1 (4), u_num and v_num on d and c (6 each), d.n on d (3), 2 pad
+constexpr int N_COEF = 24;
+constexpr int C_A = 0, C_T = 3, C_U = 7, C_V = 13, C_DN = 19;
+constexpr int DUMP_COLS = 13;          // K10's dump: rad o d thr alive
+constexpr int SPH_COLS = 16;  // cx cy cz r2 1/r | 9 material | 2 pad
+constexpr int TRI_COLS = 24;  // v0 e1 e2 n | 9 material | 3 pad
+constexpr int BOX_COLS = 8;   // lo.xyz hi.xyz | 2 pad
+constexpr int S_INVR = 4, S_MAT = 5, T_N = 9, T_MAT = 12;
+// rect / TRS rows (ops/megakernel.py): position, scale, row-major rotation,
+// material, then per class
+constexpr int X_POS = 0, X_SCL = 3, X_ROT = 6, X_MAT = 15;
+constexpr int RECT_SGN = 24, RECT_NRM = 25, TSPH_R2 = 24, TSPH_INVR = 25;
+constexpr int TTRI_V0 = 24, TTRI_E1 = 27, TTRI_E2 = 30, TTRI_NOBJ = 33,
+              TTRI_NW = 36;
+constexpr int RECT_COLS = 28, TSPH_COLS = 28, TTRI_COLS = 40;
+constexpr int BLOCK = 128;
+// The cooperative sweeps (K6, K12): a warp's lanes, its slot of shared
+// memory, the empty key, and the most rays of a reached chunk that the
+// lanes still split (above it each lane tests its own ray's 16 triangles)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = BLOCK / 32;
+constexpr unsigned long long NO_KEY = ~0ull;
+constexpr int COOP_LANE_RAYS = 16;
+
+enum Integrator { PATH = 0, LAMBERT = 1, NORMAL = 2 };
+enum Flags {
+  BACKFACE_ONLY = 1, NO_T_CLIP = 2, BACK_CULLING = 4, DIE_REF_COSINE = 8,
+  LAMBERT_UNNORM = 16, INJECTED = 32, LAMBERT_ZERO_UV = 64
+};
+// material kinds and texture kinds (models/materials.py, models/textures.py)
+constexpr float K_METAL = 1.f, K_DIELECTRIC = 2.f, K_LIGHT = 3.f;
+constexpr float TEX_CHECKER = 1.f, TEX_IMAGE = 2.f;
+constexpr float K_LAMBERTIAN = 0.f;
+// an image material's block: image id, w, h in the color0 slots
+constexpr int M_IMG = 3, M_W = 4, M_H = 5;
+
+struct Params {
+  const float* sph; const float* sph_box; const float* sph_super;
+  const float* tri; const float* tri_box; const float* tri_super;
+  const float* o; const float* d;
+  const float* stream;        // [max_depth + 1, n_stream, 4] when INJECTED
+  float* out;                 // [n, 3], or [n, 13] with dump (K10)
+  unsigned long long* counts; // optional [8]: the tests of Counts; given,
+                              // the counting variant runs
+  unsigned char* touched;     // counting variant: 1 per chunk whose prims
+                              // were tested, [sphere chunks | tri chunks]
+  unsigned long long seed;
+  int n, n_sph_chunks, n_sph_supers, n_tri_supers, max_depth, flags;
+  float t_min, t_max, ambient;
+  // kernel modes K8 and K7
+  const float* rect; const float* tsph; const float* ttri;
+  const int* sph_map; const int* tri_map;  // table row -> scene id
+  int* winners;                            // [max_depth + 1, n] (K7)
+  int n_rects, n_tsph, n_ttri, n_spheres, n_triangles;
+  // kernel mode K9: the packed images uint8[I, img_h, img_w, 3]
+  const uint8_t* images;
+  int img_h, img_w;
+  // kernel mode K6: segment boxes, float32[n_segs, 8] (0: no segment level)
+  const float* sph_seg; const float* tri_seg;
+  int n_sph_segs, n_tri_segs;
+  int f2b;                    // K11: shells (0: table order)
+  // kernel mode K10
+  int step_lo, n_steps, n_stream, dump;
+  const float* state;         // optional [n, 4] thr rgb, alive
+  const int* ray_id;          // optional [n]
+  // kernel mode K12: float32[T_pad / SUPER_T, N_COEF, SUPER_T] coefficients
+  const float* tri_coef;
+};
+
+// jnp.minimum / jnp.maximum semantics: NaN in, NaN out (fminf would drop it)
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Negated slab test (megakernel.py:561-578): a ray with d_axis = 0 whose
+// origin lies on a box plane gives 0 * inf = NaN, and NaN keeps the box
+// reachable.
+__device__ __forceinline__ bool slab(const float* box, float ox, float oy,
+                                     float oz, float ix, float iy, float iz,
+                                     float best_t, float lo_cut) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(box));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(box + 4));
+  const float tx0 = (a.x - ox) * ix, tx1 = (a.w - ox) * ix;
+  const float ty0 = (a.y - oy) * iy, ty1 = (b.x - oy) * iy;
+  const float tz0 = (a.z - oz) * iz, tz1 = (b.y - oz) * iz;
+  const float near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
+                          nmin(tz0, tz1));
+  const float far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
+                         nmax(tz0, tz1));
+  return !((far < near) || (far < lo_cut) || (near >= best_t));
+}
+
+struct Ray { float ox, oy, oz, dx, dy, dz; };
+
+struct Hit {
+  float t;
+  int idx;
+  bool tri;
+};
+
+// the rect / TRS winner: cls 0 none, 1 rect, 2 TRS sphere, 3 TRS triangle
+struct XHit {
+  int cls;
+  int idx;
+};
+
+// box: chunk and super slab tests; seg: segment slab tests (K6); dist: the
+// top-level boxes the shells rank (K11), one distance and one shell index
+// each: the work the order needs (tri_shells recomputes the distance in
+// every pass, which is not counted)
+struct Counts {
+  unsigned long long box, sph, tri, rect, tsph, ttri, seg, dist;
+};
+constexpr int N_COUNTS = 8;
+
+// Sphere quadratic over one chunk (megakernel.py:620-652): half-b form,
+// strict disc > 0, each root times 1/a; nearest root inside (t_min, t_max).
+__device__ __forceinline__ void sphere_chunk(const Params& P, const Ray& r,
+                                             float a, float inv_a, int base,
+                                             Hit& h) {
+  for (int k = 0; k < PRIM_CHUNK; ++k) {
+    const float4 g = __ldg(reinterpret_cast<const float4*>(
+        P.sph + (size_t)(base + k) * SPH_COLS));
+    const float ocx = r.ox - g.x, ocy = r.oy - g.y, ocz = r.oz - g.z;
+    const float b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - g.w;
+    const float disc = b * b - a * c;
+    if (disc > 0.f) {
+      const float sq = sqrtf(disc);
+      const float t0 = (-b - sq) * inv_a;
+      const float t1 = (-b + sq) * inv_a;
+      const float t = (t0 < P.t_max && t0 > P.t_min) ? t0
+                    : ((t1 < P.t_max && t1 > P.t_min) ? t1 : BIG);
+      if (t < h.t) { h.t = t; h.idx = base + k; h.tri = false; }
+    }
+  }
+}
+
+// Moller-Trumbore of one triangle row (its first 12 floats r0-r2) with the
+// quirk gates (megakernel.py:828-877, triangle.h:61-94): whether it hits
+// inside the window, and its t.
+__device__ __forceinline__ bool tri_test(const Params& P, const Ray& r,
+                                         const float4 r0, const float4 r1,
+                                         const float4 r2, float& t) {
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  if (!(fabsf(a) >= TRI_EPSILON)) return false;
+  if ((P.flags & BACK_CULLING) && !(a >= TRI_EPSILON)) return false;
+  const float f = 1.f / a;
+  const float sx = r.ox - r0.x, sy = r.oy - r0.y, sz = r.oz - r0.z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  bool valid = (u >= 0.f) && (u <= 1.f) && (v >= 0.f) && (u + v <= 1.f);
+  if (P.flags & BACKFACE_ONLY)
+    valid = valid && (r.dx * r2.y + r.dy * r2.z + r.dz * r2.w) >= 0.f;
+  if (P.flags & NO_T_CLIP) return valid && (t < P.t_max);
+  return valid && (t > P.t_min) && (t < P.t_max);
+}
+
+// Row `row`'s hit at t takes h: nearer, or as near with a lower row.  A
+// lower row wins an exact tie: the table-order result for any visit order
+// of the boxes (K11).
+__device__ __forceinline__ void take_tri(float t, int row, Hit& h) {
+  if (t < h.t || (t == h.t && h.tri && row < h.idx)) {
+    h.t = t; h.idx = row; h.tri = true;
+  }
+}
+
+// Moller-Trumbore over one chunk, one ray.
+__device__ __forceinline__ void tri_chunk(const Params& P, const Ray& r,
+                                          int base, Hit& h) {
+  for (int k = 0; k < PRIM_CHUNK; ++k) {
+    const float* row = P.tri + (size_t)(base + k) * TRI_COLS;
+    const float4 r0 = __ldg(reinterpret_cast<const float4*>(row));
+    const float4 r1 = __ldg(reinterpret_cast<const float4*>(row + 4));
+    const float4 r2 = __ldg(reinterpret_cast<const float4*>(row + 8));
+    float t;
+    if (tri_test(P, r, r0, r1, r2, t)) take_tri(t, base + k, h);
+  }
+}
+
+// One sphere chunk: its box, then its 16 spheres.
+template <bool COUNT>
+__device__ __forceinline__ void sphere_box_chunk(const Params& P,
+                                                 const Ray& r, float ix,
+                                                 float iy, float iz, float a,
+                                                 float inv_a, int c, Hit& h,
+                                                 Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (slab(P.sph_box + (size_t)c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+           h.t, P.t_min)) {
+    if (COUNT) {
+      cnt.sph += PRIM_CHUNK;
+      P.touched[c] = 1;
+    }
+    sphere_chunk(P, r, a, inv_a, c * PRIM_CHUNK, h);
+  }
+}
+
+// One sphere super box, then its 16 chunks.
+template <bool COUNT>
+__device__ __forceinline__ void sphere_super(const Params& P, const Ray& r,
+                                             float ix, float iy, float iz,
+                                             float a, float inv_a, int s,
+                                             Hit& h, Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (!slab(P.sph_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+            iz, h.t, P.t_min))
+    return;
+  for (int j = 0; j < CHUNKS_PER_SUPER; ++j)
+    sphere_box_chunk<COUNT>(P, r, ix, iy, iz, a, inv_a,
+                            s * CHUNKS_PER_SUPER + j, h, cnt);
+}
+
+// One triangle super box, then its 16 chunk boxes and their triangles.
+template <bool COUNT>
+__device__ __forceinline__ void tri_super(const Params& P, const Ray& r,
+                                          float ix, float iy, float iz,
+                                          float lo_cut, int s, Hit& h,
+                                          Counts& cnt) {
+  if (COUNT) ++cnt.box;
+  if (!slab(P.tri_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+            iz, h.t, lo_cut))
+    return;
+  for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
+    const int c = s * CHUNKS_PER_SUPER + j;
+    if (COUNT) ++cnt.box;
+    if (slab(P.tri_box + (size_t)c * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+             h.t, lo_cut)) {
+      if (COUNT) {
+        cnt.tri += PRIM_CHUNK;
+        P.touched[P.n_sph_chunks + c] = 1;
+      }
+      tri_chunk(P, r, c * PRIM_CHUNK, h);
+    }
+  }
+}
+
+// Top-level triangle box j: a segment and its 8 supers (K6), or a super.
+template <bool COUNT>
+__device__ __forceinline__ void tri_top(const Params& P, const Ray& r,
+                                        float ix, float iy, float iz,
+                                        float lo_cut, int j, Hit& h,
+                                        Counts& cnt) {
+  if (P.n_tri_segs == 0) {
+    tri_super<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
+    return;
+  }
+  if (COUNT) ++cnt.seg;
+  if (!slab(P.tri_seg + (size_t)j * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+            h.t, lo_cut))
+    return;
+  for (int u = 0; u < SUPERS_PER_SEG; ++u)
+    tri_super<COUNT>(P, r, ix, iy, iz, lo_cut, j * SUPERS_PER_SEG + u, h,
+                     cnt);
+}
+
+// Squared distance from the point (mx, my, mz) to a box (megakernel.py
+// box_dist2: the point clipped into the box).
+__device__ __forceinline__ float box_dist2(const float* box, float mx,
+                                           float my, float mz) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(box));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(box + 4));
+  const float qx = fminf(fmaxf(mx, a.x), a.w) - mx;
+  const float qy = fminf(fmaxf(my, a.y), b.x) - my;
+  const float qz = fminf(fmaxf(mz, a.z), b.y) - mz;
+  return qx * qx + qy * qy + qz * qz;
+}
+
+// K11: the shell of a box, min(floor((d2 - dmin) * scale), B - 1); a NaN
+// distance lands in shell 0, so every box is visited once.
+__device__ __forceinline__ int shell_of(float d2, float dmin, float scale,
+                                        int shells) {
+  const float q = floorf((d2 - dmin) * scale);
+  return q >= 0.f ? (q < (float)(shells - 1) ? (int)q : shells - 1) : 0;
+}
+
+// K11: the triangles' top-level boxes in f2b distance shells, each box
+// visited once.
+template <bool COUNT>
+__device__ __forceinline__ void tri_shells(const Params& P, const Ray& r,
+                                           float ix, float iy, float iz,
+                                           float lo_cut, Hit& h,
+                                           Counts& cnt) {
+  const bool segs = P.n_tri_segs > 0;
+  const int n_top = segs ? P.n_tri_segs : P.n_tri_supers;
+  const float* top = segs ? P.tri_seg : P.tri_super;
+  float dmin = 3.4e38f, dmax = 0.f;
+  for (int j = 0; j < n_top; ++j) {
+    const float d2 = box_dist2(top + (size_t)j * BOX_COLS, r.ox, r.oy, r.oz);
+    dmin = fminf(dmin, d2);
+    dmax = fmaxf(dmax, d2);
+  }
+  const float scale = (float)P.f2b / fmaxf(dmax - dmin, 1e-30f);
+  if (COUNT) cnt.dist += (unsigned long long)n_top;
+  for (int s = 0; s < P.f2b; ++s) {
+    for (int j = 0; j < n_top; ++j) {
+      const float d2 = box_dist2(top + (size_t)j * BOX_COLS, r.ox, r.oy,
+                                 r.oz);
+      if (shell_of(d2, dmin, scale, P.f2b) == s)
+        tri_top<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
+    }
+  }
+}
+
+// K12: one triangle's bilinear forms on a ray's features ph = Phi[0:9]
+// (the constant feature 1 multiplies only t_num's last coefficient), its
+// coefficients c(k) summed term by term in feature order as the plain
+// version sums them (the products JAX's matmul adds beside these are 0 *
+// x); then f = 1 / a and the validity gates of megakernel.py:1032-1041.
+// Whether the triangle hits inside the window, and its t.
+template <class Coef>
+__device__ __forceinline__ bool mxu_test(const Params& P, Coef c,
+                                         const float ph[9], float& t) {
+  const float a = (c(C_A) * ph[0] + c(C_A + 1) * ph[1]) + c(C_A + 2) * ph[2];
+  if (!(fabsf(a) >= TRI_EPSILON)) return false;
+  if ((P.flags & BACK_CULLING) && !(a >= TRI_EPSILON)) return false;
+  const float tn = ((c(C_T) * ph[3] + c(C_T + 1) * ph[4])
+                    + c(C_T + 2) * ph[5]) + c(C_T + 3);
+  const float un = ((((c(C_U) * ph[0] + c(C_U + 1) * ph[1])
+                      + c(C_U + 2) * ph[2]) + c(C_U + 3) * ph[6])
+                    + c(C_U + 4) * ph[7]) + c(C_U + 5) * ph[8];
+  const float vn = ((((c(C_V) * ph[0] + c(C_V + 1) * ph[1])
+                      + c(C_V + 2) * ph[2]) + c(C_V + 3) * ph[6])
+                    + c(C_V + 4) * ph[7]) + c(C_V + 5) * ph[8];
+  const float f = 1.f / a;
+  const float uu = un * f, vv = vn * f;
+  t = tn * f;
+  bool valid = (uu >= 0.f) && (uu <= 1.f) && (vv >= 0.f) &&
+               (uu + vv <= 1.f);
+  if (P.flags & BACKFACE_ONLY)
+    valid = valid && ((c(C_DN) * ph[0] + c(C_DN + 1) * ph[1])
+                      + c(C_DN + 2) * ph[2]) >= 0.f;
+  if (P.flags & NO_T_CLIP) return valid && (t < P.t_max);
+  return valid && (t > P.t_min) && (t < P.t_max);
+}
+
+// A ray's features Phi[0:9] = [d | o | c = d x o].
+__device__ __forceinline__ void features(const Ray& r, float ph[9]) {
+  ph[0] = r.dx; ph[1] = r.dy; ph[2] = r.dz;
+  ph[3] = r.ox; ph[4] = r.oy; ph[5] = r.oz;
+  ph[6] = r.dy * r.oz - r.dz * r.oy;
+  ph[7] = r.dz * r.ox - r.dx * r.oz;
+  ph[8] = r.dx * r.oy - r.dy * r.ox;
+}
+
+// K12, one thread per ray (the counting instance that the cooperative
+// sweep is held against): the triangle segments and supers in table order,
+// each gated by its slab test against the running best_t, every triangle
+// of a reached super tested (megakernel.py:974-1114).  COUNT adds each
+// triangle of a reached super as one tri test and marks its chunks.
+template <bool COUNT>
+__device__ __forceinline__ void tri_sweep_mxu(const Params& P, const Ray& r,
+                                              float ix, float iy, float iz,
+                                              float lo_cut, Hit& h,
+                                              Counts& cnt) {
+  float ph[9];
+  features(r, ph);
+  for (int g = 0; g < P.n_tri_segs; ++g) {
+    if (COUNT) ++cnt.seg;
+    if (!slab(P.tri_seg + (size_t)g * BOX_COLS, r.ox, r.oy, r.oz, ix, iy, iz,
+              h.t, lo_cut))
+      continue;
+    for (int u = 0; u < SUPERS_PER_SEG; ++u) {
+      const int s = g * SUPERS_PER_SEG + u;
+      if (COUNT) ++cnt.box;
+      if (!slab(P.tri_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+                iz, h.t, lo_cut))
+        continue;
+      if (COUNT) {
+        cnt.tri += SUPER_T;
+        for (int j = 0; j < CHUNKS_PER_SUPER; ++j)
+          P.touched[P.n_sph_chunks + s * CHUNKS_PER_SUPER + j] = 1;
+      }
+      const float* blk = P.tri_coef + (size_t)s * N_COEF * SUPER_T;
+      for (int k = 0; k < SUPER_T; ++k) {
+        float t;
+        if (mxu_test(P, [&](int c) { return __ldg(blk + c * SUPER_T + k); },
+                     ph, t) && t < h.t) {
+          h.t = t; h.idx = s * SUPER_T + k; h.tri = true;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The cooperative sweeps (K6's triangle levels, K11's shells over them, K12)
+//
+// The warp walks the boxes in lockstep.  Each lane makes its own ray's
+// slab tests against its own running best_t, in table order; a ballot
+// gives the rays that reached a chunk (K6) or a super (K12), and the lanes
+// split that box's (ray, triangle) tests.  Each ray's least (t, row) over
+// the box comes back through a 64-bit shared-memory atomicMin on an
+// order-preserving key, and its own lane combines it with its running hit
+// by the per-thread rule, before the next box's slab test.  So the tests
+// made, their arithmetic and every decision are those of the per-thread
+// sweeps.  A lane whose ray is done (or past n) takes part with in = false.
+// ---------------------------------------------------------------------------
+
+// A warp's shared memory: each lane's ray features Phi[0:9] (K6 reads d
+// and o) and its ray's least hit key over the box in hand.
+struct CoopSlot {
+  float ph[9][32];
+  unsigned long long key[32];
+};
+
+__device__ __forceinline__ CoopSlot& coop_slot() {
+  __shared__ CoopSlot slots[WARPS];
+  return slots[threadIdx.x >> 5];
+}
+
+// The lane's ray into its slot, its key empty; every lane of the warp.
+__device__ __forceinline__ void coop_store(const Ray& r) {
+  CoopSlot& sl = coop_slot();
+  const int lane = threadIdx.x & 31;
+  float ph[9];
+  features(r, ph);
+  for (int k = 0; k < 9; ++k) sl.ph[k][lane] = ph[k];
+  sl.key[lane] = NO_KEY;
+  __syncwarp();
+}
+
+// An order-preserving key of a hit (t, row): the least t first, then the
+// lowest row (a strict < scan in row order); a zero t keeps its sign in bit
+// 0, so that key_t gives back t's bits.
+__device__ __forceinline__ unsigned long long hit_key(float t, int row) {
+  const uint32_t b = t == 0.f ? 0u : __float_as_uint(t);
+  const uint32_t ord = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  const uint32_t neg0 = t == 0.f ? __float_as_uint(t) >> 31 : 0u;
+  return ((unsigned long long)ord << 32) | ((uint32_t)row << 1) | neg0;
+}
+
+__device__ __forceinline__ float key_t(unsigned long long k) {
+  if (k & 1ull) return -0.f;
+  const uint32_t ord = (uint32_t)(k >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord);
+}
+
+__device__ __forceinline__ int key_row(unsigned long long k) {
+  return (int)((uint32_t)k >> 1);
+}
+
+// After the lanes' atomics: the lane's ray (if it reached the box) takes
+// its key's hit by K6's rule (take_tri) or K12's strict <, and empties the
+// key for the next box.
+template <bool STRICT>
+__device__ __forceinline__ void coop_take(bool in, Hit& h) {
+  CoopSlot& sl = coop_slot();
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  const unsigned long long k = sl.key[lane];
+  if (in && k != NO_KEY) {
+    const float t = key_t(k);
+    if (!STRICT) take_tri(t, key_row(k), h);
+    else if (t < h.t) { h.t = t; h.idx = key_row(k); h.tri = true; }
+    sl.key[lane] = NO_KEY;
+  }
+  __syncwarp();
+}
+
+// K6: one chunk's 16 triangles for the rays of `mask` (in: this lane's ray
+// is one).  Above COOP_LANE_RAYS rays each lane tests its own ray's 16 (a
+// coherent warp); else the lanes split the pairs, 16 triangles x 2 rays a
+// pass, lane l testing triangle l % 16.
+__device__ __forceinline__ void tri_chunk_coop(const Params& P, const Ray& r,
+                                               int base, unsigned mask,
+                                               bool in, Hit& h) {
+  if (__popc(mask) > COOP_LANE_RAYS) {
+    if (in) tri_chunk(P, r, base, h);
+    return;
+  }
+  CoopSlot& sl = coop_slot();
+  const int lane = threadIdx.x & 31;
+  const int row = base + (lane & (PRIM_CHUNK - 1));
+  const float* p = P.tri + (size_t)row * TRI_COLS;
+  const float4 r0 = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 r1 = __ldg(reinterpret_cast<const float4*>(p + 4));
+  const float4 r2 = __ldg(reinterpret_cast<const float4*>(p + 8));
+  for (unsigned m = mask; m;) {
+    const int lo = __ffs(m) - 1;
+    m &= m - 1;
+    const int hi = m ? __ffs(m) - 1 : -1;
+    if (m) m &= m - 1;
+    const int src = lane < PRIM_CHUNK ? lo : hi;
+    if (src < 0) continue;
+    const Ray q{sl.ph[3][src], sl.ph[4][src], sl.ph[5][src],
+                sl.ph[0][src], sl.ph[1][src], sl.ph[2][src]};
+    float t;
+    if (tri_test(P, q, r0, r1, r2, t))
+      atomicMin(&sl.key[src], hit_key(t, row));
+  }
+  coop_take<false>(in, h);
+}
+
+// K6: one triangle super box, then its 16 chunk boxes and their triangles,
+// for the warp (in: this lane's ray takes part).
+template <bool COUNT>
+__device__ __forceinline__ void tri_super_coop(const Params& P, const Ray& r,
+                                               float ix, float iy, float iz,
+                                               float lo_cut, int s, bool in,
+                                               Hit& h, Counts& cnt) {
+  if (COUNT && in) ++cnt.box;
+  in = in && slab(P.tri_super + (size_t)s * BOX_COLS, r.ox, r.oy, r.oz, ix,
+                  iy, iz, h.t, lo_cut);
+  if (!__any_sync(FULL, in)) return;
+  for (int j = 0; j < CHUNKS_PER_SUPER; ++j) {
+    const int c = s * CHUNKS_PER_SUPER + j;
+    if (COUNT && in) ++cnt.box;
+    const bool at = in && slab(P.tri_box + (size_t)c * BOX_COLS, r.ox, r.oy,
+                               r.oz, ix, iy, iz, h.t, lo_cut);
+    const unsigned mask = __ballot_sync(FULL, at);
+    if (!mask) continue;
+    if (COUNT && at) {
+      cnt.tri += PRIM_CHUNK;
+      P.touched[P.n_sph_chunks + c] = 1;
+    }
+    tri_chunk_coop(P, r, c * PRIM_CHUNK, mask, at, h);
+  }
+}
+
+// K6: triangle segment j and its 8 supers.
+template <bool COUNT>
+__device__ __forceinline__ void tri_seg_coop(const Params& P, const Ray& r,
+                                             float ix, float iy, float iz,
+                                             float lo_cut, int j, bool in,
+                                             Hit& h, Counts& cnt) {
+  if (COUNT && in) ++cnt.seg;
+  in = in && slab(P.tri_seg + (size_t)j * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+                  iz, h.t, lo_cut);
+  if (!__any_sync(FULL, in)) return;
+  for (int u = 0; u < SUPERS_PER_SEG; ++u)
+    tri_super_coop<COUNT>(P, r, ix, iy, iz, lo_cut, j * SUPERS_PER_SEG + u,
+                          in, h, cnt);
+}
+
+// K11 over the cooperative sweep: the warp walks every (shell, segment)
+// pair, and a lane enters segment j in the pass of its own ray's shell of
+// it.
+template <bool COUNT>
+__device__ __forceinline__ void tri_shells_coop(const Params& P, const Ray& r,
+                                                float ix, float iy, float iz,
+                                                float lo_cut, bool in, Hit& h,
+                                                Counts& cnt) {
+  const int n_top = P.n_tri_segs;
+  float dmin = 3.4e38f, dmax = 0.f;
+  if (in) {
+    for (int j = 0; j < n_top; ++j) {
+      const float d2 = box_dist2(P.tri_seg + (size_t)j * BOX_COLS, r.ox, r.oy,
+                                 r.oz);
+      dmin = fminf(dmin, d2);
+      dmax = fmaxf(dmax, d2);
+    }
+  }
+  const float scale = (float)P.f2b / fmaxf(dmax - dmin, 1e-30f);
+  if (COUNT && in) cnt.dist += (unsigned long long)n_top;
+  for (int s = 0; s < P.f2b; ++s) {
+    for (int j = 0; j < n_top; ++j) {
+      const bool visit =
+          in && shell_of(box_dist2(P.tri_seg + (size_t)j * BOX_COLS, r.ox,
+                                   r.oy, r.oz), dmin, scale, P.f2b) == s;
+      tri_seg_coop<COUNT>(P, r, ix, iy, iz, lo_cut, j, visit, h, cnt);
+    }
+  }
+}
+
+// K12 cooperative: the warp walks the segments and supers; for each super
+// some lane's ray reached, lane l loads the coefficients of triangle 32 b +
+// l (one coalesced load per plane and batch b of 32) and tests it against
+// every reached ray in turn, that ray's features read from its slot.
+template <bool COUNT>
+__device__ __forceinline__ void tri_sweep_mxu_coop(const Params& P,
+                                                   const Ray& r, float ix,
+                                                   float iy, float iz,
+                                                   float lo_cut, bool in,
+                                                   Hit& h, Counts& cnt) {
+  CoopSlot& sl = coop_slot();
+  const int lane = threadIdx.x & 31;
+  const bool dn = P.flags & BACKFACE_ONLY;
+  for (int g = 0; g < P.n_tri_segs; ++g) {
+    if (COUNT && in) ++cnt.seg;
+    const bool at_g = in && slab(P.tri_seg + (size_t)g * BOX_COLS, r.ox, r.oy,
+                                 r.oz, ix, iy, iz, h.t, lo_cut);
+    if (!__any_sync(FULL, at_g)) continue;
+    for (int u = 0; u < SUPERS_PER_SEG; ++u) {
+      const int s = g * SUPERS_PER_SEG + u;
+      if (COUNT && at_g) ++cnt.box;
+      const bool at = at_g && slab(P.tri_super + (size_t)s * BOX_COLS, r.ox,
+                                   r.oy, r.oz, ix, iy, iz, h.t, lo_cut);
+      const unsigned mask = __ballot_sync(FULL, at);
+      if (!mask) continue;
+      if (COUNT && at) {
+        cnt.tri += SUPER_T;
+        for (int j = 0; j < CHUNKS_PER_SUPER; ++j)
+          P.touched[P.n_sph_chunks + s * CHUNKS_PER_SUPER + j] = 1;
+      }
+      const float* blk = P.tri_coef + (size_t)s * N_COEF * SUPER_T + lane;
+      for (int b = 0; b < SUPER_T; b += 32) {
+        float c[C_DN + 3];
+#pragma unroll
+        for (int k = 0; k < C_DN + 3; ++k)
+          c[k] = (k < C_DN || dn) ? __ldg(blk + k * SUPER_T + b) : 0.f;
+        for (unsigned m = mask; m; m &= m - 1) {
+          const int src = __ffs(m) - 1;
+          float ph[9];
+          for (int k = 0; k < 9; ++k) ph[k] = sl.ph[k][src];
+          float t;
+          if (mxu_test(P, [&](int k) { return c[k]; }, ph, t))
+            atomicMin(&sl.key[src], hit_key(t, s * SUPER_T + b + lane));
+        }
+      }
+      coop_take<true>(at, h);
+    }
+  }
+}
+
+// Closest hit over the sphere chunks (one, two or three box levels) and the
+// triangle segments (K6), supers and chunks, the triangles' top level in
+// shells with SHELLS (K11, P.f2b > 0), or their bilinear sweep with MXU
+// (K12).  COOP: the triangles by the cooperative sweeps, which every lane
+// of the warp enters (in: this lane's ray takes part); the spheres stay one
+// thread per ray.  COUNT adds the tests made to cnt (a measurement-only
+// variant; the production launches carry none of it).
+template <bool COUNT, bool SHELLS, bool MXU, bool COOP>
+__device__ Hit closest_hit(const Params& P, const Ray& r, Counts& cnt,
+                           bool in) {
+  Hit h{BIG, -1, false};
+  const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
+  if (P.n_sph_chunks > 0 && (!COOP || in)) {
+    const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float inv_a = 1.f / a;
+    if (P.n_sph_segs > 0) {
+      for (int g = 0; g < P.n_sph_segs; ++g) {
+        if (COUNT) ++cnt.seg;
+        if (!slab(P.sph_seg + (size_t)g * BOX_COLS, r.ox, r.oy, r.oz, ix, iy,
+                  iz, h.t, P.t_min))
+          continue;
+        for (int u = 0; u < SUPERS_PER_SEG; ++u)
+          sphere_super<COUNT>(P, r, ix, iy, iz, a, inv_a,
+                              g * SUPERS_PER_SEG + u, h, cnt);
+      }
+    } else if (P.n_sph_supers == 0) {
+      for (int c = 0; c < P.n_sph_chunks; ++c)
+        sphere_box_chunk<COUNT>(P, r, ix, iy, iz, a, inv_a, c, h, cnt);
+    } else {
+      for (int s = 0; s < P.n_sph_supers; ++s)
+        sphere_super<COUNT>(P, r, ix, iy, iz, a, inv_a, s, h, cnt);
+    }
+  }
+  if (P.n_tri_supers > 0) {
+    const float lo_cut = (P.flags & NO_T_CLIP) ? -BIG : P.t_min;
+    if constexpr (COOP) {
+      coop_store(r);
+      if constexpr (MXU) {
+        tri_sweep_mxu_coop<COUNT>(P, r, ix, iy, iz, lo_cut, in, h, cnt);
+      } else if constexpr (SHELLS) {
+        tri_shells_coop<COUNT>(P, r, ix, iy, iz, lo_cut, in, h, cnt);
+      } else {
+        for (int j = 0; j < P.n_tri_segs; ++j)
+          tri_seg_coop<COUNT>(P, r, ix, iy, iz, lo_cut, j, in, h, cnt);
+      }
+    } else if constexpr (MXU) {
+      tri_sweep_mxu<COUNT>(P, r, ix, iy, iz, lo_cut, h, cnt);
+    } else if constexpr (SHELLS) {
+      tri_shells<COUNT>(P, r, ix, iy, iz, lo_cut, h, cnt);
+    } else {
+      const int n_top = P.n_tri_segs > 0 ? P.n_tri_segs : P.n_tri_supers;
+      for (int j = 0; j < n_top; ++j)
+        tri_top<COUNT>(P, r, ix, iy, iz, lo_cut, j, h, cnt);
+    }
+  }
+  return h;
+}
+
+// TransformRay (transform.h:11-14) through one rect / TRS row.
+__device__ __forceinline__ Ray trs_ray(const float* row, const Ray& r) {
+  float dsx = r.dx / __ldg(row + X_SCL);
+  float dsy = r.dy / __ldg(row + X_SCL + 1);
+  float dsz = r.dz / __ldg(row + X_SCL + 2);
+  const float inv_dl = 1.f / sqrtf(dsx * dsx + dsy * dsy + dsz * dsz);
+  dsx = dsx * inv_dl;
+  dsy = dsy * inv_dl;
+  dsz = dsz * inv_dl;
+  const float* m = row + X_ROT;
+  Ray x;
+  x.dx = __ldg(m) * dsx + __ldg(m + 1) * dsy + __ldg(m + 2) * dsz;
+  x.dy = __ldg(m + 3) * dsx + __ldg(m + 4) * dsy + __ldg(m + 5) * dsz;
+  x.dz = __ldg(m + 6) * dsx + __ldg(m + 7) * dsy + __ldg(m + 8) * dsz;
+  x.ox = __ldg(m) * r.ox + __ldg(m + 1) * r.oy + __ldg(m + 2) * r.oz
+         - __ldg(row + X_POS);
+  x.oy = __ldg(m + 3) * r.ox + __ldg(m + 4) * r.oy + __ldg(m + 5) * r.oz
+         - __ldg(row + X_POS + 1);
+  x.oz = __ldg(m + 6) * r.ox + __ldg(m + 7) * r.oy + __ldg(m + 8) * r.oz
+         - __ldg(row + X_POS + 2);
+  return x;
+}
+
+// rectangle.h:22-44 on the object-space ray: the unit rect on z = 0, the
+// window inclusive (megakernel.py:1196-1209).  Writes the native t.
+__device__ __forceinline__ bool rect_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn) {
+  tn = -x.oz / x.dz;
+  const float px = x.ox + tn * x.dx, py = x.oy + tn * x.dy;
+  const float facing = x.dz * __ldg(row + RECT_SGN);
+  return (facing <= 0.f) && (tn >= P.t_min) && (tn <= P.t_max) &&
+         (px >= -0.5f) && (px <= 0.5f) && (py >= -0.5f) && (py <= 0.5f);
+}
+
+// sphere.h:27-55 on the object-space ray (megakernel.py:1236-1258): the
+// near root in the native window, else the far one.
+__device__ __forceinline__ bool tsph_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn) {
+  const float b = x.ox * x.dx + x.oy * x.dy + x.oz * x.dz;
+  const float a = x.dx * x.dx + x.dy * x.dy + x.dz * x.dz;
+  const float c = x.ox * x.ox + x.oy * x.oy + x.oz * x.oz
+                  - __ldg(row + TSPH_R2);
+  const float disc = b * b - a * c;
+  const bool has = disc > 0.f;
+  const float sq = sqrtf(has ? disc : 0.f);
+  const float inv_a = 1.f / a;
+  const float t0 = (-b - sq) * inv_a;
+  const float t1 = (-b + sq) * inv_a;
+  const bool ok0 = has && (t0 < P.t_max) && (t0 > P.t_min);
+  const bool ok1 = has && (t1 < P.t_max) && (t1 > P.t_min);
+  tn = ok0 ? t0 : t1;
+  return ok0 || ok1;
+}
+
+// Moller-Trumbore on the object-space ray against object-space vertices,
+// the quirk gates on the transformed direction (megakernel.py:1284-1321).
+__device__ __forceinline__ bool ttri_test(const Params& P, const float* row,
+                                          const Ray& x, float& tn,
+                                          float* uv = nullptr) {
+  const float e1x = __ldg(row + TTRI_E1), e1y = __ldg(row + TTRI_E1 + 1),
+              e1z = __ldg(row + TTRI_E1 + 2);
+  const float e2x = __ldg(row + TTRI_E2), e2y = __ldg(row + TTRI_E2 + 1),
+              e2z = __ldg(row + TTRI_E2 + 2);
+  const float hx = x.dy * e2z - x.dz * e2y;
+  const float hy = x.dz * e2x - x.dx * e2z;
+  const float hz = x.dx * e2y - x.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.f / a;
+  const float sx = x.ox - __ldg(row + TTRI_V0);
+  const float sy = x.oy - __ldg(row + TTRI_V0 + 1);
+  const float sz = x.oz - __ldg(row + TTRI_V0 + 2);
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (x.dx * qx + x.dy * qy + x.dz * qz);
+  tn = f * (e2x * qx + e2y * qy + e2z * qz);
+  if (uv) { uv[0] = u; uv[1] = v; }
+  bool valid = (fabsf(a) >= TRI_EPSILON) && (u >= 0.f) && (u <= 1.f) &&
+               (v >= 0.f) && (u + v <= 1.f);
+  if (P.flags & BACK_CULLING) valid = valid && (a >= TRI_EPSILON);
+  if (P.flags & BACKFACE_ONLY)
+    valid = valid && (x.dx * __ldg(row + TTRI_NOBJ)
+                      + x.dy * __ldg(row + TTRI_NOBJ + 1)
+                      + x.dz * __ldg(row + TTRI_NOBJ + 2)) >= 0.f;
+  if (P.flags & NO_T_CLIP) valid = valid && (tn < P.t_max);
+  else valid = valid && (tn > P.t_min) && (tn < P.t_max);
+  return valid;
+}
+
+// The rect, TRS-sphere and TRS-triangle rows, in table order after the
+// sphere and triangle sweeps: t_native / |raw d| wins with a strict <.
+template <bool COUNT>
+__device__ void xform_hit(const Params& P, const Ray& r, float inv_raw,
+                          Hit& h, XHit& xh, Counts& cnt) {
+  float tn;
+  for (int k = 0; k < P.n_rects; ++k) {
+    const float* row = P.rect + (size_t)k * RECT_COLS;
+    if (rect_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{1, k}; }
+    }
+  }
+  for (int k = 0; k < P.n_tsph; ++k) {
+    const float* row = P.tsph + (size_t)k * TSPH_COLS;
+    if (tsph_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{2, k}; }
+    }
+  }
+  for (int k = 0; k < P.n_ttri; ++k) {
+    const float* row = P.ttri + (size_t)k * TTRI_COLS;
+    if (ttri_test(P, row, trs_ray(row, r), tn)) {
+      const float t = tn * inv_raw;
+      if (t < h.t) { h.t = t; xh = XHit{3, k}; }
+    }
+  }
+  if (COUNT) {
+    cnt.rect += P.n_rects;
+    cnt.tsph += P.n_tsph;
+    cnt.ttri += P.n_ttri;
+  }
+}
+
+// get_sphere_uv (texture.h:45-50) of a unit normal, as the plain version
+// computes it: theta = asin(z) clamped (the poles +-pi/2; a NaN z gives 0).
+__device__ __forceinline__ void sphere_uv(const float n[3], float uv[2]) {
+  const float z = n[2] > 1.f ? 1.f : (n[2] < -1.f ? -1.f : n[2]);
+  const float theta = fabsf(z) < 1.f ? asinf(z)
+                    : (z > 0.f ? HALF_PI : (z < 0.f ? -HALF_PI : 0.f));
+  const float phi = atan2f(n[2], n[0]);
+  uv[0] = 1.f - (phi + PI_F) * INV_TWO_PI;
+  uv[1] = (theta + HALF_PI) * INV_PI;
+}
+
+// The rect / TRS winner's record: object-space point, rotated normal,
+// material block (recomputed with the sweep's arithmetic); with TEX and an
+// image material its (u, v).
+template <bool TEX>
+__device__ void load_xwinner(const Params& P, const Ray& r, const XHit& xh,
+                             float p[3], float n[3], float m[9],
+                             float uv[2]) {
+  const float* row = xh.cls == 1 ? P.rect + (size_t)xh.idx * RECT_COLS
+                   : xh.cls == 2 ? P.tsph + (size_t)xh.idx * TSPH_COLS
+                                 : P.ttri + (size_t)xh.idx * TTRI_COLS;
+  const Ray x = trs_ray(row, r);
+  float tn;
+  if (xh.cls == 1) rect_test(P, row, x, tn);
+  else if (xh.cls == 2) tsph_test(P, row, x, tn);
+  else ttri_test(P, row, x, tn, TEX ? uv : nullptr);
+  p[0] = x.ox + tn * x.dx;
+  p[1] = x.oy + tn * x.dy;
+  p[2] = x.oz + tn * x.dz;
+  if (xh.cls == 2) {
+    const float inv_r = __ldg(row + TSPH_INVR);
+    const float nx = p[0] * inv_r, ny = p[1] * inv_r, nz = p[2] * inv_r;
+    const float* mr = row + X_ROT;
+    n[0] = __ldg(mr) * nx + __ldg(mr + 1) * ny + __ldg(mr + 2) * nz;
+    n[1] = __ldg(mr + 3) * nx + __ldg(mr + 4) * ny + __ldg(mr + 5) * nz;
+    n[2] = __ldg(mr + 6) * nx + __ldg(mr + 7) * ny + __ldg(mr + 8) * nz;
+  } else {
+    const int k0 = xh.cls == 1 ? RECT_NRM : TTRI_NW;
+    for (int k = 0; k < 3; ++k) n[k] = __ldg(row + k0 + k);
+  }
+  for (int k = 0; k < 9; ++k) m[k] = __ldg(row + X_MAT + k);
+  if constexpr (TEX) {
+    if (m[1] == TEX_IMAGE) {
+      if (xh.cls == 1) {
+        uv[0] = p[0] + 0.5f;
+        uv[1] = p[1] + 0.5f;
+      } else if (xh.cls == 2) {
+        sphere_uv(n, uv);
+      }
+    }
+  }
+}
+
+// Moller-Trumbore (u, v) of a triangle winner, recomputed from its row with
+// tri_chunk's arithmetic.
+__device__ __forceinline__ void tri_uv(const Params& P, int idx, const Ray& r,
+                                       float uv[2]) {
+  const float* row = P.tri + (size_t)idx * TRI_COLS;
+  const float4 r0 = __ldg(reinterpret_cast<const float4*>(row));
+  const float4 r1 = __ldg(reinterpret_cast<const float4*>(row + 4));
+  const float4 r2 = __ldg(reinterpret_cast<const float4*>(row + 8));
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.f / a;
+  const float sx = r.ox - r0.x, sy = r.oy - r0.y, sz = r.oz - r0.z;
+  uv[0] = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  uv[1] = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+}
+
+// The winner's id in the scene's prim id space [spheres | triangles |
+// rects | t_spheres | t_triangles] (megakernel.py:2778).
+__device__ __forceinline__ int scene_id(const Params& P, const Hit& h,
+                                        const XHit& xh) {
+  const int base = P.n_spheres + P.n_triangles;
+  if (xh.cls == 1) return base + xh.idx;
+  if (xh.cls == 2) return base + P.n_rects + xh.idx;
+  if (xh.cls == 3) return base + P.n_rects + P.n_tsph + xh.idx;
+  return h.tri ? P.n_spheres + __ldg(P.tri_map + h.idx)
+               : __ldg(P.sph_map + h.idx);
+}
+
+// The winner's normal and material block, loaded after the sweep.  Sphere
+// normal (p - c) * (1 / r) with the stored 1/r keeps hollow (negative
+// radius) spheres right; triangles use the stored face normal.
+__device__ __forceinline__ void load_winner(const Params& P, const Hit& h,
+                                            float px, float py, float pz,
+                                            float n[3], float m[9]) {
+  if (h.tri) {
+    const float* row = P.tri + (size_t)h.idx * TRI_COLS;
+    n[0] = __ldg(row + T_N); n[1] = __ldg(row + T_N + 1);
+    n[2] = __ldg(row + T_N + 2);
+    for (int k = 0; k < 9; ++k) m[k] = __ldg(row + T_MAT + k);
+  } else {
+    const float* row = P.sph + (size_t)h.idx * SPH_COLS;
+    const float inv_r = __ldg(row + S_INVR);
+    n[0] = (px - __ldg(row)) * inv_r;
+    n[1] = (py - __ldg(row + 1)) * inv_r;
+    n[2] = (pz - __ldg(row + 2)) * inv_r;
+    for (int k = 0; k < 9; ++k) m[k] = __ldg(row + S_MAT + k);
+  }
+}
+
+// Texture select + attenuation / emission rules (megakernel.py:533-556).
+// Material block: kind, tex kind, aux (fuzz | ref_idx), color0, color1;
+// metal's albedo is folded into color0.
+__device__ __forceinline__ void mat_decode(const float m[9], float px,
+                                           float py, float pz, float att[3],
+                                           float em[3]) {
+  const float sines = sinf(10.f * px) * sinf(10.f * py) * sinf(10.f * pz);
+  const bool odd = (m[1] == TEX_CHECKER) && (sines < 0.f);
+  const bool is_met = m[0] == K_METAL, is_die = m[0] == K_DIELECTRIC;
+  const bool is_light = m[0] == K_LIGHT;
+  for (int k = 0; k < 3; ++k) {
+    const float tex = odd ? m[6 + k] : m[3 + k];
+    att[k] = is_die ? 1.f : (is_met ? m[3 + k] : tex);
+    em[k] = is_light ? tex : 0.f;
+  }
+}
+
+// The nearest texel of an image material's block at (u, v)
+// (texture.h:65-76).  fmaxf drops a NaN, so a NaN coordinate lands on 0.
+__device__ __forceinline__ void texel(const Params& P, const float m[9],
+                                      float u, float v, float out[3]) {
+  const float w = m[M_W], h = m[M_H];
+  const int i = (int)fminf(fmaxf(u * w, 0.f), w - 1.f);
+  const int j = (int)fminf(fmaxf((1.f - v) * h - 0.001f, 0.f), h - 1.f);
+  const uint8_t* px =
+      P.images + (((size_t)(int)m[M_IMG] * P.img_h + j) * P.img_w + i) * 3;
+  for (int k = 0; k < 3; ++k)
+    out[k] = __fdiv_rn((float)__ldg(px + k), 255.f);
+}
+
+// mat_decode with image textures (K9).  The path integrator never uses a
+// light's attenuation, so it fetches only the texel each term needs.
+template <int INTEG>
+__device__ __forceinline__ void mat_decode_tex(const Params& P,
+                                               const float m[9],
+                                               const float p[3],
+                                               const float uv[2],
+                                               float att[3], float em[3]) {
+  const bool lam = m[0] == K_LAMBERTIAN, light = m[0] == K_LIGHT;
+  if (m[1] != TEX_IMAGE || !(lam || light)) {
+    mat_decode(m, p[0], p[1], p[2], att, em);
+    return;
+  }
+  const bool zero_uv = P.flags & LAMBERT_ZERO_UV;
+  float real[3] = {0.f, 0.f, 0.f};
+  if (light || !zero_uv) texel(P, m, uv[0], uv[1], real);
+  if (lam || INTEG == LAMBERT) {
+    if (zero_uv) texel(P, m, 0.f, 0.f, att);
+    else for (int k = 0; k < 3; ++k) att[k] = real[k];
+  } else {
+    for (int k = 0; k < 3; ++k) att[k] = 0.f;   // a light ends the path
+  }
+  for (int k = 0; k < 3; ++k) em[k] = light ? real[k] : 0.f;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11).
+__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float u24(uint32_t bits) {
+  return (float)(bits >> 8) * (1.f / 16777216.f);
+}
+
+// Draws for (seed, ray index, bounce): six uniforms -> unit-ball sample
+// (Box-Muller direction x cube-root radius, megakernel.py:1371-1385) and
+// one uniform.  Counter-based, so independent of the launch shape.
+__device__ __forceinline__ float4 draw(unsigned long long seed,
+                                       uint32_t index, uint32_t step) {
+  const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  const uint4 a = philox(make_uint4(index, step, 0u, 0u), k0, k1);
+  const uint4 b = philox(make_uint4(index, step, 1u, 0u), k0, k1);
+  const float r1 = sqrtf(-2.f * logf(fmaxf(u24(a.x), 1e-12f)));
+  const float ang1 = TWO_PI * u24(a.y);
+  const float g0 = r1 * cosf(ang1);
+  const float g1 = r1 * sinf(ang1);
+  const float r2 = sqrtf(-2.f * logf(fmaxf(u24(a.z), 1e-12f)));
+  const float g2 = r2 * cosf(TWO_PI * u24(a.w));
+  const float inv_norm =
+      1.f / fmaxf(sqrtf(g0 * g0 + g1 * g1 + g2 * g2), 1e-12f);
+  const float rad = expf(logf(fmaxf(u24(b.x), 1e-30f)) * (1.f / 3.f));
+  const float s = inv_norm * rad;
+  return make_float4(g0 * s, g1 * s, g2 * s, u24(b.y));
+}
+
+// render.h:41-46 on the current direction.
+__device__ __forceinline__ void sky(float dy, float inv_dlen, float out[3]) {
+  const float t = 0.5f * (dy * inv_dlen + 1.f);
+  out[0] = (1.f - t) + t * 0.5f;
+  out[1] = (1.f - t) + t * 0.7f;
+  out[2] = (1.f - t) + t * 1.0f;
+}
+
+__device__ __forceinline__ void add_counts(const Params& P, Counts c) {
+  unsigned long long v[N_COUNTS] = {c.box, c.sph, c.tri, c.rect,
+                                    c.tsph, c.ttri, c.seg, c.dist};
+  for (int k = 0; k < N_COUNTS; ++k) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    if ((threadIdx.x & 31) == 0) atomicAdd(P.counts + k, v[k]);
+  }
+}
+
+// One bounce's scatter (megakernel.py:1464-1531).  Returns whether the
+// material scatters; writes the new direction.
+__device__ __forceinline__ bool scatter(const Params& P, const Ray& r,
+                                        const float n[3], const float m[9],
+                                        float inv_dlen, float4 s,
+                                        float out[3]) {
+  const float kind = m[0], aux = m[2];
+  if (kind == K_LIGHT) return false;
+  if (kind == K_METAL) {       // material.h:81-92
+    const float ux = r.dx * inv_dlen, uy = r.dy * inv_dlen,
+                uz = r.dz * inv_dlen;
+    const float ud_n = ux * n[0] + uy * n[1] + uz * n[2];
+    out[0] = (ux - 2.f * ud_n * n[0]) + aux * s.x;
+    out[1] = (uy - 2.f * ud_n * n[1]) + aux * s.y;
+    out[2] = (uz - 2.f * ud_n * n[2]) + aux * s.z;
+    return (out[0] * n[0] + out[1] * n[1] + out[2] * n[2]) > 0.f;
+  }
+  if (kind == K_DIELECTRIC) {  // material.h:104-141
+    const float d_n = r.dx * n[0] + r.dy * n[1] + r.dz * n[2];
+    const bool exiting = d_n > 0.f;
+    const float sgn = exiting ? -1.f : 1.f;
+    const float onx = sgn * n[0], ony = sgn * n[1], onz = sgn * n[2];
+    const float ni = exiting ? aux : 1.f / aux;
+    const float cos_plain = (exiting ? d_n : -d_n) * inv_dlen;
+    float cosine = cos_plain;
+    if ((P.flags & DIE_REF_COSINE) && exiting) {
+      const float qv = 1.f - aux * aux * (1.f - cos_plain * cos_plain);
+      cosine = qv > 0.f ? sqrtf(fmaxf(qv, 0.f)) : 0.f;
+    }
+    const float ux = r.dx * inv_dlen, uy = r.dy * inv_dlen,
+                uz = r.dz * inv_dlen;
+    const float dtv = ux * onx + uy * ony + uz * onz;
+    const float disc = 1.f - ni * ni * (1.f - dtv * dtv);
+    const float sq = sqrtf(fmaxf(disc, 0.f));
+    const float one_c = fmaxf(1.f - cosine, 0.f);
+    float r0 = (1.f - aux) / (1.f + aux);
+    r0 = r0 * r0;
+    float c5 = one_c * one_c;
+    c5 = c5 * c5 * one_c;
+    const float refl_p = disc > 0.f ? r0 + (1.f - r0) * c5 : 1.f;
+    if (s.w < refl_p) {        // reflect on the UNNORMALIZED direction
+      out[0] = r.dx - 2.f * d_n * n[0];
+      out[1] = r.dy - 2.f * d_n * n[1];
+      out[2] = r.dz - 2.f * d_n * n[2];
+    } else {                   // refract the unit direction
+      out[0] = ni * (ux - onx * dtv) - onx * sq;
+      out[1] = ni * (uy - ony * dtv) - ony * sq;
+      out[2] = ni * (uz - onz * dtv) - onz * sq;
+    }
+    return true;
+  }
+  out[0] = n[0] + s.x;         // lambertian, material.h:60-68
+  out[1] = n[1] + s.y;
+  out[2] = n[2] + s.z;
+  return true;
+}
+
+// The closest hit and the winner's point, normal and material.  K1's form
+// (XFORM false) is the code of the main path; XFORM adds K8.
+template <bool COUNT, bool XFORM, bool SHELLS, bool MXU, bool COOP>
+__device__ __forceinline__ Hit trace_hit(const Params& P, const Ray& r,
+                                         float inv_dlen, XHit& xh,
+                                         Counts& cnt, bool in) {
+  Hit h = closest_hit<COUNT, SHELLS, MXU, COOP>(P, r, cnt, in);
+  if constexpr (XFORM) {
+    xh = XHit{0, 0};
+    if (!COOP || in) xform_hit<COUNT>(P, r, inv_dlen, h, xh, cnt);
+  }
+  return h;
+}
+
+// The winner's point, normal and material block; with TEX and an image
+// material also its (u, v).
+template <bool XFORM, bool TEX>
+__device__ __forceinline__ void surface(const Params& P, const Ray& r,
+                                        const Hit& h, const XHit& xh,
+                                        float p[3], float n[3], float m[9],
+                                        float uv[2]) {
+  if constexpr (XFORM) {
+    if (xh.cls) {
+      load_xwinner<TEX>(P, r, xh, p, n, m, uv);
+      return;
+    }
+  }
+  p[0] = r.ox + h.t * r.dx;
+  p[1] = r.oy + h.t * r.dy;
+  p[2] = r.oz + h.t * r.dz;
+  load_winner(P, h, p[0], p[1], p[2], n, m);
+  if constexpr (TEX) {
+    if (m[1] == TEX_IMAGE) {
+      if (h.tri) tri_uv(P, h.idx, r, uv);
+      else sphere_uv(n, uv);
+    }
+  }
+}
+
+// The winner's attenuation and emission.
+template <int INTEG, bool TEX>
+__device__ __forceinline__ void decode(const Params& P, const float m[9],
+                                       const float p[3], const float uv[2],
+                                       float att[3], float em[3]) {
+  if constexpr (TEX) mat_decode_tex<INTEG>(P, m, p, uv, att, em);
+  else mat_decode(m, p[0], p[1], p[2], att, em);
+}
+
+
+// One bounce of the path integrator after its closest hit h (render.h:
+// 48-67: emitted + attenuation * recursion, ambient on absorb, sky on
+// miss): the sky or the winner's emission into res, the winner's id (K7),
+// and the scattered ray into r, its attenuation into thr.
+enum BounceEnd { MISSED = 0, ENDED = 1, GOES_ON = 2 };
+template <int INTEG, bool XFORM, bool WINNERS, bool TEX>
+__device__ __forceinline__ int bounce(const Params& P, Ray& r, const Hit& h,
+                                      const XHit& xh, float inv_dlen,
+                                      float thr[3], float res[3], int step,
+                                      uint32_t rid, int i) {
+  if (!(h.t < BIG_CUT)) {
+    float s[3];
+    sky(r.dy, inv_dlen, s);
+    for (int k = 0; k < 3; ++k) res[k] += thr[k] * s[k];
+    return MISSED;
+  }
+  float p[3], n[3], m[9], att[3], em[3], dir[3], uv[2];
+  surface<XFORM, TEX>(P, r, h, xh, p, n, m, uv);
+  if constexpr (WINNERS)
+    P.winners[(size_t)step * P.n + i] = scene_id(P, h, xh);
+  decode<INTEG, TEX>(P, m, p, uv, att, em);
+  bool cont = false;
+  if (step < P.max_depth && m[0] != K_LIGHT) {   // render.h:57
+    const float4 s = (P.flags & INJECTED)
+        ? __ldg(reinterpret_cast<const float4*>(
+              P.stream + ((size_t)step * P.n_stream + rid) * 4))
+        : draw(P.seed, rid, (uint32_t)step);
+    cont = scatter(P, r, n, m, inv_dlen, s, dir);
+  }
+  const float amb = cont ? 0.f : P.ambient;
+  for (int k = 0; k < 3; ++k) res[k] += thr[k] * (em[k] + amb);
+  if (!cont) return ENDED;
+  for (int k = 0; k < 3; ++k) thr[k] *= att[k];
+  r = Ray{p[0], p[1], p[2], dir[0], dir[1], dir[2]};
+  return GOES_ON;
+}
+
+// COOP: the cooperative sweeps (K6, K11, K12), for which all 32 lanes of a
+// warp run the bounce loop together until the warp's last path ends, the
+// lanes whose path ended (or that lie past n) taking part with no ray.
+template <int INTEG, bool COUNT, bool XFORM, bool WINNERS, bool TEX,
+          bool SHELLS, bool MXU, bool COOP>
+__global__ void __launch_bounds__(BLOCK) mega_kernel(Params P) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  Counts cnt{0, 0, 0, 0, 0, 0, 0, 0};
+  const bool in = i < P.n;
+  if (COOP || in) {
+    Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (in)
+      r = Ray{P.o[3 * (size_t)i], P.o[3 * (size_t)i + 1],
+              P.o[3 * (size_t)i + 2], P.d[3 * (size_t)i],
+              P.d[3 * (size_t)i + 1], P.d[3 * (size_t)i + 2]};
+    float res[3];
+    XHit xh{0, 0};
+    if (INTEG == PATH) {
+      // Step i is recursion depth max_depth - i.  The window (K10) runs
+      // global steps [step_lo, step_lo + n_steps).
+      float thr[3] = {1.f, 1.f, 1.f};
+      bool alive = in;
+      if (P.state && in) {
+        const float4 st = __ldg(reinterpret_cast<const float4*>(P.state) + i);
+        thr[0] = st.x;
+        thr[1] = st.y;
+        thr[2] = st.z;
+        alive = st.w > 0.f;
+      }
+      const uint32_t rid = !in ? 0u
+                         : P.ray_id ? (uint32_t)__ldg(P.ray_id + i)
+                                    : (uint32_t)i;
+      res[0] = res[1] = res[2] = 0.f;
+      const int step_hi = P.step_lo + P.n_steps;
+      int step = P.step_lo;
+      if constexpr (COOP) {
+        for (;;) {
+          const bool act = alive && step < step_hi;
+          if (!__any_sync(FULL, act)) break;
+          const float inv_dlen =
+              1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+          const Hit h = trace_hit<COUNT, XFORM, SHELLS, MXU, COOP>(
+              P, r, inv_dlen, xh, cnt, act);
+          if (!act) continue;
+          const int e = bounce<INTEG, XFORM, WINNERS, TEX>(
+              P, r, h, xh, inv_dlen, thr, res, step, rid, i);
+          if (e == GOES_ON) {
+            ++step;
+          } else {
+            step += e;
+            alive = false;
+          }
+        }
+      } else {
+        for (; alive && step < step_hi; ++step) {
+          const float inv_dlen =
+              1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+          const Hit h = trace_hit<COUNT, XFORM, SHELLS, MXU, COOP>(
+              P, r, inv_dlen, xh, cnt, true);
+          const int e = bounce<INTEG, XFORM, WINNERS, TEX>(
+              P, r, h, xh, inv_dlen, thr, res, step, rid, i);
+          if (e != GOES_ON) {
+            step += e;        // a miss leaves step at the miss
+            alive = false;
+            break;
+          }
+        }
+      }
+      if constexpr (WINNERS) {
+        // the miss (step left where it broke) and every bounce after the end
+        if (in)
+          for (; step <= P.max_depth; ++step)
+            P.winners[(size_t)step * P.n + i] = -1;
+      }
+      if (P.dump && in) {               // [rad | o | d | thr | alive]
+        float* q = P.out + (size_t)i * DUMP_COLS;
+        const float v[DUMP_COLS] = {res[0], res[1], res[2], r.ox, r.oy, r.oz,
+                                    r.dx, r.dy, r.dz, thr[0], thr[1], thr[2],
+                                    alive ? 1.f : 0.f};
+        for (int k = 0; k < DUMP_COLS; ++k) q[k] = v[k];
+      }
+    } else {
+      // LambertShade (render.h:70-87) and shade_normal (render.h:90-103):
+      // one intersection.
+      const float inv_dlen =
+          1.f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+      const Hit h = trace_hit<COUNT, XFORM, SHELLS, MXU, COOP>(
+          P, r, inv_dlen, xh, cnt, in);
+      const bool hit = h.t < BIG_CUT;
+      float s[3];
+      sky(r.dy, inv_dlen, s);
+      if (!hit) {
+        res[0] = s[0]; res[1] = s[1]; res[2] = s[2];
+      } else {
+        float p[3], n[3], m[9], uv[2];
+        surface<XFORM, TEX>(P, r, h, xh, p, n, m, uv);
+        if (INTEG == NORMAL) {
+          res[0] = n[0]; res[1] = n[1]; res[2] = n[2];
+        } else {
+          float att[3], em[3];
+          decode<INTEG, TEX>(P, m, p, uv, att, em);
+          const float scale = (P.flags & LAMBERT_UNNORM) ? 1.f : inv_dlen;
+          const float tq =
+              fmaxf((r.dx * n[0] + r.dy * n[1] + r.dz * n[2]) * scale, 0.f);
+          for (int k = 0; k < 3; ++k)
+            res[k] = att[k] * tq * s[k] * 0.2f + em[k];
+        }
+      }
+    }
+    if (!P.dump && in) {
+      P.out[3 * (size_t)i] = res[0];
+      P.out[3 * (size_t)i + 1] = res[1];
+      P.out[3 * (size_t)i + 2] = res[2];
+    }
+  }
+  if (COUNT) add_counts(P, cnt);
+}
+
+// The production instances: TEX when the caller passes the images (K9; the
+// normal integrator reads no texture and has no TEX instance), WINNERS when
+// it asks for winners (K7, path only).
+template <int INTEG, bool XFORM, bool TEX, bool SHELLS, bool COOP>
+void launch_production(const Params& P, cudaStream_t s, dim3 grid) {
+  if constexpr (INTEG == PATH) {
+    if (P.winners)
+      mega_kernel<PATH, false, XFORM, true, TEX, SHELLS, false, COOP>
+          <<<grid, BLOCK, 0, s>>>(P);
+    else
+      mega_kernel<PATH, false, XFORM, false, TEX, SHELLS, false, COOP>
+          <<<grid, BLOCK, 0, s>>>(P);
+  } else {
+    mega_kernel<INTEG, false, XFORM, false, TEX, SHELLS, false, COOP>
+        <<<grid, BLOCK, 0, s>>>(P);
+  }
+}
+
+template <int INTEG, bool XFORM, bool SHELLS, bool COOP>
+void launch_mega(const Params& P, cudaStream_t s) {
+  const dim3 grid((P.n + BLOCK - 1) / BLOCK);
+  if (P.counts) {
+    mega_kernel<INTEG, true, XFORM, false, false, SHELLS, false, COOP>
+        <<<grid, BLOCK, 0, s>>>(P);
+  } else if constexpr (INTEG != NORMAL) {
+    if (P.images)
+      launch_production<INTEG, XFORM, true, SHELLS, COOP>(P, s, grid);
+    else
+      launch_production<INTEG, XFORM, false, SHELLS, COOP>(P, s, grid);
+  } else {
+    launch_production<INTEG, XFORM, false, SHELLS, COOP>(P, s, grid);
+  }
+}
+
+// A family of instances: K8 and K11 pick the instance, so that the rect /
+// TRS rows and the shell passes stay out of the main path's (K1) code.
+// COOP: the cooperative family (the path integrator above 8,192 triangles);
+// without it the triangle levels run one thread per ray (K1, K6 for the
+// camera rays of the lambert and normal integrators, and the per-thread
+// sweep that the cooperative one is held against).
+template <int INTEG, bool COOP>
+void launch_family(const Params& P, cudaStream_t s) {
+  const bool xform = P.n_rects + P.n_tsph + P.n_ttri > 0;
+  if (P.f2b > 0) {
+    if (xform) launch_mega<INTEG, true, true, COOP>(P, s);
+    else launch_mega<INTEG, false, true, COOP>(P, s);
+  } else {
+    if (xform) launch_mega<INTEG, true, false, COOP>(P, s);
+    else launch_mega<INTEG, false, false, COOP>(P, s);
+  }
+}
+
+// K12's instances: no winners, texels or shells; the cooperative sweep,
+// and for counting also the one-thread-per-ray sweep (per_thread) that it
+// is held against.
+template <int INTEG, bool XFORM>
+void launch_mxu_x(const Params& P, cudaStream_t s, bool per_thread) {
+  const dim3 grid((P.n + BLOCK - 1) / BLOCK);
+  if (P.counts && per_thread)
+    mega_kernel<INTEG, true, XFORM, false, false, false, true, false>
+        <<<grid, BLOCK, 0, s>>>(P);
+  else if (P.counts)
+    mega_kernel<INTEG, true, XFORM, false, false, false, true, true>
+        <<<grid, BLOCK, 0, s>>>(P);
+  else
+    mega_kernel<INTEG, false, XFORM, false, false, false, true, true>
+        <<<grid, BLOCK, 0, s>>>(P);
+}
+
+template <int INTEG>
+void launch_mxu(const Params& P, cudaStream_t s, bool per_thread) {
+  if (P.n_rects + P.n_tsph + P.n_ttri > 0)
+    launch_mxu_x<INTEG, true>(P, s, per_thread);
+  else
+    launch_mxu_x<INTEG, false>(P, s, per_thread);
+}
+
+// The cooperative and K12 instances are compiled in translation units of
+// their own (megakernel_coop.cu, megakernel_mxu.cu), in parallel with
+// megakernel.cu's (ops/_cuda.py).
+extern template void launch_family<PATH, true>(const Params&, cudaStream_t);
+extern template void launch_mxu<PATH>(const Params&, cudaStream_t, bool);
+extern template void launch_mxu<LAMBERT>(const Params&, cudaStream_t, bool);
+extern template void launch_mxu<NORMAL>(const Params&, cudaStream_t, bool);
+
+}  // namespace crt

@@ -337,14 +337,13 @@ def big1m_scene(aspect: float, device=None):
     return field_scene(12, 17, aspect, device)
 
 
-def fill_terrain(b, n: int = 72):
-    """A 2 n^2-triangle height field facing down (visible under the
-    backface quirk) and a metal sphere above it."""
+def _terrain_triangles(n: int):
+    """(float32[2 n^2, 3, 3] vertices, their unit normals facing down) of
+    the terrain's height field."""
     xs = np.linspace(-5, 5, n + 1)
     zs = np.linspace(-10, 0, n + 1)
     X, Z = np.meshgrid(xs, zs)
     Y = 0.3 * np.sin(X * 1.3) * np.cos(Z * 1.1)
-    mat = b.materials.lambertian(color=(0.7, 0.5, 0.3))
     P = np.stack([X, Y, Z], axis=-1).astype(np.float32)
     v0 = P[:-1, :-1].reshape(-1, 3)
     v1 = P[:-1, 1:].reshape(-1, 3)
@@ -355,10 +354,69 @@ def fill_terrain(b, n: int = 72):
     nrm = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
     nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
     nrm[nrm[:, 1] > 0] *= -1.0
+    return tris, nrm
+
+
+def fill_terrain(b, n: int = 72):
+    """A 2 n^2-triangle height field facing down (visible under the
+    backface quirk) and a metal sphere above it."""
+    mat = b.materials.lambertian(color=(0.7, 0.5, 0.3))
+    tris, nrm = _terrain_triangles(n)
     for t, nn in zip(tris, nrm):
         b.add_triangle(t[0], t[1], t[2], mat, normal=nn)
     b.add_sphere((0, 2.0, -5), 0.8, b.materials.metal((0.9, 0.9, 0.9), 0.1))
     return b
+
+
+# The tied terrain: every TIE_EVERY-th terrain triangle has an exact copy
+# in another colour, after the terrain's triangles in the scene.
+TIE_EVERY = 5
+
+
+def fill_tied_terrain(b, n: int = 72):
+    """``fill_terrain`` plus an exact copy of every TIE_EVERY-th triangle
+    in a blue lambertian: a ray that reaches either meets an exact tie,
+    which the original (the lower scene id and, in ``tied_terrain_order``,
+    the lower table row) must win, so the copies change no pixel."""
+    fill_terrain(b, n)
+    blue = b.materials.lambertian(color=(0.1, 0.3, 0.9))
+    tris, nrm = _terrain_triangles(n)
+    for t, nn in zip(tris[::TIE_EVERY], nrm[::TIE_EVERY]):
+        b.add_triangle(t[0], t[1], t[2], blue, normal=nn)
+    return b
+
+
+def tied_terrain_order(n: int = 72) -> np.ndarray:
+    """A triangle order of ``fill_tied_terrain`` that puts each copy after
+    its original: the Morton order (the copy right behind its original, in
+    one chunk and one 32-triangle batch as a rule), then, by the copy's
+    index mod 4, kept there, or moved 16 rows on (another chunk of the same
+    batch where the original lies in a batch's first half), 300 rows on
+    (another super) or 2,100 rows on (another segment), onto the next row
+    that holds no tied triangle."""
+    from ..ops.megakernel import morton_order
+    tris, _ = _terrain_triangles(n)
+    t = np.concatenate([tris, tris[::TIE_EVERY]])
+    order = morton_order(t[:, 0], t[:, 1], t[:, 2])
+    n_base = len(tris)
+    row = np.empty(len(t), np.int64)
+    row[order] = np.arange(len(t))
+    copies = np.arange(n_base, len(t))
+    originals = (copies - n_base) * TIE_EVERY
+    tied = np.zeros(len(t), bool)
+    tied[row[copies]] = tied[row[originals]] = True
+    for j, (c, o) in enumerate(zip(copies, originals)):
+        offset = (0, 16, 300, 2100)[j % 4]
+        q = row[o] + offset
+        while offset and q < len(t) and tied[q]:
+            q += 1
+        if not offset or q >= len(t):
+            continue
+        tied[row[c]], tied[q] = False, True
+        other = order[q]
+        order[row[c]], order[q] = other, c
+        row[other], row[c] = row[c], q
+    return order.astype(np.int32)
 
 
 def terrain_rays(n: int, seed: int = 0):

@@ -28,8 +28,15 @@ kernel's modes ported so far:
     visited front to back in distance shells;
   * K12: ``cfg.mega_mxu`` on streamed triangle tables, the triangle sweep
     as bilinear forms of 10 per-ray features Phi = [d, o, d x o, 1],
-    evaluated from the coefficient rows ``tri_coef`` one 256-triangle super
-    at a time (``_use_mxu`` routes it as JAX's ``_mega_call`` does).
+    evaluated from the coefficients ``tri_coef`` one 256-triangle super at
+    a time (``_use_mxu`` routes it as JAX's ``_mega_call`` does).
+The path integrator above MAX_VMEM_PRIMS triangles (K6, and K10 and K11
+over it) and every K12 launch sweep the triangles warp-cooperatively: each
+lane makes its own ray's box tests, and the lanes split the (ray,
+triangle) tests of a box that any of their rays reached; the tests, their
+arithmetic and every decision are those of the one-thread-per-ray sweep
+(``_launch_mega(per_thread=True)`` for measurement), which the lambert and
+normal integrators keep (camera rays only, coherent).
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
 prims in the same (optionally Morton) order, the same per-prim columns, the
@@ -42,9 +49,12 @@ scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
   * box tables get no extra padding to a multiple of 8 rows (a TPU sublane
     tile), and the rect / TRS tables no padding at all: a thread walks
     their rows one by one, with no chunks and no 1024-per-class cap;
-  * K12's coefficients ``tri_coef`` (``mxu=True``) are dense, float32[N_Q
-    * T_pad, 10] in JAX's row order and values, not JAX's 128-lane rows
-    (2,560 B per triangle, 2.7 GB at a million): 200 B per triangle;
+  * K12's coefficients ``tri_coef`` (``mxu=True``) hold JAX's values but
+    only the non-zero ones, N_COEF = 24 floats per triangle (96 B; JAX's
+    128-lane rows take 2,560 B, 2.7 GB at a million), laid out per super as
+    N_COEF planes of SUPER_T floats, so that a warp reads one coefficient of
+    32 neighbouring triangles in one coalesced load (``dense_tri_coef``
+    unpacks them into JAX's row order);
   * no texture info table: an image material's block carries its image id,
     w and h in the colour slots it does not use, and the kernel reads the
     scene's packed images in place (``MegaTables.images``).
@@ -105,6 +115,10 @@ N_Q = 5
 Q_A, Q_T, Q_U, Q_V, Q_DN = range(N_Q)
 Q_TERMS = ((0, 1, 2), (3, 4, 5, 9), (0, 1, 2, 6, 7, 8), (0, 1, 2, 6, 7, 8),
            (0, 1, 2))
+# tri_coef keeps those terms only: quantity q's at planes Q_OFF[q] + j of a
+# super's block, N_COEF planes (22 used, 2 zero) of SUPER_T floats
+Q_OFF = (0, 3, 7, 13, 19)
+N_COEF = 24
 # Octant key (trace_path_mega_phased): Morton bits above this shift form the
 # coarse origin cell, then 3 direction-octant bits, then fine Morton.
 _OCT_COARSE_SHIFT = 18
@@ -170,8 +184,9 @@ class MegaTables(NamedTuple):
     sph_seg: Tensor    # float32[S_pad / 2048, 8] above MAX_VMEM_PRIMS
                        # spheres (K6), else [0, 8]
     tri_seg: Tensor    # float32[T_pad / 2048, 8] likewise for triangles
-    tri_coef: Tensor   # float32[N_Q * T_pad, N_FEAT] K12's coefficients
-                       # (built with mxu=True), else [0, N_FEAT]
+    tri_coef: Tensor   # float32[T_pad / SUPER_T * N_COEF, SUPER_T] K12's
+                       # coefficients (built with mxu=True), else
+                       # [0, SUPER_T]
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
     images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
@@ -340,7 +355,7 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     tri_mult = SEG_T if stream_tri else SUPER_T
     empty_box = torch.zeros(0, BOX_COLS, device=dev)
     no_map = torch.zeros(0, dtype=torch.int32, device=dev)
-    no_coef = torch.zeros(0, N_FEAT, device=dev)
+    no_coef = torch.zeros(0, SUPER_T, device=dev)
     if n_s:
         sp = scene.spheres
         center, radius, smat = sp.center, sp.radius, sp.mat
@@ -416,31 +431,42 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
 
 def _tri_coef(v0: Tensor, e1: Tensor, e2: Tensor, nrm: Tensor,
               mult: int) -> Tensor:
-    """K12's coefficient rows (megakernel.py:394-418 of the JAX package):
-    per triangle the N_Q quantities' coefficients on Phi, padded (repeat
-    last) to ``mult`` rows, then per SUPER_T rows quantity-major ->
-    float32[N_Q * T_pad, N_FEAT].  The cross products are spelled out
-    (jnp.cross's component formulas)."""
+    """K12's coefficients (megakernel.py:394-418 of the JAX package): per
+    triangle the non-zero coefficients of its N_Q quantities on Phi
+    (Q_TERMS, in that order, then 2 zeros), padded (repeat last) to
+    ``mult`` triangles, then per SUPER_T triangles one plane per
+    coefficient -> float32[T_pad / SUPER_T * N_COEF, SUPER_T].  The cross
+    products are spelled out (jnp.cross's component formulas)."""
     def cross(a, b):
         return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
                             a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
                             a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], 1)
 
     n2 = cross(e1, e2)
-    z1 = torch.zeros_like(v0[:, :1])
-    z3 = torch.zeros_like(v0)
     v0_n2 = (v0[:, 0] * n2[:, 0] + v0[:, 1] * n2[:, 1]
              + v0[:, 2] * n2[:, 2])[:, None]
-    q = torch.stack([
-        torch.cat([-n2, z3, z3, z1], 1),                       # a
-        torch.cat([z3, n2, z3, -v0_n2], 1),                    # t_num
-        torch.cat([cross(v0, e2), z3, -e2, z1], 1),            # u_num
-        torch.cat([-cross(v0, e1), z3, e1, z1], 1),            # v_num
-        torch.cat([nrm, z3, z3, z1], 1)], 1)                   # d.n
+    q = torch.cat([
+        -n2,                                 # a on d
+        n2, -v0_n2,                          # t_num on o, 1
+        cross(v0, e2), -e2,                  # u_num on d, c
+        -cross(v0, e1), e1,                  # v_num on d, c
+        nrm,                                 # d.n on d
+        torch.zeros_like(v0[:, :N_COEF - Q_OFF[Q_DN] - 3])], 1)
     q = pad_rows(q, mult)
-    n_pad = q.shape[0]
-    return (q.reshape(n_pad // SUPER_T, SUPER_T, N_Q, N_FEAT)
-            .transpose(1, 2).reshape(n_pad * N_Q, N_FEAT))
+    return (q.reshape(-1, SUPER_T, N_COEF).transpose(1, 2)
+            .reshape(-1, SUPER_T).contiguous())
+
+
+def dense_tri_coef(tri_coef: Tensor) -> Tensor:
+    """``tri_coef`` unpacked into JAX's dense rows (its first N_FEAT lanes):
+    per SUPER_T triangles one block of SUPER_T rows per quantity ->
+    float32[N_Q * T_pad, N_FEAT], zero off Q_TERMS."""
+    planes = tri_coef.view(-1, N_COEF, SUPER_T)
+    out = planes.new_zeros(planes.shape[0], N_Q, SUPER_T, N_FEAT)
+    for q, terms in enumerate(Q_TERMS):
+        for j, k in enumerate(terms):
+            out[:, q, :, k] = planes[:, Q_OFF[q] + j]
+    return out.reshape(-1, N_FEAT)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -471,7 +497,8 @@ def _library() -> ctypes.CDLL:
         lib.crt_mega_trace.argtypes = (
             [vp] * 17 + [ci] * 11 + [cf] * 3
             + [ci, ctypes.c_uint64, vp, ci, ci]
-            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 3)
+            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 2
+            + [ci, vp])
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
@@ -513,7 +540,7 @@ def _use_mxu(tables: MegaTables, cfg: RenderConfig,
     mxu = (bool(cfg.mega_mxu) and tables.n_triangles > MAX_VMEM_PRIMS
            and not want_winners
            and not (has_images(tables) and cfg.integrator != "normal"))
-    if mxu and tables.tri_coef.shape[0] != N_Q * tables.tri.shape[0]:
+    if mxu and tables.tri_coef.numel() != N_COEF * tables.tri.shape[0]:
         raise ValueError(
             "cfg.mega_mxu requires coefficient tables: rebuild with "
             "build_mega_tables(scene, ..., mxu=True)")
@@ -593,7 +620,7 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                  cfg: RenderConfig, stream: Optional[Tensor], seed: int,
                  counts: Optional[Tensor] = None,
                  want_winners: bool = False, window: Window = WHOLE,
-                 touched: Optional[Tensor] = None):
+                 touched: Optional[Tensor] = None, per_thread: bool = False):
     """One launch of the CUDA kernel -> radiance float32[N, 3] (with
     ``window.dump`` the state float32[N, 13]), and with want_winners (path
     only) the winners int32[max_depth + 1, N] in scene prim ids, -1 for a
@@ -615,7 +642,12 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     launch it stands for, and its radiance is not the scene's.
 
     A scene with images takes kernel mode K9 (the normal integrator, which
-    reads no texture, aside)."""
+    reads no texture, aside).
+
+    per_thread: where the launch would sweep its triangles cooperatively
+    (the path integrator above MAX_VMEM_PRIMS triangles; K12, counting
+    only), sweep them one thread per ray instead: the same tests and
+    results, for holding the cooperative sweeps against."""
     n = origin.shape[0]
     steps = _check_window(window, cfg, n, want_winners)
     _require_cuda_f32("origin", origin, (n, 3))
@@ -658,9 +690,12 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                       device=origin.device)
     winners = (torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=origin.device) if want_winners else None)
+    if mxu and per_thread and counts is None:
+        raise ValueError("K12's one-thread-per-ray sweep has a counting "
+                         "instance only")
     if mxu:
         _require_cuda_f32("tri_coef", tables.tri_coef,
-                          (N_Q * tables.tri.shape[0], N_FEAT))
+                          (N_COEF * tables.tri.shape[0] // SUPER_T, SUPER_T))
         if tables.tri_coef.device != origin.device:
             raise ValueError(f"tri_coef is on {tables.tri_coef.device}, "
                              f"rays on {origin.device}")
@@ -693,7 +728,7 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             window.step_lo, steps, ptr(window.state), ptr(window.ray_id),
             n_stream, int(window.dump),
             tables.tri_coef.data_ptr() if mxu else None,
-            ptr(touched), cuda_stream)
+            ptr(touched), int(per_thread), cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
         modes = [k for k, on in (("mega_trace_xform", n_x),
@@ -1285,14 +1320,14 @@ def _slab_plain(box: Tensor, o: Tensor, inv: Tensor, best: Tensor,
 
 
 def _bilinear(coef: Tensor, phi: Tensor, q: int) -> Tensor:
-    """Quantity q of every row of a super's coefficient block coef
-    float32[N_Q, SUPER_T, N_FEAT] on rays' features phi float32[M, N_FEAT]
-    -> float32[M, SUPER_T]: the sum of its non-zero terms in feature order,
+    """Quantity q of every triangle of a super's coefficient block coef
+    float32[N_COEF, SUPER_T] on rays' features phi float32[M, N_FEAT] ->
+    float32[M, SUPER_T]: the sum of its non-zero terms in feature order,
     each product rounded, as the kernel adds them (no matmul: cuBLAS would
     sum in its own order, or in TF32)."""
     out = None
-    for k in Q_TERMS[q]:
-        term = coef[q, :, k] * phi[:, k:k + 1]
+    for j, k in enumerate(Q_TERMS[q]):
+        term = coef[Q_OFF[q] + j] * phi[:, k:k + 1]
         out = term if out is None else out + term
     return out
 
@@ -1319,7 +1354,7 @@ def _tri_sweep_mxu_plain(tables: MegaTables, o: Tensor, d: Tensor,
     best = best.clone()
     row = torch.zeros(n, dtype=torch.int64, device=o.device)
     won = torch.zeros(n, dtype=torch.bool, device=o.device)
-    coef = tables.tri_coef.view(-1, N_Q, SUPER_T, N_FEAT)
+    coef = tables.tri_coef.view(-1, N_COEF, SUPER_T)
     per_seg = SEG_T // SUPER_T
     for g in range(tables.tri_seg.shape[0]):
         at = torch.nonzero(_slab_plain(tables.tri_seg[g], o, inv, best,

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the fused kernel K1, its rect / TRS mode K8, winner mode K7, image texture
 mode K9, segment level K6, windows K10, shells K11 and bilinear triangle
-sweep K12, the draws K2 (csrc/megakernel.cu), the sweeps K3, K4 and K5
-(csrc/sweeps.cu), and the wavefront render, the fit, the mega_diff fit and
-the animation driver through them.
+sweep K12 (the last four by the cooperative sweeps, held also against the
+one-thread-per-ray sweep), the draws K2 (csrc/megakernel*.cu), the sweeps
+K3, K4 and K5 (csrc/sweeps.cu), and the wavefront render, the fit, the
+mega_diff fit and the animation driver through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -942,6 +943,87 @@ def test_mxu_sweep_matches_plain_on_the_big_field(cuda):
     ph = mk.trace_path_mega_phased(scene, rays, cfg, tables=tables,
                                    compact_every=2, seed=4, octants=True)
     assert torch.equal(ph, got)
+
+
+@pytest.mark.gpu
+def test_tied_terrain_ties_go_to_the_lowest_row(cuda):
+    """The terrain with an exact copy of every fifth triangle in another
+    colour, each copy behind its original in one chunk, across two lanes
+    of one 32-triangle batch, across supers or across segments
+    (check_scenes.tied_terrain_order), 2^16 rays: K6 (path, winners
+    recorded), K11 (8 shells) and K12 (lambert and path) give the plain
+    version's radiance, every tie to the lower row, so no winner is a copy
+    and the winners equal the plain version's."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    scene = cs.fill_tied_terrain(SceneBuilder()).build(cuda)
+    tables = mk.build_mega_tables(scene, cs.tied_terrain_order(), mxu=True)
+    n = 1 << 16
+    rays = _rays_from_numpy(*cs.terrain_rays(n), cuda)
+    cfg = RenderConfig(max_depth=DEPTH, engine="mega",
+                       quirks=Quirks.fixed())
+    ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 13, True)
+    tri = wref - scene.n_spheres
+    assert not bool((tri >= 2 * 72 * 72).any())    # the copies' ids
+    assert int(((tri >= 0) & (tri % cs.TIE_EVERY == 0)).sum()) > 1000
+    for shells in (0, 8):
+        c = dataclasses.replace(cfg, mega_f2b_shells=shells)
+        got, win = mk.trace_path_mega(scene, rays, c, tables=tables, seed=13,
+                                      want_winners=True)
+        _assert_rays_match(got, ref)
+        assert torch.equal(win, wref), shells
+        assert torch.equal(mk.trace_path_mega(scene, rays, c, tables=tables,
+                                              seed=13), got)
+    for integrator in ("path", "lambert"):
+        c = dataclasses.replace(cfg, integrator=integrator, mega_mxu=True)
+        mk.reset_launch_counts()
+        got = mk.trace_path_mega(scene, rays, c, tables=tables, seed=13)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES["mega_mxu"] == 1
+        _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, c,
+                                                         None, 13))
+
+
+def _counted(tables, rays, cfg, per_thread):
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64,
+                         device=rays.origin.device)
+    touched = torch.zeros(tables.sph_box.shape[0] + tables.tri_box.shape[0],
+                          dtype=torch.uint8, device=rays.origin.device)
+    out = mk._launch_mega(tables, rays.origin.contiguous(),
+                          rays.direction.contiguous(), cfg, None, 17,
+                          counts=counts, touched=touched,
+                          per_thread=per_thread)
+    return out, counts, touched
+
+
+@pytest.mark.gpu
+def test_cooperative_sweeps_make_the_per_thread_tests(cuda):
+    """On the first 2^18-ray launch of the 128,000-triangle field, the
+    cooperative sweeps (K6, K11's 8 shells, K12) count the same tests and
+    touch the same chunks as the one-thread-per-ray counting instances on
+    the same rays (K12's tri_done among them), and render what they
+    render, and K6's production launch equals the per-thread one."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    mxu_tables = mk.morton_tables(scene, mxu=True)
+    for t, c in ((tables, cfg),
+                 (tables, dataclasses.replace(cfg, mega_f2b_shells=8)),
+                 (mxu_tables, dataclasses.replace(cfg, mega_mxu=True))):
+        out, counts, touched = _counted(t, rays, c, False)
+        out_pt, counts_pt, touched_pt = _counted(t, rays, c, True)
+        assert torch.equal(counts, counts_pt), (counts.tolist(),
+                                                counts_pt.tolist())
+        assert torch.equal(touched, touched_pt)
+        assert torch.equal(out, out_pt)
+        assert int(counts[2]) > 0
+    got = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=17)
+    pt = mk._launch_mega(tables, rays.origin.contiguous(),
+                         rays.direction.contiguous(), cfg, None, 17,
+                         per_thread=True)
+    assert torch.equal(got, pt)
+    with pytest.raises(ValueError, match="counting instance only"):
+        mk._launch_mega(mxu_tables, rays.origin.contiguous(),
+                        rays.direction.contiguous(),
+                        dataclasses.replace(cfg, mega_mxu=True), None, 17,
+                        per_thread=True)
 
 
 @pytest.mark.gpu

@@ -8,7 +8,8 @@ quirk profiles (the reference profile runs the d.n block and the no-t-clip
 window).
 
 Tolerances:
-  * tri_coef: JAX's first 10 lanes in the same row order, each within 2
+  * tri_coef, unpacked into JAX's dense rows (dense_tri_coef): JAX's first
+    10 lanes in the same row order, each within 2
     ulps of the magnitude of the products its formula sums (|a1 b2| + |a2
     b1| for a cross product's component; for -v0.n2 the sum of |v0_k| (|n2_k|
     + that of n2_k)), and equal where it copies an input: XLA:CPU contracts
@@ -53,9 +54,12 @@ def test_tri_coef_matches_jax():
     jt = _np_tree(jmk.build_mega_tables(js, tri_order=tri_o,
                                         sph_order=sph_o, mxu=True))
     tt = tmk.build_mega_tables(ts, tri_o, sph_o, mxu=True)
-    assert tt.tri_coef.shape == (tmk.N_Q * tt.tri.shape[0], tmk.N_FEAT)
-    assert tt.tri_coef.shape[0] == jt.tri_coef.shape[0]
-    got = tt.tri_coef.numpy()
+    t_pad = tt.tri.shape[0]
+    assert tt.tri_coef.shape == (t_pad // tmk.SUPER_T * tmk.N_COEF,
+                                 tmk.SUPER_T)
+    got = tmk.dense_tri_coef(tt.tri_coef).numpy()
+    assert got.shape == (tmk.N_Q * t_pad, tmk.N_FEAT)
+    assert got.shape[0] == jt.tri_coef.shape[0]
     ref = jt.tri_coef[:, :tmk.N_FEAT]
     mag = _coef_magnitudes(ts, tri_o, tt.tri.shape[0])
     err = np.abs(got.astype(np.float64) - ref)
@@ -68,8 +72,57 @@ def test_tri_coef_matches_jax():
         assert not blocks[:, q][..., off].any()
     # without mxu=True a placeholder, as JAX builds
     plain = tmk.build_mega_tables(ts, tri_o, sph_o)
-    assert plain.tri_coef.shape == (0, tmk.N_FEAT)
-    assert tmk.table_bytes(tt) - tmk.table_bytes(plain) == got.nbytes
+    assert plain.tri_coef.shape == (0, tmk.SUPER_T)
+    # 96 bytes a triangle: the 22 non-zero coefficients and 2 zeros
+    assert (tmk.table_bytes(tt) - tmk.table_bytes(plain)
+            == tt.tri_coef.nbytes == 96 * t_pad)
+
+
+def _dense_rows(v0, e1, e2, nrm, mult):
+    """The dense float32[N_Q * T_pad, N_FEAT] coefficient rows that the
+    port built before the packed layout: per triangle each quantity's
+    coefficients on the 10 features, zeros included, per SUPER_T triangles
+    one block per quantity."""
+    def cross(a, b):
+        return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], 1)
+
+    n2 = cross(e1, e2)
+    z1, z3 = torch.zeros_like(v0[:, :1]), torch.zeros_like(v0)
+    v0_n2 = (v0[:, 0] * n2[:, 0] + v0[:, 1] * n2[:, 1]
+             + v0[:, 2] * n2[:, 2])[:, None]
+    q = torch.stack([
+        torch.cat([-n2, z3, z3, z1], 1),
+        torch.cat([z3, n2, z3, -v0_n2], 1),
+        torch.cat([cross(v0, e2), z3, -e2, z1], 1),
+        torch.cat([-cross(v0, e1), z3, e1, z1], 1),
+        torch.cat([nrm, z3, z3, z1], 1)], 1)
+    q = tmk.pad_rows(q, mult)
+    return (q.reshape(-1, tmk.SUPER_T, tmk.N_Q, tmk.N_FEAT)
+            .transpose(1, 2).reshape(-1, tmk.N_FEAT))
+
+
+def test_tri_coef_unpacks_to_the_dense_rows():
+    """The packed coefficients hold exactly the dense rows' non-zero
+    values: unpacked, they equal the dense rows bit for bit, the two pad
+    planes are zero, and a super's coefficient k of its 256 triangles is
+    one contiguous plane."""
+    _, ts, _, _, (tri_o, _) = _streamed("terrain")
+    tt = tmk.build_mega_tables(ts, tri_o, mxu=True)
+    tr = ts.triangles
+    o = torch.as_tensor(tri_o).long()
+    v0, v1, v2 = tr.v0[o], tr.v1[o], tr.v2[o]
+    dense = _dense_rows(v0, v1 - v0, v2 - v0, tr.normal[o], tmk.SEG_T)
+    got = tmk.dense_tri_coef(tt.tri_coef)
+    assert torch.equal(got, dense)
+    planes = tt.tri_coef.view(-1, tmk.N_COEF, tmk.SUPER_T)
+    assert not planes[:, tmk.Q_OFF[tmk.Q_DN] + 3:].any()
+    # the super's a-coefficient on d_y: dense block Q_A, feature 1
+    s = 7
+    blocks = dense.view(-1, tmk.N_Q, tmk.SUPER_T, tmk.N_FEAT)
+    assert torch.equal(planes[s, tmk.Q_OFF[tmk.Q_A] + 1],
+                       blocks[s, tmk.Q_A, :, 1])
 
 
 def _coef_magnitudes(ts, order, t_pad):

@@ -176,6 +176,36 @@ def test_streamed_render_matches_jax_trace_path(name, profile):
                 <= np.abs(ref[off] - exact[off]).max())
 
 
+def test_tied_streamed_render_matches_jax_trace_path():
+    """The terrain with an exact copy, in another colour, of every fifth
+    triangle (above the table-resident size, ``check_scenes.
+    tied_terrain_order``: each copy behind its original in one chunk, in
+    another chunk of the same 32-triangle batch, in another super or in
+    another segment): the port's fused plain version against JAX's
+    brute-force wavefront (whose ties go to the lower scene id, the
+    original's); every exact tie goes to the original (the lower row), so
+    no bounce's winner is a copy, and ties do happen."""
+    js, ts = _build(cs.fill_tied_terrain)
+    _, plain_ts, o, d, _ = _streamed("terrain")
+    ball, prob, stream = _stream()
+    ref = np.asarray(jinteg.trace_path(
+        js, jmake_rays(jnp.asarray(o), jnp.asarray(d)), jax.random.key(5),
+        JConfig(width=16, height=32, samples=1, max_depth=DEPTH,
+                quirks=JQuirks.fixed()),
+        samples=jinteg.SampleStream(jnp.asarray(ball), jnp.asarray(prob))))
+    tables = tmk.build_mega_tables(ts, cs.tied_terrain_order())
+    assert tables.tri_seg.shape[0] == 7
+    cfg = _cfg()
+    rays = _trays(o, d)
+    st = tmk.stream_tensor(stream, N_RAYS, DEPTH + 1)
+    got, win = tmk.trace_path_mega_plain(tables, rays, cfg, st, None, True)
+    np.testing.assert_allclose(got.numpy(), ref, atol=3e-4, rtol=1e-4)
+    n_base = plain_ts.n_triangles
+    tri = win - ts.n_spheres         # scene triangle ids, the sphere first
+    assert not bool((tri >= n_base).any())
+    assert int(((tri >= 0) & (tri % cs.TIE_EVERY == 0)).sum()) > 20
+
+
 def _f64(x):
     """The scene (its dataclasses and named tuples) or a tensor with every
     float tensor in float64."""
