@@ -54,15 +54,22 @@ Phases (each prints lines; any failure raises and exits nonzero):
          the path on in-kernel draws with the winners of K7 on K6), on the
          9,216-sphere field's 2^18 rays and on 2^16 rays of (n) (lambert);
          K11: shells 8 against 0 on (m)'s launch, radiance and winners
-         equal; K10: a window's dump and a resumed window against the
-         plain version, dump + resume and the compaction drivers
-         (phased, compact) bit-equal to the monolithic launch; K6, K10
-         and K11 under the path integrator run the warp-cooperative
-         sweep (lambert and normal keep one thread per ray), each also
-         timed with the one-thread-per-ray sweep (per_thread), equal
-         radiance required, on (m) the whole path, bounce 0 and bounces
-         1-8; on (m)'s launch the cooperative counting instance must
-         count the per-thread one's tests and touched chunks;
+         equal; K10: the window [0, 2) over the path state's planes,
+         its planes and octant keys against the plain version's and its
+         keys in each mode (alive first, Morton, octant) against the
+         plain key function's on its planes, the window [2, 4) resumed in
+         place against the plain version (timed in ray-id order, the
+         PR-to-PR figure, and in the octant keys' order), the rest of the
+         path completing the monolithic launch, and the compaction
+         drivers (phased every 1, 2 and 3, a first window of 1, compact)
+         bit-equal to the monolithic launch with no host sync (sync debug
+         mode "error"); K6, K10 and K11 under the path integrator run the
+         warp-cooperative sweep (lambert and normal keep one thread per
+         ray), each also timed with the one-thread-per-ray sweep
+         (per_thread), equal radiance required, on (m) the whole path,
+         bounce 0 and bounces 1-8; on (m)'s launch the cooperative
+         counting instance must count the per-thread one's tests and
+         touched chunks;
        * K12 on (m)'s first 2^18-ray launch under mega_mxu (three
          integrators injected, the path on in-kernel draws, timed beside
          monolithic K6 on the same rays), on 2^16 rays of (n) (lambert) and
@@ -121,7 +128,9 @@ Phases (each prints lines; any failure raises and exits nonzero):
            routes: the default (phased every 2 bounces, octants, 8 shells:
            K6, K10, K11), compact_auto off (monolithic K6) and monolithic
            with 8 shells; the three frames must be equal; each route also
-           over the frame's rays in one call against its bound;
+           over the frame's rays in one call against its bound, and K10's
+           boundary cost (the default route less monolithic with 8
+           shells, frame-sized and per frame);
        (n) big1m: 12 x 17 icospheres, 1,044,480 triangles, 1280x720x8,
            lambert, fixed quirks, fused (monolithic K6), and one launch
            over the frame's rays against its bound; the frame-sized
@@ -165,7 +174,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -248,6 +257,25 @@ def cuda_ms(fn, reps=3, warmup=1):
     return best, out
 
 
+def inplace_ms(fn, planes, start_from, reps=3):
+    """(min milliseconds over reps, after a warm-up) of fn, a K10 window
+    that updates ``planes`` in place, each run from the planes
+    ``start_from`` (copied in outside the timed span), CUDA events."""
+    best = math.inf
+    for rep in range(reps + 1):
+        planes.copy_(start_from)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            best = min(best, start.elapsed_time(end))
+    return best
+
+
 def ks_uniform(x: torch.Tensor) -> float:
     """Kolmogorov-Smirnov statistic of x against U[0, 1)."""
     x = torch.sort(x.double().flatten()).values
@@ -299,15 +327,16 @@ def counting_cfg(tables, cfg):
 
 
 def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
-                 extra_bytes: int = 0, cfg=None) -> tuple:
+                 extra_bytes: int = 0, cfg=None,
+                 ray_bytes: Optional[int] = None) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that needed ``tests``
     (count_tests): their FLOPs (box, segment and box-distance tests
-    included) against the rays in, ``out_bytes`` per ray out, the box and
-    rect / TRS tables, the sphere and triangle rows of the chunks whose
-    prims were tested (under K12, which ``cfg`` decides: the coefficients
-    of those chunks' triangles, N_COEF floats = 96 bytes each), and
-    ``extra_bytes`` (K9: 3 per texel fetched; K10: the state a window
-    reads)."""
+    included) against the rays in, ``out_bytes`` per ray out (or in all
+    ``ray_bytes``, the rays' own bytes in and out), the box and rect / TRS
+    tables, the sphere and triangle rows of the chunks whose prims were
+    tested (under K12, which ``cfg`` decides: the coefficients of those
+    chunks' triangles, N_COEF floats = 96 bytes each), and ``extra_bytes``
+    (K9: 3 per texel fetched; K10: the state a route's windows move)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     mxu = takes_mxu(tables, cfg)
     dn = cfg is not None and cfg.quirks.triangle_backface_only
@@ -323,7 +352,9 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
             + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * tri_row)
     tables_bytes = (mk.table_bytes(tables) - tables.sph.nbytes
                     - tables.tri.nbytes - tables.tri_coef.nbytes + rows)
-    return bound(flops, n * (24 + out_bytes) + tables_bytes + extra_bytes)
+    if ray_bytes is None:
+        ray_bytes = n * (24 + out_bytes)
+    return bound(flops, ray_bytes + tables_bytes + extra_bytes)
 
 
 def count_tests(tables, rays, cfg, seed, window=None,
@@ -1497,24 +1528,21 @@ def sphere_field_frame(dev):
 
 
 def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
-                 plain=None, window=None, out_bytes: int = 12,
-                 extra_bytes: int = 0, hold: bool = False) -> dict:
+                 plain=None, hold: bool = False) -> dict:
     """One launch with in-kernel draws: kernel against the plain version
     (timed once, or ``plain`` = (ms, result) measured already), its
     tests (hold: held against the per-thread sweep's, ``count_tests``) and
     bound."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    w = window if window is not None else mk.WHOLE
     ms, got = cuda_ms(lambda: mk.trace_path_mega(
-        f.scene, rays, cfg, tables=f.tables, seed=seed, window=w))
+        f.scene, rays, cfg, tables=f.tables, seed=seed))
     if plain is None:
         plain = cuda_ms(lambda: mk.trace_path_mega_plain(
-            f.tables, rays, cfg, None, seed, window=w), reps=1, warmup=0)
+            f.tables, rays, cfg, None, seed), reps=1, warmup=0)
     plain_ms, ref = plain
     out[key] = max(out.get(key, 0.0), compare(label, got, ref))
-    tests = count_tests(f.tables, rays, cfg, seed, window, hold)
-    b, by = launch_bound(f.tables, rays.origin.shape[0], tests, out_bytes,
-                         extra_bytes, cfg)
+    tests = count_tests(f.tables, rays, cfg, seed, hold=hold)
+    b, by = launch_bound(f.tables, rays.origin.shape[0], tests, cfg=cfg)
     print(f"[stream] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b:.4f} ms ({by}), tests {tests}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
@@ -1538,28 +1566,117 @@ def per_thread_ms(f, rays, cfg, seed, got, window=None) -> float:
 def coop_against_per_thread(f, rays, seed) -> dict:
     """K6 cooperative against one thread per ray on one launch of f (path),
     the whole path, bounce 0 alone (window [0, 1), coherent camera rays)
-    and bounces 1-8 resumed from its dump (incoherent): ms of each, min of
-    3, their radiance equal."""
-    from cudaraytracer_tpu_torch.core.rays import Rays
+    and bounces 1-8 resumed in place from its planes (incoherent): ms of
+    each, min of 3, their radiance (and planes) equal."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     out = {}
-    w0 = mk.Window(0, 1, None, None, True)
-    a = None
-    for name, r, w in (("whole", rays, mk.WHOLE), ("bounce_0", rays, w0),
-                       ("bounces_1_8", None, None)):
-        if r is None:
-            r = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(),
-                     rays.time)
-            w = mk.Window(1, None, a[:, 9:13].contiguous())
+    n = rays.origin.shape[0]
+    for name, w in (("whole", mk.WHOLE), ("bounce_0", mk.Window(0, 1))):
         ms, got = cuda_ms(lambda: mk.trace_path_mega(
-            f.scene, r, f.cfg, tables=f.tables, seed=seed, window=w))
-        if name == "bounce_0":
-            a = got
-        pt = per_thread_ms(f, r, f.cfg, seed, got, w)
+            f.scene, rays, f.cfg, tables=f.tables, seed=seed, window=w))
+        pt = per_thread_ms(f, rays, f.cfg, seed, got, w)
         out[name] = {"coop_ms": ms, "per_thread_ms": pt}
-        print(f"[coop] {f.name} {name}: cooperative {ms:.4f} ms, one "
-              f"thread per ray {pt:.4f} ms, equal radiance")
+    planes = torch.empty(mk.N_PLANES, n, device=rays.origin.device)
+    mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables, seed=seed,
+                       window=mk.Window(0, 1, planes))
+    start_from = planes.clone()
+    w = mk.Window(1, None, planes)
+    o, d = rays.origin.contiguous(), rays.direction.contiguous()
+    got = {}
+    for key, per_thread in (("coop_ms", False), ("per_thread_ms", True)):
+        ms = inplace_ms(lambda: mk._launch_mega(
+            f.tables, o, d, f.cfg, None, seed, window=w,
+            per_thread=per_thread), planes, start_from)
+        got[key] = planes.clone()
+        out.setdefault("bounces_1_8", {})[key] = ms
+    check(torch.equal(got["coop_ms"], got["per_thread_ms"]),
+          f"{f.name}: the per-thread sweep's planes differ from the "
+          "cooperative one's")
+    for name, v in out.items():
+        print(f"[coop] {f.name} {name}: cooperative {v['coop_ms']:.4f} ms, "
+              f"one thread per ray {v['per_thread_ms']:.4f} ms, equal "
+              "radiance")
     return out
+
+
+def window_parity(f, rays, seed, whole, err: dict) -> dict:
+    """K10 on one launch of f (path, in-kernel draws): the window [0, 2)
+    writes every ray's planes and, in each key mode, keys equal to the
+    plain key function's on those planes (and, octant, the plain version's
+    planes and keys); the window [2, 4) resumed in place, timed (min of 3,
+    each from the same planes) in the order the octant keys sort to, as
+    the default route serves it, against the plain version, and in ray-id
+    order (the figure earlier PRs timed) against one thread per ray; the
+    rest of the path completes ``whole``, the monolithic launch."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    dev = rays.origin.device
+    n = rays.origin.shape[0]
+    bounds = f.tables.key_bounds
+    planes = torch.empty(mk.N_PLANES, n, device=dev)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    for mode in (mk.KEY_ALIVE, mk.KEY_MORTON, mk.KEY_OCTANT):
+        w0 = mk.Window(0, 2, planes, None, key, mode)
+        mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables, seed=seed,
+                           window=w0)
+        plain_key = mk.regroup_keys(planes[3:6].t(), planes[6:9].t(),
+                                    planes[12] > 0.0, mode, bounds)
+        check(torch.equal(key, plain_key), f"K10 key mode {mode}: the "
+              "kernel's keys differ from the plain key function's")
+    print("[stream] K10 window [0, 2): the kernel's keys equal the plain key "
+          "function's (alive first, Morton, octant)")
+    ref = w0._replace(planes=torch.empty_like(planes),
+                      key=torch.empty_like(key))
+    mk.trace_path_mega_plain(f.tables, rays, f.cfg, None, seed, window=ref)
+    err["mega_window"] = compare("K10 big_field window [0, 2) planes",
+                                 planes.t(), ref.planes.t())
+    check(torch.equal(key, ref.key), "K10: the kernel's octant keys differ "
+          "from the plain version's")
+    after_0_2 = planes.clone()
+    o, d = rays.origin.contiguous(), rays.direction.contiguous()
+    w1 = mk.Window(2, 2, planes)
+    id_ms = inplace_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, f.cfg, tables=f.tables, seed=seed, window=w1),
+        planes, after_0_2)
+    got = planes.clone()
+    ref = after_0_2.clone()
+    t0 = time.perf_counter()
+    mk.trace_path_mega_plain(f.tables, rays, f.cfg, None, seed,
+                             window=w1._replace(planes=ref))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err["mega_window"] = max(err["mega_window"], compare(
+        "K10 big_field window [2, 4) in place", got.t(), ref.t()))
+    pt = inplace_ms(lambda: mk._launch_mega(
+        f.tables, o, d, f.cfg, None, seed, window=w1, per_thread=True),
+        planes, after_0_2)
+    check(torch.equal(planes, got), "K10: the per-thread sweep's planes "
+          "differ from the cooperative one's")
+    order = mk._next_order(key)
+    ms = inplace_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, f.cfg, tables=f.tables, seed=seed,
+        window=w1._replace(order=order)), planes, after_0_2)
+    check(torch.equal(planes, got), "K10: the window in the octant order "
+          "differs from the window in ray-id order")
+    mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables, seed=seed,
+                       window=mk.Window(4, None, planes, order))
+    check(torch.equal(planes[:3].t(), whole), "K10: the windows in place "
+          "differ from the unbroken launch")
+    counting = w1._replace(planes=after_0_2.clone(), order=order)
+    tests = count_tests(f.tables, rays, f.cfg, seed, counting)
+    # every ray's order entry and alive flag (8 B); a ray alive after [0, 2)
+    # reads its other 12 planes (48 B) and writes all 13 back (52 B)
+    alive = int((after_0_2[mk.PL_ALIVE] > 0.0).sum())
+    b, by = launch_bound(f.tables, n, tests, cfg=f.cfg,
+                         ray_bytes=8 * n + 100 * alive)
+    print(f"[stream] K10 big_field window [2, 4) in place: kernel "
+          f"{ms:.4f} ms in the octant order, {id_ms:.4f} ms in ray-id order "
+          f"(earlier PRs' figure), one thread per ray {pt:.4f} ms (ray-id "
+          f"order), plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by}; "
+          f"{alive} of {n} rays alive), tests {tests}; the rest of the path "
+          "completes the monolithic launch bit for bit")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "tests": tests, "rays": n, "alive_rays": alive,
+            "per_thread_ms": pt, "ray_id_order_ms": id_ms}
 
 
 def phase_stream_parity(dev, sframes) -> dict:
@@ -1621,26 +1738,9 @@ def phase_stream_parity(dev, sframes) -> dict:
     compare_ids("K11 shells 8 against 0", win8, win)
     print("[stream] K11 shells 8 against 0: radiance and winners equal")
     res["mega_f2b"] = k11
-    # K10: a dumped window, a resumed window, the drivers
-    w0 = mk.Window(0, 2, None, None, True)
-    a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
-                           seed=seed, window=w0)
-    err["mega_window"] = compare("K10 big_field window [0, 2) dump", a,
-                                 mk.trace_path_mega_plain(
-                                     fm.tables, rays, fm.cfg, None, seed,
-                                     window=w0))
-    r2 = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(), rays.time)
-    w1 = mk.Window(2, 2, a[:, 9:13].contiguous())
-    k10 = timed_parity("K10 big_field window [2, 4) resumed", fm, r2,
-                       fm.cfg, seed, err, "mega_window", window=w1,
-                       extra_bytes=16 * n)
-    k10["per_thread_ms"] = per_thread_ms(fm, r2, fm.cfg, seed,
-                                         k10.pop("got"), w1)
-    rest = mk.trace_path_mega(fm.scene, r2, fm.cfg, tables=fm.tables,
-                              seed=seed, window=mk.Window(
-                                  2, None, a[:, 9:13].contiguous()))
-    check(torch.equal(a[:, :3] + rest, got), "K10: dump + resume differs "
-          "from the unbroken launch")
+    # K10: the window [0, 2) writes the planes and the keys; [2, 4) resumed
+    # in place; the drivers
+    k10 = window_parity(fm, rays, seed, got, err)
     drivers = {
         "phased every 2, octants, shells 8": lambda: mk.trace_path_mega_phased(
             fm.scene, rays, cfg8, tables=fm.tables, compact_every=2,
@@ -1648,15 +1748,25 @@ def phase_stream_parity(dev, sframes) -> dict:
         "phased every 1, partition": lambda: mk.trace_path_mega_phased(
             fm.scene, rays, fm.cfg, tables=fm.tables, compact_every=1,
             seed=seed, octants=False),
+        "phased every 3, octants, first window 1":
+            lambda: mk.trace_path_mega_phased(
+                fm.scene, rays, fm.cfg, tables=fm.tables, compact_every=3,
+                seed=seed, octants=True, first_window=1),
         "compact after 1": lambda: mk.trace_path_mega_compact(
             fm.scene, rays, fm.cfg, tables=fm.tables, primary_steps=1,
             seed=seed)}
     for label, run in drivers.items():
-        ms, out = cuda_ms(run, reps=1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")     # no host sync inside
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         check(torch.equal(out, got), f"K10 {label}: differs from the "
               "monolithic launch")
+        ms = cuda_ms(run, reps=1)[0]
         print(f"[stream] K10 {label}: bit-equal to the monolithic launch, "
-              f"{ms:.4f} ms")
+              f"no host sync, {ms:.4f} ms")
         k10[label] = ms
     ph = mk.trace_path_mega_phased(fm.scene, rays, cfg8, tables=fm.tables,
                                    compact_every=2, samples=stream,
@@ -1930,7 +2040,9 @@ def route_at_frame_shape(dev, f: Frame, gen) -> dict:
 
     def counting(tables, o, d, cfg, stream, seed, want_winners=False,
                  window=mk.WHOLE):
-        windows.append(window.steps(cfg))
+        alive = (None if window.planes is None or window.step_lo == 0 else
+                 (window.planes[mk.PL_ALIVE] > 0.0).sum())
+        windows.append((window, alive))
         return mk._launch_mega(tables, o.contiguous(), d.contiguous(),
                                counting_cfg(tables, cfg), stream, seed,
                                counts=counts, touched=touched, window=window)
@@ -1941,11 +2053,24 @@ def route_at_frame_shape(dev, f: Frame, gen) -> dict:
     finally:
         mk._trace = real
     tests = counted_tests(counts, touched, n_sc)
-    # a window after the first reads the state and ray ids (20 B) and every
-    # window but the last writes the 13-float state (52 B)
+    # K10's state: a window at step 0 writes every ray's 13 planes (52 B); a
+    # later one reads every ray's alive flag and order entry (8 B, 4 with
+    # no order), and a ray alive at its start reads its other 12 planes
+    # (48 B) and writes all 13 back (52 B); a window that keys writes a key
+    # for each ray it started or resumed (4 B), and the sort after it reads
+    # the keys and writes the order (8 B a ray).  launch_bound counts the
+    # camera rays in and the radiance out.
     k = len(windows)
-    b, by = launch_bound(f.tables, n, tests, 12,
-                         (k - 1) * n * (24 + 20 + 52 - 12), c)
+    extra = 0
+    for w, alive in windows:
+        if w.planes is None:
+            continue
+        started = n if alive is None else int(alive)
+        extra += (52 * n if alive is None else
+                  (8 if w.order is not None else 4) * n + 100 * started)
+        if w.key is not None:
+            extra += 4 * started + 8 * n
+    b, by = launch_bound(f.tables, n, tests, 12, extra, c)
     return {"ms": ms, "bound_ms": b, "bound_by": by, "tests": tests,
             "rays": n, "launches": k}
 
@@ -1982,6 +2107,11 @@ def render_routes(dev, fm: Frame) -> tuple:
     check(all(torch.equal(i, imgs[0]) for i in imgs),
           "(m)'s three routes gave different frames")
     print("[main] (m)'s three routes: equal frames")
+    d, m8 = out["default"], out["monolithic_f2b8"]
+    print(f"[main] (m) K10's window boundaries (the default route less "
+          f"monolithic with 8 shells): "
+          f"{d['frame_launch']['ms'] - m8['frame_launch']['ms']:.3f} ms "
+          f"frame-sized, {d['frame_s'] - m8['frame_s']:.4f} s/frame")
     return out, launches
 
 
@@ -2275,7 +2405,9 @@ def main() -> int:
              "128,000-triangle field 1280x720x8, path 8, fixed quirks, "
              "in-kernel draws, 63 segments, table order"),
             ("mega_window", 1607, "(m)'s first 262144 rays, the window [2, 4) "
-             "resumed from the dump of [0, 2), in-kernel draws"),
+             "resumed in place from the planes of [0, 2), in the order their "
+             "octant keys sort to (the default route's), in-kernel draws; "
+             "ray_id_order_ms: in ray-id order, as earlier PRs timed it"),
             ("mega_f2b", 795, "(m)'s first launch with 8 front-to-back "
              "shells over its 63 segments, in-kernel draws")):
         k = sparity.pop(key)
@@ -2345,9 +2477,11 @@ def ab_main(root: str) -> int:
     """``--ab``: the timings that compare two commits on one card, for the
     package of the checkout at ``root``: K1's frame-sized launches of (a)
     and (b) (min of 5), (l)'s mega_diff fit step (min and median of 5),
-    K12 on (m)'s first 2^18 rays, the frame-sized launches of K6 on (m) and
-    (n) and of K11 (8 shells) on (m), K10's window [2, 4) on (m)'s first
-    2^18 rays (min of 5 each), and (p)'s median rendering over 31 frames.
+    K12, K6 and K11 (8 shells) on (m)'s first 2^18 rays, the frame-sized
+    launches of K6 on (m) and (n) and of K11 on (m), K10's window [2, 4) on
+    (m)'s first 2^18 rays in ray-id order (min of 5 each), (m)'s default
+    route and monolithic with 8 shells over the frame's rays (min of 3)
+    and per frame (min of 5), and (p)'s median rendering over 31 frames.
     Run the parent's checkout (an unpacked ``git archive``, whose kernels
     build there) and this one in turns, in one call each way (parent,
     change, change, parent).  Prints one JSON line, checks nothing else."""
@@ -2372,9 +2506,70 @@ def ab_main(root: str) -> int:
     return 0
 
 
-def ab_streamed(dev) -> dict:
-    """``ab_main``'s K6, K10, K11, K12 and (p) timings."""
+def ab_window_2_4(fm, rays, seed) -> tuple:
+    """K10's window [2, 4) resumed from the state of [0, 2) (min of 5), in
+    ray-id order (the figure earlier PRs compared) and in the order its
+    octant keys sort to (the order the default route serves it in): in
+    place over the planes, or, in a checkout from before the planes, from
+    the dumped rows, gathered (untimed) in that checkout's own octant order
+    as its driver gathered them."""
     from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    times = []
+    if "planes" in mk.Window._fields:
+        n = rays.origin.shape[0]
+        planes = torch.empty(mk.N_PLANES, n, device=rays.origin.device)
+        key = torch.empty(n, dtype=torch.int32, device=rays.origin.device)
+        mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
+                           seed=seed, window=mk.Window(
+                               0, 2, planes, None, key, mk.KEY_OCTANT))
+        start_from = planes.clone()
+        for order in (None, mk._next_order(key)):
+            w1 = mk.Window(2, 2, planes, order)
+            times.append(inplace_ms(lambda w1=w1: mk.trace_path_mega(
+                fm.scene, rays, fm.cfg, tables=fm.tables, seed=seed,
+                window=w1), planes, start_from, 5))
+        return tuple(times)
+    a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
+                           seed=seed, window=mk.Window(0, 2, None, None,
+                                                       True))
+    for order in (None, mk._octant_order(a)):
+        s = a if order is None else a[order]
+        r2 = Rays(s[:, 3:6].contiguous(), s[:, 6:9].contiguous(), rays.time)
+        w1 = mk.Window(2, 2, s[:, 9:13].contiguous(),
+                       None if order is None else order.to(torch.int32))
+        times.append(cuda_ms(lambda r2=r2, w1=w1: mk.trace_path_mega(
+            fm.scene, r2, fm.cfg, tables=fm.tables, seed=seed, window=w1),
+            5)[0])
+    return tuple(times)
+
+
+def ab_routes(dev, fm) -> dict:
+    """(m)'s default route (phased every 2 bounces, octants, 8 shells) and
+    monolithic with 8 shells: over the whole frame's rays in one call (min
+    of 3) and per frame through render_image (min of 5)."""
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops.render import (render_image,
+                                                    swizzled_pixels)
+    out = {}
+    c = fm.cfg
+    gen = torch.Generator(device=dev).manual_seed(32)
+    rays = generate_pixel_rays(
+        fm.camera, c.width, c.height, c.samples,
+        swizzled_pixels(c.width, c.height, device=dev), generator=gen)
+    for name, cfg in (("default", c), ("monolithic_f2b8", dataclasses.replace(
+            c, compact_auto=False, mega_f2b_shells=8))):
+        out[f"m_{name}_frame_launch_ms"] = cuda_ms(lambda: integ.integrate(
+            fm.scene, rays, cfg, tables=fm.tables, seed=11), reps=3)[0]
+        out[f"m_{name}_frame_s"] = cuda_ms(lambda: render_image(
+            fm.scene, fm.camera, cfg, generator=gen, tables=fm.tables),
+            reps=5)[0] / 1e3
+    return out
+
+
+def ab_streamed(dev) -> dict:
+    """``ab_main``'s K6, K10, K11, K12, (m)'s routes and (p) timings."""
     from cudaraytracer_tpu_torch.models import check_scenes as cs
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     fm, fn = stream_frames(dev)
@@ -2388,16 +2583,15 @@ def ab_streamed(dev) -> dict:
     del fq
     out["k6_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
         fm.scene, rays, fm.cfg, tables=fm.tables, seed=seed), 5)[0]
-    a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
-                           seed=seed, window=mk.Window(0, 2, None, None,
-                                                       True))
-    r2 = Rays(a[:, 3:6].contiguous(), a[:, 6:9].contiguous(), rays.time)
-    w1 = mk.Window(2, 2, a[:, 9:13].contiguous())
-    out["k10_m_window_2_4_ms"] = cuda_ms(lambda: mk.trace_path_mega(
-        fm.scene, r2, fm.cfg, tables=fm.tables, seed=seed, window=w1), 5)[0]
+    cfg8 = dataclasses.replace(fm.cfg, mega_f2b_shells=8)
+    out["k11_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
+        fm.scene, rays, cfg8, tables=fm.tables, seed=seed), 5)[0]
+    (out["k10_m_window_2_4_ms"],
+     out["k10_m_window_2_4_octant_ms"]) = ab_window_2_4(fm, rays, seed)
     out["k6_m_frame_launch_ms"] = frame_launch(dev, fm, gen, 5)[0]
-    out["k11_m_f2b8_frame_launch_ms"] = frame_launch(dev, fm._replace(
-        cfg=dataclasses.replace(fm.cfg, mega_f2b_shells=8)), gen, 5)[0]
+    out["k11_m_f2b8_frame_launch_ms"] = frame_launch(
+        dev, fm._replace(cfg=cfg8), gen, 5)[0]
+    out.update(ab_routes(dev, fm))
     out["k6_n_frame_launch_ms"] = frame_launch(dev, fn, gen, 5)[0]
     del fm, fn
     with contextlib.redirect_stdout(sys.stderr):     # one JSON line out

@@ -23,15 +23,17 @@ __global__ void __launch_bounds__(BLOCK) draws_kernel(
 
 // One launch: K12 when the caller gives the coefficients; the cooperative
 // family for the path integrator above 8,192 triangles, unless per_thread
-// asks for the one-thread-per-ray sweep; else K1's family, whose segment
-// level is a runtime branch.  The lambert and normal integrators trace
+// asks for the one-thread-per-ray sweep or the launch has more shells than
+// the cooperative walk keeps a byte for (MAX_SHELLS); else K1's family,
+// whose segment level is a runtime branch.  The lambert and normal integrators trace
 // camera rays only, coherent, on which the cooperative sweep's ballots and
 // syncs cost more than they save (+7% on the 1M-triangle field's frame,
 // PERF.md), so they keep one thread per ray.
 template <int INTEG>
 void launch(const Params& P, cudaStream_t s, bool per_thread) {
   if (P.tri_coef) launch_mxu<INTEG>(P, s, per_thread);
-  else if (INTEG == PATH && P.n_tri_segs > 0 && !per_thread)
+  else if (INTEG == PATH && P.n_tri_segs > 0 && !per_thread &&
+           P.f2b <= MAX_SHELLS)
     launch_family<PATH, true>(P, s);
   else launch_family<INTEG, false>(P, s);
 }
@@ -50,8 +52,8 @@ extern "C" int crt_mega_trace(
     float t_max, float ambient, int flags, unsigned long long seed,
     const void* images, int img_h, int img_w, const void* sph_seg,
     const void* tri_seg, int n_sph_segs, int n_tri_segs, int f2b,
-    int step_lo, int n_steps, const void* state, const void* ray_id,
-    int n_stream, int dump, const void* tri_coef, void* touched,
+    int step_lo, int n_steps, void* planes, const void* order, void* key,
+    int key_mode, const void* key_bounds, const void* tri_coef, void* touched,
     int per_thread, void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
     return (int)cudaErrorInvalidValue;
@@ -60,9 +62,14 @@ extern "C" int crt_mega_trace(
   if (step_lo < 0 || n_steps < 1 || step_lo + n_steps > max_depth + 1 ||
       f2b < 0 || (counts && !touched))
     return (int)cudaErrorInvalidValue;
-  const bool window = state || dump || step_lo != 0 ||
-                      n_steps != max_depth + 1;
+  const bool window = planes || step_lo != 0 || n_steps != max_depth + 1;
   if (window && (integrator != PATH || winners))
+    return (int)cudaErrorInvalidValue;
+  // K10: a window after step 0 resumes from the planes; an order and keys
+  // index them
+  if ((step_lo > 0 || order || key) && !planes)
+    return (int)cudaErrorInvalidValue;
+  if (key && (key_mode < KEY_ALIVE || key_mode > KEY_MORTON))
     return (int)cudaErrorInvalidValue;
   // K12 (taken when tri_coef is given) runs on streamed triangles only,
   // records no winners, fetches no texel and visits no shells
@@ -114,10 +121,11 @@ extern "C" int crt_mega_trace(
   P.f2b = n_tri_supers > 0 ? f2b : 0;
   P.step_lo = step_lo;
   P.n_steps = n_steps;
-  P.n_stream = n_stream;
-  P.dump = dump;
-  P.state = static_cast<const float*>(state);
-  P.ray_id = static_cast<const int*>(ray_id);
+  P.planes = static_cast<float*>(planes);
+  P.order = static_cast<const int*>(order);
+  P.key = static_cast<int*>(key);
+  P.key_mode = key_mode;
+  P.bounds = static_cast<const float*>(key_bounds);
   P.tri_coef = static_cast<const float*>(tri_coef);
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);

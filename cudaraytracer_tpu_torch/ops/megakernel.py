@@ -19,10 +19,12 @@ kernel's modes ported so far:
     top box level, one box per SEG_T prims (the JAX kernel streams such
     tables from HBM segment by segment; a GPU thread reads them from
     global memory, so only the segment cull is left);
-  * K10: the path integrator in a window of global bounces, resumed from a
-    (thr, alive) state and dumping the ray state for the next window, its
-    draws keyed by a ray id: the compaction drivers
-    ``trace_path_mega_phased`` and ``trace_path_mega_compact``, chosen by
+  * K10: the path integrator in a window of global bounces over the path
+    state's planes in ray-id order, updated in place, each thread serving
+    the ray of its position in an order and keying its draws by that ray's
+    id, and writing the ray's key for the next window's order: the
+    compaction drivers ``trace_path_mega_phased`` and
+    ``trace_path_mega_compact`` (one sort between windows), chosen by
     ``select_mega`` as JAX chooses them;
   * K11: ``cfg.mega_f2b_shells``, the triangle sweep's top-level boxes
     visited front to back in distance shells;
@@ -119,9 +121,20 @@ Q_TERMS = ((0, 1, 2), (3, 4, 5, 9), (0, 1, 2, 6, 7, 8), (0, 1, 2, 6, 7, 8),
 # super's block, N_COEF planes (22 used, 2 zero) of SUPER_T floats
 Q_OFF = (0, 3, 7, 13, 19)
 N_COEF = 24
-# Octant key (trace_path_mega_phased): Morton bits above this shift form the
-# coarse origin cell, then 3 direction-octant bits, then fine Morton.
+# K10: the path state's planes [rad rgb | o | d | thr rgb | alive], one
+# column per ray id; the regrouping keys of the next window's order
+# (regroup_keys): alive first, the octant key (Morton bits above
+# _OCT_COARSE_SHIFT form the coarse origin cell, then 3 direction-octant
+# bits, then fine Morton) or the Morton code of the origin; a dead ray's key
+# sorts last.
+N_PLANES = 13
+PL_ALIVE = 12
+KEY_ALIVE, KEY_OCTANT, KEY_MORTON = 0, 1, 2
 _OCT_COARSE_SHIFT = 18
+DEAD_KEY = 2 ** 31 - 2
+# K11: the cooperative sweep keeps a ray's shell of a box in one byte; a
+# launch with more shells sweeps one thread per ray
+MAX_SHELLS = 256
 
 # Table columns (the JAX lane layout, cut to the used width)
 S_CX, S_CY, S_CZ, S_R2, S_INVR, S_MAT = 0, 1, 2, 3, 4, 5
@@ -189,6 +202,8 @@ class MegaTables(NamedTuple):
                        # [0, SUPER_T]
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
+    key_bounds: Tensor  # float32[2, 3] the box K10's keys quantize over
+                        # (lo, span: _key_bounds)
     images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
                        # by reference (I = 1: none registered, the dummy)
     n_spheres: int     # the scene's counts (the id offsets of the winners)
@@ -205,9 +220,11 @@ def float_tables(tables: MegaTables) -> list:
 
 def table_bytes(tables: MegaTables) -> int:
     """Bytes of every table the kernel reads, the images aside (the texels
-    a launch fetches are counted by the caller)."""
+    a launch fetches are counted by the caller), and the key bounds aside
+    (24 bytes, read by a window that writes keys)."""
     return sum(t.numel() * t.element_size() for t in tables
-               if isinstance(t, torch.Tensor) and t is not tables.images)
+               if isinstance(t, torch.Tensor)
+               and t is not tables.images and t is not tables.key_bounds)
 
 
 def has_images(tables: MegaTables) -> bool:
@@ -426,7 +443,23 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     return MegaTables(*(x.contiguous() for x in (
         sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
         sph_seg, tri_seg, tri_coef, sph_map, tri_map,
-        scene.textures.images)), n_s, n_t)
+        _key_bounds(sph_box, tri_super), scene.textures.images)), n_s, n_t)
+
+
+def _key_bounds(sph_box: Tensor, tri_super: Tensor) -> Tensor:
+    """The box over which the regrouping keys (K10) quantize origins: the
+    union of the sphere chunk boxes and the triangle super boxes ->
+    float32[2, 3] (lo, span), span at least 1e-20 (a unit box for a scene
+    without them).  The JAX package quantizes over the alive origins' own
+    range, which needs a pass over every ray before the keys; the scene's
+    box holds the hit points, and changes which rays share a warp, never a
+    result."""
+    boxes = torch.cat([sph_box, tri_super])
+    if not boxes.shape[0]:
+        return torch.stack([boxes.new_zeros(3), boxes.new_ones(3)])
+    lo = boxes[:, 0:3].amin(0)
+    return torch.stack([lo, torch.clamp(boxes[:, 3:6].amax(0) - lo,
+                                        min=1e-20)])
 
 
 def _tri_coef(v0: Tensor, e1: Tensor, e2: Tensor, nrm: Tensor,
@@ -497,7 +530,7 @@ def _library() -> ctypes.CDLL:
         lib.crt_mega_trace.argtypes = (
             [vp] * 17 + [ci] * 11 + [cf] * 3
             + [ci, ctypes.c_uint64, vp, ci, ci]
-            + [vp] * 2 + [ci] * 5 + [vp] * 2 + [ci] * 2 + [vp] * 2
+            + [vp] * 2 + [ci] * 5 + [vp] * 3 + [ci] + [vp] * 3
             + [ci, vp])
         lib.crt_mega_trace.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
@@ -572,16 +605,27 @@ def _flags(cfg: RenderConfig, injected: bool) -> int:
 
 class Window(NamedTuple):
     """A bounce window of the path integrator (kernel mode K10): global
-    steps [step_lo, step_lo + n_steps), resumed from ``state``
-    float32[N, 4] (thr rgb, alive; None: thr 1, every ray alive), dumping
-    float32[N, 13] [rad | o | d | thr | alive] when ``dump``.  ``ray_id``
-    int32[N] keys the draws (seed, ray_id, step) and picks the injected
-    stream's row; None keys them by position."""
+    steps [step_lo, step_lo + n_steps).
+
+    planes: the path state float32[N_PLANES, N] [rad rgb | o | d | thr rgb |
+    alive], one column per ray id, updated in place: a window at step 0
+    starts each ray from its camera ray and writes the column; a later one
+    resumes the rays alive in their columns, adds its radiance to rad and
+    writes o, d, thr and alive back, and leaves a dead ray's column as it
+    is.  Without planes a window at step 0 returns the radiance of its
+    steps.  order: int32[N], position i serves ray order[i] (a
+    permutation; None: ray i); the draws are keyed by (seed, ray, step) and
+    the injected stream is read at the ray's row, so any order gives the
+    same planes.  key: int32[N], filled at each resumed or started ray's
+    column with its key for the next window's order (``regroup_keys`` in
+    ``key_mode``, quantized over ``MegaTables.key_bounds``); a dead ray
+    keeps the DEAD_KEY its last window wrote."""
     step_lo: int = 0
     n_steps: Optional[int] = None
-    state: Optional[Tensor] = None
-    ray_id: Optional[Tensor] = None
-    dump: bool = False
+    planes: Optional[Tensor] = None
+    order: Optional[Tensor] = None
+    key: Optional[Tensor] = None
+    key_mode: int = KEY_ALIVE
 
     def steps(self, cfg: RenderConfig) -> int:
         return (self.n_steps if self.n_steps is not None
@@ -589,7 +633,7 @@ class Window(NamedTuple):
 
     def partial(self, cfg: RenderConfig) -> bool:
         """Whether this is more than the whole path from scratch."""
-        return (self.state is not None or self.dump or self.step_lo != 0
+        return (self.planes is not None or self.step_lo != 0
                 or self.steps(cfg) != cfg.max_depth + 1)
 
 
@@ -607,12 +651,19 @@ def _check_window(win: Window, cfg: RenderConfig, n: int,
     if win.partial(cfg) and (cfg.integrator != "path" or want_winners):
         raise ValueError("a bounce window needs the path integrator and "
                          "records no winners")
-    if win.state is not None and tuple(win.state.shape) != (n, 4):
-        raise ValueError(f"state of shape {tuple(win.state.shape)}, "
-                         f"expected ({n}, 4)")
-    if win.ray_id is not None and tuple(win.ray_id.shape) != (n,):
-        raise ValueError(f"ray_id of shape {tuple(win.ray_id.shape)}, "
-                         f"expected ({n},)")
+    if win.planes is None and (win.step_lo > 0 or win.order is not None
+                               or win.key is not None):
+        raise ValueError("a window after step 0, an order and keys need the "
+                         "state's planes")
+    for name, shape in (("planes", (N_PLANES, n)), ("order", (n,)),
+                        ("key", (n,))):
+        x = getattr(win, name)
+        if x is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} of shape {tuple(x.shape)}, expected "
+                             f"{shape}")
+    if win.key is not None and win.key_mode not in (KEY_ALIVE, KEY_OCTANT,
+                                                    KEY_MORTON):
+        raise ValueError(f"key mode {win.key_mode}")
     return steps
 
 
@@ -622,13 +673,14 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                  want_winners: bool = False, window: Window = WHOLE,
                  touched: Optional[Tensor] = None, per_thread: bool = False):
     """One launch of the CUDA kernel -> radiance float32[N, 3] (with
-    ``window.dump`` the state float32[N, 13]), and with want_winners (path
-    only) the winners int32[max_depth + 1, N] in scene prim ids, -1 for a
-    miss or a dead lane.
+    ``window.planes`` the planes, updated in place), and with want_winners
+    (path only) the winners int32[max_depth + 1, N] in scene prim ids, -1
+    for a miss or a dead lane.
 
-    stream: optional injected draws float32[max_depth + 1, R, 4], read at
-    row window.ray_id[i] (R = N without ray ids).  The triangle sweep visits
-    its top-level boxes in cfg.mega_f2b_shells shells (K11), or under
+    stream: optional injected draws float32[max_depth + 1, N, 4], read at
+    the row of the ray a thread serves.  The triangle sweep visits its
+    top-level boxes in cfg.mega_f2b_shells shells (K11; the cooperative
+    sweep ranks at most MAX_SHELLS, more run one thread per ray), or under
     ``_use_mxu`` evaluates the coefficient rows in table order with no
     shells (K12).
 
@@ -652,7 +704,7 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     steps = _check_window(window, cfg, n, want_winners)
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))
-    for name in FLOAT_TABLES + ("sph_map", "tri_map"):
+    for name in FLOAT_TABLES + ("key_bounds", "sph_map", "tri_map"):
         t = getattr(tables, name)
         _require_cuda(name, t, torch.int32 if name.endswith("map")
                       else torch.float32)
@@ -665,15 +717,16 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         if tables.images.device != origin.device:
             raise ValueError(f"images are on {tables.images.device}, rays "
                              f"on {origin.device}")
-    n_stream = n
     if stream is not None:
-        if window.ray_id is not None:
-            n_stream = stream.shape[1]
-        _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n_stream, 4))
-    if window.state is not None:
-        _require_cuda_f32("state", window.state, (n, 4))
-    if window.ray_id is not None:
-        _require_cuda("ray_id", window.ray_id, torch.int32, (n,))
+        _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n, 4))
+    for name, dtype in (("planes", torch.float32), ("order", torch.int32),
+                        ("key", torch.int32)):
+        x = getattr(window, name)
+        if x is not None:
+            _require_cuda(name, x, dtype)
+            if x.device != origin.device:
+                raise ValueError(f"{name} is on {x.device}, rays on "
+                                 f"{origin.device}")
     if counts is not None:
         n_chunks = max(tables.sph_box.shape[0] + tables.tri_box.shape[0], 1)
         _require_cuda("counts", counts, torch.int64, (N_COUNTS,))
@@ -684,10 +737,11 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     if want_winners and (cfg.integrator != "path" or counts is not None):
         raise ValueError("winners are recorded by the path integrator's "
                          "production variant only")
-    if n >= 2 ** 31 or n_stream >= 2 ** 31:
+    if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one launch")
-    out = torch.empty((n, 13 if window.dump else 3), dtype=torch.float32,
-                      device=origin.device)
+    planes = window.planes
+    out = (planes if planes is not None else
+           torch.empty((n, 3), dtype=torch.float32, device=origin.device))
     winners = (torch.empty((cfg.max_depth + 1, n), dtype=torch.int32,
                            device=origin.device) if want_winners else None)
     if mxu and per_thread and counts is None:
@@ -712,7 +766,7 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             *(getattr(tables, k).data_ptr() for k in FLOAT_TABLES[:9]),
             tables.sph_map.data_ptr(), tables.tri_map.data_ptr(),
             origin.data_ptr(), direction.data_ptr(), ptr(stream),
-            out.data_ptr(), ptr(winners), ptr(counts),
+            ptr(out) if planes is None else None, ptr(winners), ptr(counts),
             n, tables.sph_box.shape[0], tables.sph_super.shape[0],
             tables.tri_super.shape[0], tables.rect.shape[0],
             tables.tsph.shape[0], tables.ttri.shape[0], tables.n_spheres,
@@ -725,8 +779,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             tables.images.shape[1], tables.images.shape[2],
             tables.sph_seg.data_ptr(), tables.tri_seg.data_ptr(),
             tables.sph_seg.shape[0], tables.tri_seg.shape[0], f2b,
-            window.step_lo, steps, ptr(window.state), ptr(window.ray_id),
-            n_stream, int(window.dump),
+            window.step_lo, steps, ptr(planes), ptr(window.order),
+            ptr(window.key), window.key_mode, tables.key_bounds.data_ptr(),
             tables.tri_coef.data_ptr() if mxu else None,
             ptr(touched), int(per_thread), cuda_stream)
     _check(lib, code, "megakernel")
@@ -805,19 +859,19 @@ def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
     """Fused integrator (cfg.integrator: path / lambert / normal) ->
     radiance float32[N, 3].
 
-    samples: optional injected SampleStream (ball [D+1, R, 3], prob
-    [D+1, R], R = N unless the window has ray ids); otherwise the path
-    integrator draws in-kernel from ``seed``, itself drawn from
-    ``generator`` when not given.  lambert and normal draw nothing.
-    want_winners (path only): return (radiance, winners int32[max_depth +
-    1, N]), each bounce's winner in the scene's prim ids [spheres |
-    triangles | rects | t_spheres | t_triangles], -1 for a miss or a dead
-    lane (megakernel.py:2731-2793).  window (path only, kernel mode K10):
-    a bounce window, its dump float32[N, 13] returned in place of the
-    radiance when it dumps.  cfg.mega_f2b_shells orders the triangle
-    sweep's top-level boxes (K11); cfg.mega_mxu takes kernel mode K12 on
-    streamed triangles (``_use_mxu``), the tables built here with the
-    coefficients when none are given (JAX :2754)."""
+    samples: optional injected SampleStream (ball [D+1, N, 3], prob [D+1,
+    N], row r for ray r); otherwise the path integrator draws in-kernel
+    from ``seed``, itself drawn from ``generator`` when not given.  lambert
+    and normal draw nothing.  want_winners (path only): return (radiance,
+    winners int32[max_depth + 1, N]), each bounce's winner in the scene's
+    prim ids [spheres | triangles | rects | t_spheres | t_triangles], -1
+    for a miss or a dead lane (megakernel.py:2731-2793).  window (path
+    only, kernel mode K10): a bounce window; with its planes, the planes
+    (updated in place) are returned in place of the radiance.
+    cfg.mega_f2b_shells orders the triangle sweep's top-level boxes (K11);
+    cfg.mega_mxu takes kernel mode K12 on streamed triangles
+    (``_use_mxu``), the tables built here with the coefficients when none
+    are given (JAX :2754)."""
     check_supported(cfg)
     if want_winners and cfg.integrator != "path":
         raise ValueError("want_winners needs the path integrator")
@@ -829,8 +883,7 @@ def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
     seed = _resolve_seed(cfg, injected, seed, generator)
     stream = None
     if injected:
-        rows = n if window.ray_id is None else samples.prob.shape[1]
-        stream = stream_tensor(samples, rows, cfg.max_depth + 1)
+        stream = stream_tensor(samples, n, cfg.max_depth + 1)
     return _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
                   want_winners, window)
 
@@ -942,72 +995,65 @@ def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
 # The compaction drivers (kernel mode K10) and their routing
 # ---------------------------------------------------------------------------
 
-def _morton_u32(x: Tensor, y: Tensor, z: Tensor) -> Tensor:
-    """30-bit Morton code of coordinates quantized over their own range
-    (megakernel.py:1760) -> int64[N]."""
-    def spread(v):
-        v = v & 0x3FF
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        return (v | (v << 2)) & 0x09249249
-
-    def q(a):
-        lo = a.min()
-        span = torch.clamp(a.max() - lo, min=1e-20)
-        return torch.clamp((a - lo) / span * 1023.0, 0.0, 1023.0).to(
-            torch.int64)
-
-    return (spread(q(x)) << 2) | (spread(q(y)) << 1) | spread(q(z))
+def _spread10(v: Tensor) -> Tensor:
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
 
 
-DEAD_KEY = 2 ** 31 - 2      # the sort key of a dead ray: last
+def regroup_keys(o: Tensor, d: Tensor, alive: Tensor, mode: int,
+                 bounds: Tensor) -> Tensor:
+    """Plain version of the kernel's regrouping keys (K10) of rays at the
+    end of a window, origins and directions float32[N, 3] -> int32[N]:
+    DEAD_KEY for a dead ray, else by ``mode`` 0 (KEY_ALIVE: alive first),
+    the 30-bit Morton code of the origin quantized to 1024 cells an axis
+    over ``bounds`` (``MegaTables.key_bounds``) (KEY_MORTON, as
+    trace_path_mega_compact sorts, megakernel.py:1779), or (coarse origin
+    cell, direction octant, fine origin Morton) (KEY_OCTANT,
+    megakernel.py:1962-1976).  A sort of the keys, stable, is the next
+    window's order."""
+    dead = torch.full(alive.shape, DEAD_KEY, dtype=torch.int32,
+                      device=o.device)
+    if mode == KEY_ALIVE:
+        return torch.where(alive, 0, dead)
+    q = (o - bounds[0]) / bounds[1] * 1023.0
+    q = torch.where(q > 0.0, q, 0.0)                # fmaxf drops a NaN
+    q = torch.where(q < 1023.0, q, 1023.0).to(torch.int32)
+    code = ((_spread10(q[:, 0]) << 2) | (_spread10(q[:, 1]) << 1)
+            | _spread10(q[:, 2]))
+    if mode == KEY_OCTANT:
+        neg = (d < 0.0).to(torch.int32)
+        oct_ = (neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]
+        cs = _OCT_COARSE_SHIFT
+        code = (((code >> cs) << cs) | (oct_ << (cs - 3))
+                | ((code >> 3) & ((1 << (cs - 3)) - 1)))
+    return torch.where(alive, code, dead)
 
 
-def _partition_alive_first(alive_f: Tensor) -> Tensor:
-    """Stable alive-first partition (megakernel.py:1848): two cumsums and
-    one scatter, no sort -> int64[N] order such that x[order] holds every
-    alive lane before every dead lane, each group in its old order."""
-    alive = alive_f > 0.0
-    alive_i = alive.to(torch.int64)
-    n_alive = alive_i.sum()
-    pos = torch.where(alive, torch.cumsum(alive_i, 0) - 1,
-                      n_alive + torch.cumsum(1 - alive_i, 0) - 1)
-    order = torch.empty_like(pos)
-    order[pos] = torch.arange(pos.shape[0], device=pos.device)
-    return order
-
-
-def _octant_order(state: Tensor) -> Tensor:
-    """The octant regrouping of a dumped wavefront float32[N, 13]
-    (megakernel.py:1962-1976): alive rays by (coarse origin cell, direction
-    octant, fine origin Morton), dead rays last -> int64[N] (stable)."""
-    o, d = state[:, 3:6], state[:, 6:9]
-    code = _morton_u32(o[:, 0], o[:, 1], o[:, 2]) & 0x3FFFFFFF
-    oct_ = (((d[:, 0] < 0).to(torch.int64) << 2)
-            | ((d[:, 1] < 0).to(torch.int64) << 1)
-            | (d[:, 2] < 0).to(torch.int64))
-    cs = _OCT_COARSE_SHIFT
-    key = (((code >> cs) << cs) | (oct_ << (cs - 3))
-           | ((code >> 3) & ((1 << (cs - 3)) - 1)))
-    return torch.argsort(torch.where(state[:, 12] > 0.0, key, DEAD_KEY),
-                         stable=True)
+def _next_order(key: Tensor) -> Tensor:
+    """The next window's order: the ray ids sorted by key, stable (one
+    device sort, no host sync)."""
+    return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
 def _driver_setup(scene: Scene, rays: Rays, cfg: RenderConfig, tables,
                   samples, generator, seed):
-    """(tables, stream, seed, ray ids) of a compaction driver."""
+    """(tables, stream, seed, planes, keys) of a compaction driver."""
     check_supported(cfg)
     if cfg.integrator != "path":
         raise ValueError("the compaction drivers run the path integrator")
     if tables is None:
         tables = build_mega_tables(scene, mxu=mxu_wanted(scene, cfg))
     n = rays.origin.shape[0]
+    dev = rays.origin.device
     injected = samples is not None
     stream = (stream_tensor(samples, n, cfg.max_depth + 1) if injected
               else None)
-    ids = torch.arange(n, dtype=torch.int32, device=rays.origin.device)
-    return tables, stream, _resolve_seed(cfg, injected, seed, generator), ids
+    planes = torch.empty(N_PLANES, n, dtype=torch.float32, device=dev)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    return (tables, stream, _resolve_seed(cfg, injected, seed, generator),
+            planes, key)
 
 
 def trace_path_mega_phased(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -1019,11 +1065,12 @@ def trace_path_mega_phased(scene: Scene, rays: Rays, cfg: RenderConfig,
                            first_window: Optional[int] = None) -> Tensor:
     """The fused path in windows of ``compact_every`` bounces (the first
     ``first_window`` long when given), the wavefront regrouped between
-    windows (megakernel.py:1867): a stable alive-first partition, or with
-    ``octants`` (default cfg.compact_octants) a sort of the alive rays by
-    (coarse origin cell, direction octant, fine origin Morton), dead rays
-    last.  Each window is one launch of kernel mode K10 that resumes the
-    state the last one dumped -> radiance float32[N, 3].
+    windows (megakernel.py:1867): alive rays first, or with ``octants``
+    (default cfg.compact_octants) by (coarse origin cell, direction
+    octant, fine origin Morton), dead rays last.  Each window is one launch
+    of kernel mode K10 over the path state's planes, in place, which also
+    writes each ray's key; one stable sort of the keys gives the next
+    window's order -> radiance float32[N, 3] (the planes' rad).
 
     The draws are keyed by each ray's own id (the injected stream's row, or
     (seed, id, step) in the kernel), so the result is bit-identical to
@@ -1034,31 +1081,24 @@ def trace_path_mega_phased(scene: Scene, rays: Rays, cfg: RenderConfig,
         raise ValueError(f"compact_every must be >= 1; got {compact_every}")
     if octants is None:
         octants = cfg.compact_octants
-    tables, stream, seed, idx = _driver_setup(scene, rays, cfg, tables,
-                                              samples, generator, seed)
+    tables, stream, seed, planes, key = _driver_setup(
+        scene, rays, cfg, tables, samples, generator, seed)
+    mode = KEY_OCTANT if octants else KEY_ALIVE
     total = cfg.max_depth + 1
-    rad = torch.zeros_like(rays.origin)      # in the current arrangement
-    o, d, state = rays.origin, rays.direction, None
-    step_lo, phase = 0, 0
+    order, step_lo, phase = None, 0, 0
     while step_lo < total:
         length = (first_window if phase == 0 and first_window
                   else compact_every)
         n_steps = min(length, total - step_lo)
         last = step_lo + n_steps >= total
-        out = _trace(tables, o, d, cfg, stream, seed, window=Window(
-            step_lo, n_steps, state, idx, not last))
-        rad = rad + out[:, 0:3]
-        if last:
-            break
-        order = (_octant_order(out) if octants
-                 else _partition_alive_first(out[:, 12]))
-        out = out[order]
-        o, d = out[:, 3:6].contiguous(), out[:, 6:9].contiguous()
-        state = out[:, 9:13].contiguous()
-        rad, idx = rad[order], idx[order]
+        _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
+               window=Window(step_lo, n_steps, planes, order,
+                             None if last else key, mode))
+        if not last:
+            order = _next_order(key)
         step_lo += n_steps
         phase += 1
-    return torch.empty_like(rad).index_copy_(0, idx.long(), rad)
+    return planes[:3].t().contiguous()
 
 
 def trace_path_mega_compact(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -1076,19 +1116,13 @@ def trace_path_mega_compact(scene: Scene, rays: Rays, cfg: RenderConfig,
             f"compact_after/primary_steps must be in [1, max_depth] "
             f"(= [1, {cfg.max_depth}]); got {primary_steps}: the second "
             "window needs at least one remaining bounce step")
-    tables, stream, seed, ids = _driver_setup(scene, rays, cfg, tables,
-                                              samples, generator, seed)
-    a = _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
-               window=Window(0, primary_steps, None, ids, True))
-    code = _morton_u32(a[:, 3], a[:, 4], a[:, 5]) & 0x3FFFFFFF
-    order = torch.argsort(torch.where(a[:, 12] > 0.0, code, DEAD_KEY),
-                          stable=True)
-    s = a[order]
-    rad_b = _trace(tables, s[:, 3:6].contiguous(), s[:, 6:9].contiguous(),
-                   cfg, stream, seed, window=Window(
-                       primary_steps, None, s[:, 9:13].contiguous(),
-                       ids[order]))
-    return a[:, 0:3] + torch.empty_like(rad_b).index_copy_(0, order, rad_b)
+    tables, stream, seed, planes, key = _driver_setup(
+        scene, rays, cfg, tables, samples, generator, seed)
+    _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
+           window=Window(0, primary_steps, planes, None, key, KEY_MORTON))
+    _trace(tables, rays.origin, rays.direction, cfg, stream, seed,
+           window=Window(primary_steps, None, planes, _next_order(key)))
+    return planes[:3].t().contiguous()
 
 
 def select_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -1667,12 +1701,13 @@ def _inv_len(d: Tensor) -> Tensor:
 
 def _plain_rays(tables, o, d, cfg, stream, seed, index,
                 want_winners: bool = False, window: Window = WHOLE,
-                state: Optional[Tensor] = None, mxu: bool = False):
-    """Radiance float32[N, 3] of one chunk of rays (with window.dump the
-    state float32[N, 13]; with want_winners also the winners int32[max_depth
-    + 1, N]).  index: the rays' ids (the draws' keys); stream: their rows of
-    the injected draws; state: their rows of the window's state; mxu: the
-    triangle sweep of K12."""
+                thr: Optional[Tensor] = None, mxu: bool = False):
+    """Radiance float32[N, 3] of one chunk of rays (with window.planes
+    their columns' new values float32[N, N_PLANES], the rad of this window
+    only; with want_winners also the winners int32[max_depth + 1, N]).
+    index: the rays' ids (the draws' keys); stream: their rows of the
+    injected draws; thr: the throughput of resumed rays, all alive (None:
+    1); mxu: the triangle sweep of K12."""
     q = cfg.quirks
     tex = has_images(tables) and cfg.integrator != "normal"
     images = tables.images if tex else None
@@ -1695,11 +1730,9 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
         return torch.where(hit[:, None], lit, sky)
 
     n = o.shape[0]
-    if state is not None:
-        thr, alive = state[:, 0:3], state[:, 3] > 0.0
-    else:
+    if thr is None:
         thr = torch.ones(n, 3, device=o.device)
-        alive = torch.ones(n, dtype=torch.bool, device=o.device)
+    alive = torch.ones(n, dtype=torch.bool, device=o.device)
     rad = torch.zeros(n, 3, device=o.device)
     winners = torch.full((cfg.max_depth + 1, n), -1, dtype=torch.int32,
                          device=o.device)
@@ -1734,9 +1767,41 @@ def _plain_rays(tables, o, d, cfg, stream, seed, index,
         o = torch.where(c3, win.p, o)
         d = torch.where(c3, out, d)
         alive = cont
-    if window.dump:
+    if window.planes is not None:
         return torch.cat([rad, o, d, thr, alive[:, None].to(rad.dtype)], 1)
     return (rad, winners) if want_winners else rad
+
+
+def _plain_window(tables, rays: Rays, cfg: RenderConfig, stream, seed: int,
+                  window: Window, mxu: bool, chunk: int) -> Tensor:
+    """The plain version of a window over the planes (K10), in place: the
+    positions in chunks, position i serving ray window.order[i], as the
+    kernel's threads do; a dead ray's column (and key) left as it is ->
+    the planes."""
+    planes, n = window.planes, rays.origin.shape[0]
+    order = (window.order.long() if window.order is not None
+             else torch.arange(n, device=planes.device))
+    resume = window.step_lo > 0
+    for lo in range(0, n, chunk):
+        rid = order[lo:lo + chunk]
+        if resume:
+            rid = rid[planes[PL_ALIVE, rid] > 0.0]
+            o, d = planes[3:6, rid].t(), planes[6:9, rid].t()
+            thr = planes[9:12, rid].t()
+        else:
+            o, d, thr = rays.origin[rid], rays.direction[rid], None
+        new = _plain_rays(tables, o, d, cfg,
+                          stream[:, rid] if stream is not None else None,
+                          seed, rid, window=window, thr=thr, mxu=mxu)
+        if resume:
+            new[:, 0:3] = planes[0:3, rid].t() + new[:, 0:3]
+        planes[:, rid] = new.t()
+        if window.key is not None:
+            window.key[rid] = regroup_keys(new[:, 3:6], new[:, 6:9],
+                                           new[:, PL_ALIVE] > 0.0,
+                                           window.key_mode,
+                                           tables.key_bounds)
+    return planes
 
 
 def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
@@ -1750,11 +1815,11 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
     levels (K6) and the visit order (K11) change no result, so the sweep
     stays brute force.
 
-    stream: optional float32[max_depth + 1, R, 4] injected draws, row
-    window.ray_id[i] for ray i (R = N without ray ids); otherwise the
-    counter-based draws of ``seed`` keyed by the ray ids (the kernel's
-    numbers).  window: the bounce window (kernel mode K10); with dump the
-    result is the state float32[N, 13].  Under ``_use_mxu`` the triangles
+    stream: optional float32[max_depth + 1, N, 4] injected draws, row r
+    for ray r; otherwise the counter-based draws of ``seed`` keyed by the
+    ray ids (the kernel's numbers).  window: the bounce window (kernel mode
+    K10); with its planes they are updated in place, as the kernel does
+    (``_plain_window``), and returned.  Under ``_use_mxu`` the triangles
     take K12's sweep (``_tri_sweep_mxu_plain``), whose supers are visited
     as the kernel's slab tests reach them: its forms differ from
     Moller-Trumbore in rounding, so only the same visits give the same
@@ -1765,8 +1830,6 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
     _check_window(window, cfg, n, want_winners)
     mxu = _use_mxu(tables, cfg, want_winners)
     dev = rays.origin.device
-    ids = (window.ray_id.long() if window.ray_id is not None
-           else torch.arange(n, device=dev))
     if mxu:       # a super's [rays, SUPER_T] planes in place of [rays, T]
         width = max(tables.sph.shape[0] + SUPER_T
                     + sum(getattr(tables, k).shape[0]
@@ -1775,18 +1838,19 @@ def trace_path_mega_plain(tables: MegaTables, rays: Rays, cfg: RenderConfig,
     else:
         width = max(sum(t.shape[0] for t in float_tables(tables)), 1)
         chunk = max(256, (1 << 22) // width)
+    if window.planes is not None:
+        return _plain_window(tables, rays, cfg, stream, seed, window, mxu,
+                             chunk)
     out = []
     for lo in range(0, n, chunk):
         hi = min(n, lo + chunk)
-        index = ids[lo:hi]
+        index = torch.arange(lo, hi, device=dev)
         out.append(_plain_rays(
             tables, rays.origin[lo:hi], rays.direction[lo:hi], cfg,
-            stream[:, index] if stream is not None else None, seed, index,
-            want_winners, window,
-            window.state[lo:hi] if window.state is not None else None, mxu))
-    cols = 13 if window.dump else 3
+            stream[:, lo:hi] if stream is not None else None, seed, index,
+            want_winners, window, mxu=mxu))
     if not want_winners:
-        return (torch.cat(out) if out else rays.origin.new_zeros(0, cols))
+        return torch.cat(out) if out else rays.origin.new_zeros(0, 3)
     if not out:
         return (rays.origin.new_zeros(0, 3),
                 torch.zeros(cfg.max_depth + 1, 0, dtype=torch.int32,

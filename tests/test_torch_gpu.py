@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the fused kernel K1, its rect / TRS mode K8, winner mode K7, image texture
-mode K9, segment level K6, windows K10, shells K11 and bilinear triangle
-sweep K12 (the last four by the cooperative sweeps, held also against the
-one-thread-per-ray sweep), the draws K2 (csrc/megakernel*.cu), the sweeps
+mode K9, segment level K6, windows K10 (the path state's planes in place,
+the regrouping keys, the drivers without a host sync), shells K11 and
+bilinear triangle sweep K12 (K6, K11 and K12 by the cooperative sweeps,
+held also against the one-thread-per-ray sweep), the draws K2 (csrc/megakernel*.cu), the sweeps
 K3, K4 and K5 (csrc/sweeps.cu), and the wavefront render, the fit, the
 mega_diff fit and the animation driver through them.
 
@@ -838,36 +839,132 @@ def test_segment_level_matches_plain_on_the_sphere_field(cuda, integrator):
         tables, rays, cfg, mk.stream_tensor(stream, 1 << 16, DEPTH + 1)))
 
 
+def _terrain_launch(dev, n=1 << 16):
+    """(scene, Morton tables, cfg, rays) of the 10,368-triangle terrain
+    (segments at run time) and n rays cast from above, path depth 8, fixed
+    quirks."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    scene = cs.fill_terrain(SceneBuilder()).build(dev)
+    cfg = RenderConfig(max_depth=DEPTH, engine="mega", quirks=Quirks.fixed())
+    return (scene, mk.morton_tables(scene), cfg,
+            _rays_from_numpy(*cs.terrain_rays(n), dev))
+
+
 @pytest.mark.gpu
-def test_phased_and_compact_equal_monolithic_on_the_card(cuda):
+@pytest.mark.parametrize("field", ["big_field", "terrain"])
+def test_phased_and_compact_equal_monolithic_on_the_card(cuda, field):
     """K10: the compaction drivers on the card are bit-equal to the
-    monolithic launch with in-kernel draws (keyed by ray id), for every
-    window length, with and without octant regrouping."""
-    scene, tables, cfg, rays = _big_field_launch(cuda)
+    monolithic launch, for every window length, with and without octant
+    regrouping, with a first window of one bounce and through the compact
+    driver, under in-kernel and injected draws (keyed by ray id), on 2^16
+    rays of the 128,000-triangle field and of the terrain; and no driver
+    waits on the host between its windows (sync debug mode "error")."""
+    scene, tables, cfg, rays = (_big_field_launch(cuda) if field == "big_field"
+                                else _terrain_launch(cuda))
     rays = type(rays)(*(x[:1 << 16] for x in rays))
+    n = rays.origin.shape[0]
+    stream = stream_from_generator(torch.Generator(device=cuda).manual_seed(
+        12), n, DEPTH, cuda)
+    runs = [dict(compact_every=e, octants=oc) for e in (1, 2, 3)
+            for oc in (False, True)]
+    runs.append(dict(compact_every=2, octants=True, first_window=1))
+    for draws in (dict(seed=8), dict(samples=stream)):
+        want = mk.trace_path_mega(scene, rays, cfg, tables=tables, **draws)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [mk.trace_path_mega_phased(scene, rays, cfg, tables=tables,
+                                             **run, **draws) for run in runs]
+            got.append(mk.trace_path_mega_compact(
+                scene, rays, cfg, tables=tables, primary_steps=2, **draws))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for run, g in zip(runs + ["compact"], got):
+            assert torch.equal(g, want), (run, list(draws))
+
+
+@pytest.mark.gpu
+def test_window_planes_match_plain_on_the_card(cuda):
+    """K10 in place on 2^16 camera rays of a 20,480-triangle field (the
+    cooperative sweep): the window [0, 2) writes every ray's planes and its
+    key in each of the three key modes as the plain version does; [2, 5),
+    served in the sorted order of the octant keys, matches the plain
+    version's planes and keys, dead rays' columns untouched; and [5, 9) in
+    the next order completes the monolithic launch's radiance bit for
+    bit."""
+    scene, cam = cs.field_scene(2, 2, 16 / 9, device=cuda)
+    tables = mk.morton_tables(scene)
+    assert tables.tri_seg.shape[0] == 10
+    cfg = RenderConfig(width=1280, height=720, samples=8, max_depth=DEPTH,
+                       quirks=Quirks.fixed(), engine="mega")
+    rays = _first_launch(cam, cfg, cuda, 3)
+    rays = type(rays)(*(x[:1 << 16] for x in rays))
+    n = rays.origin.shape[0]
     want = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8)
-    for every in (1, 2, 3):
-        for octants in (False, True):
-            got = mk.trace_path_mega_phased(scene, rays, cfg, tables=tables,
-                                            compact_every=every, seed=8,
-                                            octants=octants)
-            assert torch.equal(got, want), (every, octants)
-    got = mk.trace_path_mega_compact(scene, rays, cfg, tables=tables,
-                                     primary_steps=2, seed=8)
-    assert torch.equal(got, want)
-    # a window's dump resumed equals the unbroken launch, and the plain
-    # version's window
-    w0 = mk.Window(0, 3, None, None, True)
-    a = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8,
-                           window=w0)
-    _assert_rays_match(a, mk.trace_path_mega_plain(tables, rays, cfg, None,
-                                                   8, window=w0))
-    b = mk.trace_path_mega(scene, type(rays)(a[:, 3:6].contiguous(),
-                                             a[:, 6:9].contiguous(),
-                                             rays.time), cfg,
-                           tables=tables, seed=8,
-                           window=mk.Window(3, None, a[:, 9:13].contiguous()))
-    assert torch.equal(a[:, :3] + b, want)
+
+    def both(win):
+        """The window on the card and in the plain version from the same
+        planes and keys -> the card's (planes, key), checked equal."""
+        ref = win._replace(planes=win.planes.clone(), key=win.key.clone())
+        mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8,
+                           window=win)
+        mk.trace_path_mega_plain(tables, rays, cfg, None, 8, window=ref)
+        assert torch.equal(win.planes, ref.planes)
+        assert torch.equal(win.key, ref.key)
+        return win.planes, win.key
+
+    for mode in (mk.KEY_ALIVE, mk.KEY_MORTON, mk.KEY_OCTANT):
+        planes = torch.full((mk.N_PLANES, n), float("nan"), device=cuda)
+        key = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+        planes, key = both(mk.Window(0, 2, planes, None, key, mode))
+        assert not planes.isnan().any() and bool((key >= 0).all())
+    alive = planes[12] > 0
+    assert 0 < int(alive.sum()) < n
+    dead = planes[:, ~alive].clone()
+    planes, key = both(mk.Window(2, 3, planes, mk._next_order(key), key,
+                                 mk.KEY_OCTANT))
+    assert torch.equal(planes[:, ~alive], dead)
+    mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=8,
+                       window=mk.Window(5, None, planes, mk._next_order(key)))
+    assert torch.equal(planes[:3].t(), want)
+
+
+@pytest.mark.gpu
+def test_cooperative_shells_make_the_per_thread_tests(cuda):
+    """K11 under the cooperative sweep against one thread per ray, 1 to 256
+    shells (above 32, in groups of 32) over the 128,000-triangle field's 63
+    segments (2^16 rays) and 8 shells over the 1M-triangle field's 510
+    (2^12 rays, 66 KB of dynamic shared memory a block): equal test counts
+    (the box distances ranked among them), touched chunks and radiance.
+    Above MAX_SHELLS the launch sweeps one thread per ray and still gives
+    the table order's radiance."""
+    scene, tables, cfg, rays = _big_field_launch(cuda)
+    cases = [(tables, type(rays)(*(x[:1 << 16] for x in rays)), b)
+             for b in (1, 3, 8, 40, 256, mk.MAX_SHELLS + 44)]
+    big, cam = cs.big1m_scene(16 / 9, device=cuda)
+    big_tables = mk.morton_tables(big)
+    assert big_tables.tri_seg.shape[0] == 510
+    cases.append((big_tables, type(rays)(*(x[:1 << 12] for x in
+                                           _first_launch(cam, cfg, cuda, 4))),
+                  8))
+    for t, r, shells in cases:
+        c = dataclasses.replace(cfg, mega_f2b_shells=shells)
+        out, counts, touched = _counted(t, r, c, False)
+        out_pt, counts_pt, touched_pt = _counted(t, r, c, True)
+        assert torch.equal(counts, counts_pt), (shells, counts.tolist(),
+                                                counts_pt.tolist())
+        assert torch.equal(touched, touched_pt) and torch.equal(out, out_pt)
+        assert int(counts[7]) >= r.origin.shape[0] * t.tri_seg.shape[0]
+        got = mk.trace_path_mega(scene if t is tables else big, r, c,
+                                 tables=t, seed=17)
+        pt = mk._launch_mega(t, r.origin.contiguous(),
+                             r.direction.contiguous(), c, None, 17,
+                             per_thread=True)
+        assert torch.equal(got, pt), shells
+        if shells > mk.MAX_SHELLS:
+            assert torch.equal(got, mk.trace_path_mega(
+                scene, r, dataclasses.replace(c, mega_f2b_shells=0),
+                tables=t, seed=17))
 
 
 @pytest.mark.gpu
