@@ -28,7 +28,18 @@ Phases (each prints lines; any failure raises and exits nonzero):
          launch of each fused frame (its first 2^18-ray chunk in swizzled
          order; three integrators on an injected stream, plus the path on
          in-kernel draws), four scenes at 128x64x4, a scene of duplicated
-         prims and a scene of exact t ties;
+         prims and a scene of exact t ties.  The path launches of K1, K7,
+         K8 and K9 (mega_path's persistent warps) are timed by device_ms
+         (the card's time; ``call_ms`` times the call, the wrapper's host
+         time included) and report their instance's registers (the
+         runtime's, equal to ptxas's), spill (ptxas), the grid blocks the
+         launch takes and, for K1 and K9, the lanes' use the counting
+         instance measured (its bounces over 32 x its warp steps); a line
+         of its own gives the model of the one-thread-per-ray schedule
+         that mega_path replaced (its lanes' use from K7's winners on the
+         same rays, and one block per 128 rays), which the kernels line
+         leaves out; their bounds charge OPS_DRAW for each in-kernel draw
+         (``bound_no_draws_ms`` without);
        * the sweeps K3, K5 (culled and plain) and K4 against their plain
          versions on one full main-path launch: the first 2^18 camera rays
          of random_spheres 16:9, the same rays after one bounce with a
@@ -159,9 +170,9 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
     python3 chip_smoke.py --ab [--root DIR]
 
-times only what compares two commits on one card (``ab_main``: K1, K6,
-K10, K11, K12 and the (l) and (p) cells), with the package of the checkout
-at DIR (default: this one).
+times only what compares two commits on one card (``ab_main``: K1, K7,
+K8, K9 and (a)'s frame, then K6, K10, K11, K12 and the (l) and (p)
+cells), with the package of the checkout at DIR (default: this one).
 """
 
 from __future__ import annotations
@@ -171,6 +182,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -257,6 +269,34 @@ def cuda_ms(fn, reps=3, warmup=1):
     return best, out
 
 
+# device_ms: the card spins this many cycles (about 2 ms at an H100's
+# clocks) before each start event, longer than the host takes to enqueue
+# one fused launch (the wrapper's checks and its ctypes call)
+SPIN_CYCLES = 4_000_000
+
+
+def device_ms(fn, reps=5, warmup=1):
+    """(min milliseconds over reps, last result) of the card's work in fn,
+    CUDA events: before each start event the card spins (SPIN_CYCLES), so
+    fn's launches are queued behind it and a launch whose host side takes
+    longer than its kernel is timed by its kernel.  ``cuda_ms`` times the
+    call, the host's enqueue included where it is the longer."""
+    for _ in range(warmup):
+        out = fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best, out
+
+
 def inplace_ms(fn, planes, start_from, reps=3):
     """(min milliseconds over reps, after a warm-up) of fn, a K10 window
     that updates ``planes`` in place, each run from the planes
@@ -328,15 +368,18 @@ def counting_cfg(tables, cfg):
 
 def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
                  extra_bytes: int = 0, cfg=None,
-                 ray_bytes: Optional[int] = None) -> tuple:
+                 ray_bytes: Optional[int] = None,
+                 draws: bool = False) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that needed ``tests``
     (count_tests): their FLOPs (box, segment and box-distance tests
-    included) against the rays in, ``out_bytes`` per ray out (or in all
-    ``ray_bytes``, the rays' own bytes in and out), the box and rect / TRS
-    tables, the sphere and triangle rows of the chunks whose prims were
-    tested (under K12, which ``cfg`` decides: the coefficients of those
-    chunks' triangles, N_COEF floats = 96 bytes each), and ``extra_bytes``
-    (K9: 3 per texel fetched; K10: the state a route's windows move)."""
+    included; with ``draws`` also OPS_DRAW for each draw the kernel made,
+    the counting instance's ``draw``) against the rays in, ``out_bytes``
+    per ray out (or in all ``ray_bytes``, the rays' own bytes in and out),
+    the box and rect / TRS tables, the sphere and triangle rows of the
+    chunks whose prims were tested (under K12, which ``cfg`` decides: the
+    coefficients of those chunks' triangles, N_COEF floats = 96 bytes
+    each), and ``extra_bytes`` (K9: 3 per texel fetched; K10: the state a
+    route's windows move)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     mxu = takes_mxu(tables, cfg)
     dn = cfg is not None and cfg.quirks.triangle_backface_only
@@ -347,6 +390,8 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
              + tests["dist"] * FLOP_DIST
              + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
                                                 FLOP_XFORM)))
+    if draws:
+        flops += tests["draw"] * OPS_DRAW
     tri_row = mk.N_COEF * 4 if mxu else mk.TRI_COLS * 4
     rows = (tests["touched_sph_chunks"] * mk.PRIM_CHUNK * mk.SPH_COLS * 4
             + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * tri_row)
@@ -360,8 +405,10 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
 def count_tests(tables, rays, cfg, seed, window=None,
                 hold: bool = False) -> dict:
     """The tests one launch needs (the counting variant under
-    ``counting_cfg``), by name (megakernel.COUNT_NAMES), and the chunks whose
-    prims it tested.  Under K12 also ``tri_done``: the triangle tests that
+    ``counting_cfg``), by name (megakernel.COUNT_NAMES), the chunks whose
+    prims it tested, and (a package that counts them) its schedule
+    (megakernel.WORK_NAMES: bounces, warp steps, draws made).  Under K12
+    also ``tri_done``: the triangle tests that
     K12's own counting instance makes, every triangle of a reached super.
     hold: also count with the one-thread-per-ray sweeps (per_thread) and
     require the same counts and touched chunks, since the cooperative
@@ -374,21 +421,28 @@ def count_tests(tables, rays, cfg, seed, window=None,
                              device=rays.origin.device)
         touched = torch.zeros(max(n_sc + tables.tri_box.shape[0], 1),
                               dtype=torch.uint8, device=rays.origin.device)
+        work = (torch.zeros(mk.N_WORK, dtype=torch.int64,
+                            device=rays.origin.device)
+                if hasattr(mk, "N_WORK") else None)
         mk._launch_mega(tables, rays.origin.contiguous(),
                         rays.direction.contiguous(), c, None, seed,
                         counts=counts, touched=touched,
                         window=window if window is not None else mk.WHOLE,
-                        per_thread=per_thread)
-        return counts, touched
+                        per_thread=per_thread,
+                        **({} if work is None else {"work": work}))
+        return counts, touched, work
 
     def held(c):
-        counts, touched = counted(c)
+        counts, touched, work = counted(c)
         if hold:
-            c_pt, t_pt = counted(c, True)
+            c_pt, t_pt, _ = counted(c, True)
             check(torch.equal(counts, c_pt) and torch.equal(touched, t_pt),
                   f"cooperative counts {counts.tolist()} differ from the "
                   f"per-thread sweep's {c_pt.tolist()}")
-        return counted_tests(counts, touched, n_sc)
+        out = counted_tests(counts, touched, n_sc)
+        if work is not None:
+            out.update(zip(mk.WORK_NAMES, work.tolist()))
+        return out
 
     need = counting_cfg(tables, cfg)
     out = held(need)
@@ -408,6 +462,107 @@ def counted_tests(counts, touched, n_sph_chunks: int) -> dict:
     return out
 
 
+# nvcc's -Xptxas -v report of this run's build (phase_build), and whether
+# this run built the megakernel (a reused build reports nothing)
+PTXAS = {"text": "", "built": False}
+# path_instance_of's keys, copied into the kernels line's rows
+INSTANCE_KEYS = ("instance", "registers", "spill_bytes", "local_bytes",
+                 "grid_blocks", "refill_idle")
+
+
+def ptxas_usage(name: str) -> tuple:
+    """(registers, spill store bytes) of the instance whose mangled name
+    is ``name``, from this run's ptxas report, or (None, None) when the
+    report does not hold it."""
+    lines = PTXAS["text"].splitlines()
+    for k, line in enumerate(lines):
+        if line.rstrip().endswith(f"Function properties for {name}"):
+            spill = re.search(r"(\d+) bytes spill stores", lines[k + 1])
+            for nxt in lines[k + 1:k + 4]:
+                regs = re.search(r"Used (\d+) registers", nxt)
+                if regs:
+                    return int(regs.group(1)), int(spill.group(1))
+    return None, None
+
+
+def path_mangled(count=False, xform=False, winners=False, tex=False,
+                 shells=False, mxu=False, window=False) -> str:
+    """The mangled name of crt::mega_path<COUNT, XFORM, WINNERS, TEX,
+    SHELLS, MXU, WINDOW>(crt::Params), as ptxas -v reports it."""
+    flags = (count, xform, winners, tex, shells, mxu, window)
+    return ("_ZN3crt9mega_pathI" + "".join(f"Lb{int(v)}E" for v in flags)
+            + "EEvNS_6ParamsE")
+
+
+def path_flags(tables, cfg, want_winners: bool = False) -> dict:
+    """The mega_path template flags of a production path launch."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    tex, _, f2b = mk.launch_modes(tables, cfg, want_winners)
+    xform = sum(getattr(tables, k).shape[0] for k in ("rect", "tsph", "ttri"))
+    return {"xform": xform > 0, "winners": want_winners, "tex": tex,
+            "shells": f2b > 0}
+
+
+def path_instance_of(tables, cfg, n: int, want_winners: bool = False) -> dict:
+    """The mega_path instance that a production path launch of n rays over
+    ``tables`` takes: its registers and local memory a thread (the
+    runtime's count), its spill stores (this run's ptxas report, which
+    must hold it) and the grid blocks the launch takes (the occupancy and
+    SM count it launches with, megakernel.path_instance)."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    flags = path_flags(tables, cfg, want_winners)
+    info = mk.path_instance(n, **flags)
+    name = path_mangled(**flags)
+    regs, spill = ptxas_usage(name)
+    check(not PTXAS["built"] or regs == info["registers"], f"this run's "
+          f"ptxas report gives {name} {regs} registers, the runtime "
+          f"{info['registers']}")
+    return {"instance": name, "registers": info["registers"],
+            "spill_bytes": spill, "local_bytes": info["local_bytes"],
+            "grid_blocks": info["grid_blocks"],
+            "refill_idle": info["refill_idle"]}
+
+
+def lane_use_model(scene, win: torch.Tensor) -> float:
+    """A model, not a measurement, of the lanes' use of the
+    one-thread-per-ray schedule that mega_path replaced, from K7's winners
+    int32[depth + 1, n] of a launch: a ray's
+    steps are its recorded bounces plus its miss, and a warp of 32
+    consecutive rays runs its longest.  A path that ends on a hit ends at
+    a light or at the depth limit, or on a metal's absorbed scatter, which
+    the winners cannot tell from a miss (counted as a miss step)."""
+    from cudaraytracer_tpu_torch.models import materials as mt
+    mats = torch.cat([scene.spheres.mat, scene.triangles.mat,
+                      scene.rects.mat, scene.t_spheres.mat,
+                      scene.t_triangles.mat]).long()
+    light = scene.materials.kind[mats] == mt.DIFFUSE_LIGHT
+    depth1, n = win.shape
+    hits = (win >= 0).sum(0)
+    last = win.gather(0, (hits - 1).clamp(min=0)[None].long())[0]
+    ended = (hits == depth1) | ((hits > 0) & light[last.clamp(min=0).long()])
+    steps = hits + (~ended).long()
+    pad = (-n) % 32
+    warps = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32)
+    return float(steps.sum()) / float(32 * warps.amax(1).sum())
+
+
+def print_schedule_model(label: str, scene, win: torch.Tensor) -> None:
+    """Prints on a line of its own the model of the one-thread-per-ray
+    schedule that mega_path replaced (kept out of the kernels line, which
+    holds what this run measured): its lanes' use and the ceil(n / 128)
+    blocks that its launch code took for n rays."""
+    n = win.shape[1]
+    print(f"[parity] {label}: model, not measured: one thread per ray "
+          f"would use {lane_use_model(scene, win):.4f} of the lanes on "
+          f"{-(-n // 128)} blocks")
+
+
+def lane_use(tests: dict) -> float:
+    """The lanes' use the counting instance measured on mega_path's
+    schedule: bounces over 32 lanes x warp steps."""
+    return tests["bounce"] / (32.0 * tests["warp_step"])
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -421,6 +576,8 @@ def phase_build():
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
         for r in reports.values():
             f.write(f"== {r.name} ({r.seconds:.1f} s)\n{r.ptxas}\n")
+    PTXAS["text"] = "\n".join(r.ptxas for r in reports.values())
+    PTXAS["built"] = reports["megakernel"].ptxas != "(reused)"
     for r in reports.values():
         print(f"[build] {r.name}: {r.seconds:.1f} s -> {r.library.name}")
         for line in r.ptxas.splitlines():
@@ -489,19 +646,31 @@ def chunk_parity(dev, frames) -> dict:
             err = compare(f"{f.name} chunk {integrator} injected", got, ref)
             out["max_abs_err"] = max(out["max_abs_err"], err)
         seed = mk.draw_seed(gen)
-        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+        ms, got = device_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, f.cfg, tables=f.tables, seed=seed))
+        inst = path_instance_of(f.tables, f.cfg, n)
+        call_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
             f.scene, rays, f.cfg, tables=f.tables, seed=seed))
         plain_ms, ref = cuda_ms(lambda: mk.trace_path_mega_plain(
             f.tables, rays, f.cfg, None, seed), reps=1, warmup=0)
         err = compare(f"{f.name} chunk path in-kernel draws", got, ref)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         tests = count_tests(f.tables, rays, f.cfg, seed)
-        bound, bound_by = launch_bound(f.tables, n, tests)
-        print(f"[parity] {f.name} chunk path: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
-              f"tests {tests}")
-        out[f.name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "tests": tests, "rays": n}
+        _, win = mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables,
+                                    seed=seed, want_winners=True)
+        lanes = lane_use(tests)
+        bound, bound_by = launch_bound(f.tables, n, tests, draws=True)
+        no_draws, _ = launch_bound(f.tables, n, tests)
+        print(f"[parity] {f.name} chunk path: kernel {ms:.4f} ms (the call "
+              f"{call_ms:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}; "
+              f"{no_draws:.4f} ms without the draws), lanes' use "
+              f"{lanes:.4f}, instance {inst}, tests {tests}")
+        print_schedule_model(f"{f.name} chunk path", f.scene, win)
+        out[f.name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound,
+                       "bound_by": bound_by, "bound_no_draws_ms": no_draws,
+                       "lane_use": lanes, **inst, "tests": tests, "rays": n}
     return out
 
 
@@ -573,12 +742,15 @@ def phase_draws(dev, n_path: int):
     rays, timed) and over 2^22 samples (the distribution checks)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     path_out = torch.empty(n_path, 4, device=dev)
-    ms, _ = cuda_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3), reps=20)
+    ms, _ = device_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3), reps=20)
+    call_ms, _ = cuda_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3),
+                         reps=20)
     plain_ms, ref = cuda_ms(
         lambda: mk.scatter_draws_plain(n_path, 0xD1CE, 3, dev), reps=5)
     err = float((path_out - ref).abs().max())
     print(f"[draws] {n_path} samples (one wavefront chunk): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, max_abs_err {err:.3g}")
+          f"{ms:.4f} ms (the call {call_ms:.4f} ms), plain {plain_ms:.3f} "
+          f"ms, max_abs_err {err:.3g}")
     n = 1 << 22
     out = mk.scatter_draws(torch.empty(n, 4, device=dev), 0xD1CE, 3)
     err = max(err, float(
@@ -598,7 +770,7 @@ def phase_draws(dev, n_path: int):
     return {"name": "scatter_draws", "route": "cuda",
             "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
             "replaces": "cudaraytracer_tpu/ops/pallas_intersect.py:1122",
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "samples": n_path}
 
@@ -660,16 +832,19 @@ def time_sweep(label: str, kernel, plain, counted, n: int, prim_flops: int,
                tables, out_floats: int, alive: bool) -> dict:
     """Kernel and plain times on one launch, and its bound from the tests
     that the counting variant reports."""
-    ms, _ = cuda_ms(kernel, reps=10)
+    ms, _ = device_ms(kernel, reps=10)
+    call_ms, _ = cuda_ms(kernel, reps=10)
     plain_ms, _ = cuda_ms(plain, reps=1)
     counts = torch.zeros(2, dtype=torch.int64, device="cuda")
     counted(counts)
     tests = counts.tolist()
     bound_ms, bound_by = sweep_cost(n, tests, prim_flops, tables, out_floats,
                                     alive)
-    print(f"[sweeps] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), tests (box, prim) {tests}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    print(f"[sweeps] {label}: kernel {ms:.4f} ms (the call {call_ms:.4f} "
+          f"ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), tests (box, prim) {tests}")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by, "tests": tests, "rays": n, "at": label}
 
 
@@ -1127,11 +1302,16 @@ def kernel_at_frame_shape(dev, f: Frame, gen):
     tests these rays need (one extra counting launch)."""
     c = f.cfg
     ms, rays = frame_launch(dev, f, gen)
-    tests = count_tests(f.tables, rays, c, 11)
     n = rays.origin.shape[0]
-    bound, bound_by = launch_bound(f.tables, n, tests, cfg=c)
-    return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
-            "tests": tests, "rays": n}
+    tests = count_tests(f.tables, rays, c, 11)
+    bound, bound_by = launch_bound(f.tables, n, tests, cfg=c,
+                                   draws=c.integrator == "path")
+    out = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+           "tests": tests, "rays": n}
+    if c.integrator == "path" and f.tables.tri_seg.shape[0] == 0:
+        # a launch on mega_path (resident tables)
+        out["grid_blocks"] = path_instance_of(f.tables, c, n)["grid_blocks"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1200,7 +1380,10 @@ def phase_xform_parity(dev, xframes) -> dict:
             out["max_abs_err"] = max(out["max_abs_err"], compare(
                 f"K8 {f.name} {integrator} injected", got, ref))
         seed = mk.draw_seed(gen)
-        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+        ms, got = device_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, f.cfg, tables=f.tables, seed=seed))
+        inst = path_instance_of(f.tables, f.cfg, n)
+        call_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
             f.scene, rays, f.cfg, tables=f.tables, seed=seed))
         plain_ms, (ref, wref) = cuda_ms(lambda: mk.trace_path_mega_plain(
             f.tables, rays, f.cfg, None, seed, True), reps=1, warmup=0)
@@ -1213,12 +1396,16 @@ def phase_xform_parity(dev, xframes) -> dict:
         check(torch.equal(got_w, got), f"{f.name}: recording changed the "
               "radiance")
         tests = count_tests(f.tables, rays, f.cfg, seed)
-        b, by = launch_bound(f.tables, n, tests)
-        print(f"[K8] {f.name} path launch of {n} rays: kernel {ms:.4f} ms, "
+        b, by = launch_bound(f.tables, n, tests, draws=True)
+        print(f"[K8] {f.name} path launch of {n} rays: kernel {ms:.4f} ms "
+              f"(the call {call_ms:.4f} ms), "
               f"plain (with winners) {plain_ms:.3f} ms, bound {b:.4f} ms "
-              f"({by}), tests {tests}")
-        out[f.name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                       "bound_by": by, "tests": tests, "rays": n}
+              f"({by}), lanes' use {lane_use(tests):.4f}, instance {inst}, "
+              f"tests {tests}")
+        print_schedule_model(f"K8 {f.name} path launch", f.scene, win)
+        out[f.name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                       "bound_ms": b, "bound_by": by, **inst,
+                       "tests": tests, "rays": n}
     return out
 
 
@@ -1231,7 +1418,10 @@ def phase_winner_parity(dev, f: Frame) -> dict:
     rays = first_chunk(f, gen)
     n = rays.origin.shape[0]
     seed = mk.draw_seed(gen)
-    ms, (got, win) = cuda_ms(lambda: mk.trace_path_mega(
+    ms, (got, win) = device_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, f.cfg, tables=f.tables, seed=seed, want_winners=True))
+    inst = path_instance_of(f.tables, f.cfg, n, want_winners=True)
+    call_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
         f.scene, rays, f.cfg, tables=f.tables, seed=seed, want_winners=True))
     plain_launch = mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables,
                                       seed=seed)
@@ -1241,11 +1431,14 @@ def phase_winner_parity(dev, f: Frame) -> dict:
     err = compare(f"K7 {f.name} path in-kernel draws", got, ref)
     compare_ids(f"K7 {f.name}", win, wref)
     tests = count_tests(f.tables, rays, f.cfg, seed)
-    b, by = launch_bound(f.tables, n, tests, 12 + 4 * (DEPTH + 1))
-    print(f"[K7] {f.name} recording launch of {n} rays: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "tests": tests, "rays": n, "max_abs_err": err}
+    b, by = launch_bound(f.tables, n, tests, 12 + 4 * (DEPTH + 1),
+                         draws=True)
+    print(f"[K7] {f.name} recording launch of {n} rays: kernel {ms:.4f} ms "
+          f"(the call {call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{b:.4f} ms ({by}), instance {inst}")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by,
+            **inst, "tests": tests, "rays": n, "max_abs_err": err}
 
 
 def render_mega_diff(dev, f: Frame, gen) -> dict:
@@ -1402,10 +1595,13 @@ def phase_tex_parity(dev, tframes) -> dict:
                              mk.trace_path_mega_plain(f.tables, rays, c,
                                                       st)))
         seed = mk.draw_seed(gen)
-        ms, got = cuda_ms(lambda: mk.trace_path_mega(
+        ms, got = device_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, cfg, tables=f.tables, seed=seed))
+        inst = path_instance_of(f.tables, cfg, n)
+        call_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
             f.scene, rays, cfg, tables=f.tables, seed=seed))
         ctab = constant_textures(f.tables)
-        const_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
+        const_ms, _ = device_ms(lambda: mk.trace_path_mega(
             f.scene, rays, cfg, tables=ctab, seed=seed))
         plain_ms, (ref, wref) = cuda_ms(lambda: mk.trace_path_mega_plain(
             f.tables, rays, cfg, None, seed, True), reps=1, warmup=0)
@@ -1417,15 +1613,24 @@ def phase_tex_parity(dev, tframes) -> dict:
               "radiance")
         tests = count_tests(f.tables, rays, cfg, seed)
         fetched = texel_fetches(f.scene, win)
-        b, by = launch_bound(f.tables, n, tests, extra_bytes=3 * fetched)
-        print(f"[K9] {label} path launch of {n} rays: kernel {ms:.4f} ms, "
-              f"constant textures {const_ms:.4f} ms (texel fetch "
-              f"{ms - const_ms:+.4f} ms), plain (with winners) "
-              f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}), texels fetched "
-              f"{fetched}, tests {tests}")
-        out[label] = {"ms": ms, "const_tex_ms": const_ms,
+        b, by = launch_bound(f.tables, n, tests, extra_bytes=3 * fetched,
+                             draws=True)
+        no_draws, _ = launch_bound(f.tables, n, tests,
+                                   extra_bytes=3 * fetched)
+        lanes = lane_use(tests)
+        print(f"[K9] {label} path launch of {n} rays: kernel {ms:.4f} ms "
+              f"(the call {call_ms:.4f} ms), constant textures "
+              f"{const_ms:.4f} ms (texel fetch {ms - const_ms:+.4f} ms), "
+              f"plain (with winners) "
+              f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}; {no_draws:.4f} "
+              f"ms without the draws), texels fetched {fetched}, lanes' use "
+              f"{lanes:.4f}, instance {inst}, tests {tests}")
+        print_schedule_model(f"K9 {label} path launch", f.scene, win)
+        out[label] = {"ms": ms, "call_ms": call_ms,
+                      "const_tex_ms": const_ms,
                       "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                      "texels": fetched, "tests": tests, "rays": n}
+                      "bound_no_draws_ms": no_draws, "lane_use": lanes,
+                      **inst, "texels": fetched, "tests": tests, "rays": n}
     return out
 
 
@@ -2334,11 +2539,15 @@ def main() -> int:
             "replaces": "cudaraytracer_tpu/ops/megakernel.py:476",
             "launches": launches["mega_trace"],
             "max_abs_err": parity["max_abs_err"],
-            "ms": ca["ms"], "plain_ms": ca["plain_ms"],
+            "ms": ca["ms"], "call_ms": ca["call_ms"],
+            "plain_ms": ca["plain_ms"],
             "bound_ms": ca["bound_ms"], "bound_by": ca["bound_by"],
             "library_ms": None,
             "ms_at": "one main-path launch: the first 262144-ray chunk of "
                      "random_spheres 1920x1080x16, path 8, in-kernel draws",
+            "lane_use": ca["lane_use"],
+            "bound_no_draws_ms": ca["bound_no_draws_ms"],
+            **{k: ca[k] for k in INSTANCE_KEYS},
             "tests": ca["tests"],
             "icosphere_chunk": cb,
             "frame_launch": {"random_spheres": ka, "icosphere": kb},
@@ -2377,10 +2586,12 @@ def main() -> int:
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:1186",
         "launches": launches["mega_trace_xform"],
         "max_abs_err": xparity["max_abs_err"], "ms": xh["ms"],
+        "call_ms": xh["call_ms"],
         "plain_ms": xh["plain_ms"], "bound_ms": xh["bound_ms"],
         "bound_by": xh["bound_by"], "library_ms": None,
         "ms_at": "(h)'s first launch: 262144 rays of light_box 1280x720x16, "
                  "path 8, in-kernel draws",
+        **{k: xh[k] for k in INSTANCE_KEYS},
         "tests": xh["tests"], "trs_showcase": xs, "trs_field_2_16": xi,
         "h_frame_s": ms_h / 1e3, "i_frame_s": ms_i / 1e3})
     tj = tparity.pop(f"tex_spheres fixed launch {middle_chunk(fj)}")
@@ -2391,11 +2602,15 @@ def main() -> int:
         "launches": launches["mega_trace_tex"],
         "max_abs_err": tparity.pop("max_abs_err"),
         "texel_flips": tparity.pop("flips"), "ms": tj["ms"],
+        "call_ms": tj["call_ms"],
         "plain_ms": tj["plain_ms"], "bound_ms": tj["bound_ms"],
         "bound_by": tj["bound_by"], "library_ms": None,
         "ms_at": f"(j)'s launch {middle_chunk(fj)}: 262144 rays of "
                  "random_spheres with images 1920x1080x16, path 8, fixed "
                  "quirks, in-kernel draws",
+        "lane_use": tj["lane_use"],
+        "bound_no_draws_ms": tj["bound_no_draws_ms"],
+        **{k: tj[k] for k in INSTANCE_KEYS},
         "const_tex_ms": tj["const_tex_ms"], "texels": tj["texels"],
         "tests": tj["tests"], "other_launches": tparity,
         "j_frame_s": ms_j / 1e3, "k_frame_s": ms_k / 1e3,
@@ -2475,21 +2690,23 @@ def main() -> int:
 
 def ab_main(root: str) -> int:
     """``--ab``: the timings that compare two commits on one card, for the
-    package of the checkout at ``root``: K1's frame-sized launches of (a)
-    and (b) (min of 5), (l)'s mega_diff fit step (min and median of 5),
-    K12, K6 and K11 (8 shells) on (m)'s first 2^18 rays, the frame-sized
+    package of the checkout at ``root``: ``ab_fused`` (K1, K7, K8, K9 and
+    (a)'s frame), then (l)'s mega_diff fit step (min and median of 5), K12,
+    K6 and K11 (8 shells) on (m)'s first 2^18 rays, the frame-sized
     launches of K6 on (m) and (n) and of K11 on (m), K10's window [2, 4) on
     (m)'s first 2^18 rays in ray-id order (min of 5 each), (m)'s default
     route and monolithic with 8 shells over the frame's rays (min of 3)
     and per frame (min of 5), and (p)'s median rendering over 31 frames.
-    Run the parent's checkout (an unpacked ``git archive``, whose kernels
-    build there) and this one in turns, in one call each way (parent,
-    change, change, parent).  Prints one JSON line, checks nothing else."""
+    Run the parent's checkout (an
+    unpacked ``git archive``, whose kernels build there) and this one in
+    turns, in one call each way (parent, change, change, parent).  Prints
+    one JSON line, checks nothing else."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(root))
     import cudaraytracer_tpu_torch as pkg
+    from cudaraytracer_tpu_torch.ops import _cuda
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2497,13 +2714,84 @@ def ab_main(root: str) -> int:
         check=True).stdout.strip()
     out = {"package": os.path.dirname(os.path.abspath(pkg.__file__)),
            "card": smi}
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for f in main_frames(dev):
-        out[f"{f.name}_frame_launch_ms"] = frame_launch(dev, f, gen, 5)[0]
+    reports = _cuda.build()
+    PTXAS["text"] = "\n".join(r.ptxas for r in reports.values())
+    PTXAS["built"] = reports["megakernel"].ptxas != "(reused)"
+    out.update(ab_fused(dev))
     out["l_fit"] = tex_fit_step(dev)
     out.update(ab_streamed(dev))
     print(json.dumps(out))
     return 0
+
+
+# The parent commit's K1 and K9 path instances, for --ab on a checkout
+# from before mega_path
+PARENT_K1 = ("_ZN3crt11mega_kernelILi0ELb0ELb0ELb0ELb0ELb0ELb0ELb0EEEv"
+             "NS_6ParamsE")
+PARENT_K9 = ("_ZN3crt11mega_kernelILi0ELb0ELb0ELb0ELb1ELb0ELb0ELb0EEEv"
+             "NS_6ParamsE")
+
+
+def ab_fused(dev) -> dict:
+    """``ab_main``'s fused timings, min of 5 each: K1's frame-sized
+    launches of (a) and (b) and its launch on (a)'s first 2^18 rays (each
+    2^18-ray launch by ``device_ms``, and as ``..._call_ms`` by
+    ``cuda_ms``, the wrapper's host time included), K7 on
+    (g)'s first launch (those rays, recording), K8 on (h)'s first launch,
+    K9 on (j)'s middle launch with its images and with constant textures,
+    and the seconds per frame through render_image of (a) and of the other
+    fused frames on mega_path ((b), (g), (h)-(l)); with the registers
+    and spill of the K1 and K9 path instances when this run built them,
+    and the lanes' use on (a)'s 2^18 rays where the package counts it."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.render import render_image
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fa, fb = main_frames(dev)
+    out = {}
+    for f in (fa, fb):
+        out[f"{f.name}_frame_launch_ms"] = frame_launch(dev, f, gen, 5)[0]
+    seed = 4242
+
+    def timed(key, f, rays, tables=None, **kw):
+        def call():
+            return mk.trace_path_mega(f.scene, rays, f.cfg,
+                                      tables=tables or f.tables, seed=seed,
+                                      **kw)
+        out[key] = device_ms(call, 5)[0]
+        out[key.replace("_ms", "_call_ms")] = cuda_ms(call, 5)[0]
+
+    def usage(key, f, parent_name):
+        name = (path_mangled(**path_flags(f.tables, f.cfg))
+                if hasattr(mk, "path_instance") else parent_name)
+        out[key] = dict(zip(("name", "registers", "spill_bytes"),
+                            (name, *ptxas_usage(name))))
+
+    rays = first_chunk(fa, gen)
+    timed("k1_a_2_18_ms", fa, rays)
+    usage("k1_instance", fa, PARENT_K1)
+    if hasattr(mk, "N_WORK"):
+        out["k1_a_2_18_lane_use"] = lane_use(
+            count_tests(fa.tables, rays, fa.cfg, seed))
+    timed("k7_g_2_18_ms", fa, rays, want_winners=True)
+    xf, tf = xform_frames(dev), tex_frames(dev)
+    fh, fj = xf[0], tf[0]
+    timed("k8_h_2_18_ms", fh, first_chunk(fh, gen))
+    rj = first_chunk(fj, gen, middle_chunk(fj))
+    timed("k9_j_mid_ms", fj, rj)
+    usage("k9_instance", fj, PARENT_K9)
+    timed("k9_j_mid_const_tex_ms", fj, rj, constant_textures(fj.tables))
+    out["a_frame_s"] = cuda_ms(lambda: render_image(
+        fa.scene, fa.camera, fa.cfg, generator=gen, tables=fa.tables),
+        reps=5)[0] / 1e3
+    # the other fused frames whose launches run mega_path: (b), (g)'s
+    # forward without a gradient, (h), (i), (j), (k), (l)
+    for key, f in (("b", fb), ("g", fa._replace(cfg=dataclasses.replace(
+            fa.cfg, engine="mega_diff"))), ("h", xf[0]), ("i", xf[2]),
+            ("j", tf[0]), ("k", tf[1]), ("l", tf[2])):
+        out[f"{key}_frame_s"] = cuda_ms(lambda f=f: render_image(
+            f.scene, f.camera, f.cfg, generator=gen, tables=f.tables),
+            reps=5)[0] / 1e3
+    return out
 
 
 def ab_window_2_4(fm, rays, seed) -> tuple:
@@ -2609,5 +2897,6 @@ if __name__ == "__main__":
         ap.add_argument("--root", default=ROOT,
                         help="import cudaraytracer_tpu_torch from this "
                              "checkout")
-        sys.exit(ab_main(ap.parse_args().root))
+        args = ap.parse_args()
+        sys.exit(ab_main(args.root))
     sys.exit(main())

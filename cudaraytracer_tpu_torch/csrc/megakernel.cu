@@ -1,8 +1,10 @@
 // Fused path tracer for NVIDIA Hopper (sm_90a): the C interface, the draws
-// kernel and the one-thread-per-ray instances.  The kernel, its modes and
-// their design are in megakernel.cuh; the cooperative (the path integrator
-// above 8,192 triangles: K6, K10 and K11) and K12 instances are compiled in
-// megakernel_coop.cu and megakernel_mxu.cu.
+// kernel and the lambert and normal integrators' one-thread-per-ray
+// instances.  The kernel, its modes and their design are in megakernel.cuh;
+// the cooperative (the path integrator above 8,192 triangles: K6, K10 and
+// K11), K12 and per-thread path (mega_path) instances are compiled in
+// megakernel_coop.cu, megakernel_mxu.cu, megakernel_path.cu and
+// megakernel_path_f2b.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -c
 //        -Xcompiler -fPIC for each source, then nvcc -shared (plain C
@@ -54,8 +56,13 @@ extern "C" int crt_mega_trace(
     const void* tri_seg, int n_sph_segs, int n_tri_segs, int f2b,
     int step_lo, int n_steps, void* planes, const void* order, void* key,
     int key_mode, const void* key_bounds, const void* tri_coef, void* touched,
-    int per_thread, void* cuda_stream) {
+    void* work, void* next, int per_thread, void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
+    return (int)cudaErrorInvalidValue;
+  // the counting variant adds its schedule counters to work; the path
+  // integrator's warps take their rays from the counter next (mega_path,
+  // which zeroes it on the stream before its launch)
+  if ((counts && !work) || (integrator == PATH && !next))
     return (int)cudaErrorInvalidValue;
   if (images && (integrator == NORMAL || counts))
     return (int)cudaErrorInvalidValue;
@@ -127,6 +134,8 @@ extern "C" int crt_mega_trace(
   P.key_mode = key_mode;
   P.bounds = static_cast<const float*>(key_bounds);
   P.tri_coef = static_cast<const float*>(tri_coef);
+  P.work = static_cast<unsigned long long*>(work);
+  P.next = static_cast<int*>(next);
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   switch (integrator) {
@@ -136,6 +145,33 @@ extern "C" int crt_mega_trace(
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The mega_path instance that a path launch of n rays one thread per ray
+// takes (xform: rects or TRS prims; shells: front-to-back shells; count,
+// window, winners, tex: the counting variant, a bounce window, K7, K9), on
+// the current device, launching nothing: out[0:7] = grid blocks, threads a
+// block, resident blocks an SM, SMs, registers and local memory bytes a
+// thread, and REFILL_IDLE.
+extern "C" int crt_mega_path_instance(int xform, int shells, int count,
+                                      int window, int winners, int tex,
+                                      int n, int* out) {
+  const PathInstance k =
+      xform ? (shells ? path_of<true, true>(count, window, winners, tex)
+                      : path_of<true, false>(count, window, winners, tex))
+            : (shells ? path_of<false, true>(count, window, winners, tex)
+                      : path_of<false, false>(count, window, winners, tex));
+  cudaFuncAttributes a{};
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, k.kernel);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int v[7] = {path_grid(k, n), BLOCK, k.per_sm, sms, a.numRegs,
+                    (int)a.localSizeBytes, REFILL_IDLE};
+  for (int j = 0; j < 7; ++j) out[j] = v[j];
+  return 0;
 }
 
 extern "C" int crt_scatter_draws(void* out, int n, unsigned long long seed,

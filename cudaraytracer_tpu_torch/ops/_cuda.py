@@ -23,10 +23,11 @@ from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-# The megakernel's instances are split over three translation units, so
+# The megakernel's instances are split over five translation units, so
 # that they compile in parallel (csrc/megakernel.cuh).
 SOURCES = {"megakernel": [CSRC / f"{n}.cu" for n in (
-               "megakernel", "megakernel_coop", "megakernel_mxu")],
+               "megakernel", "megakernel_coop", "megakernel_mxu",
+               "megakernel_path", "megakernel_path_f2b")],
            "sweeps": [CSRC / "sweeps.cu"]}
 BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no contraction of a * b + c into one rounding, so the kernels

@@ -167,6 +167,11 @@ INV_PI, INV_TWO_PI = 1.0 / math.pi, 1.0 / (2.0 * math.pi)
 # top-level boxes ranked by the shells, once per ray and sweep (K11)
 N_COUNTS = 8
 COUNT_NAMES = ("box", "sph", "tri", "rect", "tsph", "ttri", "seg", "dist")
+# the counting variant's schedule counters (``work``): bounces taken, warp
+# steps run (the iterations of a warp's loop in which some lane bounced)
+# and draws made in the kernel; bounce / (32 * warp_step) is the lanes' use
+N_WORK = 3
+WORK_NAMES = ("bounce", "warp_step", "draw")
 
 # Launches of each kernel since the last reset_launch_counts(): the fused
 # kernel in its main-path form (K1: none of the modes below), a launch
@@ -530,15 +535,42 @@ def _library() -> ctypes.CDLL:
         lib.crt_mega_trace.argtypes = (
             [vp] * 17 + [ci] * 11 + [cf] * 3
             + [ci, ctypes.c_uint64, vp, ci, ci]
-            + [vp] * 2 + [ci] * 5 + [vp] * 3 + [ci] + [vp] * 3
+            + [vp] * 2 + [ci] * 5 + [vp] * 3 + [ci] + [vp] * 5
             + [ci, vp])
         lib.crt_mega_trace.restype = ci
+        lib.crt_mega_path_instance.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
+        lib.crt_mega_path_instance.restype = ci
         lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
         lib.crt_scatter_draws.restype = ci
         lib.crt_error_string.argtypes = [ci]
         lib.crt_error_string.restype = ctypes.c_char_p
         lib._crt_declared = True
     return lib
+
+
+def path_instance(n: int, device=None, *, xform: bool = False,
+                  shells: bool = False, count: bool = False,
+                  window: bool = False, winners: bool = False,
+                  tex: bool = False) -> dict:
+    """The mega_path instance that a path launch of n rays one thread per
+    ray takes on ``device`` (default the current card), launching nothing:
+    its grid blocks, threads a block, resident blocks an SM, the card's SMs,
+    the instance's registers and local memory bytes a thread, and the
+    refill threshold the sources were built with.  xform: the scene has
+    rects or TRS prims (K8); shells: front-to-back shells (K11); count: the
+    counting variant; window: a bounce window (K10); winners: K7; tex: K9."""
+    lib = _library()
+    v = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        code = lib.crt_mega_path_instance(
+            int(xform), int(shells), int(count), int(window), int(winners),
+            int(tex), n, v)
+    if code != 0:
+        raise RuntimeError("path instance query failed: "
+                           f"{lib.crt_error_string(code).decode()}")
+    keys = ("grid_blocks", "block", "blocks_per_sm", "sms", "registers",
+            "local_bytes", "refill_idle")
+    return dict(zip(keys, v))
 
 
 def _check(lib, code: int, what: str) -> None:
@@ -671,7 +703,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
                  cfg: RenderConfig, stream: Optional[Tensor], seed: int,
                  counts: Optional[Tensor] = None,
                  want_winners: bool = False, window: Window = WHOLE,
-                 touched: Optional[Tensor] = None, per_thread: bool = False):
+                 touched: Optional[Tensor] = None, per_thread: bool = False,
+                 work: Optional[Tensor] = None):
     """One launch of the CUDA kernel -> radiance float32[N, 3] (with
     ``window.planes`` the planes, updated in place), and with want_winners
     (path only) the winners int32[max_depth + 1, N] in scene prim ids, -1
@@ -691,7 +724,14 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     the production variants count nothing).  The counting variant fetches
     no texel: textures never change a path (every material's scatter and
     its end are independent of the colour), so it makes the tests of the
-    launch it stands for, and its radiance is not the scene's.
+    launch it stands for, and its radiance is not the scene's.  It also
+    adds its schedule to the optional ``work`` int64[N_WORK] (WORK_NAMES;
+    a scratch tensor when not given).
+
+    The path integrator one thread per ray runs on persistent warps that
+    take their rays from an int32 counter, which this wrapper allocates and
+    its C entry zeroes on the launch's stream right before a launch that
+    reads it (``csrc/megakernel.cuh``, mega_path).
 
     A scene with images takes kernel mode K9 (the normal integrator, which
     reads no texture, aside).
@@ -734,11 +774,19 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             touched = torch.zeros(n_chunks, dtype=torch.uint8,
                                   device=origin.device)
         _require_cuda("touched", touched, torch.uint8, (n_chunks,))
+        if work is None:
+            work = torch.zeros(N_WORK, dtype=torch.int64,
+                               device=origin.device)
+        _require_cuda("work", work, torch.int64, (N_WORK,))
     if want_winners and (cfg.integrator != "path" or counts is not None):
         raise ValueError("winners are recorded by the path integrator's "
                          "production variant only")
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one launch")
+    # mega_path's int32 counter passes n by at most 32 a warp, 128 a block,
+    # on at most ceil(n / 128) blocks
+    if cfg.integrator == "path" and n + 128 * -(-n // 128) >= 2 ** 31:
+        raise ValueError(f"{n} rays exceed one path launch's counter")
     planes = window.planes
     out = (planes if planes is not None else
            torch.empty((n, 3), dtype=torch.float32, device=origin.device))
@@ -762,6 +810,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     lib = _library()
     with torch.cuda.device(origin.device):
         cuda_stream = torch.cuda.current_stream().cuda_stream
+        counter = (torch.empty(1, dtype=torch.int32, device=origin.device)
+                   if cfg.integrator == "path" else None)
         code = lib.crt_mega_trace(
             *(getattr(tables, k).data_ptr() for k in FLOAT_TABLES[:9]),
             tables.sph_map.data_ptr(), tables.tri_map.data_ptr(),
@@ -782,7 +832,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
             window.step_lo, steps, ptr(planes), ptr(window.order),
             ptr(window.key), window.key_mode, tables.key_bounds.data_ptr(),
             tables.tri_coef.data_ptr() if mxu else None,
-            ptr(touched), int(per_thread), cuda_stream)
+            ptr(touched), ptr(work), ptr(counter), int(per_thread),
+            cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
         modes = [k for k, on in (("mega_trace_xform", n_x),

@@ -3,9 +3,12 @@ the fused kernel K1, its rect / TRS mode K8, winner mode K7, image texture
 mode K9, segment level K6, windows K10 (the path state's planes in place,
 the regrouping keys, the drivers without a host sync), shells K11 and
 bilinear triangle sweep K12 (K6, K11 and K12 by the cooperative sweeps,
-held also against the one-thread-per-ray sweep), the draws K2 (csrc/megakernel*.cu), the sweeps
-K3, K4 and K5 (csrc/sweeps.cu), and the wavefront render, the fit, the
-mega_diff fit and the animation driver through them.
+held also against the one-thread-per-ray sweep), the path integrator's
+persistent warps that refill finished lanes (K1, K7, K8 and K9 at 1 to
+2^18 + 7 rays, one and two sphere box levels), the draws K2
+(csrc/megakernel*.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), and the
+wavefront render, the fit, the mega_diff fit and the animation driver
+through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -1158,3 +1161,144 @@ def test_animate_runs_on_the_card(cuda, tmp_path):
     hit = (images["mega"][..., 0] > images["mega"][..., 1]).mean()
     assert hit > 0.1
     assert abs((cpu.image[..., 0] > cpu.image[..., 1]).mean() - hit) <= 0.02
+
+
+# ---------------------------------------------------------------------------
+# mega_path: the path integrator's persistent warps that refill finished
+# lanes (K1, and K7, K8 and K9 on the same loop)
+# ---------------------------------------------------------------------------
+
+REFILL_SIZES = (1, 31, 33, 4097, (1 << 18) + 7)
+
+
+def _refill_frame(kind, dev):
+    """(scene, camera, cfg, want_winners) of a frame whose path launches run
+    the mega_path instance of kernel mode ``kind``."""
+    if kind == "K8":
+        scene, cam, cfg = _frame("light_box", dev)
+        return scene, cam, cfg, False
+    if kind == "K9":
+        scene, cam, cfg, _ = _tex_frame("tex_spheres_fixed", dev)
+        return scene, cam, cfg, False
+    scene, cam, cfg = _frame("random_spheres", dev)
+    return scene, cam, cfg, kind == "K7"
+
+
+def _n_rays(cam, cfg, dev, n):
+    """The frame's first n rays in swizzled order (two launches' worth)."""
+    a, b = (_first_launch(cam, cfg, dev, 31, k) for k in (0, 1))
+    return type(a)(*(torch.cat([x, y])[:n].contiguous() for x, y in zip(a, b)))
+
+
+# A 32-bit word that is a NaN as float32 and, as int32, a winner the kernel
+# never writes (below -1)
+FILL = -4194297                                        # 0xffc00007
+
+
+def _freed_filled(numels, dev, k=3):
+    """Frees k blocks of each element count in ``numels`` (int32), filled
+    with FILL, each between two live blocks of its size so that it merges
+    with no neighbour: the caching allocator hands them to the current
+    stream's next requests of those sizes (best fit).  -> (the live blocks,
+    to keep until those requests are made; the freed blocks' addresses)."""
+    live, fills = [], []
+    for numel in numels:
+        live.append(torch.empty(numel, dtype=torch.int32, device=dev))
+        for _ in range(k):
+            fills.append(torch.full((numel,), FILL, dtype=torch.int32,
+                                    device=dev))
+            live.append(torch.empty(numel, dtype=torch.int32, device=dev))
+    freed = {x.data_ptr() for x in fills}
+    fills.clear()
+    return live, freed
+
+
+def _refill_launch(tables, rays, cfg, want_winners, seed, stream):
+    """One launch on ``stream`` into outputs that the caching allocator
+    hands over pre-filled with FILL (NaN, and a winner the kernel never
+    writes); -> (radiance, winners or None)."""
+    n = rays.origin.shape[0]
+    numels = [3 * n] + ([(DEPTH + 1) * n] if want_winners else [])
+    with torch.cuda.stream(stream):
+        live, freed = _freed_filled(numels, rays.origin.device)
+        got = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
+                              seed, want_winners=want_winners)
+        del live
+    got, win = got if want_winners else (got, None)
+    assert got.data_ptr() in freed
+    assert win is None or win.data_ptr() in freed
+    torch.cuda.current_stream().wait_stream(stream)
+    return got, win
+
+
+def _refill_stream(dev):
+    """A side stream that holds no cached blocks and sees the rays."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream())
+    return stream
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", REFILL_SIZES)
+@pytest.mark.parametrize("kind", ["K1", "K7", "K8", "K9"])
+def test_refill_edges_match_plain(cuda, kind, n):
+    """n rays on the persistent warps: every row of the radiance (and of
+    the winners, trailing -1s included) written and equal to the plain
+    version's; a second launch on the same stream gives the same outputs
+    (the counter starts from 0 again); the grid holds the blocks the card
+    holds at once, no more than the rays need."""
+    scene, cam, cfg, want_winners = _refill_frame(kind, cuda)
+    rays = _n_rays(cam, cfg, cuda, n)
+    tables = mk.morton_tables(scene)
+    stream = _refill_stream(cuda)
+    got, win = _refill_launch(tables, rays, cfg, want_winners, 13, stream)
+    info = mk.path_instance(n, cuda, xform=kind == "K8",
+                            winners=want_winners, tex=kind == "K9")
+    assert 0 < info["grid_blocks"] == min(
+        info["blocks_per_sm"] * info["sms"], -(-n // info["block"]))
+    ref = mk.trace_path_mega_plain(tables, rays, cfg, None, 13,
+                                   want_winners=want_winners)
+    if want_winners:
+        ref, wref = ref
+        assert torch.equal(win, wref)
+    if kind == "K9":
+        _assert_texels_match(got, ref)
+    else:
+        _assert_rays_match(got, ref)
+    again, win_again = _refill_launch(tables, rays, cfg, want_winners, 13,
+                                      stream)
+    assert torch.equal(again, got)
+    if want_winners:
+        assert torch.equal(win_again, win)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_grid", [22, 40])
+def test_refill_counting_instance_counts_the_schedule(cuda, n_grid):
+    """random_spheres' 484 spheres (one box level) and 1,600 (40 x 40,
+    two levels): the persistent warps equal the plain version, and the
+    counting instance renders the same and counts the schedule it ran:
+    every ray's bounces, at most 32 a warp step, fewer draws."""
+    scene, cam = presets.random_spheres(16 / 9, n=n_grid, device=cuda)
+    cfg = RenderConfig(width=512, height=256, samples=2, max_depth=DEPTH,
+                       engine="mega")
+    rays = generate_pixel_rays(
+        cam, 512, 256, 2,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    tables = mk.morton_tables(scene)
+    got, _ = _refill_launch(tables, rays, cfg, False, 29,
+                            _refill_stream(cuda))
+    assert mk.path_instance(rays.origin.shape[0], cuda)["refill_idle"] > 0
+    _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, cfg, None,
+                                                     29))
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64, device=cuda)
+    work = torch.zeros(mk.N_WORK, dtype=torch.int64, device=cuda)
+    counted = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
+                              29, counts=counts, work=work)
+    assert torch.equal(counted, got)
+    bounces, warp_steps, draws = work.tolist()
+    n = rays.origin.shape[0]
+    assert n <= bounces <= (DEPTH + 1) * n
+    assert bounces <= 32 * warp_steps and 0 < draws < bounces
