@@ -41,14 +41,33 @@ Phases (each prints lines; any failure raises and exits nonzero):
          leaves out; their bounds charge OPS_DRAW for each in-kernel draw
          (``bound_no_draws_ms`` without);
        * the sweeps K3, K5 (culled and plain) and K4 against their plain
-         versions on one full main-path launch: the first 2^18 camera rays
-         of random_spheres 16:9, the same rays after one bounce with a
-         random alive mask (dead lanes must miss), the first and the middle
-         2^18 rays of the icosphere frame under both quirk profiles and
-         its bounced rays (K4 culled), a scene
-         of fewer than 128 triangles (K4 plain), and the duplicate-prim and
-         exact-tie scenes; idx equal on every ray, t and attrs to
-         PARITY_ATOL;
+         versions, through the public entries and every culled instance
+         (one and two box levels, one thread per ray and cooperative; the
+         cooperative counting instance must count the per-thread one's
+         tests), on full main-path launches: the first 2^18 camera rays
+         of random_spheres 16:9, the same rays after one bounce with the
+         alive mask that bounce leaves and with that mask thinned (dead
+         lanes must miss), the first and the middle 2^18 rays of the
+         icosphere frame under both quirk profiles and the middle
+         launch's bounced rays (K4 culled), 2^18 axis-parallel rays whose
+         origins lie on the icosphere's chunk and super planes (the
+         slab's NaN) and on its vertices' planes (the boxes' margin),
+         2^18 rays at a triangle whose duplicate sits in
+         another super, the 9,216-sphere field (the spheres' two levels),
+         a scene of fewer than 128 triangles (K4 plain), and the
+         duplicate-prim and exact-tie scenes; idx equal on every ray, t
+         and attrs to PARITY_ATOL.  On a cylinder of 4,096 slivers under
+         2^18 grazing rays (moderate and extreme, both quirk profiles)
+         K4's culled instances agree bit for bit and leave the plain
+         version only where its winner is outside the margin's proof
+         (ops/sweeps.py TRI_MARGIN), counted in the kernels line's
+         ``slivers``.  Each kernel's camera and bounce
+         launches of (c), (d) and (e) are timed on the card over prebuilt
+         tables and through the public entry (its table build included),
+         beside the other cooperation choice, one box level (K4), the
+         lanes' use and the instance's registers and spill; the bound is
+         the one-level per-thread counting instance's (the same work
+         whatever implements it), the launch's own count beside it;
        * K8 against the plain version on one full 2^18-ray launch of
          light_box 1280x720x16 and of the TRS showcase, and 2^16 rays of
          the TRS field (three integrators injected, the path on in-kernel
@@ -104,7 +123,8 @@ Phases (each prints lines; any failure raises and exits nonzero):
      mega_diff against the wavefront on the card, each to 1e-3 of the
      largest entry;
   6. main paths at full size, the launch counts set to 0 just before each
-     and read just after:
+     and read just after (the sweeps' also by kind: camera launches, and
+     bounce launches, which carry an alive mask):
        (a) random_spheres 1920x1080x16, path depth 8, reference quirks,
            fused, Morton tables, in-kernel draws;
        (b) a 5,120-triangle icosphere 1280x720x8, depth 8, fixed quirks,
@@ -170,9 +190,13 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
     python3 chip_smoke.py --ab [--root DIR]
 
-times only what compares two commits on one card (``ab_main``: K1, K7,
-K8, K9 and (a)'s frame, then K6, K10, K11, K12 and the (l) and (p)
-cells), with the package of the checkout at DIR (default: this one).
+    python3 chip_smoke.py --ab --only sweeps [--root DIR]
+
+times only what compares two commits on one card (``ab_main``: K3, K4, K5
+and the wavefront cells (c), (d), (k), (e), then K1, K7, K8, K9 and (a)'s
+frame, then K6, K10, K11, K12 and the (l) and (p) cells; with ``--only
+sweeps`` only the first), with the package of the checkout at DIR
+(default: this one).
 """
 
 from __future__ import annotations
@@ -796,8 +820,10 @@ def compare_hits(label: str, got, ref) -> float:
 
 
 def one_bounce(scene, rays, cfg, seed: int, gen):
-    """The rays after one wavefront bounce on K2 draws, and a random alive
-    mask over the lanes that went on (incoherent rays, dead lanes)."""
+    """The rays after one wavefront bounce on K2 draws: (rays, the alive
+    mask that bounce leaves (the lanes that go on: what the main path's
+    next sweep sees), that mask randomly thinned to 70% (more dead lanes,
+    the check of earlier PRs))."""
     from cudaraytracer_tpu_torch.core.rays import Rays
     from cudaraytracer_tpu_torch.ops import integrators as integ
     from cudaraytracer_tpu_torch.ops import megakernel as mk
@@ -814,7 +840,7 @@ def one_bounce(scene, rays, cfg, seed: int, gen):
             torch.ones(n, dtype=torch.bool, device=o.device),
             draws[:, :3], draws[:, 3])
     keep = torch.rand(n, generator=gen, device=o.device) < 0.7
-    return Rays(o2, d2, t2), cont & keep
+    return Rays(o2, d2, t2), cont, cont & keep
 
 
 def sweep_cost(n: int, tests, prim_flops: int, tables, out_floats: int,
@@ -822,30 +848,140 @@ def sweep_cost(n: int, tests, prim_flops: int, tables, out_floats: int,
     """(bound ms, bound_by) of one sweep launch over n rays that made
     ``tests`` (box, prim): rays in, (t, idx[, attrs]) out, tables read
     once."""
-    n_box, n_prim = tests
+    n_box, n_prim = tests[:2]
     bytes_ = (n * (24 + 4 * out_floats + (1 if alive else 0))
-              + sum(t.numel() * 4 for t in tables))
+              + sum(t.numel() * 4 for t in tables if t is not None))
     return bound(n_box * FLOP_BOX + n_prim * prim_flops, bytes_)
 
 
-def time_sweep(label: str, kernel, plain, counted, n: int, prim_flops: int,
-               tables, out_floats: int, alive: bool) -> dict:
-    """Kernel and plain times on one launch, and its bound from the tests
-    that the counting variant reports."""
-    ms, _ = device_ms(kernel, reps=10)
-    call_ms, _ = cuda_ms(kernel, reps=10)
+def sweep_instance(prim: str, cull: bool, coop: bool, attrs: bool) -> str:
+    """The name of the csrc/sweeps.cu instance a launch takes (its extern
+    "C" name, as ptxas -v reports it)."""
+    form = "plain" if not cull else ("coop" if coop else "cull")
+    return f"crt_{prim}_{form}" + ("_attrs" if attrs else "")
+
+
+def sweep_counts(launch, dev, **kw) -> list:
+    """The counting instance's counts (ops/sweeps.py COUNT_NAMES) of
+    ``launch(counts=..., **kw)`` on device ``dev``."""
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    c = torch.zeros(sw.N_COUNTS, dtype=torch.int64, device=dev)
+    launch(counts=c, **kw)
+    return c.tolist()
+
+
+def hold_instances(label: str, launch, ref, sup) -> float:
+    """Every culled instance of ``launch(sup=, coop=, counts=)`` (one and two
+    box levels, one thread per ray and cooperative) against the plain
+    version's ``ref``; the cooperative counting instance must count the
+    per-thread one's box and prim tests -> max abs error."""
+    err = 0.0
+    for s_ in (None,) if sup is None else (None, sup):
+        counts = []
+        for coop in (False, True):
+            kw = {"sup": s_, "coop": coop}
+            err = max(err, compare_hits(
+                f"{label}, {1 if s_ is None else 2} level(s), "
+                f"{'coop' if coop else 'per-thread'}", launch(**kw), ref))
+            counts.append(sweep_counts(launch, ref[0].device, **kw)[:2])
+        check(counts[0] == counts[1], f"{label}: the cooperative instance "
+              f"counts {counts[1]}, the per-thread one {counts[0]}")
+    return err
+
+
+def sliver_losses(label: str, v, nrm, o, d, quirks, t_min: float,
+                  t_max: float) -> dict:
+    """K4 on a sliver mesh under grazing rays: the public entry and every
+    culled instance give the same (t, idx) bit for bit, the plain form the
+    plain version's, and a culled ray leaves the plain version's (t, idx)
+    only farther and only where that winner lies outside the margin's
+    proof (ops/sweeps.py TRI_MARGIN, ``triangle_conditioned``) -> the
+    counts of such winners and of the rays the cull lost."""
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    v0, v1, v2 = v
+    ref = sw.triangle_best_hit_plain(o, d, v0, v1, v2, nrm, t_min, t_max,
+                                     quirks)
+    tbl, box, sup = sw.triangle_table(v0, v1, v2, nrm)
+    compare_hits(f"K4 plain form {label}", sw.launch_triangle_sweep(
+        o, d, tbl, None, None, t_min, t_max, quirks), ref)
+    outs = {"the public entry": sw.triangle_best_hit_raw(
+        o, d, v0, v1, v2, nrm, t_min, t_max, quirks)}
+    for s_ in (None, sup):
+        for coop in (False, True):
+            outs[f"{1 if s_ is None else 2} level(s), "
+                 f"{'coop' if coop else 'per-thread'}"] = \
+                sw.launch_triangle_sweep(o, d, tbl, box, None, t_min, t_max,
+                                         quirks, sup=s_, coop=coop)
+    t, i = outs["2 level(s), coop"]
+    for k, got in outs.items():
+        check(torch.equal(got[0], t) and torch.equal(got[1], i),
+              f"{label}: {k} differs from the default instance")
+    w = ref[1].long().clamp(min=0)
+    covered = sw.triangle_conditioned(d, v1[w] - v0[w], v2[w] - v0[w])
+    hit = ref[1] >= 0
+    lost = (i != ref[1]) | (t != ref[0])
+    n_lost, n_out = int(lost.sum()), int((hit & ~covered).sum())
+    print(f"[sweeps] K4 {label}: rays {t.shape[0]} plain hits "
+          f"{int(hit.sum())}, winners outside the margin's proof {n_out}, "
+          f"lost to the cull {n_lost}")
+    check(not bool((lost & covered & hit).any()),
+          f"{label}: the cull lost a hit that the margin covers")
+    check(bool((t >= ref[0]).all()), f"{label}: the cull found a nearer hit")
+    return {"rays": int(t.shape[0]), "plain_hits": int(hit.sum()),
+            "uncovered_winners": n_out, "lost": n_lost}
+
+
+def time_sweep(label: str, launch, raw, plain, n: int, prim_flops: int,
+               tables, out_floats: int, alive: bool, coop: bool,
+               instance: str, sup=None) -> dict:
+    """One main-path launch: ``launch(**kw)`` over prebuilt tables as the
+    public entry ``raw()`` makes it (with ``sup`` when it takes the super
+    level), timed on the card (``ms``, device_ms) and ``raw()`` as the call
+    (``call_ms``, its table build and host time included) and on the card
+    (``raw_ms``); the plain version's time; the bound from the launch's
+    own counted tests (the work this design needs) and, beside it, the
+    bound from the tests of the one-level per-thread counting instance on
+    the same rays (``bound_one_level_ms``); the lanes' use (prim and box
+    tests over 32 x warp
+    steps); the other cooperation choice's time and, for a two-level
+    launch, the one-level time; the instance's registers and spill.
+    coop: the launch's own cooperation choice (the wrapper's default)."""
+    ms, _ = device_ms(lambda: launch(sup=sup), reps=10)
+    raw_ms, _ = device_ms(raw, reps=10)
+    call_ms, _ = cuda_ms(raw, reps=10)
     plain_ms, _ = cuda_ms(plain, reps=1)
-    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    counted(counts)
-    tests = counts.tolist()
-    bound_ms, bound_by = sweep_cost(n, tests, prim_flops, tables, out_floats,
+    other_ms, _ = device_ms(lambda: launch(sup=sup, coop=not coop), reps=10)
+    dev = tables[0].device
+    one_level = sweep_counts(launch, dev, sup=None, coop=False)
+    own = sweep_counts(launch, dev, sup=sup, coop=coop)
+    bound_ms, bound_by = sweep_cost(n, own, prim_flops, tables, out_floats,
                                     alive)
-    print(f"[sweeps] {label}: kernel {ms:.4f} ms (the call {call_ms:.4f} "
-          f"ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), tests (box, prim) {tests}")
-    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by, "tests": tests, "rays": n, "at": label}
+    one_level_bound_ms, _ = sweep_cost(n, one_level, prim_flops, tables,
+                                       out_floats, alive)
+    regs, spill = ptxas_usage(instance)
+    out = {"ms": ms, "raw_ms": raw_ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_one_level_ms": one_level_bound_ms,
+           "tests_one_level": one_level[:2], "tests": own[:2],
+           "lane_use": own[1] / (32.0 * max(own[3], 1)),
+           "box_lane_use": own[0] / (32.0 * max(own[2], 1)),
+           "coop": coop, f"{'per_thread' if coop else 'coop'}_ms": other_ms,
+           "instance": instance, "registers": regs, "spill_bytes": spill,
+           "rays": n, "at": label}
+    if sup is not None:
+        out["one_level_ms"] = device_ms(lambda: launch(sup=None),
+                                        reps=10)[0]
+    print(f"[sweeps] {label}: kernel {ms:.4f} ms (the public entry "
+          f"{raw_ms:.4f} ms on the card, {call_ms:.4f} ms the call), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; tests "
+          f"{own[:2]}), one level per thread: tests {one_level[:2]} bound "
+          f"{one_level_bound_ms:.4f} ms, lanes' use {out['lane_use']:.4f} "
+          f"(box {out['box_lane_use']:.4f}), "
+          f"{'one thread per ray' if coop else 'cooperative'} "
+          f"{other_ms:.4f} ms"
+          + (f", one level {out['one_level_ms']:.4f} ms" if sup is not None
+             else "") + f", {instance} {regs} registers, {spill} B spill")
+    return out
 
 
 def fit_shape():
@@ -853,16 +989,46 @@ def fit_shape():
     return 512, 256, 4, 4
 
 
+def sweep_scenes(dev, frames, gen) -> dict:
+    """The sweeps' main-path launches: (c)'s first 2^18 camera rays on
+    random_spheres (Morton order, as the wavefront sweeps it) and the same
+    rays after one bounce, (d)'s middle 2^18 camera rays on the icosphere
+    and the same after one bounce, and (e)'s first 2^18 camera rays on
+    three_spheres and the same after one bounce; each bounce with the
+    wavefront's alive mask and with that mask thinned."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    fa, fb = frames
+    out = {}
+    for key, f, k in (("c", fa, 0), ("d", fb, middle_chunk(fb))):
+        scene = integ._morton_scene(f.scene)[0]
+        cam = first_chunk(f, gen, k)
+        b, alive, thin = one_bounce(scene, cam, dataclasses.replace(
+            f.cfg, engine="wavefront"), 21, gen)
+        out[key] = (scene, cam, b, alive, thin, k)
+    w, h, spp, depth = fit_shape()
+    s3, c3 = presets.three_spheres(aspect=w / h, device=dev)
+    r3 = generate_pixel_rays(c3, w, h, spp, generator=gen)
+    n = fa.cfg.ray_chunk
+    r3 = r3._replace(origin=r3.origin[:n], direction=r3.direction[:n],
+                     time=r3.time[:n])
+    b, alive, thin = one_bounce(s3, r3, RenderConfig(
+        width=w, height=h, samples=spp, max_depth=depth), 23, gen)
+    out["e"] = (s3, r3, b, alive, thin, 0)
+    return out
+
+
 def phase_sweep_parity(dev, frames) -> dict:
-    """K3, K5 and K4 against their plain versions; times and bounds of one
-    main-path launch of each."""
-    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    """K3, K5 and K4 against their plain versions, through the public
+    entries and every culled instance; times and bounds of the main-path
+    camera and bounce launches of each."""
+    from cudaraytracer_tpu_torch.config import Quirks
     from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
     from cudaraytracer_tpu_torch.core.rays import make_rays
     from cudaraytracer_tpu_torch.models import check_scenes as cs
-    from cudaraytracer_tpu_torch.models import presets
     from cudaraytracer_tpu_torch.models.scene import SceneBuilder
-    from cudaraytracer_tpu_torch.ops import integrators as integ
     from cudaraytracer_tpu_torch.ops import intersect as isect
     from cudaraytracer_tpu_torch.ops import sweeps as sw
     fa, fb = frames
@@ -877,57 +1043,127 @@ def phase_sweep_parity(dev, frames) -> dict:
     def spheres(label, scene, o, d, alive=None):
         sp = scene.spheres
         attr = isect.sphere_attr_table(scene)
+        ref = sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, t_min,
+                                       t_max, alive)
+        refa = sw.sphere_best_hit_attrs_plain(o, d, sp.center, sp.radius,
+                                              attr, t_min, t_max, alive)
         for cull in (True, False):
             form = "culled" if cull else "plain"
             got = sw.sphere_best_hit_raw(o, d, sp.center, sp.radius, t_min,
                                          t_max, cull, alive)
-            note("sphere_sweep", compare_hits(
-                f"K3 {form} {label}", got, sw.sphere_best_hit_plain(
-                    o, d, sp.center, sp.radius, t_min, t_max, alive)))
+            note("sphere_sweep", compare_hits(f"K3 {form} {label}", got, ref))
             gota = sw.sphere_best_hit_attrs_raw(o, d, sp.center, sp.radius,
                                                 attr, t_min, t_max, cull,
                                                 alive)
-            note("sphere_sweep_attrs", compare_hits(
-                f"K5 {form} {label}", gota, sw.sphere_best_hit_attrs_plain(
-                    o, d, sp.center, sp.radius, attr, t_min, t_max, alive)))
+            note("sphere_sweep_attrs", compare_hits(f"K5 {form} {label}",
+                                                    gota, refa))
             check(torch.equal(gota[1], got[1]), f"{label}: K5 and K3 differ")
             if alive is not None:
                 check(bool((got[1][~alive] == -1).all()
                            and (gota[1][~alive] == -1).all()),
                       f"{label}: a dead lane hit")
+        tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+        rows = sw.attr_rows(attr)
+        note("sphere_sweep", hold_instances(
+            f"K3 {label}", lambda **kw: sw.launch_sphere_sweep(
+                o, d, tbl, box, alive, None, t_min, t_max, **kw), ref, sup))
+        note("sphere_sweep_attrs", hold_instances(
+            f"K5 {label}", lambda **kw: sw.launch_sphere_sweep(
+                o, d, tbl, box, alive, rows, t_min, t_max, **kw), refa, sup))
         return got
 
-    def triangles(label, scene, o, d, quirks, cull, alive=None):
+    def triangles(label, scene, o, d, quirks, cull, alive=None, v=None):
         tr = scene.triangles
-        got = sw.triangle_best_hit_raw(o, d, tr.v0, tr.v1, tr.v2, tr.normal,
-                                       t_min, t_max, quirks, cull, alive)
+        v0, v1, v2, nrm = v or (tr.v0, tr.v1, tr.v2, tr.normal)
+        ref = sw.triangle_best_hit_plain(o, d, v0, v1, v2, nrm, t_min,
+                                         t_max, quirks, alive)
+        got = sw.triangle_best_hit_raw(o, d, v0, v1, v2, nrm, t_min, t_max,
+                                       quirks, cull, alive)
         note("triangle_sweep", compare_hits(
-            f"K4 {'culled' if cull else 'plain'} {label}", got,
-            sw.triangle_best_hit_plain(o, d, tr.v0, tr.v1, tr.v2, tr.normal,
-                                       t_min, t_max, quirks, alive)))
+            f"K4 {'culled' if cull else 'plain'} {label}", got, ref))
+        if cull:
+            tbl, box, sup = sw.triangle_table(v0, v1, v2, nrm)
+            note("triangle_sweep", hold_instances(
+                f"K4 {label}", lambda **kw: sw.launch_triangle_sweep(
+                    o, d, tbl, box, alive, t_min, t_max, quirks, **kw), ref,
+                sup))
         return got
 
-    # (a)'s first launch: camera rays, then the same rays after one bounce
-    wcfg = dataclasses.replace(fa.cfg, engine="wavefront")
-    sa = integ._morton_scene(fa.scene)[0]
-    cam_a = first_chunk(fa, gen)
+    scenes = sweep_scenes(dev, frames, gen)
+    n_check = fa.cfg.ray_chunk        # 2^18 rays, a main-path launch
+    # (c)'s first launch: camera rays, then the same rays after one bounce
+    sa, cam_a, bounce_a, alive_a, thin_a, _ = scenes["c"]
     spheres("random_spheres camera", sa, cam_a.origin, cam_a.direction)
-    bounce_a, alive_a = one_bounce(sa, cam_a, wcfg, 21, gen)
-    spheres("random_spheres bounce, alive", sa, bounce_a.origin,
-            bounce_a.direction, alive_a)
+    for what, al in (("wavefront's alive", alive_a), ("thinned", thin_a)):
+        spheres(f"random_spheres bounce, {what}", sa, bounce_a.origin,
+                bounce_a.direction, al)
     # the icosphere frame: K4 culled under both quirk profiles, on its
-    # first launch and on its middle one (the first sees only the ground)
-    sb = integ._morton_scene(fb.scene)[0]
-    for k in (0, middle_chunk(fb)):
-        cam_b = first_chunk(fb, gen, k)
+    # first launch and on its middle one (the first sees only the ground),
+    # then on the middle launch's rays after one bounce
+    sb, cam_b, bounce_b, alive_b, thin_b, mid = scenes["d"]
+    for k in (0, mid):
+        cam = cam_b if k == mid else first_chunk(fb, gen, k)
         for q in ("reference", "fixed"):
-            quirks = getattr(Quirks, q)()
-            triangles(f"icosphere launch {k} camera {q}", sb, cam_b.origin,
-                      cam_b.direction, quirks, True)
-    bounce_b, alive_b = one_bounce(sb, cam_b, dataclasses.replace(
-        fb.cfg, engine="wavefront"), 22, gen)
-    triangles("icosphere bounce, alive", sb, bounce_b.origin,
-              bounce_b.direction, Quirks.fixed(), True, alive_b)
+            triangles(f"icosphere launch {k} camera {q}", sb, cam.origin,
+                      cam.direction, getattr(Quirks, q)(), True)
+    for q in ("reference", "fixed"):
+        for what, al in (("wavefront's alive", alive_b), ("thinned",
+                                                          thin_b)):
+            triangles(f"icosphere bounce, {what}, {q}", sb, bounce_b.origin,
+                      bounce_b.direction, getattr(Quirks, q)(), True, al)
+    # axis-parallel rays whose origins lie on chunk and super planes (the
+    # slab's NaN): the two levels must keep every hit of the plain version;
+    # and on the planes of the vertices' own chunk boxes (rays through
+    # shared vertices and edges, which the widened boxes must keep)
+    tr = sb.triangles
+    _, tbox, tsup = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+    vbox = sw.group_boxes(torch.minimum(torch.minimum(tr.v0, tr.v1), tr.v2),
+                          torch.maximum(torch.maximum(tr.v0, tr.v1), tr.v2),
+                          sw.PRIM_CHUNK, sw.PRIM_CHUNK)
+    for what, bx in (("chunk", tbox), ("super", tsup), ("vertex", vbox)):
+        po, pd = cs.plane_rays(bx.cpu().numpy(),
+                               tr.v0.mean(0).cpu().numpy(), n_check, 3)
+        rays_p = make_rays(po, pd, device=dev)
+        for q in ("reference", "fixed"):
+            triangles(f"icosphere, rays on {what} planes, {q}", sb,
+                      rays_p.origin, rays_p.direction, getattr(Quirks, q)(),
+                      True)
+    # a duplicate of triangle 37 (super 0) appended in super 20: the first
+    # copy wins every tie
+    k = 37
+    vd = tuple(torch.cat([x, x[k:k + 1]]) for x in (tr.v0, tr.v1, tr.v2,
+                                                    tr.normal))
+    cen = (vd[0][k] + vd[1][k] + vd[2][k]) / 3
+    nrm = torch.linalg.cross(vd[1][k] - vd[0][k], vd[2][k] - vd[0][k])
+    o_dup = (cen + 0.5 * nrm / nrm.norm()).expand(n_check, 3).contiguous()
+    d_dup = (cen - o_dup) + 0.002 * torch.randn(
+        n_check, 3, generator=gen, device=dev)
+    got = triangles("a duplicate in another super", sb, o_dup, d_dup,
+                    Quirks.fixed(), True, v=vd)
+    check(bool((got[1] == k).any())
+          and not bool((got[1] == tr.v0.shape[0]).any()),
+          "a duplicate triangle in another super won")
+    # a cylinder of slivers under grazing rays, moderate and extreme (the
+    # triangle margin's limit: only winners outside its proof may be lost)
+    sv = [torch.as_tensor(x, device=dev) for x in cs.sliver_cylinder()]
+    order = sw.morton_argsort((sv[0] + sv[1] + sv[2]) / 3)
+    sv = [x[order].contiguous() for x in sv]
+    snrm = torch.linalg.cross(sv[1] - sv[0], sv[2] - sv[0])
+    slivers = {}
+    for band, lo_g, hi_g in (("moderate", 1e-3, 1e-1),
+                             ("extreme", 1e-6, 1e-3)):
+        go, gd = (torch.as_tensor(x, device=dev) for x in cs.grazing_rays(
+            n_check, lo_g, hi_g, seed=7))
+        for q in ("reference", "fixed"):
+            slivers[f"{band}_{q}"] = sliver_losses(
+                f"slivers, {band} grazing, {q}", sv, snrm, go, gd,
+                getattr(Quirks, q)(), t_min, t_max)
+    # more than SPH_SUPER_MIN spheres: the sphere sweeps' two levels
+    field = cs.fill_sphere_field(SceneBuilder()).build(dev)
+    fo, fd = cs.sphere_field_rays(n_check)
+    rays_f = make_rays(fo, fd, device=dev)
+    spheres("sphere field (9,216 spheres)", field, rays_f.origin,
+            rays_f.direction)
     # fewer than 128 triangles: the plain form (and the culled one)
     mixed, cam_m = cs.mixed_scene(dev)
     rays_m = generate_pixel_rays(cam_m, 512, 256, 2, generator=gen)
@@ -954,9 +1190,10 @@ def phase_sweep_parity(dev, frames) -> dict:
     got = spheres("ties", tie, rays_t.origin, rays_t.direction)
     check(got[1].tolist() == [22, 0] and got[0].tolist() == [4.0, 4.5],
           f"ties: sphere sweep gave {got}")
-    got = triangles("ties", tie, rays_t.origin, rays_t.direction,
-                    Quirks.fixed(), False)
-    check(got[1].tolist() == [0, -1], f"ties: triangle sweep gave {got}")
+    for cull in (False, True):
+        got = triangles("ties", tie, rays_t.origin, rays_t.direction,
+                        Quirks.fixed(), cull)
+        check(got[1].tolist() == [0, -1], f"ties: triangle sweep gave {got}")
     for policy in ("all", "off"):
         hits = isect.intersect_scene_sweeps(tie, rays_t, t_min, t_max,
                                             Quirks.fixed(),
@@ -965,81 +1202,102 @@ def phase_sweep_parity(dev, frames) -> dict:
               f"ties: intersect_scene_sweeps gave {hits.prim.tolist()}")
     print(f"[sweeps] max abs error {err}")
 
-    # ---- times and bounds of one main-path launch of each ----
-    out = {}
-    sp = sa.spheres
-    o, d = cam_a.origin, cam_a.direction
-    tbl, box = sw.sphere_table(sp.center, sp.radius)
-    n = o.shape[0]
-    out["sphere_sweep"] = time_sweep(
-        "K3 culled, (c)'s first launch: 2^18 camera rays, 484 spheres",
-        lambda: sw.launch_sphere_sweep(o, d, tbl, box, None, None, t_min,
-                                       t_max),
-        lambda: sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, t_min,
-                                         t_max),
-        lambda c: sw.launch_sphere_sweep(o, d, tbl, box, None, None, t_min,
-                                         t_max, c),
-        n, FLOP_SPHERE, (tbl, box), 2, False)
-    bo, bd, al = bounce_a.origin, bounce_a.direction, alive_a
-    out["sphere_sweep"]["bounce"] = time_sweep(
-        "K3 culled, (c)'s second bounce: 2^18 rays, alive mask",
-        lambda: sw.launch_sphere_sweep(bo, bd, tbl, box, al, None, t_min,
-                                       t_max),
-        lambda: sw.sphere_best_hit_plain(bo, bd, sp.center, sp.radius, t_min,
-                                         t_max, al),
-        lambda c: sw.launch_sphere_sweep(bo, bd, tbl, box, al, None, t_min,
-                                         t_max, c),
-        n, FLOP_SPHERE, (tbl, box), 2, True)
-    tr = sb.triangles
-    ttbl, tbox = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+    # ---- times and bounds of the main-path launches of each ----
+    out = {"sphere_sweep": {}, "sphere_sweep_attrs": {},
+           "triangle_sweep": {}}
     fixed = Quirks.fixed()
-    ob, db = cam_b.origin, cam_b.direction
-    out["triangle_sweep"] = time_sweep(
-        f"K4 culled, (d)'s launch {middle_chunk(fb)}: 2^18 camera rays, "
-        "5120 triangles",
-        lambda: sw.launch_triangle_sweep(ob, db, ttbl, tbox, None, t_min,
-                                         t_max, fixed),
-        lambda: sw.triangle_best_hit_plain(ob, db, tr.v0, tr.v1, tr.v2,
-                                           tr.normal, t_min, t_max, fixed),
-        lambda c: sw.launch_triangle_sweep(ob, db, ttbl, tbox, None, t_min,
-                                           t_max, fixed, c),
-        n, FLOP_TRI, (ttbl, tbox), 2, False)
-    # K5 at the fit's first launch: three_spheres 512x256x4 camera rays in
-    # row-major order, the first 2^18
-    w, h, spp, _ = fit_shape()
-    s3, c3 = presets.three_spheres(aspect=w / h, device=dev)
-    r3 = generate_pixel_rays(c3, w, h, spp, generator=gen)
-    o3, d3 = r3.origin[:n], r3.direction[:n]
-    sp3 = s3.spheres
-    attr3 = isect.sphere_attr_table(s3)
-    stbl, sbox = sw.sphere_table(sp3.center, sp3.radius)
-    rows = sw.pad_rows(attr3.t(), sw.PRIM_CHUNK).contiguous()
-    note("sphere_sweep_attrs", compare_hits(
-        "K5 culled (e)'s first launch", sw.sphere_best_hit_attrs_raw(
-            o3, d3, sp3.center, sp3.radius, attr3, t_min, t_max, True),
-        sw.sphere_best_hit_attrs_plain(o3, d3, sp3.center, sp3.radius, attr3,
-                                       t_min, t_max)))
-    out["sphere_sweep_attrs"] = time_sweep(
-        "K5 culled, (e)'s first launch: 2^18 camera rays, 4 spheres",
-        lambda: sw.launch_sphere_sweep(o3, d3, stbl, sbox, None, rows, t_min,
-                                       t_max),
-        lambda: sw.sphere_best_hit_attrs_plain(o3, d3, sp3.center,
-                                               sp3.radius, attr3, t_min,
-                                               t_max),
-        lambda c: sw.launch_sphere_sweep(o3, d3, stbl, sbox, None, rows,
-                                         t_min, t_max, c),
-        n, FLOP_SPHERE, (stbl, sbox, rows), 2 + N_ATTRS, False)
-    attr_a = isect.sphere_attr_table(sa)
-    rows_a = sw.pad_rows(attr_a.t(), sw.PRIM_CHUNK).contiguous()
+    for key, name in (("c", "sphere_sweep"), ("e", "sphere_sweep_attrs"),
+                      ("d", "triangle_sweep")):
+        scene, cam, bounce, alive, thin, k = scenes[key]
+        n = cam.origin.shape[0]
+        tri = name == "triangle_sweep"
+        if tri:
+            tr = scene.triangles
+            tabs = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+            tbl, box, sup = tabs
+        else:
+            sp = scene.spheres
+            tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+            attr = isect.sphere_attr_table(scene)
+            rows = sw.attr_rows(attr) if name == "sphere_sweep_attrs" else None
+        for kind, o, d, al in (("camera", cam.origin, cam.direction, None),
+                               ("bounce", bounce.origin, bounce.direction,
+                                alive),
+                               ("bounce_thinned", bounce.origin,
+                                bounce.direction, thin)):
+            if tri:
+                def launch(o=o, d=d, al=al, **kw):
+                    return sw.launch_triangle_sweep(o, d, tbl, box, al, t_min,
+                                                    t_max, fixed, **kw)
+
+                def raw(o=o, d=d, al=al):
+                    return sw.triangle_best_hit_raw(
+                        o, d, tr.v0, tr.v1, tr.v2, tr.normal, t_min, t_max,
+                        fixed, alive=al)
+
+                def plain(o=o, d=d, al=al):
+                    return sw.triangle_best_hit_plain(
+                        o, d, tr.v0, tr.v1, tr.v2, tr.normal, t_min, t_max,
+                        fixed, al)
+                tables, prim_flops, outs = (tbl, box), FLOP_TRI, 2
+            elif rows is None:
+                def launch(o=o, d=d, al=al, **kw):
+                    return sw.launch_sphere_sweep(o, d, tbl, box, al, None,
+                                                  t_min, t_max, **kw)
+
+                def raw(o=o, d=d, al=al):
+                    return sw.sphere_best_hit_raw(o, d, sp.center, sp.radius,
+                                                  t_min, t_max, True, al)
+
+                def plain(o=o, d=d, al=al):
+                    return sw.sphere_best_hit_plain(o, d, sp.center,
+                                                    sp.radius, t_min, t_max,
+                                                    al)
+                tables, prim_flops, outs = (tbl, box), FLOP_SPHERE, 2
+            else:
+                def launch(o=o, d=d, al=al, **kw):
+                    return sw.launch_sphere_sweep(o, d, tbl, box, al, rows,
+                                                  t_min, t_max, **kw)
+
+                def raw(o=o, d=d, al=al):
+                    return sw.sphere_best_hit_attrs_raw(
+                        o, d, sp.center, sp.radius, attr, t_min, t_max, True,
+                        al)
+
+                def plain(o=o, d=d, al=al):
+                    return sw.sphere_best_hit_attrs_plain(
+                        o, d, sp.center, sp.radius, attr, t_min, t_max, al)
+                tables, prim_flops, outs = ((tbl, box, rows), FLOP_SPHERE,
+                                            2 + N_ATTRS)
+            note(name, compare_hits(f"{name} {key} {kind} (timed launch)",
+                                    launch(sup=sup), plain()))
+            label = (f"{name}, ({key})'s launch {k}, {kind}: {n} rays"
+                     + ("" if al is None else
+                        f", {int(al.sum())} alive"))
+            coop = tri or al is not None
+            out[name][kind] = time_sweep(
+                label, launch, raw, plain, n, prim_flops, tables, outs,
+                al is not None, coop, sweep_instance(
+                    "tri" if tri else "sph", True, coop,
+                    rows is not None and not tri), sup)
+    # K5 on (c)'s 484 spheres (its camera launch), beside (e)'s 4
+    scene, cam, _, _, _, k = scenes["c"]
+    sp = scene.spheres
+    tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+    attr = isect.sphere_attr_table(scene)
+    rows = sw.attr_rows(attr)
+    o, d = cam.origin, cam.direction
     out["sphere_sweep_attrs"]["random_spheres"] = time_sweep(
-        "K5 culled, 2^18 camera rays, 484 Morton-ordered spheres",
-        lambda: sw.launch_sphere_sweep(o, d, tbl, box, None, rows_a, t_min,
-                                       t_max),
+        f"sphere_sweep_attrs, (c)'s launch {k}, camera: {o.shape[0]} rays",
+        lambda **kw: sw.launch_sphere_sweep(o, d, tbl, box, None, rows,
+                                            t_min, t_max, **kw),
+        lambda: sw.sphere_best_hit_attrs_raw(o, d, sp.center, sp.radius,
+                                             attr, t_min, t_max, True),
         lambda: sw.sphere_best_hit_attrs_plain(o, d, sp.center, sp.radius,
-                                               attr_a, t_min, t_max),
-        lambda c: sw.launch_sphere_sweep(o, d, tbl, box, None, rows_a, t_min,
-                                         t_max, c),
-        n, FLOP_SPHERE, (tbl, box, rows_a), 2 + N_ATTRS, False)
+                                               attr, t_min, t_max),
+        o.shape[0], FLOP_SPHERE, (tbl, box, rows), 2 + N_ATTRS, False, False,
+        sweep_instance("sph", True, False, True), sup)
+    out["triangle_sweep"]["slivers"] = slivers
     for k, v in out.items():
         v["max_abs_err"] = err[k]
     return out
@@ -2320,6 +2578,10 @@ def render_routes(dev, fm: Frame) -> tuple:
     return out, launches
 
 
+# The sweep launches of each main path by kind (camera or bounce)
+KINDS = {}
+
+
 def counted(name: str, fn, need):
     """Run one main path with every launch count set to 0 just before it;
     read the counts just after and require a launch of each kernel in
@@ -2332,6 +2594,9 @@ def counted(name: str, fn, need):
     torch.cuda.synchronize()
     launches = {**mk.LAUNCHES, **sw.LAUNCHES}
     print(f"[main] launches in {name}: {launches}")
+    if any(sw.LAUNCHES.values()):
+        KINDS[name] = {k: dict(v) for k, v in sw.LAUNCH_KINDS.items()}
+        print(f"[main] sweep launches in {name} by kind: {KINDS[name]}")
     for k in need:
         check(launches[k] > 0, f"{name} never launched {k}")
     return out, launches
@@ -2559,14 +2824,22 @@ def main() -> int:
     for name, line in (("sphere_sweep", 181), ("sphere_sweep_attrs", 314),
                        ("triangle_sweep", 645)):
         k = sweeps[name]
+        cam, bnc = k.pop("camera"), k.pop("bounce")
         rows.append({
             "name": name, "route": "cuda",
             "source": "cudaraytracer_tpu_torch/csrc/sweeps.cu",
             "replaces": f"cudaraytracer_tpu/ops/pallas_intersect.py:{line}",
             "launches": launches[name], "max_abs_err": k.pop("max_abs_err"),
-            "ms": k.pop("ms"), "plain_ms": k.pop("plain_ms"),
-            "bound_ms": k.pop("bound_ms"), "bound_by": k.pop("bound_by"),
-            "library_ms": None, **k})
+            "ms": cam.pop("ms"), "plain_ms": cam.pop("plain_ms"),
+            "bound_ms": cam.pop("bound_ms"), "bound_by": cam.pop("bound_by"),
+            "library_ms": None, "bounce_ms": bnc["ms"],
+            "bounce_bound_ms": bnc["bound_ms"],
+            "bound_one_level_ms": cam["bound_one_level_ms"],
+            "bounce_bound_one_level_ms": bnc["bound_one_level_ms"],
+            "lane_use": bnc["lane_use"],
+            "registers": cam["registers"], "spill_bytes": cam["spill_bytes"],
+            "launch_kinds": {p: KINDS[p][name] for p in KINDS},
+            "camera": cam, "bounce": bnc, **k})
     xh, xs, xi = (xparity[f.name] for f in xframes)
     rows.append({
         "name": "mega_winners", "route": "cuda",
@@ -2688,7 +2961,7 @@ def main() -> int:
     return 0
 
 
-def ab_main(root: str) -> int:
+def ab_main(root: str, only: str = "") -> int:
     """``--ab``: the timings that compare two commits on one card, for the
     package of the checkout at ``root``: ``ab_fused`` (K1, K7, K8, K9 and
     (a)'s frame), then (l)'s mega_diff fit step (min and median of 5), K12,
@@ -2697,10 +2970,11 @@ def ab_main(root: str) -> int:
     (m)'s first 2^18 rays in ray-id order (min of 5 each), (m)'s default
     route and monolithic with 8 shells over the frame's rays (min of 3)
     and per frame (min of 5), and (p)'s median rendering over 31 frames.
-    Run the parent's checkout (an
-    unpacked ``git archive``, whose kernels build there) and this one in
-    turns, in one call each way (parent, change, change, parent).  Prints
-    one JSON line, checks nothing else."""
+    ``ab_sweeps`` (K3, K4, K5 and the wavefront cells) comes first; with
+    ``only="sweeps"`` (``--only sweeps``) nothing else.  Run the parent's
+    checkout (an unpacked ``git archive``, whose kernels build there) and
+    this one in turns, in one call each way (parent, change, change,
+    parent).  Prints one JSON line, checks nothing else."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2717,11 +2991,123 @@ def ab_main(root: str) -> int:
     reports = _cuda.build()
     PTXAS["text"] = "\n".join(r.ptxas for r in reports.values())
     PTXAS["built"] = reports["megakernel"].ptxas != "(reused)"
-    out.update(ab_fused(dev))
-    out["l_fit"] = tex_fit_step(dev)
-    out.update(ab_streamed(dev))
+    out.update(ab_sweeps(dev))
+    if only != "sweeps":
+        out.update(ab_fused(dev))
+        out["l_fit"] = tex_fit_step(dev)
+        out.update(ab_streamed(dev))
     print(json.dumps(out))
     return 0
+
+
+def ab_sweeps(dev) -> dict:
+    """``ab_main``'s sweep timings (min of 10 on the card, ``device_ms``):
+    K3 on (c)'s first 2^18 camera rays and the same rays after one bounce,
+    K4 on (d)'s middle launch and its bounce, K5 on (e)'s first launch and
+    its bounce (each bounce with the wavefront's alive mask, and with that
+    mask thinned, ``..._bounce_thinned_...``), each through
+    the public ``_raw`` entry (``..._raw_ms``: the commit's own table
+    build included) and through ``launch_*_sweep`` over tables built
+    before (``..._ms``); where the package has them, the same launch with
+    the other cooperation choice (``..._flip_ms``) and, for K4, with one
+    box level (``..._one_level_ms``), and the counting instance's box and
+    prim tests per ray and lanes' use; then (c), (d) and (k) on the
+    wavefront (s/frame, min of 5) and (e)'s s/step (min of 5)."""
+    from cudaraytracer_tpu_torch.config import Quirks
+    from cudaraytracer_tpu_torch.ops import intersect as isect
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    from cudaraytracer_tpu_torch.ops.render import (render_image,
+                                                    sweep_intersector)
+    new = hasattr(sw, "SweepTables")
+    frames = main_frames(dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    scenes = sweep_scenes(dev, frames, gen)
+    fa = frames[0]
+    t_min, t_max = fa.cfg.t_min, fa.cfg.t_max
+    fixed = Quirks.fixed()
+    out = {}
+    for key, kname in (("c", "k3"), ("d", "k4"), ("e", "k5")):
+        scene, cam, bounce, alive, thin, _ = scenes[key]
+        if key == "d":
+            tr = scene.triangles
+            tabs = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+            sup = tabs[2] if len(tabs) > 2 else None
+        else:
+            sp = scene.spheres
+            attr = isect.sphere_attr_table(scene)
+            tabs = sw.sphere_table(sp.center, sp.radius)
+            sup = None
+            rows = (sw.pad_rows(attr.t(), sw.PRIM_CHUNK).contiguous()
+                    if key == "e" else None)
+        for kind, o, d, al in (("camera", cam.origin, cam.direction, None),
+                               ("bounce", bounce.origin, bounce.direction,
+                                alive),
+                               ("bounce_thinned", bounce.origin,
+                                bounce.direction, thin)):
+            if key == "d":
+                def raw(o=o, d=d, al=al):
+                    return sw.triangle_best_hit_raw(
+                        o, d, tr.v0, tr.v1, tr.v2, tr.normal, t_min, t_max,
+                        fixed, alive=al)
+
+                def launch(o=o, d=d, al=al, **kw):
+                    return sw.launch_triangle_sweep(
+                        o, d, tabs[0], tabs[1], al, t_min, t_max, fixed,
+                        **kw)
+            else:
+                def raw(o=o, d=d, al=al):
+                    if rows is None:
+                        return sw.sphere_best_hit_raw(
+                            o, d, sp.center, sp.radius, t_min, t_max, True,
+                            al)
+                    return sw.sphere_best_hit_attrs_raw(
+                        o, d, sp.center, sp.radius, attr, t_min, t_max, True,
+                        al)
+
+                def launch(o=o, d=d, al=al, **kw):
+                    return sw.launch_sphere_sweep(o, d, tabs[0], tabs[1], al,
+                                                  rows, t_min, t_max, **kw)
+            kw = {"sup": sup} if sup is not None else {}
+            tag = f"{kname}_{key}_{kind}"
+            out[f"{tag}_raw_ms"] = device_ms(raw, reps=10)[0]
+            out[f"{tag}_ms"] = device_ms(lambda: launch(**kw), reps=10)[0]
+            n = o.shape[0]
+            if not new:
+                c = torch.zeros(2, dtype=torch.int64, device=dev)
+                launch(counts=c)
+                out[f"{tag}_tests_per_ray"] = [x / n for x in c.tolist()]
+                continue
+            flip = not (key == "d" or al is not None)
+            out[f"{tag}_flip_ms"] = device_ms(
+                lambda: launch(coop=flip, **kw), reps=10)[0]
+            c = sweep_counts(launch, dev, **kw)
+            out[f"{tag}_tests_per_ray"] = [x / n for x in c[:2]]
+            out[f"{tag}_lane_use"] = c[1] / (32.0 * max(c[3], 1))
+            out[f"{tag}_box_lane_use"] = c[0] / (32.0 * max(c[2], 1))
+            c = sweep_counts(launch, dev, coop=flip, **kw)
+            out[f"{tag}_flip_lane_use"] = c[1] / (32.0 * max(c[3], 1))
+            if sup is not None:
+                out[f"{tag}_one_level_ms"] = device_ms(
+                    lambda: launch(sup=None), reps=10)[0]
+                c = sweep_counts(launch, dev, sup=None, coop=not flip)
+                out[f"{tag}_one_level_tests_per_ray"] = [x / n
+                                                         for x in c[:2]]
+    if new:
+        out["sweep_instances"] = {
+            name: ptxas_usage(name) for name in (
+                sweep_instance(p, True, coop, attrs)
+                for p, attrs in (("sph", False), ("sph", True), ("tri", False))
+                for coop in (False, True))}
+    for key, f in (("c", fa), ("d", frames[1]), ("k", tex_frames(dev)[1])):
+        cfg = dataclasses.replace(f.cfg, engine="wavefront")
+        isect_fn = sweep_intersector(cfg)
+        with torch.no_grad():
+            out[f"{key}_wavefront_frame_s"] = cuda_ms(
+                lambda: render_image(f.scene, f.camera, cfg, generator=gen,
+                                     intersect_fn=isect_fn), reps=5)[0] / 1e3
+    with contextlib.redirect_stdout(sys.stderr):     # one JSON line out
+        out["e_s_per_step"] = run_fit(dev)["s_per_step"]
+    return out
 
 
 # The parent commit's K1 and K9 path instances, for --ab on a checkout
@@ -2897,6 +3283,8 @@ if __name__ == "__main__":
         ap.add_argument("--root", default=ROOT,
                         help="import cudaraytracer_tpu_torch from this "
                              "checkout")
+        ap.add_argument("--only", choices=("sweeps",), default="",
+                        help="time only the sweeps (ab_sweeps)")
         args = ap.parse_args()
-        sys.exit(ab_main(args.root))
+        sys.exit(ab_main(args.root, args.only))
     sys.exit(main())

@@ -32,6 +32,13 @@
     ``fill_sphere_field``, 96 x 96 = 9,216 small spheres
     (tests/test_megakernel.py:790-806); with ``terrain_rays`` and
     ``sphere_field_rays``, the rays those tests cast;
+  * ``plane_rays``: axis-parallel rays whose origins lie on the planes of
+    given boxes, where the negated slab test reads NaN (which keeps the
+    box reachable) and a two-level cull must not lose a hit;
+  * ``sliver_cylinder`` with ``grazing_rays``: a cylinder of 4,096 long
+    thin triangles (sides 4 and 0.003) and rays that graze it, where
+    Moller-Trumbore's rounding is largest (the triangle cull's margin,
+    ops/sweeps.py TRI_MARGIN);
   * skinned stand-ins for the reference's animated FBX character
     (low_walking.fbx, which the repository does not hold), 31 frames each,
     the reference's frames 0-30 (kernel.cu:50-51), as loader-shaped
@@ -427,6 +434,61 @@ def terrain_rays(n: int, seed: int = 0):
     d = np.stack([rng.uniform(-0.6, 0.6, n), -np.ones(n),
                   rng.uniform(-1.6, -0.4, n)], 1).astype(np.float32)
     return o, d
+
+
+def plane_rays(boxes: np.ndarray, target, n: int, seed: int = 0):
+    """(origins, directions) float32[n, 3]: each ray starts on a plane of a
+    random box of ``boxes`` (float32[k, 8]: lo.xyz, hi.xyz), its direction
+    0 along that plane's axis and aimed at ``target`` in the other two, so
+    that its slab test of the box reads 0 * inf = NaN."""
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, boxes.shape[0], n)
+    axis = rng.integers(0, 3, n)
+    side = rng.integers(0, 2, n)
+    rows = np.arange(n)
+    o = (np.asarray(target, np.float32)
+         + rng.uniform(-4.0, 4.0, (n, 3))).astype(np.float32)
+    o[rows, axis] = boxes[pick, 3 * side + axis]
+    d = (np.asarray(target, np.float32) + rng.uniform(-0.5, 0.5, (n, 3))
+         - o).astype(np.float32)
+    d[rows, axis] = 0.0
+    return o, d
+
+
+def sliver_cylinder(nseg: int = 2048, height: float = 4.0):
+    """(v0, v1, v2) float32[2 nseg, 3]: the side of a unit cylinder on
+    y in [0, height], each of nseg strips split into two triangles, one
+    with sides 0.003 and 4 and one whose two long edges lie 7.7e-4 rad
+    apart."""
+    a = np.linspace(0.0, 2.0 * np.pi, nseg + 1)[:-1]
+    b = np.roll(a, -1)
+    p0 = np.stack([np.cos(a), np.zeros_like(a), np.sin(a)], 1)
+    p1 = np.stack([np.cos(b), np.zeros_like(b), np.sin(b)], 1)
+    up = np.array([0.0, height, 0.0])
+    v0 = np.concatenate([p0, p1])
+    v1 = np.concatenate([p1, p1 + up])
+    v2 = np.concatenate([p0 + up, p0 + up])
+    return tuple(x.astype(np.float32) for x in (v0, v1, v2))
+
+
+def grazing_rays(n: int, lo: float, hi: float, seed: int = 0,
+                 height: float = 4.0):
+    """(origins, directions) float32[n, 3] at sliver_cylinder: from 6
+    units out, at an impact parameter b with 1 - |b| log-uniform in
+    [lo, hi] (the angle to the surface about sqrt(2 (1 - |b|)) rad), a
+    slight slope in y."""
+    rng = np.random.default_rng(seed)
+    g = np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+    b = (1.0 - g) * rng.choice([-1.0, 1.0], n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    along = np.stack([np.cos(phi), np.zeros(n), np.sin(phi)], 1)
+    across = np.stack([-np.sin(phi), np.zeros(n), np.cos(phi)], 1)
+    y = rng.uniform(0.025, 0.975, n) * height
+    o = -6.0 * along + b[:, None] * across
+    o[:, 1] = y
+    d = along.copy()
+    d[:, 1] = rng.uniform(-0.05, 0.05, n)
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def fill_sphere_field(b, nx: int = 96, nz: int = 96):

@@ -132,6 +132,22 @@ def _morton_scene(scene: Scene):
     return scene, s_order, t_order
 
 
+def _with_sweep_tables(scene: Scene, fns):
+    """The intersectors, those that build sweep tables
+    (``render.sweep_intersector``'s ``build_tables``) bound to one set of
+    tables of ``scene``, built here once for the whole trace."""
+    tables = None
+    out = []
+    for fn in fns:
+        build = getattr(fn, "build_tables", None)
+        if build is not None:
+            if tables is None:
+                tables = build(scene)
+            fn = functools.partial(fn, tables=tables)
+        out.append(fn)
+    return out
+
+
 def _winners_to_scene(w: Tensor, n_s: int, n_t: int, s_order, t_order):
     """Winner ids recorded on a Morton-permuted scene -> the scene's own
     ids (integrators.py:343-358): sphere and triangle ids go back through
@@ -262,6 +278,9 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     s_order = t_order = None
     if winners is None and getattr(bounce_fn, "morton_spheres", False):
         scene, s_order, t_order = _morton_scene(scene)
+    if winners is None and dev.type == "cuda":
+        primary_fn, bounce_fn = _with_sweep_tables(scene,
+                                                   (primary_fn, bounce_fn))
     if winners is not None and tuple(winners.shape) != (cfg.max_depth + 1,
                                                         n):
         raise ValueError(f"winners of shape {tuple(winners.shape)} do not "

@@ -342,7 +342,8 @@ def intersect_scene_sweeps(scene: Scene, rays: Rays, t_min: float = 1e-3,
                            coherent: bool = False,
                            alive: Optional[Tensor] = None,
                            sphere_cull: str = "primary",
-                           kernel_attrs: bool = False) -> Hits:
+                           kernel_attrs: bool = False,
+                           tables: Optional[_sw.SweepTables] = None) -> Hits:
     """Closest hit through the sweeps (intersect.py:425 of the JAX package):
     the sphere sweep, then the triangle sweep with ids offset by the sphere
     count (a triangle wins only when strictly nearer), then finalize_hits.
@@ -351,12 +352,17 @@ def intersect_scene_sweeps(scene: Scene, rays: Rays, t_min: float = 1e-3,
     permutes spheres into Morton order first), 'primary' only coherent
     (camera) sweeps, 'off' none.  Triangle sweeps cull from 128 triangles
     up.  alive: optional mask; a dead lane returns a miss.  kernel_attrs: on
-    a pure-sphere scene, K5 carries the winner's record row out."""
+    a pure-sphere scene, K5 carries the winner's record row out.  tables:
+    the scene's ``sweep_tables`` (built once per trace), else each sweep
+    builds its own."""
     n_s, n_t = scene.n_spheres, scene.n_triangles
     n_x = scene.n_rects + scene.n_t_spheres + scene.n_t_triangles
     cull = sphere_cull == "all" or (sphere_cull != "off" and coherent)
+    if tables is None:
+        tables = _sw.SweepTables(None, None, None)
     if n_s and not n_t and not n_x and kernel_attrs:
-        return _sphere_attrs_hits(scene, rays, t_min, t_max, cull, alive)
+        return _sphere_attrs_hits(scene, rays, t_min, t_max, cull, alive,
+                                  tables)
     n = rays.origin.shape[0]
     dev = rays.origin.device
     best_t = torch.full((n,), BIG, device=dev)
@@ -364,7 +370,8 @@ def intersect_scene_sweeps(scene: Scene, rays: Rays, t_min: float = 1e-3,
     if n_s:
         sp = scene.spheres
         st, si = _sw.sphere_best_hit(rays.origin, rays.direction, sp.center,
-                                     sp.radius, t_min, t_max, cull, alive)
+                                     sp.radius, t_min, t_max, cull, alive,
+                                     tables.sph)
         take = (si >= 0) & (st < best_t)
         best_t = torch.where(take, st, best_t)
         best_idx = torch.where(take, si, best_idx)
@@ -372,7 +379,7 @@ def intersect_scene_sweeps(scene: Scene, rays: Rays, t_min: float = 1e-3,
         tr = scene.triangles
         tt, ti = _sw.triangle_best_hit(rays.origin, rays.direction, tr.v0,
                                        tr.v1, tr.v2, tr.normal, t_min, t_max,
-                                       quirks, alive)
+                                       quirks, alive, tables.tri)
         take = (ti >= 0) & (tt < best_t)
         best_t = torch.where(take, tt, best_t)
         best_idx = torch.where(take, ti + n_s, best_idx)
@@ -392,8 +399,28 @@ def sphere_attr_table(scene: Scene) -> Tensor:
                       dec[sp.mat.long()].t()], dim=0)
 
 
+def sweep_tables(scene: Scene, attrs: bool = False) -> _sw.SweepTables:
+    """The scene's sweep tables from detached tensors, built once for a
+    trace (``integrators.trace_path`` on CUDA rays): the spheres' and
+    triangles' tables with their chunk and super boxes, and with ``attrs``
+    on a pure-sphere scene K5's attribute rows."""
+    sp, tr = scene.spheres, scene.triangles
+    sph = (_sw.sphere_table(sp.center.detach(), sp.radius.detach())
+           if scene.n_spheres else None)
+    tri = (_sw.triangle_table(tr.v0.detach(), tr.v1.detach(),
+                              tr.v2.detach(), tr.normal.detach())
+           if scene.n_triangles else None)
+    pure = scene.n_spheres and not (scene.n_triangles + scene.n_rects
+                                    + scene.n_t_spheres
+                                    + scene.n_t_triangles)
+    rows = (_sw.attr_rows(sphere_attr_table(scene)) if attrs and pure
+            else None)
+    return _sw.SweepTables(sph, tri, rows)
+
+
 def _sphere_attrs_hits(scene: Scene, rays: Rays, t_min, t_max, cull: bool,
-                       alive: Optional[Tensor]) -> Hits:
+                       alive: Optional[Tensor],
+                       tables: _sw.SweepTables) -> Hits:
     """Pure-sphere hit records through K5 (intersect.py:522): the kernel
     returns each winner's attribute row, so the record and its decoded
     material build without a gather.  Same values as the finalize_hits
@@ -401,7 +428,8 @@ def _sphere_attrs_hits(scene: Scene, rays: Rays, t_min, t_max, cull: bool,
     sp = scene.spheres
     st, si, attrs = _sw.sphere_best_hit_attrs(
         rays.origin, rays.direction, sp.center, sp.radius,
-        sphere_attr_table(scene), t_min, t_max, cull, alive)
+        sphere_attr_table(scene), t_min, t_max, cull, alive, tables.sph,
+        tables.sph_attr)
     hit = si >= 0
     t = torch.where(hit, st, BIG)
     p = rays.point_at(t)

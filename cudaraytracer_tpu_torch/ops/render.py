@@ -15,6 +15,7 @@ The wavefront engine intersects by brute force unless given an intersector:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -58,17 +59,22 @@ def sweep_intersector(cfg: RenderConfig, coherent: bool = False):
 
     cfg.wavefront_sphere_cull='morton' culls every sphere sweep and sets
     ``fn.morton_spheres``, so trace_path permutes the prims into Morton
-    order once per trace, which makes the chunk boxes compact."""
+    order once per trace, which makes the chunk boxes compact.
+    ``fn.build_tables(scene)`` builds the sweep tables that trace_path
+    passes to every call of a trace on CUDA rays (``tables=``)."""
     check_supported(cfg)
     mode = cfg.wavefront_sphere_cull
     policy = "all" if mode == "morton" else mode
 
-    def fn(scene, rays, alive=None):
+    def fn(scene, rays, alive=None, tables=None):
         return _isect.intersect_scene_sweeps(
             scene, rays, cfg.t_min, cfg.t_max, cfg.quirks, coherent, alive,
-            sphere_cull=policy, kernel_attrs=cfg.wavefront_kernel_attrs)
+            sphere_cull=policy, kernel_attrs=cfg.wavefront_kernel_attrs,
+            tables=tables)
 
     fn.morton_spheres = mode == "morton"
+    fn.build_tables = functools.partial(
+        _isect.sweep_tables, attrs=cfg.wavefront_kernel_attrs)
     return fn
 
 

@@ -13,17 +13,43 @@ the quirk gates; first prim wins ties (strict <, prims in table order);
 tables padded by repeating the last prim, so padding never wins; chunk
 boxes of 16 prims with the negated slab test (NaN keeps a chunk
 reachable), cut at t_min, or at -BIG for triangles under the no-t-clip
-quirk; triangle chunk boxes recomputed from the vertices at every call.
+quirk.  The tables are built at every call, or once per trace
+(``SweepTables``, ``intersect.sweep_tables``) when the caller passes
+them.
+
+What the culled forms guarantee against the plain ones (brute force):
+  * triangles: a triangle's box, widened by TRI_MARGIN x (the box's
+    largest |coordinate| + the ray origin's), holds every point where
+    Moller-Trumbore accepts a hit with |a| >= TRI_WELL x |d| |e1| |e2|
+    (infinity norms; the bound is derived below).  So the culled sweep
+    gives the plain version's (t, idx) on every ray whose plain winner
+    is such a hit, and on every ray the plain version misses.  A ray
+    that grazes a sliver (|a| below that) may lose its hit to the cull,
+    as it may to the TPU kernel's exact boxes; ``triangle_conditioned``
+    tells which winners are covered;
+  * spheres: the boxes are the spheres' exact boxes, as the TPU kernel's,
+    with no derived margin; held against the plain version on the
+    launches chip_smoke.py and the card tests run.
 
 TPU layout dropped (a CUDA thread loads what it needs):
-  * no 32 x 128 ray tiles or per-tile any() votes: each thread culls its
-    own chunks, so a dead lane (alive false) returns (BIG, -1) and does no
-    work, where the TPU kernel ran dead lanes of a live tile;
+  * no 32 x 128 ray tiles or per-tile any() votes: each ray culls its own
+    boxes, and a block packs the live rays of its 128-ray tile, so a dead
+    lane (alive false) returns (BIG, -1) and does no work, where the TPU
+    kernel ran dead lanes of a live tile;
   * tables are rows (4 floats per sphere, 12 per triangle, 8 per box)
     padded to a multiple of 16 prims, not (comp, c_pad, 1) planes in
-    SEG_PRIMS=1024 segments;
+    SEG_PRIMS=1024 segments; a second box level over 16 chunks (256
+    prims), as K1's tables have, for triangles and from SPH_SUPER_MIN
+    spheres up;
   * K5 does not carry the attribute row through every chunk merge: it
     loads the winner's row once after the sweep (miss lanes get row 0).
+
+Culled triangle launches, and sphere launches with an alive mask (the
+wavefront's bounces), split a reached chunk's (ray, prim) tests over the
+warp's lanes (``coop``); sphere camera launches test one ray per thread,
+where the split's shuffles cost more than a sphere test saves (the
+choice measured on the card, PERF.md).  Either way the tests and
+decisions are the same (csrc/sweeps.cu).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain version.  Nothing falls back from one to the other.
@@ -32,7 +58,7 @@ the plain version.  Nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,20 +71,54 @@ Tensor = torch.Tensor
 BIG = float(np.finfo(np.float32).max)   # 3.4028235e38, the "no hit" t
 TRI_EPSILON = 1e-6                       # triangle.h:9
 PRIM_CHUNK = 16                          # prims per chunk box
+CHUNKS_PER_SUPER = 16
+SUPER_PRIMS = PRIM_CHUNK * CHUNKS_PER_SUPER   # prims per super box
 BOX_COLS = 8                             # lo.xyz hi.xyz | 2 pad
 TRI_CULL_MIN = 128   # triangle sweeps cull from this many triangles up
+# sphere sweeps take the super level from this many spheres up (K1's
+# SPH_SUPER_MIN); triangle sweeps always do when they cull
+SPH_SUPER_MIN = 1024
+# The triangle boxes' margin, and the conditioning it covers.  With u =
+# 2^-24, float32 rounding and no fused multiply-add (the plain version's
+# and the kernel's arithmetic), s = o - v0, and P = |d| |e1| |e2|
+# (infinity norms), Moller-Trumbore's computed a, u, v, t satisfy
+#   |a D| <= 150 u P |s| + 3 u |a| (|t d| + |e1| + |e2|),
+# where D = o + t d - (v0 + u e1 + v e2) is the gap between the ray's point
+# at the returned t and the point the returned (u, v) names in the
+# triangle; 150 u is 6 (g5 + g6 + g7 + g7), g_n = n u / (1 - n u), from
+# the rounding of a, u a, v a and t a (for the exact values a s = (u a) e1
+# + (v a) e2 - (t a) d).  An accepted
+# (u, v) lies in the triangle, so with |a| >= TRI_WELL P the point o + t d
+# lies within 150 u |s| / TRI_WELL + 30 u (|o| + R) of the vertices' box
+# (R the triangle's largest |coordinate|; |s| <= |o| + R, |t d| <= |s| +
+# 4 R + |D|); e1 and e2 rounded from the vertices add 4 u R, and the slab's
+# own rounding 3 u (|box| + |o|).  In all under 9,700 u (|o| + R) = 0.59
+# TRI_MARGIN (|o| + R): each box is widened by TRI_MARGIN x its largest
+# |coordinate| here (``_widen``) and by TRI_MARGIN x the ray origin's
+# largest |coordinate| in the kernel, so such a hit keeps its box's slab
+# true against any running best above its t.
+TRI_MARGIN = 2.0 ** -10
+TRI_WELL = 2.0 ** -6
 # plain versions bound their (rays x prims) candidate matrices to this
 PLAIN_ELEMENTS = 1 << 22
 N_ATTRS = 21         # K5 attribute row: center(3), radius, mat, decode(16)
 F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
 
-# Launches of each kernel since the last reset_launch_counts().
+# What the counting instances count (csrc/sweeps.cu CountIdx): box and
+# prim tests, and the warp steps that issued them
+COUNT_NAMES = ("box", "prim", "box_step", "prim_step")
+N_COUNTS = len(COUNT_NAMES)
+
+# Launches of each kernel since the last reset_launch_counts(), and the
+# same launches by kind: "bounce" with an alive mask, else "camera".
 LAUNCHES = {"sphere_sweep": 0, "sphere_sweep_attrs": 0, "triangle_sweep": 0}
+LAUNCH_KINDS = {k: {"camera": 0, "bounce": 0} for k in LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_KINDS[k] = {"camera": 0, "bounce": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -108,28 +168,77 @@ def morton_argsort(points: Tensor) -> Tensor:
     return torch.argsort(code, stable=True)
 
 
+def _box_levels(lo: Tensor, hi: Tensor, supers: bool = True,
+                margin: float = 0.0):
+    """(chunk boxes float32[C_pad / 16, 8], super boxes
+    float32[ceil(C_pad / 256), 8] or None) of prims padded to 16, each
+    widened by ``margin`` x its largest |coordinate|."""
+    groups = (PRIM_CHUNK, SUPER_PRIMS) if supers else (PRIM_CHUNK,)
+    levels = [group_boxes(lo, hi, g, g) for g in groups]
+    if margin:      # both levels widened in one pass
+        levels = _widen(torch.cat(levels), margin).split(
+            [b.shape[0] for b in levels])
+    return levels[0], levels[1] if supers else None
+
+
+def _widen(box: Tensor, margin: float) -> Tensor:
+    """Boxes float32[k, 8] widened on every side by ``margin`` x each
+    box's largest |coordinate|."""
+    lo, hi = box[:, 0:3], box[:, 3:6]
+    m = torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True) * margin
+    return torch.cat([lo - m, hi + m, box[:, 6:]], dim=1).contiguous()
+
+
 def sphere_table(center: Tensor, radius: Tensor):
     """(float32[C_pad, 4] rows cx cy cz r^2, float32[C_pad / 16, 8] chunk
-    boxes), padded by repeating the last sphere."""
+    boxes, float32[ceil(C_pad / 256), 8] super boxes from SPH_SUPER_MIN
+    spheres up, else None), padded by repeating the last sphere."""
     center_p = pad_rows(center, PRIM_CHUNK)
     radius_p = pad_rows(radius, PRIM_CHUNK)
     tbl = torch.cat([center_p, (radius_p * radius_p)[:, None]], dim=1)
-    box = group_boxes(center_p - radius_p[:, None],
-                      center_p + radius_p[:, None], PRIM_CHUNK, PRIM_CHUNK)
-    return tbl.contiguous(), box.contiguous()
+    box, sup = _box_levels(center_p - radius_p[:, None],
+                           center_p + radius_p[:, None],
+                           center.shape[0] >= SPH_SUPER_MIN)
+    return tbl.contiguous(), box, sup
 
 
 def triangle_table(v0: Tensor, v1: Tensor, v2: Tensor, normal: Tensor):
     """(float32[C_pad, 12] rows v0, e1 = v1 - v0, e2 = v2 - v0, normal;
-    float32[C_pad / 16, 8] chunk boxes from the vertices), padded by
-    repeating the last triangle (pallas_intersect.py:794-835)."""
+    float32[C_pad / 16, 8] chunk boxes and float32[ceil(C_pad / 256), 8]
+    super boxes of the vertices, each widened by TRI_MARGIN x its largest
+    |coordinate|), padded by repeating the last triangle
+    (pallas_intersect.py:794-835)."""
     v0, v1, v2, normal = (pad_rows(x, PRIM_CHUNK) for x in (v0, v1, v2,
                                                             normal))
     tbl = torch.cat([v0, v1 - v0, v2 - v0, normal], dim=1)
     lo = torch.minimum(torch.minimum(v0, v1), v2)
     hi = torch.maximum(torch.maximum(v0, v1), v2)
-    return (tbl.contiguous(),
-            group_boxes(lo, hi, PRIM_CHUNK, PRIM_CHUNK).contiguous())
+    return (tbl.contiguous(), *_box_levels(lo, hi, margin=TRI_MARGIN))
+
+
+def triangle_conditioned(direction: Tensor, e1: Tensor,
+                         e2: Tensor) -> Tensor:
+    """bool[N]: ray i and triangle i (edges e1, e2 as the table holds
+    them) satisfy |a| >= TRI_WELL |d| |e1| |e2| (infinity norms), a the
+    denominator Moller-Trumbore computes: the hits the culled sweep is
+    proven to keep (TRI_MARGIN)."""
+    dx, dy, dz = direction.unbind(1)
+    hx = dy * e2[:, 2] - dz * e2[:, 1]
+    hy = dz * e2[:, 0] - dx * e2[:, 2]
+    hz = dx * e2[:, 1] - dy * e2[:, 0]
+    a = e1[:, 0] * hx + e1[:, 1] * hy + e1[:, 2] * hz
+    p = (direction.double().abs().amax(1) * e1.double().abs().amax(1)
+         * e2.double().abs().amax(1))
+    return a.double().abs() >= TRI_WELL * p
+
+
+class SweepTables(NamedTuple):
+    """A scene's sweep tables, built once (``intersect.sweep_tables``)
+    from detached tensors and passed to every sweep of a trace."""
+
+    sph: Optional[tuple]          # sphere_table of the spheres, or None
+    tri: Optional[tuple]          # triangle_table of the triangles, or None
+    sph_attr: Optional[Tensor]    # K5's attribute rows float32[C_pad, A]
 
 
 def _f32(x: float) -> float:
@@ -271,9 +380,9 @@ def _library() -> ctypes.CDLL:
     lib = _cuda.load("sweeps")
     if not getattr(lib, "_crt_declared", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.crt_sphere_sweep.argtypes = [vp] * 10 + [ci] * 3 + [cf] * 2 + [vp]
+        lib.crt_sphere_sweep.argtypes = [vp] * 11 + [ci] * 4 + [cf] * 2 + [vp]
         lib.crt_sphere_sweep.restype = ci
-        lib.crt_triangle_sweep.argtypes = ([vp] * 8 + [ci] * 3 + [cf] * 2
+        lib.crt_triangle_sweep.argtypes = ([vp] * 9 + [ci] * 4 + [cf] * 2
                                            + [vp])
         lib.crt_triangle_sweep.restype = ci
         lib.crt_sweeps_error_string.argtypes = [ci]
@@ -308,7 +417,7 @@ def _launch_checks(origin, direction, alive, counts):
     if alive is not None:
         _check_cuda("alive", alive, torch.bool, (n,), dev)
     if counts is not None:
-        _check_cuda("counts", counts, torch.int64, (2,), dev, 8)
+        _check_cuda("counts", counts, torch.int64, (N_COUNTS,), dev, 8)
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one launch")
 
@@ -319,25 +428,43 @@ def _check(lib, code: int, what: str) -> None:
                            f"{lib.crt_sweeps_error_string(code).decode()}")
 
 
+def _check_boxes(what: str, n_pad: int, box, sup, dev) -> None:
+    if n_pad % PRIM_CHUNK:
+        raise ValueError(f"{what} table of {n_pad} rows is not padded to "
+                         f"{PRIM_CHUNK}")
+    n_chunks = n_pad // PRIM_CHUNK
+    if box is not None:
+        _check_cuda(f"{what} boxes", box, torch.float32,
+                    (n_chunks, BOX_COLS), dev, 16)
+    if sup is not None:
+        _check_cuda(f"{what} super boxes", sup, torch.float32,
+                    (-(-n_chunks // CHUNKS_PER_SUPER), BOX_COLS), dev, 16)
+
+
+def _count_launch(name: str, alive: Optional[Tensor]) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_KINDS[name]["camera" if alive is None else "bounce"] += 1
+
+
 def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
                         box: Optional[Tensor], alive: Optional[Tensor],
                         attr_rows: Optional[Tensor], t_min: float,
-                        t_max: float, counts: Optional[Tensor] = None):
+                        t_max: float, counts: Optional[Tensor] = None,
+                        sup: Optional[Tensor] = None,
+                        coop: Optional[bool] = None):
     """One launch of K3 (attr_rows None) or K5 over prepared tables ->
-    (t, idx[, attrs]).  box None: the plain form; given, the culled form.
-    counts: optional int64[2] CUDA tensor that a separately compiled
-    counting variant adds its box and sphere tests to (measurement only)."""
+    (t, idx[, attrs]).  box None: the plain form; given, the culled form,
+    with the super boxes ``sup`` as a second level when given.  coop: the
+    warp-cooperative chunk tests of a culled launch (default: on a launch
+    with an alive mask).  counts: optional int64[N_COUNTS] CUDA tensor
+    that a separately compiled counting instance adds its tests to
+    (measurement only)."""
     n = origin.shape[0]
     dev = origin.device
     _launch_checks(origin, direction, alive, counts)
     n_pad = tbl.shape[0]
     _check_cuda("sphere table", tbl, torch.float32, (n_pad, 4), dev, 16)
-    if n_pad % PRIM_CHUNK:
-        raise ValueError(f"sphere table of {n_pad} rows is not padded to "
-                         f"{PRIM_CHUNK}")
-    if box is not None:
-        _check_cuda("sphere boxes", box, torch.float32,
-                    (n_pad // PRIM_CHUNK, BOX_COLS), dev, 16)
+    _check_boxes("sphere", n_pad, box, sup, dev)
     n_attr = 0
     if attr_rows is not None:
         n_attr = attr_rows.shape[1]
@@ -347,54 +474,57 @@ def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
     out_i = torch.empty(n, dtype=torch.int32, device=dev)
     out_a = (torch.empty((n, n_attr), dtype=torch.float32, device=dev)
              if attr_rows is not None else None)
+    if coop is None:
+        coop = alive is not None
     lib = _library()
     with torch.cuda.device(dev):
         code = lib.crt_sphere_sweep(
             origin.data_ptr(), direction.data_ptr(), tbl.data_ptr(),
-            _ptr(box), _ptr(alive), _ptr(attr_rows), out_t.data_ptr(),
-            out_i.data_ptr(), _ptr(out_a), _ptr(counts), n,
-            n_pad // PRIM_CHUNK, n_attr, _f32(t_min), _f32(t_max),
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(box), _ptr(sup), _ptr(alive), _ptr(attr_rows),
+            out_t.data_ptr(), out_i.data_ptr(), _ptr(out_a), _ptr(counts),
+            n, n_pad // PRIM_CHUNK, n_attr, int(coop), _f32(t_min),
+            _f32(t_max), torch.cuda.current_stream().cuda_stream)
     _check(lib, code, "sphere_sweep")
     if counts is None:
-        LAUNCHES["sphere_sweep_attrs" if attr_rows is not None
-                 else "sphere_sweep"] += 1
+        _count_launch("sphere_sweep_attrs" if attr_rows is not None
+                      else "sphere_sweep", alive)
     return (out_t, out_i) if out_a is None else (out_t, out_i, out_a)
 
 
 def launch_triangle_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
                           box: Optional[Tensor], alive: Optional[Tensor],
                           t_min: float, t_max: float, quirks: Quirks,
-                          counts: Optional[Tensor] = None):
+                          counts: Optional[Tensor] = None,
+                          sup: Optional[Tensor] = None,
+                          coop: Optional[bool] = None):
     """One launch of K4 over prepared tables -> (t, idx).  box None: the
-    plain form; given, the culled form.  counts: as launch_sphere_sweep
-    (box and triangle tests)."""
+    plain form; given, the culled form.  sup, counts: as
+    launch_sphere_sweep; coop: the warp-cooperative chunk tests of a
+    culled launch (default: on)."""
     n = origin.shape[0]
     dev = origin.device
     _launch_checks(origin, direction, alive, counts)
     n_pad = tbl.shape[0]
     _check_cuda("triangle table", tbl, torch.float32, (n_pad, 12), dev, 16)
-    if n_pad % PRIM_CHUNK:
-        raise ValueError(f"triangle table of {n_pad} rows is not padded "
-                         f"to {PRIM_CHUNK}")
-    if box is not None:
-        _check_cuda("triangle boxes", box, torch.float32,
-                    (n_pad // PRIM_CHUNK, BOX_COLS), dev, 16)
+    _check_boxes("triangle", n_pad, box, sup, dev)
     flags = ((F_BACKFACE_ONLY if quirks.triangle_backface_only else 0)
              | (F_NO_T_CLIP if quirks.triangle_no_t_clip else 0)
              | (F_BACK_CULLING if quirks.triangle_back_culling else 0))
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, dtype=torch.int32, device=dev)
+    if coop is None:
+        coop = True
     lib = _library()
     with torch.cuda.device(dev):
         code = lib.crt_triangle_sweep(
             origin.data_ptr(), direction.data_ptr(), tbl.data_ptr(),
-            _ptr(box), _ptr(alive), out_t.data_ptr(), out_i.data_ptr(),
-            _ptr(counts), n, n_pad // PRIM_CHUNK, flags, _f32(t_min),
-            _f32(t_max), torch.cuda.current_stream().cuda_stream)
+            _ptr(box), _ptr(sup), _ptr(alive), out_t.data_ptr(),
+            out_i.data_ptr(), _ptr(counts), n, n_pad // PRIM_CHUNK, flags,
+            int(coop), _f32(t_min), _f32(t_max),
+            torch.cuda.current_stream().cuda_stream)
     _check(lib, code, "triangle_sweep")
     if counts is None:
-        LAUNCHES["triangle_sweep"] += 1
+        _count_launch("triangle_sweep", alive)
     return out_t, out_i
 
 
@@ -412,51 +542,76 @@ def _miss(origin: Tensor, n_attr: int = 0):
     return out
 
 
+def _sphere_sweep_in(center, radius, cull, tables):
+    """(tbl, box, sup) of a sphere launch: the given sphere_table or one
+    built now; box and sup None for the plain form."""
+    tbl, box, sup = (tables if tables is not None
+                     else sphere_table(center.detach(), radius.detach()))
+    return (tbl, box, sup) if cull else (tbl, None, None)
+
+
 def sphere_best_hit_raw(origin: Tensor, direction: Tensor, center: Tensor,
                         radius: Tensor, t_min: float, t_max: float,
-                        cull: bool = False, alive: Optional[Tensor] = None):
+                        cull: bool = False, alive: Optional[Tensor] = None,
+                        tables: Optional[tuple] = None):
     """K3 (pallas_intersect.py:503): (best_t float32[N], best_idx int32[N])
-    over all spheres; idx -1 = miss.  cull: per-chunk box culling.  alive:
-    optional bool/float[N] mask; a dead lane returns (BIG, -1)."""
+    over all spheres; idx -1 = miss.  cull: box culling (chunk boxes, and
+    super boxes from SPH_SUPER_MIN spheres up).  alive: optional
+    bool/float[N] mask; a dead lane returns (BIG, -1).  tables: the
+    spheres' sphere_table, built here when None (a CPU tensor ignores
+    it)."""
     if center.shape[0] == 0:
         return _miss(origin)
     if origin.device.type == "cpu":
         return sphere_best_hit_plain(origin, direction, center, radius,
                                      t_min, t_max, alive)
-    tbl, box = sphere_table(center.detach(), radius.detach())
+    tbl, box, sup = _sphere_sweep_in(center, radius, cull, tables)
     o, d, al = _rays_in(origin, direction, alive)
-    return launch_sphere_sweep(o, d, tbl, box if cull else None, al, None,
-                               t_min, t_max)
+    return launch_sphere_sweep(o, d, tbl, box, al, None, t_min, t_max,
+                               sup=sup)
 
 
 def sphere_best_hit_attrs_raw(origin: Tensor, direction: Tensor,
                               center: Tensor, radius: Tensor,
                               attr_tbl: Tensor, t_min: float, t_max: float,
                               cull: bool = False,
-                              alive: Optional[Tensor] = None):
+                              alive: Optional[Tensor] = None,
+                              tables: Optional[tuple] = None,
+                              rows: Optional[Tensor] = None):
     """K5 (pallas_intersect.py:411): K3 plus the winner's attribute row ->
     (t, idx, attrs float32[N, A]).  attr_tbl: float32[A, C] per-prim
     columns; rows 0..2 are the center and row 3 the radius (the backward
-    reads them from attrs).  A miss or dead lane carries prim 0's row."""
+    reads them from attrs).  A miss or dead lane carries prim 0's row.
+    tables, rows: the sphere_table and attr_tbl's padded rows
+    (SweepTables.sph_attr), built here when None."""
     if center.shape[0] == 0:
         return _miss(origin, attr_tbl.shape[0])
     if origin.device.type == "cpu":
         return sphere_best_hit_attrs_plain(origin, direction, center, radius,
                                            attr_tbl, t_min, t_max, alive)
-    tbl, box = sphere_table(center.detach(), radius.detach())
-    rows = pad_rows(attr_tbl.detach().t(), PRIM_CHUNK).contiguous()
+    tbl, box, sup = _sphere_sweep_in(center, radius, cull, tables)
+    if rows is None:
+        rows = attr_rows(attr_tbl)
     o, d, al = _rays_in(origin, direction, alive)
-    return launch_sphere_sweep(o, d, tbl, box if cull else None, al, rows,
-                               t_min, t_max)
+    return launch_sphere_sweep(o, d, tbl, box, al, rows, t_min, t_max,
+                               sup=sup)
+
+
+def attr_rows(attr_tbl: Tensor) -> Tensor:
+    """K5's attribute rows float32[C_pad, A] of attr_tbl float32[A, C]."""
+    return pad_rows(attr_tbl.detach().t(), PRIM_CHUNK).contiguous()
 
 
 def triangle_best_hit_raw(origin: Tensor, direction: Tensor, v0: Tensor,
                           v1: Tensor, v2: Tensor, normal: Tensor,
                           t_min: float, t_max: float, quirks: Quirks,
                           cull: Optional[bool] = None,
-                          alive: Optional[Tensor] = None):
+                          alive: Optional[Tensor] = None,
+                          tables: Optional[tuple] = None):
     """K4 (pallas_intersect.py:773): (t, idx) over all triangles.  cull
-    None: the culled form from TRI_CULL_MIN triangles up (:785-786)."""
+    None: the culled form (chunk and super boxes) from TRI_CULL_MIN
+    triangles up (:785-786).  tables: the triangles' triangle_table, built
+    here when None (a CPU tensor ignores it)."""
     c = v0.shape[0]
     if c == 0:
         return _miss(origin)
@@ -465,11 +620,12 @@ def triangle_best_hit_raw(origin: Tensor, direction: Tensor, v0: Tensor,
                                        t_min, t_max, quirks, alive)
     if cull is None:
         cull = c >= TRI_CULL_MIN
-    tbl, box = triangle_table(v0.detach(), v1.detach(), v2.detach(),
-                              normal.detach())
+    tbl, box, sup = (tables if tables is not None else triangle_table(
+        v0.detach(), v1.detach(), v2.detach(), normal.detach()))
     o, d, al = _rays_in(origin, direction, alive)
     return launch_triangle_sweep(o, d, tbl, box if cull else None, al,
-                                 t_min, t_max, quirks)
+                                 t_min, t_max, quirks,
+                                 sup=sup if cull else None)
 
 
 # ---------------------------------------------------------------------------
@@ -528,9 +684,9 @@ def _sphere_grads(origin, direction, c_w, r_w, hit, g_t, t_min, t_max):
 class _SphereBestHit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origin, direction, center, radius, t_min, t_max, cull,
-                alive):
+                alive, tables):
         t, idx = sphere_best_hit_raw(origin, direction, center, radius,
-                                     t_min, t_max, cull, alive)
+                                     t_min, t_max, cull, alive, tables)
         ctx.save_for_backward(origin, direction, center, radius, idx)
         ctx.bounds = (_f32(t_min), _f32(t_max))
         ctx.mark_non_differentiable(idx)
@@ -546,16 +702,16 @@ class _SphereBestHit(torch.autograd.Function):
                                            *ctx.bounds)
         g_center = torch.zeros_like(center).index_add_(0, safe, g_c)
         g_radius = torch.zeros_like(radius).index_add_(0, safe, g_r)
-        return g_o, g_d, g_center, g_radius, None, None, None, None
+        return g_o, g_d, g_center, g_radius, None, None, None, None, None
 
 
 class _SphereBestHitAttrs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origin, direction, center, radius, attr_tbl, t_min,
-                t_max, cull, alive):
+                t_max, cull, alive, tables, rows):
         t, idx, attrs = sphere_best_hit_attrs_raw(
             origin, direction, center, radius, attr_tbl, t_min, t_max, cull,
-            alive)
+            alive, tables, rows)
         ctx.save_for_backward(origin, direction, idx, attrs)
         ctx.bounds = (_f32(t_min), _f32(t_max))
         ctx.tbl_shape = tuple(attr_tbl.shape)
@@ -577,7 +733,8 @@ class _SphereBestHitAttrs(torch.autograd.Function):
         g_radius = origin.new_zeros(n_c).index_add_(0, safe, g_r)
         g_tbl = origin.new_zeros(ctx.tbl_shape).index_add_(
             1, safe, torch.where(hit[None], g_attrs.t(), 0.0))
-        return (g_o, g_d, g_center, g_radius, g_tbl, None, None, None, None)
+        return (g_o, g_d, g_center, g_radius, g_tbl, None, None, None, None,
+                None, None)
 
 
 def _tri_t_of(origin, direction, v0, v1, v2, mask):
@@ -596,9 +753,10 @@ def _tri_t_of(origin, direction, v0, v1, v2, mask):
 class _TriangleBestHit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origin, direction, v0, v1, v2, normal, t_min, t_max,
-                quirks, alive):
+                quirks, alive, tables):
         t, idx = triangle_best_hit_raw(origin, direction, v0, v1, v2, normal,
-                                       t_min, t_max, quirks, alive=alive)
+                                       t_min, t_max, quirks, alive=alive,
+                                       tables=tables)
         ctx.save_for_backward(origin, direction, v0, v1, v2, idx)
         ctx.mark_non_differentiable(idx)
         return t, idx
@@ -619,36 +777,44 @@ class _TriangleBestHit(torch.autograd.Function):
                                                 torch.where(z, g, 0.0))
                  for v, g in ((v0, g0), (v1, g1), (v2, g2))]
         return (torch.where(z, g_o, 0.0), torch.where(z, g_d, 0.0), *grads,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def sphere_best_hit(origin: Tensor, direction: Tensor, center: Tensor,
                     radius: Tensor, t_min: float, t_max: float,
-                    cull: bool = False,
-                    alive: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                    cull: bool = False, alive: Optional[Tensor] = None,
+                    tables: Optional[tuple] = None) -> Tuple[Tensor, Tensor]:
     """Differentiable K3 (pallas_intersect.py:938): t carries gradients to
-    the rays and to the winners' center and radius; idx carries none."""
+    the rays and to the winners' center and radius; idx carries none.
+    tables: as sphere_best_hit_raw (the backward reads the spheres, never
+    the tables)."""
     return _SphereBestHit.apply(origin, direction, center, radius, t_min,
-                                t_max, cull, alive)
+                                t_max, cull, alive, tables)
 
 
 def sphere_best_hit_attrs(origin: Tensor, direction: Tensor, center: Tensor,
                           radius: Tensor, attr_tbl: Tensor, t_min: float,
                           t_max: float, cull: bool = False,
-                          alive: Optional[Tensor] = None):
+                          alive: Optional[Tensor] = None,
+                          tables: Optional[tuple] = None,
+                          rows: Optional[Tensor] = None):
     """Differentiable K5 (pallas_intersect.py:989): t flows to the rays
     and to center/radius (winner's center/radius read from attrs); attrs
     flow to attr_tbl by a scatter-add at the winners' columns.  The caller
-    builds attr_tbl from center/radius, so the two paths are disjoint."""
+    builds attr_tbl from center/radius, so the two paths are disjoint.
+    tables, rows: as sphere_best_hit_attrs_raw."""
     return _SphereBestHitAttrs.apply(origin, direction, center, radius,
-                                     attr_tbl, t_min, t_max, cull, alive)
+                                     attr_tbl, t_min, t_max, cull, alive,
+                                     tables, rows)
 
 
 def triangle_best_hit(origin: Tensor, direction: Tensor, v0: Tensor,
                       v1: Tensor, v2: Tensor, normal: Tensor, t_min: float,
                       t_max: float, quirks: Quirks,
-                      alive: Optional[Tensor] = None):
+                      alive: Optional[Tensor] = None,
+                      tables: Optional[tuple] = None):
     """Differentiable K4 (pallas_intersect.py:1074): t carries gradients to
-    the rays and to the winners' vertices; the normal gets none."""
+    the rays and to the winners' vertices; the normal gets none.  tables:
+    as triangle_best_hit_raw."""
     return _TriangleBestHit.apply(origin, direction, v0, v1, v2, normal,
-                                  t_min, t_max, quirks, alive)
+                                  t_min, t_max, quirks, alive, tables)

@@ -771,8 +771,8 @@ def test_fit_step_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.gpu
 def test_sweeps_reject_bad_inputs(cuda):
     o = torch.zeros(4, 3, device=cuda)
-    tbl, box = sw.sphere_table(torch.zeros(3, 3, device=cuda),
-                               torch.ones(3, device=cuda))
+    tbl, box, _ = sw.sphere_table(torch.zeros(3, 3, device=cuda),
+                                  torch.ones(3, device=cuda))
     with pytest.raises(ValueError):
         sw.launch_sphere_sweep(o, torch.zeros(4, 3), tbl, box, None, None,
                                T_MIN, T_MAX)
@@ -781,6 +781,249 @@ def test_sweeps_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         sw.launch_triangle_sweep(o, o, torch.zeros(16, 9, device=cuda), None,
                                  None, T_MIN, T_MAX, Quirks.fixed())
+
+
+def _every_instance(launch, ref, sup):
+    """Every culled sweep instance (one and two box levels, one thread per
+    ray and cooperative) against the plain version's hits ``ref``; the
+    counting instances' box and prim tests, per instance."""
+    counts = {}
+    for s_ in (None,) if sup is None else (None, sup):
+        for coop in (False, True):
+            _hits_match(launch(sup=s_, coop=coop), ref)
+            c = torch.zeros(sw.N_COUNTS, dtype=torch.int64,
+                            device=ref[0].device)
+            launch(sup=s_, coop=coop, counts=c)
+            counts[(s_ is not None, coop)] = c.tolist()
+    return counts
+
+
+def _bounce_masks(scene, rays, cfg, seed):
+    """(o, d, [the wavefront's alive mask after one bounce, that mask
+    thinned to 70%])."""
+    o, d, thin = _bounced(scene, rays, cfg, seed)
+    n = rays.origin.shape[0]
+    draws = mk.scatter_draws(torch.empty(n, 4, device=o.device), seed, 0)
+    with torch.no_grad():
+        cont = integ._bounce(
+            scene, cfg, sweep_intersector(cfg, True), 0, None, None, *rays,
+            torch.ones_like(rays.origin), torch.zeros_like(rays.origin),
+            torch.ones(n, dtype=torch.bool, device=o.device),
+            draws[:, :3], draws[:, 3])[5]
+    return o, d, [cont, thin]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_triangle_sweep_instances_match_plain_on_bounces(cuda, profile):
+    """K4's instances (one and two box levels, per thread and cooperative)
+    on the icosphere's camera rays and its bounce with the wavefront's
+    alive mask and with that mask thinned: the plain version's hits, and
+    the cooperative and compacted instances count the per-thread tests."""
+    quirks = getattr(Quirks, profile)()
+    scene, cam = cs.icosphere_scene(2.0, device=cuda)
+    scene = integ._morton_scene(scene)[0]
+    tr = scene.triangles
+    tbl, box, sup = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+    cfg = RenderConfig(width=128, height=64, samples=4, max_depth=DEPTH,
+                       quirks=quirks)
+    rays = generate_pixel_rays(cam, 128, 64, 4, generator=torch.Generator(
+        device=cuda).manual_seed(12))
+    o, d, masks = _bounce_masks(scene, rays, cfg, 12)
+    for ro, rd, al in [(rays.origin, rays.direction, None)] + [
+            (o, d, m) for m in masks]:
+        ref = sw.triangle_best_hit_plain(ro, rd, tr.v0, tr.v1, tr.v2,
+                                         tr.normal, T_MIN, T_MAX, quirks, al)
+        counts = _every_instance(lambda **kw: sw.launch_triangle_sweep(
+            ro, rd, tbl, box, al, T_MIN, T_MAX, quirks, **kw), ref, sup)
+        for level in (False, True):
+            assert counts[(level, True)][:2] == counts[(level, False)][:2]
+        # the super level makes fewer box tests and the same prim tests
+        assert counts[(True, False)][1] == counts[(False, False)][1]
+        assert counts[(True, False)][0] < counts[(False, False)][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene_name", ["random_spheres", "sphere_field"])
+def test_sphere_sweep_instances_match_plain_on_bounces(cuda, scene_name):
+    """K3's and K5's instances on camera rays and bounced rays (both
+    masks) of random_spheres (484 spheres) and of the 9,216-sphere field
+    (above SPH_SUPER_MIN, where the public entry takes the super level)."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    if scene_name == "random_spheres":
+        scene, cam = presets.random_spheres(2.0, device=cuda)
+    else:
+        from cudaraytracer_tpu_torch.core.camera import make_camera
+        scene = cs.fill_sphere_field(SceneBuilder()).build(cuda)
+        cam = make_camera((0.0, 3.0, 2.0), (0.0, 0.0, -12.0), vfov=60.0,
+                          device=cuda)
+    scene = integ._morton_scene(scene)[0]
+    sp = scene.spheres
+    tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+    attr = isect.sphere_attr_table(scene)
+    rows = sw.attr_rows(attr)
+    cfg = RenderConfig(width=128, height=64, samples=4, max_depth=DEPTH)
+    rays = generate_pixel_rays(cam, 128, 64, 4, generator=torch.Generator(
+        device=cuda).manual_seed(13))
+    o, d, masks = _bounce_masks(scene, rays, cfg, 13)
+    for ro, rd, al in [(rays.origin, rays.direction, None)] + [
+            (o, d, m) for m in masks]:
+        ref = sw.sphere_best_hit_plain(ro, rd, sp.center, sp.radius, T_MIN,
+                                       T_MAX, al)
+        refa = sw.sphere_best_hit_attrs_plain(ro, rd, sp.center, sp.radius,
+                                              attr, T_MIN, T_MAX, al)
+        for r, ref_ in ((None, ref), (rows, refa)):
+            counts = _every_instance(lambda **kw: sw.launch_sphere_sweep(
+                ro, rd, tbl, box, al, r, T_MIN, T_MAX, **kw), ref_, sup)
+            for level in {level for level, _ in counts}:
+                assert (counts[(level, True)][:2]
+                        == counts[(level, False)][:2])
+        _hits_match(sw.sphere_best_hit_raw(ro, rd, sp.center, sp.radius,
+                                           T_MIN, T_MAX, True, al), ref)
+
+
+@pytest.mark.gpu
+def test_sweep_instances_keep_the_first_prim_on_ties(cuda):
+    """Every instance on the duplicate and tie scenes, and with a duplicate
+    of an icosphere triangle appended in another super: the first copy
+    wins every tie."""
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    dup, cam = cs.duplicate_scene(cuda)
+    rays = generate_pixel_rays(cam, 64, 32, 4, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    tie = cs.fill_tie_scene(SceneBuilder()).build(cuda)
+    rays_t = make_rays(cs.TIE_ORIGINS, cs.TIE_DIRECTIONS, device=cuda)
+    for scene, r in ((dup, rays), (tie, rays_t)):
+        sp, tr = scene.spheres, scene.triangles
+        tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+        _every_instance(lambda **kw: sw.launch_sphere_sweep(
+            r.origin, r.direction, tbl, box, None, None, T_MIN, T_MAX, **kw),
+            sw.sphere_best_hit_plain(r.origin, r.direction, sp.center,
+                                     sp.radius, T_MIN, T_MAX), sup)
+        ttbl, tbox, tsup = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+        for s_ in (None, tsup):
+            for coop in (False, True):
+                got = sw.launch_triangle_sweep(
+                    r.origin, r.direction, ttbl, tbox, None, T_MIN, T_MAX,
+                    Quirks.fixed(), sup=s_, coop=coop)
+                assert torch.equal(got[1], sw.triangle_best_hit_plain(
+                    r.origin, r.direction, tr.v0, tr.v1, tr.v2, tr.normal,
+                    T_MIN, T_MAX, Quirks.fixed())[1])
+    scene, _ = cs.icosphere_scene(2.0, device=cuda)
+    tr = scene.triangles
+    k = 37
+    v = [torch.cat([x, x[k:k + 1]]) for x in (tr.v0, tr.v1, tr.v2,
+                                              tr.normal)]
+    tbl, box, sup = sw.triangle_table(*v)
+    assert box.shape[0] // sw.CHUNKS_PER_SUPER == 20     # the copy's super
+    cen = (v[0][k] + v[1][k] + v[2][k]) / 3
+    nrm = torch.linalg.cross(v[1][k] - v[0][k], v[2][k] - v[0][k])
+    o = (cen + 0.5 * nrm / nrm.norm()).expand(4096, 3).contiguous()
+    d = (cen - o) + 0.002 * torch.randn(4096, 3, device=cuda,
+                                        generator=torch.Generator(
+                                            device=cuda).manual_seed(2))
+    ref = sw.triangle_best_hit_plain(o, d, *v, T_MIN, T_MAX, Quirks.fixed())
+    assert bool((ref[1] == k).any())
+    _every_instance(lambda **kw: sw.launch_triangle_sweep(
+        o, d, tbl, box, None, T_MIN, T_MAX, Quirks.fixed(), **kw), ref, sup)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_sweeps_on_rays_along_box_planes(cuda, profile):
+    """Axis-parallel rays whose origins lie on chunk and super planes (the
+    slab's 0 * inf = NaN, which keeps a box reachable) and on the planes of
+    the vertices' own chunk boxes (rays through shared vertices and edges,
+    which the margin must keep): every instance finds the plain version's
+    winners."""
+    from cudaraytracer_tpu_torch.core.rays import make_rays
+    quirks = getattr(Quirks, profile)()
+    scene, _ = cs.icosphere_scene(2.0, device=cuda)
+    scene = integ._morton_scene(scene)[0]
+    tr = scene.triangles
+    tbl, box, sup = sw.triangle_table(tr.v0, tr.v1, tr.v2, tr.normal)
+    vertex_box = sw.group_boxes(
+        torch.minimum(torch.minimum(tr.v0, tr.v1), tr.v2),
+        torch.maximum(torch.maximum(tr.v0, tr.v1), tr.v2), sw.PRIM_CHUNK,
+        sw.PRIM_CHUNK)
+    for bx in (box, sup, vertex_box):
+        o, d = cs.plane_rays(bx.cpu().numpy(), tr.v0.mean(0).cpu().numpy(),
+                             8192, 5)
+        r = make_rays(o, d, device=cuda)
+        ref = sw.triangle_best_hit_plain(r.origin, r.direction, tr.v0, tr.v1,
+                                         tr.v2, tr.normal, T_MIN, T_MAX,
+                                         quirks)
+        _every_instance(lambda **kw: sw.launch_triangle_sweep(
+            r.origin, r.direction, tbl, box, None, T_MIN, T_MAX, quirks,
+            **kw), ref, sup)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [(1e-3, 1e-1), (1e-6, 1e-3)])
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_triangle_cull_keeps_every_hit_its_margin_covers(cuda, profile,
+                                                         band):
+    """A cylinder of slivers under grazing rays (moderate and extreme):
+    every culled instance gives the same hits; the culled sweep leaves
+    the plain version's (t, idx) only for a farther hit, and only where
+    the plain winner is outside the margin's proof (ops/sweeps.py
+    TRI_MARGIN, ``triangle_conditioned``)."""
+    quirks = getattr(Quirks, profile)()
+    v = [torch.as_tensor(x, device=cuda) for x in cs.sliver_cylinder()]
+    order = sw.morton_argsort((v[0] + v[1] + v[2]) / 3)
+    v0, v1, v2 = (x[order].contiguous() for x in v)
+    nrm = torch.linalg.cross(v1 - v0, v2 - v0)
+    o, d = (torch.as_tensor(x, device=cuda)
+            for x in cs.grazing_rays(1 << 16, *band, seed=11))
+    ref = sw.triangle_best_hit_plain(o, d, v0, v1, v2, nrm, T_MIN, T_MAX,
+                                     quirks)
+    tbl, box, sup = sw.triangle_table(v0, v1, v2, nrm)
+    got = [sw.launch_triangle_sweep(o, d, tbl, box, None, T_MIN, T_MAX,
+                                    quirks, sup=s_, coop=coop)
+           for s_ in (None, sup) for coop in (False, True)]
+    got.append(sw.triangle_best_hit_raw(o, d, v0, v1, v2, nrm, T_MIN, T_MAX,
+                                        quirks))
+    t, i = got[0]
+    for g in got[1:]:
+        assert torch.equal(g[0], t) and torch.equal(g[1], i)
+    w = ref[1].long().clamp(min=0)
+    covered = sw.triangle_conditioned(d, v1[w] - v0[w], v2[w] - v0[w])
+    lost = (i != ref[1]) | (t != ref[0])
+    assert not bool((lost & covered & (ref[1] >= 0)).any())
+    assert bool((t >= ref[0]).all())
+    assert bool((ref[1] >= 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["icosphere", "mixed", "three_spheres"])
+def test_tables_built_once_per_trace_give_the_same_frame(cuda, name):
+    """The wavefront with the sweep tables built once per trace (what
+    trace_path does on the card) and with each sweep building its own (an
+    intersector without ``build_tables``): the same frame, bit for bit;
+    the sweeps count their camera and bounce launches by kind."""
+    if name == "icosphere":
+        scene, cam = cs.icosphere_scene(2.0, device=cuda)
+    elif name == "mixed":
+        scene, cam = cs.mixed_scene(cuda)
+    else:
+        scene, cam = presets.three_spheres(2.0, device=cuda)
+    cfg = RenderConfig(width=64, height=32, samples=4, max_depth=DEPTH,
+                       wavefront_kernel_attrs=name == "three_spheres")
+    once = sweep_intersector(cfg)
+    per_call = sweep_intersector(cfg)
+    del per_call.build_tables
+    imgs = []
+    for fn in (once, per_call):
+        sw.reset_launch_counts()
+        with torch.no_grad():
+            imgs.append(render_image(scene, cam, cfg, intersect_fn=fn))
+        kinds = {k: v for k, v in sw.LAUNCH_KINDS.items() if sw.LAUNCHES[k]}
+        assert kinds and all(v["camera"] >= 1 and v["bounce"] >= 1
+                             for v in kinds.values())
+        assert all(v["camera"] + v["bounce"] == sw.LAUNCHES[k]
+                   for k, v in kinds.items())
+    assert torch.equal(imgs[0], imgs[1])
 
 
 # ---------------------------------------------------------------------------

@@ -177,13 +177,43 @@ def test_morton_argsort_and_tables_match_jax():
         np.asarray(jpk.morton_argsort(jnp.asarray(pts))))
     v0, v1, v2, n = _tri_set(rng, 37)
     jv = jpk._pad_tris(*map(jnp.asarray, (v0, v1, v2, n)))
-    tbl, box = tsw.triangle_table(*map(_t, (v0, v1, v2, n)))
+    tbl, box, _ = tsw.triangle_table(*map(_t, (v0, v1, v2, n)))
     np.testing.assert_array_equal(
         tbl.numpy(), np.asarray(jpk._tri_table(*jv))[..., 0].T)
     lo = np.minimum(np.minimum(*jv[:2]), jv[2]).reshape(-1, 16, 3).min(1)
     hi = np.maximum(np.maximum(*jv[:2]), jv[2]).reshape(-1, 16, 3).max(1)
+    # JAX's exact chunk boxes, each widened by TRI_MARGIN x its largest
+    # |coordinate| (ops/sweeps.py)
+    m = np.maximum(abs(lo), abs(hi)).max(1, keepdims=True) * np.float32(
+        tsw.TRI_MARGIN)
     np.testing.assert_array_equal(box.numpy()[:, :6],
-                                  np.concatenate([lo, hi], 1))
+                                  np.concatenate([lo - m, hi + m], 1))
+
+
+def test_triangle_table_super_boxes_contain_their_chunks():
+    """The super boxes (16 chunks, 256 triangles) that triangle_table
+    builds for the two-level cull hold each of their chunks' boxes, the
+    last super the ragged end's; each box is its triangles' exact box
+    widened by TRI_MARGIN x its largest |coordinate|; and the table's pad
+    repeats the last triangle."""
+    rng = np.random.default_rng(4)
+    v0, v1, v2, n = map(_t, _tri_set(rng, 600))
+    tbl, box, sup = tsw.triangle_table(v0, v1, v2, n)
+    assert tbl.shape == (608, 12) and box.shape == (38, 8)
+    assert sup.shape == (3, 8)
+    assert torch.equal(tbl[600:], tbl[599:600].expand(8, 12))
+    owner = torch.arange(38) // tsw.CHUNKS_PER_SUPER
+    assert bool((sup[owner, :3] <= box[:, :3]).all())
+    assert bool((sup[owner, 3:6] >= box[:, 3:6]).all())
+    lo = tsw.pad_rows(torch.minimum(torch.minimum(v0, v1), v2), 16)
+    hi = tsw.pad_rows(torch.maximum(torch.maximum(v0, v1), v2), 16)
+    for level, group in ((box, 16), (sup, 256)):
+        for k in range(level.shape[0]):
+            blo = lo[k * group:(k + 1) * group].amin(0)
+            bhi = hi[k * group:(k + 1) * group].amax(0)
+            m = torch.maximum(blo.abs(), bhi.abs()).amax() * tsw.TRI_MARGIN
+            assert torch.equal(level[k, :3], blo - m)
+            assert torch.equal(level[k, 3:6], bhi + m)
 
 
 # ---------------------------------------------------------------------------
