@@ -71,7 +71,22 @@ Phases (each prints lines; any failure raises and exits nonzero):
        * K8 against the plain version on one full 2^18-ray launch of
          light_box 1280x720x16 and of the TRS showcase, and 2^16 rays of
          the TRS field (three integrators injected, the path on in-kernel
-         draws), with equal winner ids (K7 on K8's scenes);
+         draws), with equal winner ids (K7 on K8's scenes); the TRS
+         field's first 2^18-ray launch timed, with the chunk tests and rows
+         its counting instance made and the brute-force walk's bound
+         beside its own; K8's culled walk on its edge rays (rect edges,
+         TRS sphere tangents, TRS triangle vertices, axis-parallel rays)
+         and camera rays, 2^14 each, on the TRS field and on a field whose
+         rows each have a copy walked first (ties across chunks in reverse
+         row order), both quirk profiles, three integrators and K7's
+         winners (``phase_xform_edges``);
+       * the boxes' margins (``phase_margins``): the fused kernels' first
+         hit (K1's persistent warps, the cooperative K6, K11 with 8 shells,
+         the lambert instances) against the plain version on 2^16 rays a
+         set along the icosphere's and (m)'s box planes, grazing 4,096
+         slivers, and tangent to the spheres of random_spheres and of the
+         9,216-sphere field, and K3 on the tangent rays: no winner that
+         the margins' proof covers lost, the rest counted;
        * K7 on (g)'s first 2^18-ray launch: winners equal to the plain
          version's, radiance equal to the launch that records nothing;
        * K9 on full 2^18-ray launches of (j) (its middle launch, both quirk
@@ -190,13 +205,16 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
     python3 chip_smoke.py --ab [--root DIR]
 
-    python3 chip_smoke.py --ab --only sweeps [--root DIR]
+    python3 chip_smoke.py --ab --only sweeps|fused|xform|margins|xcull
+        [--root DIR]
 
 times only what compares two commits on one card (``ab_main``: K3, K4, K5
 and the wavefront cells (c), (d), (k), (e), then K1, K7, K8, K9 and (a)'s
-frame, then K6, K10, K11, K12 and the (l) and (p) cells; with ``--only
-sweeps`` only the first), with the package of the checkout at DIR
-(default: this one).
+frame, then K6, K10, K11, K12 and the (l) and (p) cells, then the margins'
+stress rays, counted; with ``--only`` one of them: ``ab_sweeps``,
+``ab_fused``, ``ab_xform`` (K1, K7, K8 and (g), (h), (i)), ``ab_margins``,
+or ``ab_xcull``, K8's chunks against its flat walk by rows a class), with
+the package of the checkout at DIR (default: this one).
 """
 
 from __future__ import annotations
@@ -234,6 +252,10 @@ FLOP_TRI = 46      # h 9, a 5, 1/a, s 3, u 6, q 9, v 6, t 6, 1 add
 # 1/a, two roots 4, 8 compares and selects, mul, compare), TRS triangle 64
 # (Moller-Trumbore 46, the backface dot 6, 10 compares, mul, compare)
 FLOP_XFORM = (46 + 16, 46 + 34, 46 + 64)
+# K8's chunk test (xchunk): the raw slab 12 (6 sub, 6 mul), per axis entry
+# and exit 2 min/max, then 4 products and 2 min/max by the scale range, the
+# entry's and exit's 4 min/max, best t x max b, 6 compares
+FLOP_XBOX = 12 + 6 + 18 + 4 + 1 + 6
 # K11, per top-level box a ray's shells rank (counted once per sweep, as
 # the order needs it; the kernel's recomputation in each pass is not
 # charged): its distance (clip 6, sub 3, mul 3, add 2), the scan's min and
@@ -319,6 +341,20 @@ def device_ms(fn, reps=5, warmup=1):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best, out
+
+
+def host_ms(fn, reps=10):
+    """Min milliseconds over reps of the host's time in fn (the wrapper's
+    checks, allocations and its enqueue), the card idle before each."""
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return best
 
 
 def inplace_ms(fn, planes, start_from, reps=3):
@@ -411,7 +447,7 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
                  else FLOP_TRI)
     flops = (tests["box"] * FLOP_BOX + tests["seg"] * FLOP_BOX
              + tests["sph"] * FLOP_SPHERE + tests["tri"] * tri_flops
-             + tests["dist"] * FLOP_DIST
+             + tests["dist"] * FLOP_DIST + tests.get("xbox", 0) * FLOP_XBOX
              + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
                                                 FLOP_XFORM)))
     if draws:
@@ -1664,6 +1700,112 @@ def phase_xform_parity(dev, xframes) -> dict:
         out[f.name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                        "bound_ms": b, "bound_by": by, **inst,
                        "tests": tests, "rays": n}
+    out["trs_field_2_18"] = xform_field_launch(dev, xframes[2], gen)
+    return out
+
+
+def brute_xform_tests(tables, tests: dict) -> dict:
+    """``tests`` as the brute-force walk would make them: every rect / TRS
+    row at every bounce, no chunk test."""
+    out = dict(tests, xbox=0)
+    for k in ("rect", "tsph", "ttri"):
+        out[k] = tests["bounce"] * getattr(tables, k).shape[0]
+    return out
+
+
+def xform_field_launch(dev, f: Frame, gen) -> dict:
+    """K8 on (i)'s first launch, 2^18 rays, in-kernel draws: the card's time
+    and the call's, the tests the counting instance made (chunk boxes,
+    rows of each class), the lanes' use, the bound from those counted tests
+    and the brute-force walk's bound beside it, the instance's registers
+    and spill.  (Parity runs at 2^16 rays of the same frame.)"""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    rays = first_chunk(f, gen)
+    n = rays.origin.shape[0]
+    seed = mk.draw_seed(gen)
+
+    def call():
+        return mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables,
+                                  seed=seed)
+
+    ms, _ = device_ms(call)
+    call_ms, _ = cuda_ms(call)
+    inst = path_instance_of(f.tables, f.cfg, n)
+    tests = count_tests(f.tables, rays, f.cfg, seed)
+    b, by = launch_bound(f.tables, n, tests, draws=True)
+    bb, _ = launch_bound(f.tables, n, brute_xform_tests(f.tables, tests),
+                         draws=True)
+    per = {k: tests[k] / tests["bounce"] for k in ("xbox", "rect", "tsph",
+                                                   "ttri") if k in tests}
+    print(f"[K8] {f.name} path launch of {n} rays: kernel {ms:.4f} ms (the "
+          f"call {call_ms:.4f} ms), bound {b:.4f} ms ({by}; the brute-force "
+          f"walk's {bb:.4f} ms), tests a bounce {per}, lanes' use "
+          f"{lane_use(tests):.4f}, instance {inst}")
+    return {"ms": ms, "call_ms": call_ms, "bound_ms": b, "bound_by": by,
+            "bound_brute_ms": bb, "tests_per_bounce": per,
+            "lane_use": lane_use(tests), **inst, "tests": tests, "rays": n}
+
+
+def phase_xform_edges(dev, fi: Frame) -> dict:
+    """K8's culled walk against the plain version where its cull is
+    tightest: ``xform_edge_rays`` (rect edges, TRS sphere tangents, TRS
+    triangle vertices, axis-parallel) and camera rays, 2^14 each, on (i)'s
+    rows and on a TRS field of 40 rows a class each copied once (the
+    copies walked first, in earlier chunks: exact ties across chunks in
+    reverse row order, which the lowest row must win), both quirk
+    profiles, the three integrators on an injected stream and the path on
+    in-kernel draws with its winners (K7) equal; the copied field's frame
+    equal under the Morton order and the copies-first order."""
+    from cudaraytracer_tpu_torch.config import Quirks
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops.integrators import stream_from_generator
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n = 1 << 14
+    k = 40
+    sd, cam = cs.trs_duplicates_scene(k, 640 / 360, device=dev)
+    td = mk.build_mega_tables(sd, xform_orders=cs.duplicate_orders(k))
+    check(td.rect_box.shape[0] > 1, "the copied field walks in chunks")
+    fd = fi._replace(name="trs_copies", scene=sd, camera=cam, tables=td)
+    out = {"max_abs_err": 0.0}
+    for f in (fi, fd):
+        sets = {"camera": tuple(x[:n] for x in first_chunk(f, gen)[:2])}
+        for name, (o, d) in cs.xform_edge_rays(f.scene, n, 19).items():
+            sets[name] = (torch.as_tensor(o, device=dev),
+                          torch.as_tensor(d, device=dev))
+        for profile in ("reference", "fixed"):
+            cfg0 = dataclasses.replace(f.cfg,
+                                       quirks=getattr(Quirks, profile)())
+            for name, (o, d) in sets.items():
+                rays = Rays(o.contiguous(), d.contiguous(), o.new_zeros(0))
+                label = f"K8 {f.name} {name} {profile}"
+                m = o.shape[0]
+                stream = stream_from_generator(gen, m, cfg0.max_depth, dev)
+                st = mk.stream_tensor(stream, m, cfg0.max_depth + 1)
+                for integrator in INTEGRATORS:
+                    cfg = dataclasses.replace(cfg0, integrator=integrator)
+                    got = mk.trace_path_mega(f.scene, rays, cfg,
+                                             tables=f.tables, samples=stream)
+                    ref = mk.trace_path_mega_plain(f.tables, rays, cfg, st)
+                    out["max_abs_err"] = max(out["max_abs_err"], compare(
+                        f"{label} {integrator}", got, ref))
+                got, win = mk.trace_path_mega(f.scene, rays, cfg0,
+                                              tables=f.tables, seed=5,
+                                              want_winners=True)
+                ref, wref = mk.trace_path_mega_plain(f.tables, rays, cfg0,
+                                                     None, 5, True)
+                out["max_abs_err"] = max(out["max_abs_err"], compare(
+                    f"{label} path in-kernel draws", got, ref))
+                compare_ids(f"K7+K8 {f.name} {name} {profile}", win, wref)
+    morton = mk.morton_tables(sd)
+    rays = first_chunk(fd, gen)
+    a = mk.trace_path_mega(sd, rays, fd.cfg, tables=td, seed=9)
+    b = mk.trace_path_mega(sd, rays, fd.cfg, tables=morton, seed=9)
+    check(torch.equal(a, b), "the copied field's frame depends on the "
+          "order of K8's chunks")
+    print(f"[K8] copied field: copies-first and Morton order give the same "
+          f"{rays.origin.shape[0]}-ray launch")
     return out
 
 
@@ -1725,6 +1867,186 @@ def render_mega_diff(dev, f: Frame, gen) -> dict:
               f"s/frame, peak {peak / 2 ** 30:.2f} GiB")
         out[mode] = {"frame_s": ms / 1e3, "peak_gib": peak / 2 ** 30}
         del img
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The boxes' margins: the fused kernels and K3 on rays that stress the boxes
+# ---------------------------------------------------------------------------
+
+STRESS_RAYS = 1 << 16
+
+
+def here_check_scenes():
+    """This checkout's ``check_scenes`` (its stress-ray generators), as a
+    module of whichever package this run imports (``--ab --root``), whose
+    own check_scenes may predate them."""
+    import importlib.util
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    if hasattr(cs, "tangent_rays") and hasattr(cs, "xform_edge_rays"):
+        return cs
+    path = os.path.join(ROOT, "cudaraytracer_tpu_torch", "models",
+                        "check_scenes.py")
+    spec = importlib.util.spec_from_file_location(
+        "cudaraytracer_tpu_torch.models._here_check_scenes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def exact_boxes(lo: torch.Tensor, hi: torch.Tensor, group: int):
+    """float32[k, 8] exact boxes of consecutive groups of ``group`` prims
+    (bounds lo, hi float32[N, 3]), as the TPU tables hold them, whichever
+    package runs."""
+    pad = -lo.shape[0] % group
+    lo = torch.cat([lo, lo[-1:].expand(pad, 3)]).view(-1, group, 3)
+    hi = torch.cat([hi, hi[-1:].expand(pad, 3)]).view(-1, group, 3)
+    return torch.cat([lo.amin(1), hi.amax(1), lo.new_zeros(lo.shape[0], 2)],
+                     1)
+
+
+def first_hit_losses(label: str, scene, tables, o, d, quirks, strict: bool,
+                     f2b: int = 0) -> dict:
+    """The fused kernel's first hit on rays (o, d) against the plain
+    version's: the path integrator at depth 0 recording its winners (the
+    persistent warps, or the cooperative instances above 8,192 triangles;
+    ``f2b`` shells) and the lambert integrator (one thread per ray), ray by
+    ray.  A lost winner is a ray whose kernel winner differs; a triangle
+    winner of the plain version is covered by the margins' proof when
+    ``triangle_conditioned`` holds for it, every sphere winner is.  strict:
+    a covered winner lost fails the run -> the counts."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    rays = Rays(o, d, o.new_zeros(0))
+    cfg = RenderConfig(max_depth=0, quirks=quirks, engine="mega",
+                       mega_f2b_shells=f2b)
+    _, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=1,
+                                want_winners=True)
+    _, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 1, True)
+    win, wref = win[0].long(), wref[0].long()
+    n_s, n_t = scene.n_spheres, scene.n_triangles
+    tri = (wref >= n_s) & (wref < n_s + n_t)
+    covered = torch.ones_like(tri)
+    if n_t:
+        k = (wref - n_s).clamp(0, n_t - 1)
+        tr = scene.triangles
+        covered = ~tri | sw.triangle_conditioned(
+            d, tr.v1[k] - tr.v0[k], tr.v2[k] - tr.v0[k])
+    lost = win != wref
+    lam = dataclasses.replace(cfg, integrator="lambert")
+    got = mk.trace_path_mega(scene, rays, lam, tables=tables)
+    ref = mk.trace_path_mega_plain(tables, rays, lam)
+    lost_l = (got != ref).any(1)
+    out = {"rays": int(o.shape[0]), "plain_hits": int((wref >= 0).sum()),
+           "uncovered": int(((wref >= 0) & ~covered).sum()),
+           "path_lost": int(lost.sum()), "lambert_lost": int(lost_l.sum()),
+           "covered_lost": int(((lost | lost_l) & covered).sum())}
+    print(f"[margins] {label}: {out}")
+    if strict:
+        check(out["covered_lost"] == 0, f"{label}: the cull lost "
+              f"{out['covered_lost']} winners that the margins cover")
+    return out
+
+
+def phase_margins(dev, strict: bool = True) -> dict:
+    """The fused tables' boxes under the rays that stress them, the fused
+    kernels against the plain version (``first_hit_losses``): axis-parallel
+    rays from the planes of the icosphere's exact chunk and super boxes and
+    of the package's own (widened) boxes, both quirk profiles (K1's
+    persistent warps and the lambert instance); the same from the exact
+    chunk and super planes of (m)'s 128,000-triangle field (the cooperative
+    K6, K11 with 8 shells, the lambert K6); 4,096 slivers under grazing
+    rays, moderate and extreme, both profiles; rays tangent to the spheres
+    of random_spheres and of the 9,216-sphere field where they touch their
+    boxes (K1 with one and two sphere levels, K6's sphere segments), and
+    the same rays through K3's culled instances.  2^16 rays each.  strict:
+    fail on a covered winner lost (the repaired kernels); else count only
+    (``--ab`` on a checkout before the margins) -> counts by case."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    cs = here_check_scenes()
+    n = STRESS_RAYS
+    out = {}
+
+    def rays_of(o, d):
+        return (torch.as_tensor(o, device=dev).contiguous(),
+                torch.as_tensor(d, device=dev).contiguous())
+
+    def planes(tables, scene, morton):
+        """name -> box planes float32[k, 8] of the tables' triangles."""
+        tr = scene.triangles
+        order = morton.long()
+        v0, v1, v2 = (x[order] for x in (tr.v0, tr.v1, tr.v2))
+        lo = torch.minimum(torch.minimum(v0, v1), v2)
+        hi = torch.maximum(torch.maximum(v0, v1), v2)
+        return {"exact chunk": exact_boxes(lo, hi, 16),
+                "exact super": exact_boxes(lo, hi, 256),
+                "table chunk": tables.tri_box, "table super": tables.tri_super}
+
+    sb, _ = cs.icosphere_scene(16 / 9, device=dev)
+    tb = mk.morton_tables(sb)
+    target = sb.triangles.v0.mean(0).cpu().numpy()
+    for name, box in planes(tb, sb, tb.tri_map).items():
+        o, d = rays_of(*cs.plane_rays(box.cpu().numpy(), target, n, 5))
+        for profile in ("reference", "fixed"):
+            out[f"icosphere {name} {profile}"] = first_hit_losses(
+                f"(b) icosphere, {name} planes, {profile}", sb, tb, o, d,
+                getattr(Quirks, profile)(), strict)
+    sm, _ = cs.big_field_scene(16 / 9, device=dev)
+    tm = mk.morton_tables(sm)
+    target = sm.triangles.v0.mean(0).cpu().numpy()
+    for name, box in planes(tm, sm, tm.tri_map).items():
+        if not name.startswith("exact"):
+            continue
+        o, d = rays_of(*cs.plane_rays(box.cpu().numpy(), target, n, 6))
+        for f2b in (0, 8):
+            out[f"big_field {name} f2b {f2b}"] = first_hit_losses(
+                f"(m) big_field, {name} planes, {f2b} shells", sm, tm, o, d,
+                Quirks.fixed(), strict, f2b)
+    del sm, tm
+    v = cs.sliver_cylinder()
+    b = SceneBuilder()
+    mat = b.materials.lambertian(color=(0.5, 0.5, 0.5))
+    pts = np.concatenate(v)
+    b.add_mesh(pts, np.arange(len(pts)).reshape(3, -1).T, mat,
+               reverse_winding=False)
+    sc = b.build(dev)
+    ts = mk.morton_tables(sc)
+    for band, (lo_, hi_) in (("moderate", (1e-3, 1e-1)),
+                             ("extreme", (1e-6, 1e-3))):
+        o, d = rays_of(*cs.grazing_rays(n, lo_, hi_, seed=11))
+        for profile in ("reference", "fixed"):
+            out[f"slivers {band} {profile}"] = first_hit_losses(
+                f"slivers, {band} grazing, {profile}", sc, ts, o, d,
+                getattr(Quirks, profile)(), strict)
+    sa, _ = presets.random_spheres(16 / 9, device=dev)
+    field = cs.fill_sphere_field(SceneBuilder()).build(dev)
+    for name, scene in (("random_spheres", sa), ("sphere_field", field)):
+        tables = mk.morton_tables(scene)
+        sp = scene.spheres
+        o, d = rays_of(*cs.tangent_rays(sp.center.cpu().numpy(),
+                                        sp.radius.cpu().numpy(), n, 7))
+        out[f"tangent {name}"] = first_hit_losses(
+            f"{name}, tangent rays", scene, tables, o, d, Quirks.reference(),
+            strict)
+        t_min, t_max = RenderConfig().t_min, RenderConfig().t_max
+        ref = sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, t_min,
+                                       t_max)
+        tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+        lost = 0
+        for coop in (False, True):
+            got = sw.launch_sphere_sweep(o, d, tbl, box, None, None, t_min,
+                                         t_max, sup=sup, coop=coop)
+            lost = max(lost, int((got[1] != ref[1]).sum()))
+        print(f"[margins] K3 {name}, tangent rays: lost {lost} of {n}")
+        if strict:
+            check(lost == 0, f"K3 {name}: the cull lost {lost} tangent hits")
+        out[f"tangent {name}"]["k3_lost"] = lost
     return out
 
 
@@ -2630,6 +2952,8 @@ def main() -> int:
     fh, fs, fi = xframes
     parity = phase_parity(dev, frames)
     xparity = phase_xform_parity(dev, xframes)
+    xedges = phase_xform_edges(dev, fi)
+    margins = phase_margins(dev)
     wparity = phase_winner_parity(dev, fa)
     tframes = tex_frames(dev)
     fj, fk, fl = tframes
@@ -2813,7 +3137,7 @@ def main() -> int:
             "lane_use": ca["lane_use"],
             "bound_no_draws_ms": ca["bound_no_draws_ms"],
             **{k: ca[k] for k in INSTANCE_KEYS},
-            "tests": ca["tests"],
+            "tests": ca["tests"], "margins": margins,
             "icosphere_chunk": cb,
             "frame_launch": {"random_spheres": ka, "icosphere": kb},
             "frame_s": ms_a / 1e3, "icosphere_frame_s": ms_b / 1e3,
@@ -2858,7 +3182,8 @@ def main() -> int:
         "source": "cudaraytracer_tpu_torch/csrc/megakernel.cuh",
         "replaces": "cudaraytracer_tpu/ops/megakernel.py:1186",
         "launches": launches["mega_trace_xform"],
-        "max_abs_err": xparity["max_abs_err"], "ms": xh["ms"],
+        "max_abs_err": max(xparity["max_abs_err"], xedges["max_abs_err"]),
+        "ms": xh["ms"],
         "call_ms": xh["call_ms"],
         "plain_ms": xh["plain_ms"], "bound_ms": xh["bound_ms"],
         "bound_by": xh["bound_by"], "library_ms": None,
@@ -2866,6 +3191,7 @@ def main() -> int:
                  "path 8, in-kernel draws",
         **{k: xh[k] for k in INSTANCE_KEYS},
         "tests": xh["tests"], "trs_showcase": xs, "trs_field_2_16": xi,
+        "trs_field_2_18": xparity["trs_field_2_18"],
         "h_frame_s": ms_h / 1e3, "i_frame_s": ms_i / 1e3})
     tj = tparity.pop(f"tex_spheres fixed launch {middle_chunk(fj)}")
     rows.append({
@@ -2969,9 +3295,11 @@ def ab_main(root: str, only: str = "") -> int:
     launches of K6 on (m) and (n) and of K11 on (m), K10's window [2, 4) on
     (m)'s first 2^18 rays in ray-id order (min of 5 each), (m)'s default
     route and monolithic with 8 shells over the frame's rays (min of 3)
-    and per frame (min of 5), and (p)'s median rendering over 31 frames.
-    ``ab_sweeps`` (K3, K4, K5 and the wavefront cells) comes first; with
-    ``only="sweeps"`` (``--only sweeps``) nothing else.  Run the parent's
+    and per frame (min of 5), (p)'s median rendering over 31 frames, and
+    the winners the margins' stress rays lose (``ab_margins``).
+    ``ab_sweeps`` (K3, K4, K5 and the wavefront cells) comes first; ``only``
+    (``--only``) runs one part: "sweeps", "fused", "xform" (``ab_xform``),
+    "margins" or "xcull" (``ab_xcull``).  Run the parent's
     checkout (an unpacked ``git archive``, whose kernels build there) and
     this one in turns, in one call each way (parent, change, change,
     parent).  Prints one JSON line, checks nothing else."""
@@ -2991,11 +3319,19 @@ def ab_main(root: str, only: str = "") -> int:
     reports = _cuda.build()
     PTXAS["text"] = "\n".join(r.ptxas for r in reports.values())
     PTXAS["built"] = reports["megakernel"].ptxas != "(reused)"
-    out.update(ab_sweeps(dev))
-    if only != "sweeps":
+    if only in ("", "sweeps"):
+        out.update(ab_sweeps(dev))
+    if only in ("", "fused"):
         out.update(ab_fused(dev))
+    if only == "xform":
+        out.update(ab_xform(dev))
+    if only == "":
         out["l_fit"] = tex_fit_step(dev)
         out.update(ab_streamed(dev))
+    if only in ("", "margins"):
+        out.update(ab_margins(dev))
+    if only == "xcull":
+        out.update(ab_xcull(dev))
     print(json.dumps(out))
     return 0
 
@@ -3116,6 +3452,120 @@ PARENT_K1 = ("_ZN3crt11mega_kernelILi0ELb0ELb0ELb0ELb0ELb0ELb0ELb0EEEv"
              "NS_6ParamsE")
 PARENT_K9 = ("_ZN3crt11mega_kernelILi0ELb0ELb0ELb0ELb1ELb0ELb0ELb0EEEv"
              "NS_6ParamsE")
+PARENT_K8 = ("_ZN3crt11mega_kernelILi0ELb0ELb1ELb0ELb0ELb0ELb0ELb0EEEv"
+             "NS_6ParamsE")
+# K8's cull against its flat walk, ``ab_xcull``: rows a class
+XCULL_ROWS = (4, 8, 16, 32, 64, 128, 256, 1100)
+
+
+def ab_xcull(dev) -> dict:
+    """K8 on the first 2^18 rays of a 640x360x4 TRS field of k rows a
+    class (``fill_trs_field``, (i)'s camera and config), for each k of
+    XCULL_ROWS, with every class walked in chunks (``..._cull_ms``) and in
+    table order (``..._flat_ms``), min of 5 on the card each: what sets
+    XFORM_CULL_MIN.  Needs a package with K8's chunks."""
+    from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    if not hasattr(mk, "XFORM_CULL_MIN"):
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(29)
+    cfg = RenderConfig(width=640, height=360, samples=4, max_depth=4,
+                       quirks=Quirks.fixed(), engine="mega")
+    keep = mk.XFORM_CULL_MIN
+    out = {}
+    try:
+        for k in XCULL_ROWS:
+            scene, cam = cs.trs_field_scene(k, 640 / 360, device=dev)
+            f = Frame(f"trs_field_{k}", scene, cam, cfg, None)
+            rays = first_chunk(f, gen)
+            for mode, least in (("cull", 0), ("flat", 1 << 30)):
+                mk.XFORM_CULL_MIN = least
+                tables = mk.morton_tables(scene)
+                out[f"xcull_{k}_{mode}_ms"] = device_ms(
+                    lambda: mk.trace_path_mega(scene, rays, cfg,
+                                               tables=tables, seed=3), 5)[0]
+    finally:
+        mk.XFORM_CULL_MIN = keep
+    return out
+
+
+def ab_margins(dev) -> dict:
+    """``phase_margins`` counting only: the winners the fused kernels and
+    K3 lose on the stress rays, for the checkout before the margins and
+    after them."""
+    with contextlib.redirect_stdout(sys.stderr):     # one JSON line out
+        return {"margins": phase_margins(dev, strict=False)}
+
+
+def ab_timed(out: dict, key: str, f: Frame, rays, seed: int, tables=None,
+             **kw) -> None:
+    """One fused launch timed on the card (``key``, ``device_ms``), as a
+    call (``..._call_ms``) and on the host (``..._host_ms``), min of 5."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+
+    def call():
+        return mk.trace_path_mega(f.scene, rays, f.cfg,
+                                  tables=tables or f.tables, seed=seed, **kw)
+
+    out[key] = device_ms(call, 5)[0]
+    out[key.replace("_ms", "_call_ms")] = cuda_ms(call, 5)[0]
+    out[key.replace("_ms", "_host_ms")] = host_ms(call)
+
+
+def ab_usage(out: dict, key: str, f: Frame, parent_name: str,
+             want_winners: bool = False) -> None:
+    """The registers and spill of the path instance f's launches take, from
+    this run's ptxas report (None where this run reused a build)."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    name = (path_mangled(**path_flags(f.tables, f.cfg, want_winners))
+            if hasattr(mk, "path_instance") else parent_name)
+    out[key] = dict(zip(("name", "registers", "spill_bytes"),
+                        (name, *ptxas_usage(name))))
+
+
+def ab_xform_launches(xf, gen, seed: int) -> dict:
+    """K8 on (h)'s and (i)'s first 2^18 rays (``ab_timed``), (i)'s counted
+    tests a bounce and lanes' use where the package counts them, and the
+    K8 path instance's registers and spill."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    fh, fi = xf[0], xf[2]
+    out = {}
+    ab_timed(out, "k8_h_2_18_ms", fh, first_chunk(fh, gen), seed)
+    ri = first_chunk(fi, gen)
+    ab_timed(out, "k8_i_2_18_ms", fi, ri, seed)
+    if hasattr(mk, "N_WORK"):
+        tests = count_tests(fi.tables, ri, fi.cfg, seed)
+        out["k8_i_2_18_tests_per_bounce"] = {
+            k: tests[k] / tests["bounce"]
+            for k in ("xbox", "rect", "tsph", "ttri") if k in tests}
+        out["k8_i_2_18_lane_use"] = lane_use(tests)
+    ab_usage(out, "k8_instance", fi, PARENT_K8)
+    return out
+
+
+def ab_xform(dev) -> dict:
+    """``--only xform``: K1 and K7 on (a)'s first 2^18 rays (the K7 launch
+    records the winners), ``ab_xform_launches``, and the seconds per frame
+    of (g), (h) and (i) through render_image (min of 5): the launches the
+    K7 and K8 parts move, without the rest of ``ab_fused``."""
+    from cudaraytracer_tpu_torch.ops.render import render_image
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fa, _ = main_frames(dev)
+    seed = 4242
+    out = {}
+    rays = first_chunk(fa, gen)
+    ab_timed(out, "k1_a_2_18_ms", fa, rays, seed)
+    ab_timed(out, "k7_g_2_18_ms", fa, rays, seed, want_winners=True)
+    ab_usage(out, "k7_instance", fa, PARENT_K1, want_winners=True)
+    xf = xform_frames(dev)
+    out.update(ab_xform_launches(xf, gen, seed))
+    for key, f in (("g", fa._replace(cfg=dataclasses.replace(
+            fa.cfg, engine="mega_diff"))), ("h", xf[0]), ("i", xf[2])):
+        out[f"{key}_frame_s"] = cuda_ms(lambda f=f: render_image(
+            f.scene, f.camera, f.cfg, generator=gen, tables=f.tables),
+            reps=5)[0] / 1e3
+    return out
 
 
 def ab_fused(dev) -> dict:
@@ -3139,18 +3589,10 @@ def ab_fused(dev) -> dict:
     seed = 4242
 
     def timed(key, f, rays, tables=None, **kw):
-        def call():
-            return mk.trace_path_mega(f.scene, rays, f.cfg,
-                                      tables=tables or f.tables, seed=seed,
-                                      **kw)
-        out[key] = device_ms(call, 5)[0]
-        out[key.replace("_ms", "_call_ms")] = cuda_ms(call, 5)[0]
+        ab_timed(out, key, f, rays, seed, tables, **kw)
 
     def usage(key, f, parent_name):
-        name = (path_mangled(**path_flags(f.tables, f.cfg))
-                if hasattr(mk, "path_instance") else parent_name)
-        out[key] = dict(zip(("name", "registers", "spill_bytes"),
-                            (name, *ptxas_usage(name))))
+        ab_usage(out, key, f, parent_name)
 
     rays = first_chunk(fa, gen)
     timed("k1_a_2_18_ms", fa, rays)
@@ -3159,9 +3601,10 @@ def ab_fused(dev) -> dict:
         out["k1_a_2_18_lane_use"] = lane_use(
             count_tests(fa.tables, rays, fa.cfg, seed))
     timed("k7_g_2_18_ms", fa, rays, want_winners=True)
+    timed("k1_b_mid_2_18_ms", fb, first_chunk(fb, gen, middle_chunk(fb)))
     xf, tf = xform_frames(dev), tex_frames(dev)
-    fh, fj = xf[0], tf[0]
-    timed("k8_h_2_18_ms", fh, first_chunk(fh, gen))
+    fj = tf[0]
+    out.update(ab_xform_launches(xf, gen, seed))
     rj = first_chunk(fj, gen, middle_chunk(fj))
     timed("k9_j_mid_ms", fj, rj)
     usage("k9_instance", fj, PARENT_K9)
@@ -3283,8 +3726,10 @@ if __name__ == "__main__":
         ap.add_argument("--root", default=ROOT,
                         help="import cudaraytracer_tpu_torch from this "
                              "checkout")
-        ap.add_argument("--only", choices=("sweeps",), default="",
-                        help="time only the sweeps (ab_sweeps)")
+        ap.add_argument("--only", choices=("sweeps", "fused", "margins",
+                                           "xform", "xcull"), default="",
+                        help="run only ab_sweeps, ab_fused, ab_margins, "
+                             "ab_xform or ab_xcull")
         args = ap.parse_args()
         sys.exit(ab_main(args.root, args.only))
     sys.exit(main())

@@ -56,7 +56,10 @@ extern "C" int crt_mega_trace(
     const void* tri_seg, int n_sph_segs, int n_tri_segs, int f2b,
     int step_lo, int n_steps, void* planes, const void* order, void* key,
     int key_mode, const void* key_bounds, const void* tri_coef, void* touched,
-    void* work, void* next, int per_thread, void* cuda_stream) {
+    void* work, void* next, int per_thread, const void* rect_box,
+    const void* tsph_box, const void* ttri_box, const void* rect_ord,
+    const void* tsph_ord, const void* ttri_ord, int n_rect_chunks,
+    int n_tsph_chunks, int n_ttri_chunks, void* cuda_stream) {
   if (winners && (integrator != PATH || counts))
     return (int)cudaErrorInvalidValue;
   // the counting variant adds its schedule counters to work; the path
@@ -84,7 +87,22 @@ extern "C" int crt_mega_trace(
     return (int)cudaErrorInvalidValue;
   // the one-thread-per-ray K12 sweep has a counting instance only
   if (tri_coef && per_thread && !counts) return (int)cudaErrorInvalidValue;
+  // K8's chunks: a class with chunks has its Morton order of rows, and
+  // ceil(rows / XFORM_CHUNK) of them
+  const int nx[3] = {n_rects, n_tsph, n_ttri};
+  const int nxc[3] = {n_rect_chunks, n_tsph_chunks, n_ttri_chunks};
+  const void* xbox[3] = {rect_box, tsph_box, ttri_box};
+  const void* xord[3] = {rect_ord, tsph_ord, ttri_ord};
   Params P;
+  for (int c = 0; c < 3; ++c) {
+    if (nxc[c] < 0 || (nxc[c] > 0 && (nxc[c] != (nx[c] + XFORM_CHUNK - 1) /
+                                                  XFORM_CHUNK ||
+                                      !xbox[c] || !xord[c])))
+      return (int)cudaErrorInvalidValue;
+    P.xbox[c] = static_cast<const float*>(xbox[c]);
+    P.xord[c] = static_cast<const int*>(xord[c]);
+    P.n_xchunks[c] = nxc[c];
+  }
   P.images = static_cast<const uint8_t*>(images);
   P.img_h = img_h;
   P.img_w = img_w;

@@ -28,8 +28,14 @@
 //     a ray grazing a sliver below that may lose its hit to the cull, as
 //     to the TPU kernel's exact boxes (chip_smoke.py and the card tests
 //     count them on a cylinder of slivers);
-//   * spheres: exact boxes, as the TPU kernel's; no bound is derived, and
-//     the parity is what the tested launches show.
+//   * spheres: each box is widened by SPH_MARGIN x (its largest
+//     |coordinate| + the ray origin's).  ops/sweeps.py (SPH_MARGIN)
+//     derives it from the half-b quadratic's rounding, the |oc|^2 - r^2
+//     cancellation included: a root the quadratic accepts lies inside that
+//     box, so the culled sweep gives the plain version's (t, idx) on every
+//     ray.  The TPU kernel's exact boxes can lose a ray tangent to a
+//     sphere, whose computed discriminant is positive on a line that
+//     misses the sphere by up to sqrt(u) |oc|.
 //
 // What bounds them on this card: FP32 issue, first on the box walk (a slab
 // test per box per ray: on a 5,120-triangle mesh 320 chunk boxes, three
@@ -87,6 +93,8 @@ constexpr float TRI_EPSILON = 1e-6f;
 // ops/sweeps.py TRI_MARGIN: the share of the ray origin's largest
 // |coordinate| by which a ray widens every triangle box it tests
 constexpr float TRI_MARGIN = 9.765625e-4f;   // 2^-10
+// ops/sweeps.py SPH_MARGIN: the same for sphere boxes
+constexpr float SPH_MARGIN = 3.90625e-3f;    // 2^-8
 constexpr int PRIM_CHUNK = 16;
 constexpr int CHUNKS_PER_SUPER = 16;   // 256 prims per super box
 constexpr int BOX_COLS = 8;    // lo.xyz hi.xyz | 2 pad
@@ -174,7 +182,7 @@ __device__ __forceinline__ bool monotone(float i) {
 struct Sphere {
   struct Pre { float a, inv_a; };
   typedef float4 Prim;
-  static constexpr float MARGIN = 0.f;
+  static constexpr float MARGIN = SPH_MARGIN;
   static __device__ __forceinline__ Pre pre(const Ray& r) {
     const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     return {a, 1.f / a};

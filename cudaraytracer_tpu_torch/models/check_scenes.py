@@ -35,6 +35,13 @@
   * ``plane_rays``: axis-parallel rays whose origins lie on the planes of
     given boxes, where the negated slab test reads NaN (which keeps the
     box reachable) and a two-level cull must not lose a hit;
+  * ``tangent_rays``: rays tangent to spheres where the spheres touch
+    their boxes' faces, grazing or just missing (the sphere boxes'
+    margin, ops/sweeps.py SPH_MARGIN);
+  * ``xform_edge_rays``: rays through rect edges, tangent to TRS spheres,
+    through TRS triangle vertices and axis-parallel through all of them
+    (K8's chunk cull); ``trs_duplicates_scene`` with ``duplicate_orders``:
+    a TRS field whose rows each have an exact copy, walked copies first;
   * ``sliver_cylinder`` with ``grazing_rays``: a cylinder of 4,096 long
     thin triangles (sides 4 and 0.003) and rays that graze it, where
     Moller-Trumbore's rounding is largest (the triangle cull's margin,
@@ -252,32 +259,56 @@ def trs_showcase_scene(aspect: float, device=None):
     return fill_trs_showcase(SceneBuilder()).build(device), cam
 
 
-def fill_trs_field(b, k: int, seed: int = 3):
-    """``k`` each of runtime-TRS spheres, runtime-TRS triangles and rects
-    (one in nine a light) over a ground sphere."""
+def _trs_field_rows(k: int, seed: int) -> tuple:
+    """The random rows of ``fill_trs_field``: (spheres, triangles, rects),
+    each a list of (position, rotation, scale, extra, kind) with kind 0
+    red, 1 metal, 2 light."""
     rng = np.random.default_rng(seed)
+    sph, tri, rect = [], [], []
+    for i in range(k):
+        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
+        r = rng.uniform(0.08, 0.2)
+        sph.append((p, tuple(rng.uniform(-90, 90, 3)),
+                    tuple(rng.uniform(0.6, 1.6, 3)), r, 0 if i % 3 else 1))
+    for i in range(k):
+        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
+        tri.append((tuple(p), tuple(rng.uniform(-90, 90, 3)),
+                    tuple(rng.uniform(0.7, 1.4, 3)), None, 0))
+    for i in range(k):
+        p = rng.uniform([-3, 1.4, -6], [3, 2.2, -2])
+        rect.append((tuple(p), tuple(rng.uniform(-90, 90, 3)),
+                     (0.3, 0.3, 1.0), None, 2 if i % 9 == 0 else 0))
+    return sph, tri, rect
+
+
+def fill_trs_field(b, k: int, seed: int = 3, copies: int = 1):
+    """``k`` each of runtime-TRS spheres, runtime-TRS triangles and rects
+    (one in nine a light) over a ground sphere.  copies: each class's k rows
+    repeated that many times (rows k to 2k - 1 exact copies of rows 0 to k
+    - 1, ...), each copy after the first in blue, so that the first copy
+    must win every tie."""
     m = b.materials
     ground = m.lambertian(color=(0.5, 0.7, 0.3))
     red = m.lambertian(color=(0.9, 0.2, 0.2))
     met = m.metal((0.8, 0.6, 0.2), 0.1)
     light = m.diffuse_light(color=(2.0, 2.0, 2.0))
+    blue = m.lambertian(color=(0.1, 0.2, 0.9)) if copies > 1 else None
     b.add_sphere((0, -100.5, -3), 100.0, ground)
-    for i in range(k):
-        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
-        b.add_sphere(p, rng.uniform(0.08, 0.2), red if i % 3 else met,
-                     rotation=tuple(rng.uniform(-90, 90, 3)),
-                     scale=tuple(rng.uniform(0.6, 1.6, 3)))
-    for i in range(k):
-        p = rng.uniform([-3, -0.3, -6], [3, 1.2, -2])
-        b.add_triangle((-0.15, -0.1, 0), (0.15, -0.1, 0), (0, 0.2, 0), red,
-                       position=tuple(p),
-                       rotation=tuple(rng.uniform(-90, 90, 3)),
-                       scale=tuple(rng.uniform(0.7, 1.4, 3)))
-    for i in range(k):
-        p = rng.uniform([-3, 1.4, -6], [3, 2.2, -2])
-        b.add_rect(light if i % 9 == 0 else red, position=tuple(p),
-                   rotation=tuple(rng.uniform(-90, 90, 3)),
-                   scale=(0.3, 0.3, 1.0))
+    sph, tri, rect = _trs_field_rows(k, seed)
+    kinds = (red, met, light)
+    for c in range(copies):
+        for p, rot, scl, r, kind in sph:
+            b.add_sphere(p, r, kinds[kind] if c == 0 else blue,
+                         rotation=rot, scale=scl)
+    for c in range(copies):
+        for p, rot, scl, _, kind in tri:
+            b.add_triangle((-0.15, -0.1, 0), (0.15, -0.1, 0), (0, 0.2, 0),
+                           kinds[kind] if c == 0 else blue, position=p,
+                           rotation=rot, scale=scl)
+    for c in range(copies):
+        for p, rot, scl, _, kind in rect:
+            b.add_rect(kinds[kind] if c == 0 else blue, position=p,
+                       rotation=rot, scale=scl)
     return b
 
 
@@ -489,6 +520,134 @@ def grazing_rays(n: int, lo: float, hi: float, seed: int = 0,
     d = along.copy()
     d[:, 1] = rng.uniform(-0.05, 0.05, n)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def tangent_rays(center: np.ndarray, radius: np.ndarray, n: int,
+                 seed: int = 0):
+    """(origins, directions) float32[n, 3]: rays tangent to spheres
+    (centres float32[k, 3], radii float32[k]) where a sphere touches a
+    face of its box: at a random sphere, axis and side, the point c + r e
+    (e = +-the axis), moved along e by up to 2^-20 (|c| + |r|) either way
+    (a line that grazes the sphere or just misses it, where the computed
+    discriminant's sign is a rounding), a direction in the face's plane
+    (half the rays) or tilted out of it by up to 2^-12 rad, the origin 2 to
+    6 radii before the point.  The exact box's face is the plane the ray
+    runs in or crosses there."""
+    rng = np.random.default_rng(seed)
+    center = np.asarray(center, np.float64)
+    radius = np.abs(np.asarray(radius, np.float64))
+    pick = rng.integers(0, center.shape[0], n)
+    axis = rng.integers(0, 3, n)
+    sign = rng.choice([-1.0, 1.0], n)
+    rows = np.arange(n)
+    c, r = center[pick], radius[pick]
+    e = np.zeros((n, 3))
+    e[rows, axis] = sign
+    scale = np.abs(c).max(1) + r
+    off = rng.uniform(-1.0, 1.0, n) * 2.0 ** -20 * scale
+    touch = c + (r + off)[:, None] * e
+    u = rng.normal(size=(n, 3))
+    u[rows, axis] = 0.0
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    tilt = np.where(rng.random(n) < 0.5, 0.0,
+                    rng.uniform(-1.0, 1.0, n) * 2.0 ** -12)
+    u = u + tilt[:, None] * e
+    o = touch - rng.uniform(2.0, 6.0, n)[:, None] * r[:, None] * u
+    return o.astype(np.float32), u.astype(np.float32)
+
+
+def xform_edge_rays(scene, n: int, seed: int = 0) -> dict:
+    """Rays at the rect / TRS rows of ``scene`` (a Scene) where K8's chunk
+    cull is tightest, name -> (origins, directions) float32[n, 3], each
+    aimed through a point w of a row's world object M^T (q + p) (M its
+    rotation, p its position; q a point of its object space) along a unit
+    u, the direction u * s (so that ScaleRay's normalize(d / s) is u):
+      * ``rect_edges``: w on a rect's edge, x or y at +-0.5 (inclusive);
+      * ``tsph_tangent``: w on a TRS sphere, u tangent to it there;
+      * ``ttri_vertices``: w a TRS triangle's vertex, where the planes of
+        the triangles' boxes pass;
+      * ``axis_parallel``: w any of those points, u a signed axis, so the
+        direction has two zero components (the slab's infinities, and NaN
+        where an origin lies on a box plane).
+    The origins lie 1 to 4 units before w."""
+    import torch
+    from ..core import vec as v3
+    rng = np.random.default_rng(seed)
+    pts, scl = [], []
+
+    def rows(trs):
+        R = v3.rotation_matrix_euler_deg(trs.rotation.detach().cpu()).numpy()
+        return (R.astype(np.float64),
+                trs.position.detach().cpu().numpy().astype(np.float64),
+                trs.scale.detach().cpu().numpy().astype(np.float64))
+
+    def world(R, p, q):          # M^T (q + p), as row vectors
+        return np.einsum("kij,ki->kj", R, q + p)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    out = {}
+    if scene.n_rects:
+        R, p, s = rows(scene.rects.trs)
+        k = rng.integers(0, len(R), n)
+        q = rng.uniform(-0.5, 0.5, (n, 3))
+        q[:, 2] = 0.0
+        ax = rng.integers(0, 2, n)
+        q[np.arange(n), ax] = rng.choice([-0.5, 0.5], n)
+        w = world(R[k], p[k], q)
+        pts.append(w)
+        scl.append(s[k])
+        out["rect_edges"] = (w, unit(rng.normal(size=(n, 3))), s[k])
+    if scene.n_t_spheres:
+        R, p, s = rows(scene.t_spheres.trs)
+        rad = np.abs(scene.t_spheres.radius.detach().cpu().numpy())
+        k = rng.integers(0, len(R), n)
+        nrm = unit(rng.normal(size=(n, 3)))
+        w = world(R[k], p[k], np.zeros((n, 3))) + rad[k, None] * nrm
+        u = rng.normal(size=(n, 3))
+        u = unit(u - (u * nrm).sum(1, keepdims=True) * nrm)
+        pts.append(w)
+        scl.append(s[k])
+        out["tsph_tangent"] = (w, u, s[k])
+    if scene.n_t_triangles:
+        tt = scene.t_triangles
+        R, p, s = rows(tt.trs)
+        v = np.stack([x.detach().cpu().numpy() for x in (tt.v0, tt.v1,
+                                                         tt.v2)], 1)
+        k = rng.integers(0, len(R), n)
+        w = world(R[k], p[k], v[k, rng.integers(0, 3, n)])
+        pts.append(w)
+        scl.append(s[k])
+        out["ttri_vertices"] = (w, unit(rng.normal(size=(n, 3))), s[k])
+    if pts:
+        every, sc = np.concatenate(pts), np.concatenate(scl)
+        k = rng.integers(0, len(every), n)
+        u = np.zeros((n, 3))
+        u[np.arange(n), rng.integers(0, 3, n)] = rng.choice([-1.0, 1.0], n)
+        out["axis_parallel"] = (every[k], u, sc[k])
+    rays = {}
+    for name, (w, u, s) in out.items():
+        o = w - rng.uniform(1.0, 4.0, (n, 1)) * u
+        rays[name] = (o.astype(np.float32), (u * s).astype(np.float32))
+    return rays
+
+
+def trs_duplicates_scene(k: int, aspect: float, device=None):
+    """(Scene, Camera): ``fill_trs_field`` with two copies of every row,
+    through ``trs_field_scene``'s camera."""
+    cam = make_camera((0, 0.3, 1), (0, 0.3, -3), vfov=60, aspect=aspect,
+                      focus_dist=4.0, device=device)
+    return fill_trs_field(SceneBuilder(), k, copies=2).build(device), cam
+
+
+def duplicate_orders(k: int) -> dict:
+    """K8 row orders for a TRS field of 2k rows a class whose rows k to 2k
+    - 1 copy rows 0 to k - 1 (``fill_trs_field(..., copies=2)``): the
+    copies (rows k to 2k - 1) first, then the originals, so that a tie is
+    met first at a higher row and in another chunk."""
+    order = np.concatenate([np.arange(k, 2 * k), np.arange(k)])
+    return {c: order.astype(np.int32) for c in ("rect", "tsph", "ttri")}
 
 
 def fill_sphere_field(b, nx: int = 96, nz: int = 96):

@@ -5,7 +5,8 @@ The wrapper around ``csrc/megakernel.cu`` (the port of the JAX package's
 kernel's modes ported so far:
   * K1, the main-path form: spheres and triangles, three integrators;
   * K8: rects and runtime-TRS spheres and triangles, tested through the
-    reference TransformRay after the sphere and triangle sweeps;
+    reference TransformRay after the sphere and triangle sweeps, a class of
+    XFORM_CULL_MIN rows and more in culled chunks (``_xform_chunks``);
   * K7: the path integrator records each bounce's winner in the scene's
     prim ids, for the replay backward of ``engine='mega_diff'``
     (``trace_path_mega_diff``);
@@ -41,16 +42,23 @@ arithmetic and every decision are those of the one-thread-per-ray sweep
 normal integrators keep (camera rays only, coherent).
 
 Tables.  ``build_mega_tables`` keeps the contract of the JAX tables: the same
-prims in the same (optionally Morton) order, the same per-prim columns, the
-same chunk boxes (16 prims) and super boxes (256 prims), pad rows that
-repeat the last prim, so first-prim-wins survives padding, and the row ->
-scene maps ``sph_map`` / ``tri_map``.  It drops the TPU layout:
+prims in the same (optionally Morton) order, the same per-prim columns,
+chunk boxes (16 prims) and super boxes (256 prims) over the same prims,
+pad rows that repeat the last prim, so first-prim-wins survives padding,
+and the row -> scene maps ``sph_map`` / ``tri_map``.  It drops the TPU
+layout and adds what the kernel needs:
   * rows are 16 (sphere), 24 (triangle), 8 (box), 28 (rect, TRS sphere) and
     40 (TRS triangle) floats wide, not 128 lanes: a CUDA thread loads what
-    it needs, it needs no components-on-lanes slicing;
+    it needs, it needs no components-on-lanes slicing; a sphere or
+    triangle row carries its scene id in a pad column (S_ID, T_ID, what K7
+    records);
+  * every box is JAX's exact box widened by a margin (``_levels``:
+    ops/sweeps.py TRI_MARGIN, SPH_MARGIN), as the kernel widens it by the
+    ray origin's share, so that no box culls a hit its test accepts;
   * box tables get no extra padding to a multiple of 8 rows (a TPU sublane
-    tile), and the rect / TRS tables no padding at all: a thread walks
-    their rows one by one, with no chunks and no 1024-per-class cap;
+    tile), and the rect / TRS tables no padding at all, in scene order,
+    with no 1024-per-class cap; a class of XFORM_CULL_MIN rows or more
+    gets K8's chunk boxes and the order its chunks hold its rows in;
   * K12's coefficients ``tri_coef`` (``mxu=True``) hold JAX's values but
     only the non-zero ones, N_COEF = 24 floats per triangle (96 B; JAX's
     128-lane rows take 2,560 B, 2.7 GB at a million), laid out per super as
@@ -72,6 +80,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -87,9 +96,10 @@ from ..models.scene import Scene
 from ..models.transform import rotate_rows, transform_arrays
 from ..utils.convert import to_numpy
 from . import _cuda
-from .sweeps import (BIG, BOX_COLS, PRIM_CHUNK, TRI_EPSILON, group_boxes,
-                     pad_rows, sphere_candidates_t, triangle_candidates_t,
-                     widen)
+from .sweeps import (BIG, BOX_COLS, PRIM_CHUNK, SPH_MARGIN, TRI_EPSILON,
+                     TRI_MARGIN, group_boxes, morton_argsort, pad_rows,
+                     sphere_candidates_t, triangle_candidates_t, widen,
+                     widen_boxes)
 
 Tensor = torch.Tensor
 
@@ -143,6 +153,9 @@ N_MAT_COMPS = 9             # kind, tex kind, aux, color0 rgb, color1 rgb
 # an image material's block: image id, w, h in the color0 slots
 M_IMG, M_W, M_H = 3, 4, 5
 SPH_COLS, TRI_COLS = 16, 24
+# a sphere or triangle row's scene id, as a float (exact below 2^24), in a
+# pad column: what K7 records for a winner
+S_ID, T_ID = 15, 21
 # Rect and runtime-TRS rows share a head: position, scale, the row-major
 # rotation matrix (vec3.h:200-217), the material block.
 X_POS, X_SCL, X_ROT, X_MAT = 0, 3, 6, 15
@@ -152,6 +165,36 @@ TTRI_V0, TTRI_E1, TTRI_E2, TTRI_NOBJ, TTRI_NW = 24, 27, 30, 33, 36
 RECT_COLS, TSPH_COLS, TTRI_COLS = 28, 28, 40
 # winner classes, in the order of the prim id space
 C_SPH, C_TRI, C_RECT, C_TSPH, C_TTRI = 0, 1, 2, 3, 4
+# K8's chunks (``_xform_chunks``): a class of at least XFORM_CULL_MIN rows
+# is walked in chunks of XFORM_CHUNK rows in the Morton order of their world
+# boxes, each chunk's box row: its world box lo.xyz hi.xyz widened by
+# XFORM_MARGIN x its largest |coordinate|, the rows' scale range a.xyz
+# b.xyz, max b, 3 pad.  Below XFORM_CULL_MIN the rows are walked in table
+# order, every row tested (both sizes chosen by measurement on an H100,
+# PERF.md; not knobs).
+XBOX_COLS, XB_BMAX = 16, 12
+XFORM_CHUNK = 8
+XFORM_CULL_MIN = 64
+# The margin of K8's boxes.  A row's hit is a point of its object space,
+# which is the world point o + t normalize(d / s) on the row's world object
+# M^T (S + p) (M the row's rotation, p its position: the scale bends the
+# ray, not the object).  The rect test divides once and interpolates
+# (errors of a few u (|o| + |p| + t)), and TransformRay and the transpose
+# standing in for M's inverse add some tens of u of the same, far inside
+# the margin.  A TRS sphere's root is the sphere sweeps' (ops/sweeps.py
+# SPH_MARGIN) in object space, where |oc| = |M o - p| <= sqrt(3) (|o| +
+# R) with R the world box's largest |coordinate|: SPH_MARGIN's own bound.
+# A TRS triangle's hit is Moller-Trumbore's (TRI_MARGIN) in object space,
+# where |M o - p| + the vertices' largest |coordinate| is at most sqrt(3)
+# |o| + 4.5 R when the vertices lie within R of the object's origin (a
+# modelled prim's do): with |a| >= 2 TRI_WELL |x.d| |e1| |e2| (infinity
+# norms, object space) the hit lies within 0.34 XFORM_MARGIN (|o| + R) of
+# its box, and a sliver grazed below that may lose its hit, as K4's.  So
+# every chunk box is widened by XFORM_MARGIN = SPH_MARGIN x its largest
+# |coordinate|, and by the same share of the ray origin's in the kernel;
+# with the slack the margin leaves, the chunk test's bound on t (its entry
+# over max b, below) stays under every covered hit's rounded t.
+XFORM_MARGIN = SPH_MARGIN
 
 INTEGRATOR_IDS = {"path": 0, "lambert": 1, "normal": 2}
 F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
@@ -163,10 +206,12 @@ F_LAMBERT_ZERO_UV = 64
 PI, HALF_PI = math.pi, math.pi / 2.0
 INV_PI, INV_TWO_PI = 1.0 / math.pi, 1.0 / (2.0 * math.pi)
 # tests counted by the counting variant: chunk and super boxes, spheres,
-# triangles, rects, TRS spheres, TRS triangles, segment boxes (K6), the
-# top-level boxes ranked by the shells, once per ray and sweep (K11)
-N_COUNTS = 8
-COUNT_NAMES = ("box", "sph", "tri", "rect", "tsph", "ttri", "seg", "dist")
+# triangles, rects, TRS spheres, TRS triangles (the rows tested), segment
+# boxes (K6), the top-level boxes ranked by the shells, once per ray and
+# sweep (K11), K8's chunk boxes
+N_COUNTS = 9
+COUNT_NAMES = ("box", "sph", "tri", "rect", "tsph", "ttri", "seg", "dist",
+               "xbox")
 # the counting variant's schedule counters (``work``): bounces taken, warp
 # steps run (the iterations of a warp's loop in which some lane bounced)
 # and draws made in the kernel; bounce / (32 * warp_step) is the lanes' use
@@ -207,6 +252,15 @@ class MegaTables(NamedTuple):
                        # [0, SUPER_T]
     sph_map: Tensor    # int32[S_pad] table row -> scene sphere id
     tri_map: Tensor    # int32[T_pad] table row -> scene triangle id
+    rect_box: Tensor   # float32[ceil(R / XFORM_CHUNK), XBOX_COLS] K8's
+                       # chunks of the rects (from XFORM_CULL_MIN rows),
+                       # else [0, XBOX_COLS]
+    tsph_box: Tensor   # likewise for the TRS spheres
+    ttri_box: Tensor   # and the TRS triangles
+    rect_ord: Tensor   # int32[R] the rects in their chunks' order (Morton
+                       # of their world boxes), else [0]
+    tsph_ord: Tensor
+    ttri_ord: Tensor
     key_bounds: Tensor  # float32[2, 3] the box K10's keys quantize over
                         # (lo, span: _key_bounds)
     images: Tensor     # uint8[I, H, W, 3]: the scene's packed images, held
@@ -216,7 +270,9 @@ class MegaTables(NamedTuple):
 
 
 FLOAT_TABLES = ("sph", "sph_box", "sph_super", "tri", "tri_box",
-                "tri_super", "rect", "tsph", "ttri", "sph_seg", "tri_seg")
+                "tri_super", "rect", "tsph", "ttri", "sph_seg", "tri_seg",
+                "rect_box", "tsph_box", "ttri_box")
+XFORM_CLASSES = ("rect", "tsph", "ttri")
 
 
 def float_tables(tables: MegaTables) -> list:
@@ -341,7 +397,8 @@ def _xform_head(scene: Scene, trs, mat: Tensor):
 @torch.no_grad()
 def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
                       sph_order: Optional[np.ndarray] = None,
-                      mxu: bool = False) -> MegaTables:
+                      mxu: bool = False,
+                      xform_orders: Optional[dict] = None) -> MegaTables:
     """Pack the scene into the kernel's tables, on the scene's device (no
     autograd: the tables are a packing of the scene, and gradients reach
     the scene through the replay, ``trace_path_mega_diff``).
@@ -355,7 +412,11 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     gets one segment box per SEG_T rows, and spheres get the super level
     whatever their count.
 
-    mxu: also build K12's coefficient rows ``tri_coef`` (``_tri_coef``)."""
+    mxu: also build K12's coefficient rows ``tri_coef`` (``_tri_coef``).
+
+    xform_orders: optional {"rect" | "tsph" | "ttri": permutation} in place
+    of the Morton order of a class's rows in K8's chunks
+    (``_xform_chunks``); any order gives the same result."""
     reason = _unsupported(scene)
     if reason:
         raise NotImplementedError(reason)
@@ -387,14 +448,14 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
         cols = torch.cat([center, (radius * radius)[:, None],
                           (1.0 / radius)[:, None], _mat_lanes(scene, smat)],
                          dim=1)
-        sph = widen(pad_rows(cols, sph_mult), SPH_COLS)
-        lo, hi = center - radius[:, None], center + radius[:, None]
-        sph_box = group_boxes(lo, hi, PRIM_CHUNK, sph_mult)
-        sph_super = (group_boxes(lo, hi, SUPER_T, sph_mult) if sph_two_level
-                     else empty_box)
-        sph_seg = (group_boxes(lo, hi, SEG_T, sph_mult) if stream_sph
-                   else empty_box)
         sph_map = row_map(n_s, sph_order, sph_mult)
+        sph = widen(pad_rows(cols, sph_mult), SPH_COLS)
+        sph[:, S_ID] = sph_map.to(torch.float32)
+        lo, hi = center - radius[:, None], center + radius[:, None]
+        sph_box, sph_super, sph_seg = _levels(
+            lo, hi, sph_mult, SPH_MARGIN,
+            (PRIM_CHUNK, SUPER_T if sph_two_level else 0,
+             SEG_T if stream_sph else 0))
     else:
         sph = torch.zeros(0, SPH_COLS, device=dev)
         sph_box = sph_super = sph_seg = empty_box
@@ -407,14 +468,14 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
             v0, v1, v2, nrm, tmat = v0[o], v1[o], v2[o], nrm[o], tmat[o]
         cols = torch.cat([v0, v1 - v0, v2 - v0, nrm, _mat_lanes(scene, tmat)],
                          dim=1)
+        tri_map = row_map(n_t, tri_order, tri_mult)
         tri = widen(pad_rows(cols, tri_mult), TRI_COLS)
+        tri[:, T_ID] = tri_map.to(torch.float32)
         lo = torch.minimum(torch.minimum(v0, v1), v2)
         hi = torch.maximum(torch.maximum(v0, v1), v2)
-        tri_box = group_boxes(lo, hi, PRIM_CHUNK, tri_mult)
-        tri_super = group_boxes(lo, hi, SUPER_T, tri_mult)
-        tri_seg = (group_boxes(lo, hi, SEG_T, tri_mult) if stream_tri
-                   else empty_box)
-        tri_map = row_map(n_t, tri_order, tri_mult)
+        tri_box, tri_super, tri_seg = _levels(
+            lo, hi, tri_mult, TRI_MARGIN,
+            (PRIM_CHUNK, SUPER_T, SEG_T if stream_tri else 0))
         tri_coef = (_tri_coef(v0, v1 - v0, v2 - v0, nrm, tri_mult) if mxu
                     else no_coef)
     else:
@@ -425,17 +486,29 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     rect = torch.zeros(0, RECT_COLS, device=dev)
     tsph = torch.zeros(0, TSPH_COLS, device=dev)
     ttri = torch.zeros(0, TTRI_COLS, device=dev)
+    xchunks = {}
+    orders = xform_orders or {}
     if scene.n_rects:
         rc = scene.rects
         R, head = _xform_head(scene, rc.trs, rc.mat)
         sgn = torch.where(rc.flip, -1.0, 1.0)
         # world normal = R (0, 0, sgn): the rotation's third column
         rect = torch.cat([head, sgn[:, None], R[:, :, 2] * sgn[:, None]], 1)
+        corners = torch.tensor([[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0],
+                                [-0.5, 0.5, 0.0], [0.5, 0.5, 0.0]],
+                               device=dev)
+        xchunks["rect"] = _xform_chunks(
+            _world(R, rc.trs.position, corners[None].expand(
+                len(R), 4, 3)), 0.0, rc.trs.scale, orders.get("rect"))
     if scene.n_t_spheres:
         ts = scene.t_spheres
-        _, head = _xform_head(scene, ts.trs, ts.mat)
+        R, head = _xform_head(scene, ts.trs, ts.mat)
         tsph = widen(torch.cat([head, (ts.radius * ts.radius)[:, None],
                                 (1.0 / ts.radius)[:, None]], 1), TSPH_COLS)
+        xchunks["tsph"] = _xform_chunks(
+            _world(R, ts.trs.position, torch.zeros(len(R), 1, 3,
+                                                   device=dev)),
+            ts.radius.abs(), ts.trs.scale, orders.get("tsph"))
     if scene.n_t_triangles:
         tt = scene.t_triangles
         R, head = _xform_head(scene, tt.trs, tt.mat)
@@ -445,10 +518,72 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
             n[:, 0], n[:, 1], n[:, 2]), 1)
         ttri = widen(torch.cat([head, tt.v0, tt.v1 - tt.v0, tt.v2 - tt.v0,
                                 n, n_w], 1), TTRI_COLS)
+        xchunks["ttri"] = _xform_chunks(
+            _world(R, tt.trs.position, torch.stack([tt.v0, tt.v1, tt.v2],
+                                                   1)), 0.0, tt.trs.scale,
+            orders.get("ttri"))
+    no_xbox = torch.zeros(0, XBOX_COLS, device=dev)
+    no_ord = torch.zeros(0, dtype=torch.int32, device=dev)
+    xbox, xord = zip(*(xchunks.get(k, (no_xbox, no_ord))
+                       for k in XFORM_CLASSES))
     return MegaTables(*(x.contiguous() for x in (
         sph, sph_box, sph_super, tri, tri_box, tri_super, rect, tsph, ttri,
-        sph_seg, tri_seg, tri_coef, sph_map, tri_map,
+        sph_seg, tri_seg, tri_coef, sph_map, tri_map, *xbox, *xord,
         _key_bounds(sph_box, tri_super), scene.textures.images)), n_s, n_t)
+
+
+def _levels(lo: Tensor, hi: Tensor, mult: int, margin: float,
+            groups: tuple) -> list:
+    """The box levels of prims padded to ``mult`` (chunk, super, segment:
+    one box per ``groups[i]`` prims, or float32[0, 8] where it is 0), each
+    box widened by ``margin`` x its largest |coordinate| (ops/sweeps.py
+    TRI_MARGIN, SPH_MARGIN): the exact boxes of the TPU tables lose hits
+    that the tests accept an ulp outside their prims' box (triangles) or
+    on a line that misses the sphere by a rounding (spheres)."""
+    return [widen_boxes(group_boxes(lo, hi, g, mult), margin) if g
+            else lo.new_zeros(0, BOX_COLS) for g in groups]
+
+
+def _world(R: Tensor, pos: Tensor, pts: Tensor) -> Tensor:
+    """Points float32[K, P, 3] of each row's object space -> the world
+    points M^T (q + p) where its hits lie (M the row-major rotation, p the
+    position; XFORM_MARGIN)."""
+    return torch.einsum("kij,kpi->kpj", R, pts + pos[:, None, :])
+
+
+def _xform_chunks(world: Tensor, radius, scale: Tensor,
+                  order=None) -> tuple:
+    """K8's chunks of one class of K rows (``XFORM_CULL_MIN`` rows and up,
+    else none): each row's world object (the points ``world`` float32[K, P,
+    3], each grown by ``radius``, float32[K] or 0: a TRS sphere's centre
+    and radius), ordered by the Morton code of its box's centre, cut into
+    chunks of XFORM_CHUNK rows -> (boxes float32[ceil(K / XFORM_CHUNK),
+    XBOX_COLS]: the chunk's world box widened by XFORM_MARGIN x its largest
+    |coordinate|, its rows' scale range a, b and max b; rows int32[K] in
+    that order; ``order``, a permutation of the rows, in place of the
+    Morton order).  A chunk with a scale component that is not positive
+    and finite gets an infinite box, which no ray culls."""
+    k = world.shape[0]
+    if k < XFORM_CULL_MIN:
+        return (world.new_zeros(0, XBOX_COLS),
+                torch.zeros(0, dtype=torch.int32, device=world.device))
+    r = torch.as_tensor(radius, dtype=world.dtype, device=world.device)
+    r = r.reshape(-1, 1).expand(k, 3) if r.dim() else r
+    lo, hi = world.amin(1) - r, world.amax(1) + r
+    order = (morton_argsort((lo + hi) * 0.5) if order is None
+             else torch.as_tensor(order, device=world.device).long())
+    lo, hi, sc = (pad_rows(x[order], XFORM_CHUNK).view(-1, XFORM_CHUNK, 3)
+                  for x in (lo, hi, scale))
+    box = widen_boxes(widen(torch.cat([lo.amin(1), hi.amax(1)], 1),
+                            BOX_COLS), XFORM_MARGIN)[:, :6]
+    a, b = sc.amin(1), sc.amax(1)
+    ok = ((a > 0.0) & torch.isfinite(b)).all(1, keepdim=True)
+    inf = torch.full_like(box, math.inf)
+    box = torch.where(ok, box, torch.cat([-inf[:, :3], inf[:, 3:]], 1))
+    a, b = torch.where(ok, a, 1.0), torch.where(ok, b, 1.0)
+    out = torch.cat([box, a, b, b.amax(1, keepdim=True),
+                     box.new_zeros(box.shape[0], XBOX_COLS - 13)], 1)
+    return out, order.to(torch.int32)
 
 
 def _key_bounds(sph_box: Tensor, tri_super: Tensor) -> Tensor:
@@ -458,7 +593,9 @@ def _key_bounds(sph_box: Tensor, tri_super: Tensor) -> Tensor:
     without them).  The JAX package quantizes over the alive origins' own
     range, which needs a pass over every ray before the keys; the scene's
     box holds the hit points, and changes which rays share a warp, never a
-    result."""
+    result.  The boxes carry their margins (``_levels``), so the keys move
+    with them against exact boxes': that regroups rays, and no result
+    changes."""
     boxes = torch.cat([sph_box, tri_super])
     if not boxes.shape[0]:
         return torch.stack([boxes.new_zeros(3), boxes.new_ones(3)])
@@ -536,7 +673,7 @@ def _library() -> ctypes.CDLL:
             [vp] * 17 + [ci] * 11 + [cf] * 3
             + [ci, ctypes.c_uint64, vp, ci, ci]
             + [vp] * 2 + [ci] * 5 + [vp] * 3 + [ci] + [vp] * 5
-            + [ci, vp])
+            + [ci] + [vp] * 6 + [ci] * 3 + [vp])
         lib.crt_mega_trace.restype = ci
         lib.crt_mega_path_instance.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
         lib.crt_mega_path_instance.restype = ci
@@ -593,6 +730,72 @@ def _require_cuda(name: str, x: Tensor, dtype=torch.float32,
 
 def _require_cuda_f32(name: str, x: Tensor, shape=None) -> None:
     _require_cuda(name, x, torch.float32, shape)
+
+
+class _TableArgs(NamedTuple):
+    """What a launch passes the C entry from its tables, in its order."""
+    head: tuple        # the 9 float tables, sph_map, tri_map (pointers)
+    counts: tuple      # sphere chunks and supers, triangle supers, rects,
+                       # TRS spheres, TRS triangles, the scene's counts
+    images: int        # the packed images (pointer)
+    image_hw: tuple
+    segs: tuple        # segment tables (pointers) and their counts
+    key_bounds: int
+    xform: tuple       # K8's chunk boxes, row orders (pointers), chunks
+    n_xform: int       # rect / TRS rows
+
+
+# The tables launches have checked, by the id of their MegaTables: weak
+# references to its tensors, the device, and its _TableArgs, so that the
+# launches of a render check a table set once.  An entry is used only while
+# every tensor of the tables is the one it checked.
+_CHECKED: dict = {}
+_CHECKED_MAX = 16
+
+
+def _table_args(tables: MegaTables, device) -> _TableArgs:
+    """The tables' _TableArgs, after checking every table is a contiguous
+    16-byte aligned CUDA tensor of its dtype on ``device`` (once per table
+    set, ``_CHECKED``)."""
+    tensors = tables[:-2]
+    hit = _CHECKED.get(id(tables))
+    if (hit is not None and hit[1] == device
+            and all(r() is t for r, t in zip(hit[0], tensors))):
+        return hit[2]
+    ints = ("sph_map", "tri_map") + tuple(k + "_ord" for k in XFORM_CLASSES)
+    for name in FLOAT_TABLES + ("key_bounds",) + ints:
+        t = getattr(tables, name)
+        _require_cuda(name, t, torch.int32 if name in ints
+                      else torch.float32)
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, rays on {device}")
+    images = tables.images
+    if (images.dtype != torch.uint8 or images.device != device
+            or not images.is_contiguous()):
+        raise ValueError(f"images must be a contiguous uint8 tensor on "
+                         f"{device}; got {images.dtype} on {images.device}")
+    boxes = [getattr(tables, k + "_box") for k in XFORM_CLASSES]
+    args = _TableArgs(
+        tuple(getattr(tables, k).data_ptr() for k in FLOAT_TABLES[:9])
+        + (tables.sph_map.data_ptr(), tables.tri_map.data_ptr()),
+        (tables.sph_box.shape[0], tables.sph_super.shape[0],
+         tables.tri_super.shape[0], tables.rect.shape[0],
+         tables.tsph.shape[0], tables.ttri.shape[0], tables.n_spheres,
+         tables.n_triangles),
+        tables.images.data_ptr(), tuple(tables.images.shape[1:3]),
+        (tables.sph_seg.data_ptr(), tables.tri_seg.data_ptr(),
+         tables.sph_seg.shape[0], tables.tri_seg.shape[0]),
+        tables.key_bounds.data_ptr(),
+        tuple(b.data_ptr() for b in boxes)
+        + tuple(getattr(tables, k + "_ord").data_ptr()
+                for k in XFORM_CLASSES)
+        + tuple(b.shape[0] for b in boxes),
+        sum(getattr(tables, k).shape[0] for k in XFORM_CLASSES))
+    if len(_CHECKED) >= _CHECKED_MAX:
+        _CHECKED.pop(next(iter(_CHECKED)))
+    _CHECKED[id(tables)] = (tuple(weakref.ref(t) for t in tensors), device,
+                            args)
+    return args
 
 
 def _use_mxu(tables: MegaTables, cfg: RenderConfig,
@@ -744,19 +947,8 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     steps = _check_window(window, cfg, n, want_winners)
     _require_cuda_f32("origin", origin, (n, 3))
     _require_cuda_f32("direction", direction, (n, 3))
-    for name in FLOAT_TABLES + ("key_bounds", "sph_map", "tri_map"):
-        t = getattr(tables, name)
-        _require_cuda(name, t, torch.int32 if name.endswith("map")
-                      else torch.float32)
-        if t.device != origin.device:
-            raise ValueError(f"{name} is on {t.device}, rays on "
-                             f"{origin.device}")
+    targs = _table_args(tables, origin.device)
     tex, mxu, f2b = launch_modes(tables, cfg, want_winners)
-    if tex:
-        _require_cuda("images", tables.images, torch.uint8)
-        if tables.images.device != origin.device:
-            raise ValueError(f"images are on {tables.images.device}, rays "
-                             f"on {origin.device}")
     if stream is not None:
         _require_cuda_f32("stream", stream, (cfg.max_depth + 1, n, 4))
     for name, dtype in (("planes", torch.float32), ("order", torch.int32),
@@ -801,9 +993,6 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         if tables.tri_coef.device != origin.device:
             raise ValueError(f"tri_coef is on {tables.tri_coef.device}, "
                              f"rays on {origin.device}")
-    n_x = sum(getattr(tables, k).shape[0] for k in ("rect", "tsph", "ttri"))
-    n_segs = tables.sph_seg.shape[0] + tables.tri_seg.shape[0]
-
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
@@ -813,33 +1002,27 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
         counter = (torch.empty(1, dtype=torch.int32, device=origin.device)
                    if cfg.integrator == "path" else None)
         code = lib.crt_mega_trace(
-            *(getattr(tables, k).data_ptr() for k in FLOAT_TABLES[:9]),
-            tables.sph_map.data_ptr(), tables.tri_map.data_ptr(),
-            origin.data_ptr(), direction.data_ptr(), ptr(stream),
-            ptr(out) if planes is None else None, ptr(winners), ptr(counts),
-            n, tables.sph_box.shape[0], tables.sph_super.shape[0],
-            tables.tri_super.shape[0], tables.rect.shape[0],
-            tables.tsph.shape[0], tables.ttri.shape[0], tables.n_spheres,
-            tables.n_triangles, INTEGRATOR_IDS[cfg.integrator],
+            *targs.head, origin.data_ptr(), direction.data_ptr(),
+            ptr(stream), ptr(out) if planes is None else None, ptr(winners),
+            ptr(counts), n, *targs.counts, INTEGRATOR_IDS[cfg.integrator],
             cfg.max_depth, float(np.float32(cfg.t_min)),
             float(np.float32(cfg.t_max)),
             float(cfg.quirks.ambient_on_absorb),
             _flags(cfg, stream is not None), seed & (2 ** 64 - 1),
-            tables.images.data_ptr() if tex and counts is None else None,
-            tables.images.shape[1], tables.images.shape[2],
-            tables.sph_seg.data_ptr(), tables.tri_seg.data_ptr(),
-            tables.sph_seg.shape[0], tables.tri_seg.shape[0], f2b,
+            targs.images if tex and counts is None else None,
+            *targs.image_hw, *targs.segs, f2b,
             window.step_lo, steps, ptr(planes), ptr(window.order),
-            ptr(window.key), window.key_mode, tables.key_bounds.data_ptr(),
+            ptr(window.key), window.key_mode, targs.key_bounds,
             tables.tri_coef.data_ptr() if mxu else None,
             ptr(touched), ptr(work), ptr(counter), int(per_thread),
-            cuda_stream)
+            *targs.xform, cuda_stream)
     _check(lib, code, "megakernel")
     if counts is None:
-        modes = [k for k, on in (("mega_trace_xform", n_x),
+        modes = [k for k, on in (("mega_trace_xform", targs.n_xform),
                                  ("mega_winners", want_winners),
                                  ("mega_trace_tex", tex),
-                                 ("mega_stream", n_segs),
+                                 ("mega_stream", targs.segs[2]
+                                  + targs.segs[3]),
                                  ("mega_window", window.partial(cfg)),
                                  ("mega_f2b", f2b),
                                  ("mega_mxu", mxu)) if on]
@@ -1391,13 +1574,101 @@ def _sweep_plain(tables: MegaTables, o: Tensor, d: Tensor, inv_raw: Tensor,
     return _record(tables, o, d, t, cls, idx, cfg, want_uv)
 
 
+def xchunk_plain(box: Tensor, o: Tensor, inv: Tensor, best: Tensor,
+                 same: Tensor, lo_ok: bool) -> Tensor:
+    """K8's chunk test (csrc/megakernel.cuh ``xchunk``) of rays float32[N,
+    3] (origins and 1 / d) against one chunk row float32[XBOX_COLS], the
+    box widened by XFORM_MARGIN x the origin's largest |coordinate| ->
+    bool[N]: the chunk may hold a hit that beats ``best`` (same: the best
+    so far is of the chunk's class, so a tie at its bound may still win;
+    lo_ok: the class's window starts at or above 0).  NaN keeps it."""
+    m = o.abs().amax(1, keepdim=True) * XFORM_MARGIN
+    t0 = (box[0:3] - (o + m)) * inv
+    t1 = (box[3:6] - (o - m)) * inv
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    a, b = box[6:9], box[9:12]
+    en_k = torch.minimum(near * a, near * b)
+    ex_k = torch.maximum(far * a, far * b)
+    en = torch.maximum(torch.maximum(en_k[:, 0], en_k[:, 1]), en_k[:, 2])
+    ex = torch.minimum(torch.minimum(ex_k[:, 0], ex_k[:, 1]), ex_k[:, 2])
+    bt = best * box[XB_BMAX]
+    cull = ((ex < en) | ((ex < 0.0) & lo_ok)
+            | ((en >= 0.0) & ((en > bt) | ((en == bt) & ~same))))
+    return ~cull
+
+
+def xform_walk_plain(tables: MegaTables, o: Tensor, d: Tensor,
+                     cfg: RenderConfig) -> tuple:
+    """Plain version of K8's culled walk (csrc/megakernel.cuh
+    ``xform_class``), for holding the cull and its tie rule to the brute
+    force (``_sweep_plain``; the fused plain version stays brute force):
+    after the sphere and triangle sweeps, each class's rows in table order
+    when it has no chunks, else its chunks in their order, a chunk's rows
+    tested on the rays whose ``xchunk_plain`` holds, a row taking a ray when
+    nearer, or as near with a lower row of the same class (the key (t,
+    class, row), so a chunk's rows are taken together) -> (t float32[N],
+    class int64[N], row int64[N], {"xbox": chunk tests, "rect" / "tsph" /
+    "ttri": rows tested}), the counts as the counting instance makes
+    them."""
+    t_min, t_max = float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max))
+    empty = {k: getattr(tables, k)[:0] for k in XFORM_CLASSES}
+    inv_raw = _inv_len(d)
+    first = _sweep_plain(tables._replace(**empty), o, d, inv_raw, cfg)
+    t, cls, idx = first.t.clone(), first.cls.clone(), first.idx.clone()
+    inv = 1.0 / d
+    every = torch.arange(o.shape[0], device=o.device)
+    counts = {"xbox": 0}
+
+    def take(c, rows, test, ks, r):
+        """Rows ``ks`` of class c on rays ``r``, taken by (t, class, row)."""
+        sel = rows[ks]
+        valid, tn = test(sel, *_xray(sel, [o[r, k:k + 1] for k in range(3)],
+                                     [d[r, k:k + 1] for k in range(3)]),
+                         t_min, t_max, cfg.quirks)
+        tk = tn * inv_raw[r, None]
+        valid = valid & ~torch.isnan(tk)
+        tm = torch.where(valid, tk, math.inf).amin(1)
+        row = torch.where(valid & (tk == tm[:, None]), ks[None, :],
+                          rows.shape[0]).amin(1)
+        won = (row < rows.shape[0]) & ((tm < t[r]) | (
+            (tm == t[r]) & (cls[r] == c) & (row < idx[r])))
+        w = r[won]
+        t[w], cls[w], idx[w] = tm[won], c, row[won]
+
+    for c, name, test in _XFORM:
+        rows, box = getattr(tables, name), getattr(tables, name + "_box")
+        order = getattr(tables, name + "_ord").long()
+        lo_ok = t_min >= 0.0 and not (c == C_TTRI
+                                      and cfg.quirks.triangle_no_t_clip)
+        counts[name] = 0
+        if not box.shape[0]:
+            for k in range(0, rows.shape[0], SUPER_T):
+                ks = torch.arange(k, min(k + SUPER_T, rows.shape[0]),
+                                  device=o.device)
+                counts[name] += ks.numel() * o.shape[0]
+                take(c, rows, test, ks, every)
+            continue
+        for j in range(box.shape[0]):
+            counts["xbox"] += o.shape[0]
+            at = xchunk_plain(box[j], o, inv, t, cls == c, lo_ok)
+            ks = order[j * XFORM_CHUNK:(j + 1) * XFORM_CHUNK]
+            r = torch.nonzero(at)[:, 0]
+            counts[name] += ks.numel() * r.numel()
+            if r.numel():
+                take(c, rows, test, ks, r)
+    return t, cls, idx, counts
+
+
 def _slab_plain(box: Tensor, o: Tensor, inv: Tensor, best: Tensor,
                 lo_cut: float) -> Tensor:
     """The kernel's negated slab test of rays float32[N, 3] (origins and 1
-    / d) against one box float32[8] -> bool[N]: reachable unless it lies
-    behind lo_cut or starts at or beyond ``best``; NaN keeps it."""
-    t0 = (box[0:3] - o) * inv
-    t1 = (box[3:6] - o) * inv
+    / d) against one triangle box float32[8], widened by TRI_MARGIN x the
+    origin's largest |coordinate| as the kernel's slab_ray widens it ->
+    bool[N]: reachable unless it lies behind lo_cut or starts at or beyond
+    ``best``; NaN keeps it."""
+    m = o.abs().amax(1, keepdim=True) * TRI_MARGIN
+    t0 = (box[0:3] - (o + m)) * inv
+    t1 = (box[3:6] - (o - m)) * inv
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
     near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
     far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])

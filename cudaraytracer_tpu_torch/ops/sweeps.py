@@ -27,9 +27,13 @@ What the culled forms guarantee against the plain ones (brute force):
     that grazes a sliver (|a| below that) may lose its hit to the cull,
     as it may to the TPU kernel's exact boxes; ``triangle_conditioned``
     tells which winners are covered;
-  * spheres: the boxes are the spheres' exact boxes, as the TPU kernel's,
-    with no derived margin; held against the plain version on the
-    launches chip_smoke.py and the card tests run.
+  * spheres: a sphere's box, widened by SPH_MARGIN x (the box's largest
+    |coordinate| + the ray origin's), holds every point where the half-b
+    quadratic accepts a root (derived below), so the culled sweep gives
+    the plain version's (t, idx) on every ray.  The exact boxes (the TPU
+    kernel's) can lose a ray tangent to a sphere: the cancellation in
+    |oc|^2 - r^2 lets the computed discriminant be positive on a line
+    that misses the sphere by up to sqrt(u) |oc|.
 
 TPU layout dropped (a CUDA thread loads what it needs):
   * no 32 x 128 ray tiles or per-tile any() votes: each ray culls its own
@@ -94,11 +98,30 @@ SPH_SUPER_MIN = 1024
 # 4 R + |D|); e1 and e2 rounded from the vertices add 4 u R, and the slab's
 # own rounding 3 u (|box| + |o|).  In all under 9,700 u (|o| + R) = 0.59
 # TRI_MARGIN (|o| + R): each box is widened by TRI_MARGIN x its largest
-# |coordinate| here (``_widen``) and by TRI_MARGIN x the ray origin's
+# |coordinate| here (``widen_boxes``) and by TRI_MARGIN x the ray origin's
 # largest |coordinate| in the kernel, so such a hit keeps its box's slab
 # true against any running best above its t.
 TRI_MARGIN = 2.0 ** -10
 TRI_WELL = 2.0 ** -6
+# The sphere boxes' margin.  With oc = o - c, a = d.d, b = oc.d and r2 the
+# stored r^2, the exact discriminant of the line is b^2 - a (|oc|^2 - r2)
+# = a (r2 - h^2), h the distance from c to the line.  Rounded as the
+# kernels round it (oc, then b and |oc|^2 - r2, then b^2 - a c; no fused
+# multiply-add), the computed discriminant is within 21 u a (|oc|^2 + r2)
+# of it to first order (b: 4 u |oc| |d|, squared 9 u; oc.oc - r2: 6 u
+# |oc|^2 + u r2; times a: 4 u more; the last subtraction 2 u), which we
+# take as 32 u.  So a root is accepted only where h^2 < r2 + 32 u (|oc|^2
+# + r2): the line passes within r + sqrt(33 u) (|oc| + r) of c, 2-norms.
+# The accepted t lies on that line within the ball of that radius, up to
+# the root's own rounding, 8 u (|oc| + r) in distance, and the slab's, 3 u
+# (|box| + |o|).  With |oc| + r <= sqrt(3) (|o| + R) (infinity norms, R the
+# box's largest |coordinate|, which is at least |c| + r), the point lies
+# within sqrt(99 u) (|o| + R) + 17 u (|o| + R) < 0.63 SPH_MARGIN (|o| + R)
+# of the sphere's exact box: each sphere box is widened by SPH_MARGIN x its
+# largest |coordinate| here and by SPH_MARGIN x the ray origin's in the
+# kernel, so no accepted root is culled, whatever the ray.  The bound is
+# sqrt(u) wide because of the cancellation, hence four times TRI_MARGIN.
+SPH_MARGIN = 2.0 ** -8
 # plain versions bound their (rays x prims) candidate matrices to this
 PLAIN_ELEMENTS = 1 << 22
 N_ATTRS = 21         # K5 attribute row: center(3), radius, mat, decode(16)
@@ -176,12 +199,12 @@ def _box_levels(lo: Tensor, hi: Tensor, supers: bool = True,
     groups = (PRIM_CHUNK, SUPER_PRIMS) if supers else (PRIM_CHUNK,)
     levels = [group_boxes(lo, hi, g, g) for g in groups]
     if margin:      # both levels widened in one pass
-        levels = _widen(torch.cat(levels), margin).split(
+        levels = widen_boxes(torch.cat(levels), margin).split(
             [b.shape[0] for b in levels])
     return levels[0], levels[1] if supers else None
 
 
-def _widen(box: Tensor, margin: float) -> Tensor:
+def widen_boxes(box: Tensor, margin: float) -> Tensor:
     """Boxes float32[k, 8] widened on every side by ``margin`` x each
     box's largest |coordinate|."""
     lo, hi = box[:, 0:3], box[:, 3:6]
@@ -192,13 +215,14 @@ def _widen(box: Tensor, margin: float) -> Tensor:
 def sphere_table(center: Tensor, radius: Tensor):
     """(float32[C_pad, 4] rows cx cy cz r^2, float32[C_pad / 16, 8] chunk
     boxes, float32[ceil(C_pad / 256), 8] super boxes from SPH_SUPER_MIN
-    spheres up, else None), padded by repeating the last sphere."""
+    spheres up, else None; each box widened by SPH_MARGIN x its largest
+    |coordinate|), padded by repeating the last sphere."""
     center_p = pad_rows(center, PRIM_CHUNK)
     radius_p = pad_rows(radius, PRIM_CHUNK)
     tbl = torch.cat([center_p, (radius_p * radius_p)[:, None]], dim=1)
     box, sup = _box_levels(center_p - radius_p[:, None],
                            center_p + radius_p[:, None],
-                           center.shape[0] >= SPH_SUPER_MIN)
+                           center.shape[0] >= SPH_SUPER_MIN, SPH_MARGIN)
     return tbl.contiguous(), box, sup
 
 

@@ -6,9 +6,11 @@ bilinear triangle sweep K12 (K6, K11 and K12 by the cooperative sweeps,
 held also against the one-thread-per-ray sweep), the path integrator's
 persistent warps that refill finished lanes (K1, K7, K8 and K9 at 1 to
 2^18 + 7 rays, one and two sphere box levels), the draws K2
-(csrc/megakernel*.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), and the
-wavefront render, the fit, the mega_diff fit and the animation driver
-through them.
+(csrc/megakernel*.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), the
+boxes' margins on rays that stress them (box planes, slivers, tangents to
+spheres), K8's culled walk on its edge rays and its counts against its
+plain walk, and the wavefront render, the fit, the mega_diff fit and the
+animation driver through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -31,6 +33,7 @@ means in another order).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -219,12 +222,13 @@ def test_counting_variant_matches_production(cuda):
                               9, counts=counts)
     plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
     assert torch.equal(counted, plain)
-    n_box, n_sph, n_tri, n_rect, n_tsph, n_ttri, n_seg, n_dist = \
+    n_box, n_sph, n_tri, n_rect, n_tsph, n_ttri, n_seg, n_dist, n_xbox = \
         counts.tolist()
     assert n_box > 0 and n_sph > 0 and n_tri > 0
     assert n_sph % 16 == 0 and n_tri % 16 == 0
-    assert n_rect == n_tsph == n_ttri == n_seg == n_dist == 0
-    # K8's counting variant: every rect / TRS row once per ray and bounce
+    assert n_rect == n_tsph == n_ttri == n_seg == n_dist == n_xbox == 0
+    # K8's counting variant below XFORM_CULL_MIN rows a class (the flat
+    # walk): every rect / TRS row once per ray and bounce, no chunk test
     scene, cam = cs.trs_showcase_scene(2.0, device=cuda)
     tables = mk.morton_tables(scene)
     counts.zero_()
@@ -234,6 +238,7 @@ def test_counting_variant_matches_production(cuda):
     assert torch.equal(counted, plain)
     n_rect, n_tsph, n_ttri = counts.tolist()[3:6]
     assert n_rect > 0 and n_tsph == 2 * n_rect and n_ttri == n_rect
+    assert counts.tolist()[8] == 0
 
 
 @pytest.mark.gpu
@@ -1545,3 +1550,201 @@ def test_refill_counting_instance_counts_the_schedule(cuda, n_grid):
     n = rays.origin.shape[0]
     assert n <= bounces <= (DEPTH + 1) * n
     assert bounces <= 32 * warp_steps and 0 < draws < bounces
+
+
+# ---------------------------------------------------------------------------
+# The fused tables' margins, K8's culled walk and K7's fill
+# ---------------------------------------------------------------------------
+
+def _stress_rays(case, dev):
+    """(scene, tables, origins, directions, quirks) of a stress case: rays
+    along the planes of the icosphere's exact chunk or super boxes, rays
+    grazing 4,096 slivers, or rays tangent to spheres where they touch
+    their boxes (2^14 rays)."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    n = 1 << 14
+    kind, arg, profile = case
+    quirks = getattr(Quirks, profile)()
+    if kind == "planes":
+        scene, _ = cs.icosphere_scene(2.0, device=dev)
+        tables = mk.morton_tables(scene)
+        tr = scene.triangles
+        rows = tables.tri_map.long()
+        v0, v1, v2 = (x[rows] for x in (tr.v0, tr.v1, tr.v2))
+        box = sw.group_boxes(torch.minimum(torch.minimum(v0, v1), v2),
+                             torch.maximum(torch.maximum(v0, v1), v2), arg,
+                             arg)
+        o, d = cs.plane_rays(box.cpu().numpy(), tr.v0.mean(0).cpu().numpy(),
+                             n, 5)
+    elif kind == "slivers":
+        v = cs.sliver_cylinder()
+        b = SceneBuilder()
+        mat = b.materials.lambertian(color=(0.5, 0.5, 0.5))
+        pts = np.concatenate(v)
+        b.add_mesh(pts, np.arange(len(pts)).reshape(3, -1).T, mat,
+                   reverse_winding=False)
+        scene = b.build(dev)
+        tables = mk.morton_tables(scene)
+        o, d = cs.grazing_rays(n, *arg, seed=11)
+    else:
+        scene = (presets.random_spheres(2.0, device=dev)[0]
+                 if arg == "random_spheres"
+                 else cs.fill_sphere_field(SceneBuilder()).build(dev))
+        tables = mk.morton_tables(scene)
+        sp = scene.spheres
+        o, d = cs.tangent_rays(sp.center.cpu().numpy(),
+                               sp.radius.cpu().numpy(), n, 7)
+    return (scene, tables, torch.as_tensor(o, device=dev),
+            torch.as_tensor(d, device=dev), quirks)
+
+
+STRESS = [("planes", 16, "reference"), ("planes", 16, "fixed"),
+          ("planes", 256, "fixed"), ("slivers", (1e-3, 1e-1), "reference"),
+          ("slivers", (1e-6, 1e-3), "fixed"),
+          ("tangent", "random_spheres", "reference"),
+          ("tangent", "sphere_field", "reference")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", STRESS, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_fused_margins_keep_every_covered_winner(cuda, case):
+    """The fused kernel's first hit (the path at depth 0 with its winners,
+    and lambert) on rays that stress the boxes' margins equals the plain
+    version's wherever the plain winner is covered by the margins' proof
+    (every sphere hit; a triangle hit with |a| >= TRI_WELL |d| |e1|
+    |e2|); K3's culled instances lose no tangent hit."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    scene, tables, o, d, quirks = _stress_rays(case, cuda)
+    rays = Rays(o, d, o.new_zeros(0))
+    cfg = RenderConfig(max_depth=0, quirks=quirks, engine="mega")
+    _, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=1,
+                                want_winners=True)
+    _, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 1, True)
+    win, wref = win[0].long(), wref[0].long()
+    covered = torch.ones_like(wref, dtype=torch.bool)
+    if scene.n_triangles:
+        tr = scene.triangles
+        k = wref.clamp(0, scene.n_triangles - 1)
+        covered = sw.triangle_conditioned(d, tr.v1[k] - tr.v0[k],
+                                          tr.v2[k] - tr.v0[k])
+    assert not bool(((win != wref) & covered).any())
+    lam = dataclasses.replace(cfg, integrator="lambert")
+    got = mk.trace_path_mega(scene, rays, lam, tables=tables)
+    ref = mk.trace_path_mega_plain(tables, rays, lam)
+    assert not bool(((got != ref).any(1) & covered).any())
+    if case[0] == "tangent":
+        sp = scene.spheres
+        tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
+        ref_h = sw.sphere_best_hit_plain(o, d, sp.center, sp.radius, T_MIN,
+                                         T_MAX)
+        for coop in (False, True):
+            got_h = sw.launch_sphere_sweep(o, d, tbl, box, None, None, T_MIN,
+                                           T_MAX, sup=sup, coop=coop)
+            assert torch.equal(got_h[1], ref_h[1])
+
+
+def _xform_sets(scene, cam, cfg, dev, n=1 << 13):
+    sets = {"camera": _first_launch(cam, cfg, dev, 3)[:2]}
+    for name, (o, d) in cs.xform_edge_rays(scene, n, 19).items():
+        sets[name] = (torch.as_tensor(o, device=dev),
+                      torch.as_tensor(d, device=dev))
+    return {k: (o[:n].contiguous(), d[:n].contiguous())
+            for k, (o, d) in sets.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+@pytest.mark.parametrize("copies", [1, 2])
+def test_xform_cull_matches_plain_on_edge_rays(cuda, profile, copies):
+    """K8's culled walk on 1,100 rows a class (one copy) and on 40 rows a
+    class each copied once and walked copies first (two copies: exact ties
+    across chunks in reverse row order), camera rays and every
+    ``xform_edge_rays`` set: the three integrators on an injected stream
+    and the path on in-kernel draws with its winners (K7) equal to the
+    plain version's."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    cfg = RenderConfig(width=640, height=360, samples=4, max_depth=4,
+                       quirks=getattr(Quirks, profile)(), engine="mega")
+    if copies == 1:
+        scene, cam = cs.trs_field_scene(1100, 640 / 360, device=cuda)
+        tables = mk.morton_tables(scene)
+    else:
+        scene, cam = cs.trs_duplicates_scene(40, 640 / 360, device=cuda)
+        tables = mk.build_mega_tables(scene,
+                                      xform_orders=cs.duplicate_orders(40))
+    assert tables.rect_box.shape[0] > 1
+    for name, (o, d) in _xform_sets(scene, cam, cfg, cuda).items():
+        rays = Rays(o, d, o.new_zeros(0))
+        n = o.shape[0]
+        stream = stream_from_generator(
+            torch.Generator(device=cuda).manual_seed(6), n, 4, cuda)
+        st = mk.stream_tensor(stream, n, 5)
+        for integrator in INTEGRATORS:
+            c = dataclasses.replace(cfg, integrator=integrator)
+            got = mk.trace_path_mega(scene, rays, c, tables=tables,
+                                     samples=stream)
+            _assert_rays_match(got, mk.trace_path_mega_plain(tables, rays, c,
+                                                             st))
+        got, win = mk.trace_path_mega(scene, rays, cfg, tables=tables,
+                                      seed=8, want_winners=True)
+        ref, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 8,
+                                             True)
+        _assert_rays_match(got, ref)
+        assert torch.equal(win, wref), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["reference", "fixed"])
+def test_xform_counting_instance_counts_the_culled_walk(cuda, profile):
+    """On (i)'s rows, one bounce of camera rays: the counting instance
+    makes the chunk and super tests and the row tests of the plain walk
+    (``megakernel.xform_walk_plain``) exactly, so the kernel's cull takes
+    the plain walk's decisions, and tests fewer rows than the brute
+    force."""
+    scene, cam = cs.trs_field_scene(1100, 640 / 360, device=cuda)
+    cfg = RenderConfig(width=640, height=360, samples=4, max_depth=0,
+                       quirks=getattr(Quirks, profile)(), engine="mega")
+    tables = mk.morton_tables(scene)
+    rays = _first_launch(cam, cfg, cuda, 4)
+    counts = torch.zeros(mk.N_COUNTS, dtype=torch.int64, device=cuda)
+    counted = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None,
+                              9, counts=counts)
+    plain = mk._launch_mega(tables, rays.origin, rays.direction, cfg, None, 9)
+    assert torch.equal(counted, plain)
+    c = dict(zip(mk.COUNT_NAMES, counts.tolist()))
+    _, _, _, walk = mk.xform_walk_plain(tables, rays.origin, rays.direction,
+                                        cfg)
+    for k in ("xbox", "rect", "tsph", "ttri"):
+        assert c[k] == walk[k], k
+    assert 0 < c["rect"] + c["tsph"] + c["ttri"] < (
+        3 * 1100 * rays.origin.shape[0] / 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["K7", "K7+K8", "K7+K6"])
+def test_winners_match_plain_on_every_instance(cuda, kind):
+    """K7's winners, read from the rows' id columns (the scene ids of
+    spheres and triangles in Morton tables), on the persistent warps (K7,
+    and K7 with K8's cooperative culled walk) and on the cooperative
+    instances above 8,192 triangles (K6): every entry, the -1s after each
+    path's end included, equal to the plain version's."""
+    if kind == "K7+K6":
+        scene, tables, cfg, rays = _big_field_launch(cuda)
+        rays = type(rays)(*(x[:1 << 12].contiguous() for x in rays))
+    elif kind == "K7+K8":
+        scene, cam = cs.trs_field_scene(1100, 640 / 360, device=cuda)
+        cfg = RenderConfig(width=640, height=360, samples=4, max_depth=DEPTH,
+                           quirks=Quirks.fixed(), engine="mega")
+        tables = mk.morton_tables(scene)
+        rays = _n_rays(cam, cfg, cuda, 1 << 14)
+    else:
+        scene, cam, cfg = _frame("random_spheres", cuda)
+        tables = mk.morton_tables(scene)
+        rays = _n_rays(cam, cfg, cuda, 1 << 16)
+        assert not torch.equal(tables.sph_map, torch.arange(
+            tables.sph_map.shape[0], device=cuda, dtype=torch.int32))
+    _, win = mk.trace_path_mega(scene, rays, cfg, tables=tables, seed=17,
+                                want_winners=True)
+    _, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 17, True)
+    assert torch.equal(win, wref)
+    assert int(win.min()) == -1 and int(win.max()) >= 0

@@ -27,6 +27,7 @@ from cudaraytracer_tpu_torch.models import textures as ttex
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
 from cudaraytracer_tpu_torch.ops import integrators as tinteg
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
+from cudaraytracer_tpu_torch.ops import sweeps as tsw
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.ops.render import render_image
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
@@ -182,31 +183,47 @@ def test_morton_orders_match_jax():
                                   jmk.mega_sphere_order(v0))
 
 
+def _widened(jax_box, k, margin):
+    """JAX's exact boxes (its first k rows) widened as the port widens its
+    own (ops/megakernel.py ``_levels``: margin x each box's largest
+    |coordinate|)."""
+    box = torch.zeros(k, 8)
+    box[:, :6] = torch.tensor(np.asarray(jax_box[:k, :6]))
+    return tsw.widen_boxes(box, margin).numpy()[:, :6]
+
+
 def _assert_tables_match(js, ts, tri_order, sph_order):
-    """The port's tables hold the JAX tables' columns, rows, chunk boxes and
-    super boxes exactly; only the TPU padding (128 lanes, box rows to a
-    multiple of 8) is gone."""
+    """The port's tables hold the JAX tables' columns and rows exactly, and
+    a row's scene id in a pad column (K7's id, the row map's value); its
+    chunk and super boxes are JAX's exact boxes widened by the port's
+    margins (SPH_MARGIN, TRI_MARGIN); the TPU padding (128 lanes, box rows
+    to a multiple of 8) is gone."""
     jt = _np_tree(jmk.build_mega_tables(js, tri_order=tri_order,
                                         sph_order=sph_order))
     tt = to_numpy(tmk.build_mega_tables(ts, tri_order, sph_order))
     if js.n_spheres:
         np.testing.assert_array_equal(tt.sph[:, :14], jt.sph[:, :14])
-        assert not tt.sph[:, 14:].any()
+        assert not tt.sph[:, 14].any()
+        np.testing.assert_array_equal(tt.sph[:, tmk.S_ID], tt.sph_map)
         k = tt.sph_box.shape[0]
-        np.testing.assert_array_equal(tt.sph_box[:, :6], jt.sph_box[:k, :6])
+        np.testing.assert_array_equal(
+            tt.sph_box[:, :6], _widened(jt.sph_box, k, tsw.SPH_MARGIN))
         if js.n_spheres > tmk.SPH_SUPER_MIN:
             k = tt.sph_super.shape[0]
-            np.testing.assert_array_equal(tt.sph_super[:, :6],
-                                          jt.sph_super[:k, :6])
+            np.testing.assert_array_equal(
+                tt.sph_super[:, :6],
+                _widened(jt.sph_super, k, tsw.SPH_MARGIN))
         else:
             assert tt.sph_super.shape == (0, 8)
     if js.n_triangles:
         np.testing.assert_array_equal(tt.tri[:, :21], jt.tri[:, :21])
+        np.testing.assert_array_equal(tt.tri[:, tmk.T_ID], tt.tri_map)
         k = tt.tri_box.shape[0]
-        np.testing.assert_array_equal(tt.tri_box[:, :6], jt.tri_box[:k, :6])
+        np.testing.assert_array_equal(
+            tt.tri_box[:, :6], _widened(jt.tri_box, k, tsw.TRI_MARGIN))
         k = tt.tri_super.shape[0]
-        np.testing.assert_array_equal(tt.tri_super[:, :6],
-                                      jt.tri_super[:k, :6])
+        np.testing.assert_array_equal(
+            tt.tri_super[:, :6], _widened(jt.tri_super, k, tsw.TRI_MARGIN))
     return tt
 
 

@@ -50,6 +50,7 @@ from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
 from cudaraytracer_tpu_torch.ops import integrators as tinteg
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
+from cudaraytracer_tpu_torch.ops import sweeps as tsw
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import to_numpy
 from test_torch_megakernel import _np_tree, _rays_np, _stream_np
@@ -100,8 +101,10 @@ def _trays(o, d):
 @pytest.mark.parametrize("name", ["terrain", "sphere_field"])
 def test_streamed_tables_match_jax(name):
     """Above 8,192 prims of a type: rows padded (repeat-last) to a SEG_T
-    multiple, segment and super boxes equal to JAX's, the sphere super
-    level forced on, equal row -> scene maps."""
+    multiple, segment, super and chunk boxes equal to JAX's widened by the
+    port's margins (SPH_MARGIN, TRI_MARGIN x each box's largest
+    |coordinate|), the sphere super level forced on, equal row -> scene
+    maps."""
     js, ts, _, _, (tri_o, sph_o) = _streamed(name)
     jt = _np_tree(jmk.build_mega_tables(js, tri_order=tri_o,
                                         sph_order=sph_o))
@@ -112,10 +115,14 @@ def test_streamed_tables_match_jax(name):
     assert rows.shape[0] % tmk.SEG_T == 0 and rows.shape[0] > tmk.MAX_VMEM_PRIMS
     assert seg.shape == (rows.shape[0] // tmk.SEG_T, 8)
     assert sup.shape == (rows.shape[0] // tmk.SUPER_T, 8)
+    margin = tsw.TRI_MARGIN if kind == "tri" else tsw.SPH_MARGIN
     for got, ref in ((seg, getattr(jt, kind + "_seg")),
                      (sup, getattr(jt, kind + "_super")),
                      (box, getattr(jt, kind + "_box"))):
-        np.testing.assert_array_equal(got[:, :6], ref[:got.shape[0], :6])
+        exact = torch.zeros(got.shape[0], 8)
+        exact[:, :6] = torch.tensor(np.asarray(ref[:got.shape[0], :6]))
+        np.testing.assert_array_equal(
+            got[:, :6], tsw.widen_boxes(exact, margin).numpy()[:, :6])
         assert not got[:, 6:].any()
     width = 21 if kind == "tri" else 14
     np.testing.assert_array_equal(rows[:, :width], getattr(jt, kind)[:, :width])
