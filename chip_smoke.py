@@ -38,8 +38,9 @@ Phases (each prints lines; any failure raises and exits nonzero):
          of its own gives the model of the one-thread-per-ray schedule
          that mega_path replaced (its lanes' use from K7's winners on the
          same rays, and one block per 128 rays), which the kernels line
-         leaves out; their bounds charge OPS_DRAW for each in-kernel draw
-         (``bound_no_draws_ms`` without);
+         leaves out; their bounds charge each in-kernel draw K2's
+         instructions a draw by pipe, counted from this run's SASS
+         (``draw_pipes``; ``bound_no_draws_ms`` without);
        * the sweeps K3, K5 (culled and plain) and K4 against their plain
          versions, through the public entries and every culled instance
          (one and two box levels, one thread per ray and cooperative; the
@@ -125,9 +126,13 @@ Phases (each prints lines; any failure raises and exits nonzero):
          rays, 96 bytes of coefficients each), and its own count of tests
          (tri_done) is printed beside them, both held against the
          per-thread counting instances on (m)'s launch;
-  4. draws: the scatter_draws kernel against its plain version at the
-     main path's 2^18 rays and over 2^22 samples against the unit-ball and
-     uniform distributions;
+  4. draws: the scatter_draws kernel K2 as a wavefront trace launches it,
+     every bounce of a depth-8 trace of 2^18 rays in one launch, against
+     its plain version and its one-bounce launches stacked, timed on the
+     card and as the call, its bound from this run's SASS (the
+     instructions a draw on the integer, FP32 and MUFU pipes,
+     ``draw_pipes``); one bounce of 2^22 samples against the plain version
+     and the unit-ball and uniform distributions;
   5. cross-engine: the wavefront and the fused engine on the same 2^18 rays
      of each frame (random_spheres' first launch, the icosphere's middle
      one, light_box's and the TRS showcase's first) and the same injected
@@ -139,7 +144,8 @@ Phases (each prints lines; any failure raises and exits nonzero):
      largest entry;
   6. main paths at full size, the launch counts set to 0 just before each
      and read just after (the sweeps' also by kind: camera launches, and
-     bounce launches, which carry an alive mask):
+     bounce launches, which carry an alive mask; a wavefront render must
+     launch K2 once a trace, as often as its camera sweeps):
        (a) random_spheres 1920x1080x16, path depth 8, reference quirks,
            fused, Morton tables, in-kernel draws;
        (b) a 5,120-triangle icosphere 1280x720x8, depth 8, fixed quirks,
@@ -205,22 +211,24 @@ Writes its PNGs and the build log under chip_smoke_out/.
 
     python3 chip_smoke.py --ab [--root DIR]
 
-    python3 chip_smoke.py --ab --only sweeps|fused|xform|margins|xcull
-        [--root DIR]
+    python3 chip_smoke.py --ab --only
+        sweeps|kernels|fused|xform|margins|xcull [--root DIR]
 
-times only what compares two commits on one card (``ab_main``: K3, K4, K5
-and the wavefront cells (c), (d), (k), (e), then K1, K7, K8, K9 and (a)'s
-frame, then K6, K10, K11, K12 and the (l) and (p) cells, then the margins'
-stress rays, counted; with ``--only`` one of them: ``ab_sweeps``,
-``ab_fused``, ``ab_xform`` (K1, K7, K8 and (g), (h), (i)), ``ab_margins``,
-or ``ab_xcull``, K8's chunks against its flat walk by rows a class), with
-the package of the checkout at DIR (default: this one).
+times only what compares two commits on one card (``ab_main``: K3, K4, K5,
+K2 (a trace's draws) and the wavefront cells (c), (d), (k), (e), then K1,
+K7, K8, K9 and (a)'s frame, then K6, K10, K11, K12 (on the card and as
+the call) and the (l) and (p) cells, then the margins' stress rays,
+counted; with ``--only`` one of them: ``ab_sweeps`` (``kernels``: without
+its cells), ``ab_fused``, ``ab_xform`` (K1, K7, K8 and (g), (h), (i)),
+``ab_margins``, or ``ab_xcull``, K8's chunks against its flat walk by rows
+a class), with the package of the checkout at DIR (default: this one).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -271,7 +279,13 @@ FLOP_DIST = 21
 # 19 per form, its zero terms included.)
 FLOP_MXU = 47
 FLOP_MXU_DN = 6
-OPS_DRAW = 240     # 2 Philox4x32-10 (~200 integer ops) + the transform
+# Hopper's lanes a clock per SM on each pipe that K2's SASS runs on (the
+# integer pipe: IMAD, LOP3, IADD3, shifts, compares, moves; FP32; the MUFU:
+# transcendentals and conversions) and its issue (four schedulers, one warp
+# instruction a clock each, whatever the pipe): a draw's cost on the card
+# is its instructions on each (``draw_pipes``, counted from this run's
+# build) over that rate, the slowest taken
+PIPE_LANES = {"int": 64, "fp32": 128, "mufu": 16, "issue": 128}
 N_ATTRS = 21       # K5's attribute row: centre, radius, mat, 16 decode
 
 DEPTH = 8
@@ -357,16 +371,19 @@ def host_ms(fn, reps=10):
     return best
 
 
-def inplace_ms(fn, planes, start_from, reps=3):
+def inplace_ms(fn, planes, start_from, reps=3, card=False):
     """(min milliseconds over reps, after a warm-up) of fn, a K10 window
     that updates ``planes`` in place, each run from the planes
-    ``start_from`` (copied in outside the timed span), CUDA events."""
+    ``start_from`` (copied in outside the timed span), CUDA events; card:
+    queued behind a spin, as device_ms times the card's work alone."""
     best = math.inf
     for rep in range(reps + 1):
         planes.copy_(start_from)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if card:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -402,12 +419,127 @@ def compare(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def bound(flops: float, bytes_: float) -> tuple:
-    """(bound ms, bound_by): the larger of the operations over the FP32 peak
-    and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: float, draws: int = 0) -> tuple:
+    """(bound ms, bound_by): the larger of the operations' time and the
+    bytes over the memory rate.  The operations: the FLOPs over the FP32
+    peak and ``draws`` Philox draws at K2's instructions a draw on each
+    pipe and in issue slots (``draw_pipes``), each at its own rate (the
+    draws' FP32 instructions added to the FLOPs' time), the slowest
+    taken."""
+    t_ops = flops / PEAK_FP32
+    if draws:
+        per = draw_pipe_seconds()
+        t_ops = max(t_ops + draws * per["fp32"],
+                    *(draws * per[p] for p in ("int", "mufu", "issue")))
+    t_bytes = bytes_ / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# The card's SMs and top SM clock (``device_facts``, this run's card) and
+# K2's instructions a draw by pipe (``draw_pipes``, this run's build)
+DEVICE = {}
+LIBRARY = {}
+# SASS opcodes by the pipe that runs them (the opcode before its first
+# '.'): the integer pipe, FP32 (HFMA2.MMA moves a constant on the FMA
+# pipe) and the MUFU (transcendentals and the conversions it runs);
+# uniform-datapath (U...), control, memory and special-register
+# instructions use none of the three
+SASS_PIPES = {
+    "int": {"IMAD", "IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP",
+            "IMNMX", "VIMNMX", "IABS", "SEL", "MOV", "PRMT", "POPC", "FLO",
+            "BREV", "I2FP", "PLOP3", "IMUL", "BMSK", "SGXT", "P2R", "R2P"},
+    "fp32": {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+             "FCHK", "HFMA2"},
+    "mufu": {"MUFU", "F2I", "I2F", "F2F", "FRND"}}
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z0-9_.]+)([^;]*);")
+
+
+def device_facts() -> None:
+    """The card's SM count and its top SM clock, from this run's card."""
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    DEVICE["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    DEVICE["clock_hz"] = float(clock) * 1e6
+
+
+def sass_instructions(text: str) -> list:
+    """cuobjdump -sass text -> [(address, predicated, opcode, operands)]."""
+    return [(int(m.group(1), 16), m.group(2) is not None, m.group(3),
+             m.group(4)) for m in SASS_LINE.finditer(text)]
+
+
+def hot_draw_path(ins: list, steps: int) -> list:
+    """The instructions one draw of crt_draws executes on the path its
+    inputs take, weighted: the step loop's body once (one draw a pass), the
+    rest of the ray loop once a ray (1 / steps of it a draw).  Left out:
+    the subroutines after the kernel's EXIT (reached by CALL: the slow
+    paths of the division and the square roots) and every region that a
+    forward branch skips where the region holds a CALL or a loop of its
+    own but not the draw's store (the large-argument reduction of sinf /
+    cosf, whose arguments here are below 2 pi) -> [(weight, opcode)]."""
+    end = next(a for a, pred, op, _ in ins if op == "EXIT" and not pred)
+    main = [x for x in ins if x[0] <= end]
+    target = {a: int(m.group(1), 16) for a, _, op, args in main
+              if op.startswith("BRA")
+              for m in [re.search(r"0x([0-9a-f]+)", args)] if m}
+    cold = set()
+    for a, pred, op, _ in main:
+        t = target.get(a)
+        if not pred or t is None or t <= a:
+            continue
+        inside = [x for x in main if a < x[0] < t]
+        if any(x[2].startswith("CALL") or a < target.get(x[0], t) < x[0]
+               for x in inside) and not any(x[2].startswith("STG")
+                                            for x in inside):
+            cold.update(x[0] for x in inside)
+    loops = sorted((t, a) for a, t in target.items()
+                   if t < a and a not in cold)
+    check(len(loops) == 2, f"crt_draws: {len(loops)} hot loops, expected "
+          "the ray loop and the step loop")
+    (ray_lo, ray_hi), (step_lo, step_hi) = loops
+    check(ray_lo < step_lo and step_hi < ray_hi, "crt_draws: the step "
+          "loop is not inside the ray loop")
+    out = []
+    for a, _, op, _ in main:
+        if a in cold or not ray_lo <= a <= ray_hi:
+            continue
+        out.append((1.0 if step_lo <= a <= step_hi else 1.0 / steps, op))
+    return out
+
+
+def draw_pipes(steps: int = DEPTH + 1) -> dict:
+    """K2's instructions a draw by pipe (SASS_PIPES; ``other``: those on
+    none of them; ``issue``: all of them), counted on ``hot_draw_path`` of
+    the crt_draws kernel in this run's build of the megakernel library
+    (cuobjdump -sass), a launch of ``steps`` bounces; cached."""
+    from cudaraytracer_tpu_torch.ops import _cuda
+    if "draw_pipes" not in DEVICE:
+        tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+        text = subprocess.run([tool, "-sass", "-fun", "crt_draws",
+                               str(LIBRARY["megakernel"])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {p: 0.0 for p in (*SASS_PIPES, "other")}
+        for w, op in hot_draw_path(sass_instructions(text), steps):
+            base = op.split(".")[0]
+            pipe = next((p for p, ops in SASS_PIPES.items() if base in ops),
+                        "other")
+            counts[pipe] += w
+        counts["issue"] = sum(counts.values())
+        DEVICE["draw_pipes"] = {p: round(v, 3) for p, v in counts.items()}
+    return DEVICE["draw_pipes"]
+
+
+def draw_pipe_seconds() -> dict:
+    """Seconds a draw takes the card on each pipe: its instructions there
+    (``draw_pipes``) over the pipe's lanes a clock x SMs x clock."""
+    pipes = draw_pipes()
+    return {p: pipes[p] / (lanes * DEVICE["sms"] * DEVICE["clock_hz"])
+            for p, lanes in PIPE_LANES.items()}
 
 
 def takes_mxu(tables, cfg) -> bool:
@@ -432,9 +564,10 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
                  draws: bool = False) -> tuple:
     """(bound ms, bound_by) of one launch over n rays that needed ``tests``
     (count_tests): their FLOPs (box, segment and box-distance tests
-    included; with ``draws`` also OPS_DRAW for each draw the kernel made,
-    the counting instance's ``draw``) against the rays in, ``out_bytes``
-    per ray out (or in all ``ray_bytes``, the rays' own bytes in and out),
+    included; with ``draws`` also each draw the kernel made, the counting
+    instance's ``draw``, at K2's instructions a draw by pipe) against the
+    rays in, ``out_bytes`` per ray out (or in all ``ray_bytes``, the rays'
+    own bytes in and out),
     the box and rect / TRS tables, the sphere and triangle rows of the
     chunks whose prims were tested (under K12, which ``cfg`` decides: the
     coefficients of those chunks' triangles, N_COEF floats = 96 bytes
@@ -450,8 +583,6 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
              + tests["dist"] * FLOP_DIST + tests.get("xbox", 0) * FLOP_XBOX
              + sum(tests[k] * f for k, f in zip(("rect", "tsph", "ttri"),
                                                 FLOP_XFORM)))
-    if draws:
-        flops += tests["draw"] * OPS_DRAW
     tri_row = mk.N_COEF * 4 if mxu else mk.TRI_COLS * 4
     rows = (tests["touched_sph_chunks"] * mk.PRIM_CHUNK * mk.SPH_COLS * 4
             + tests["touched_tri_chunks"] * mk.PRIM_CHUNK * tri_row)
@@ -459,7 +590,8 @@ def launch_bound(tables, n: int, tests: dict, out_bytes: int = 12,
                     - tables.tri.nbytes - tables.tri_coef.nbytes + rows)
     if ray_bytes is None:
         ray_bytes = n * (24 + out_bytes)
-    return bound(flops, ray_bytes + tables_bytes + extra_bytes)
+    return bound(flops, ray_bytes + tables_bytes + extra_bytes,
+                 tests["draw"] if draws else 0)
 
 
 def count_tests(tables, rays, cfg, seed, window=None,
@@ -632,6 +764,8 @@ def phase_build():
     t0 = time.perf_counter()
     reports = _cuda.build()
     wall = time.perf_counter() - t0
+    LIBRARY.update((k, r.library) for k, r in reports.items())
+    device_facts()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
         for r in reports.values():
@@ -798,23 +932,50 @@ def phase_parity(dev, frames) -> dict:
 
 
 def phase_draws(dev, n_path: int):
-    """scatter_draws at the wavefront's launch size (one chunk of n_path
-    rays, timed) and over 2^22 samples (the distribution checks)."""
+    """K2 as the wavefront launches it: every bounce of a depth-DEPTH trace
+    of one chunk (DEPTH + 1 bounces x n_path rays) in one launch, timed on
+    the card (device_ms) and as the call, against the plain version, the
+    one-bounce launches stacked and a launch of a later range of bounces;
+    one bounce of 2^22 samples against the plain version and the unit-ball
+    and uniform distributions; its bound from this run's SASS
+    (``draw_pipes``: the instructions a draw by pipe); and, for scale only,
+    torch.rand's Philox over n_path x 4 floats on the same card (not the
+    same function)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    path_out = torch.empty(n_path, 4, device=dev)
-    ms, _ = device_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3), reps=20)
-    call_ms, _ = cuda_ms(lambda: mk.scatter_draws(path_out, 0xD1CE, 3),
-                         reps=20)
+    steps, seed = DEPTH + 1, 0xD1CE
+    path_out = torch.empty(steps, n_path, 4, device=dev)
+    ms, _ = device_ms(lambda: mk.scatter_draws(path_out, seed), reps=20)
+    call_ms, _ = cuda_ms(lambda: mk.scatter_draws(path_out, seed), reps=20)
     plain_ms, ref = cuda_ms(
-        lambda: mk.scatter_draws_plain(n_path, 0xD1CE, 3, dev), reps=5)
+        lambda: mk.scatter_draws_plain(n_path, seed, 0, dev, steps), reps=3)
     err = float((path_out - ref).abs().max())
-    print(f"[draws] {n_path} samples (one wavefront chunk): kernel "
-          f"{ms:.4f} ms (the call {call_ms:.4f} ms), plain {plain_ms:.3f} "
-          f"ms, max_abs_err {err:.3g}")
+    one = torch.stack([mk.scatter_draws(torch.empty(n_path, 4, device=dev),
+                                        seed, s) for s in range(steps)])
+    check(torch.equal(one, path_out), "scatter_draws: the launch of every "
+          "bounce differs from the one-bounce launches")
+    later = mk.scatter_draws(torch.empty(steps - 5, n_path, 4, device=dev),
+                             seed, 5)
+    check(torch.equal(later, path_out[5:]), "scatter_draws: bounces from 5 "
+          "differ from those of the launch from bounce 0")
+    rand_ms, _ = device_ms(lambda: torch.rand(n_path, 4, device=dev),
+                           reps=20)
+    pipes = draw_pipes()
+    draws = steps * n_path
+    bound_ms, bound_by = bound(0.0, draws * 16, draws)
+    pipe_ms = {p: draws * t * 1e3 for p, t in draw_pipe_seconds().items()}
+    print(f"[draws] {steps} bounces x {n_path} rays (one trace of a "
+          f"wavefront chunk) in one launch: kernel {ms:.4f} ms "
+          f"({ms / steps * (1 << 18) / n_path:.4f} ms per 2^18 draws; the "
+          f"call {call_ms:.4f} ms), plain {plain_ms:.3f} ms, max_abs_err "
+          f"{err:.3g}, equal to the {steps} one-bounce launches; bound "
+          f"{bound_ms:.4f} ms ({bound_by}) from {pipes} instructions a draw "
+          f"at {DEVICE['clock_hz'] / 1e6:.0f} MHz on {DEVICE['sms']} SMs "
+          f"(ms by pipe {pipe_ms}); torch.rand 2^18 x 4 floats "
+          f"{rand_ms:.4f} ms")
     n = 1 << 22
-    out = mk.scatter_draws(torch.empty(n, 4, device=dev), 0xD1CE, 3)
+    out = mk.scatter_draws(torch.empty(n, 4, device=dev), seed, 3)
     err = max(err, float(
-        (out - mk.scatter_draws_plain(n, 0xD1CE, 3, dev)).abs().max()))
+        (out - mk.scatter_draws_plain(n, seed, 3, dev)).abs().max()))
     ball, prob = out[:, :3].double(), out[:, 3]
     r = ball.norm(dim=1)
     mean = ball.mean(dim=0).abs().max()
@@ -825,14 +986,17 @@ def phase_draws(dev, n_path: int):
     check(float(r.max()) <= 1.0 + 1e-6, "ball sample outside the unit ball")
     check(float(mean) < 5e-3, "ball mean off 0")
     check(ks_r < 0.01 and ks_p < 0.01, "draws fail the KS checks")
-    check(err <= 1e-5, "scatter_draws disagrees with its plain version")
-    bound_ms, bound_by = bound(n_path * OPS_DRAW, n_path * 16)
+    check(err == 0.0, "scatter_draws disagrees with its plain version")
     return {"name": "scatter_draws", "route": "cuda",
             "source": "cudaraytracer_tpu_torch/csrc/megakernel.cu",
             "replaces": "cudaraytracer_tpu/ops/pallas_intersect.py:1122",
             "launches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "samples": n_path}
+            "library_ms": None,
+            "ms_at": f"one trace's draws: {steps} bounces x {n_path} rays",
+            "ms_per_2_18_draws": ms / steps * (1 << 18) / n_path,
+            "pipe_bound_ms": pipe_ms, "sass_per_draw": pipes,
+            "torch_rand_2_18x4_ms": rand_ms, "draws": draws}
 
 
 # ---------------------------------------------------------------------------
@@ -1094,10 +1258,15 @@ def phase_sweep_parity(dev, frames) -> dict:
             note("sphere_sweep_attrs", compare_hits(f"K5 {form} {label}",
                                                     gota, refa))
             check(torch.equal(gota[1], got[1]), f"{label}: K5 and K3 differ")
+            check(tuple(gota[2].shape) == (o.shape[0], attr.shape[0]),
+                  f"{label}: K5's attributes of shape "
+                  f"{tuple(gota[2].shape)}")
             if alive is not None:
                 check(bool((got[1][~alive] == -1).all()
                            and (gota[1][~alive] == -1).all()),
                       f"{label}: a dead lane hit")
+                check(bool((gota[2][~alive] == attr[:, 0]).all()),
+                      f"{label}: a dead lane's attributes are not prim 0's")
         tbl, box, sup = sw.sphere_table(sp.center, sp.radius)
         rows = sw.attr_rows(attr)
         note("sphere_sweep", hold_instances(
@@ -2317,9 +2486,12 @@ def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
     """One launch with in-kernel draws: kernel against the plain version
     (timed once, or ``plain`` = (ms, result) measured already), its
     tests (hold: held against the per-thread sweep's, ``count_tests``) and
-    bound."""
+    bound; the kernel timed on the card (``ms``, device_ms) and as the
+    call (``call_ms``, the wrapper's host time included)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
-    ms, got = cuda_ms(lambda: mk.trace_path_mega(
+    ms, got = device_ms(lambda: mk.trace_path_mega(
+        f.scene, rays, cfg, tables=f.tables, seed=seed), reps=3)
+    call_ms, _ = cuda_ms(lambda: mk.trace_path_mega(
         f.scene, rays, cfg, tables=f.tables, seed=seed))
     if plain is None:
         plain = cuda_ms(lambda: mk.trace_path_mega_plain(
@@ -2328,10 +2500,12 @@ def timed_parity(label, f, rays, cfg, seed, out: dict, key: str,
     out[key] = max(out.get(key, 0.0), compare(label, got, ref))
     tests = count_tests(f.tables, rays, cfg, seed, hold=hold)
     b, by = launch_bound(f.tables, rays.origin.shape[0], tests, cfg=cfg)
-    print(f"[stream] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b:.4f} ms ({by}), tests {tests}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "tests": tests, "rays": rays.origin.shape[0], "got": got}
+    print(f"[stream] {label}: kernel {ms:.4f} ms on the card (the call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b:.4f} ms "
+          f"({by}), tests {tests}")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "tests": tests,
+            "rays": rays.origin.shape[0], "got": got}
 
 
 def per_thread_ms(f, rays, cfg, seed, got, window=None) -> float:
@@ -2437,9 +2611,10 @@ def window_parity(f, rays, seed, whole, err: dict) -> dict:
     check(torch.equal(planes, got), "K10: the per-thread sweep's planes "
           "differ from the cooperative one's")
     order = mk._next_order(key)
-    ms = inplace_ms(lambda: mk.trace_path_mega(
+    ms, call_ms = (inplace_ms(lambda: mk.trace_path_mega(
         f.scene, rays, f.cfg, tables=f.tables, seed=seed,
-        window=w1._replace(order=order)), planes, after_0_2)
+        window=w1._replace(order=order)), planes, after_0_2, card=card)
+        for card in (True, False))
     check(torch.equal(planes, got), "K10: the window in the octant order "
           "differs from the window in ray-id order")
     mk.trace_path_mega(f.scene, rays, f.cfg, tables=f.tables, seed=seed,
@@ -2454,14 +2629,16 @@ def window_parity(f, rays, seed, whole, err: dict) -> dict:
     b, by = launch_bound(f.tables, n, tests, cfg=f.cfg,
                          ray_bytes=8 * n + 100 * alive)
     print(f"[stream] K10 big_field window [2, 4) in place: kernel "
-          f"{ms:.4f} ms in the octant order, {id_ms:.4f} ms in ray-id order "
+          f"{ms:.4f} ms on the card in the octant order (the call "
+          f"{call_ms:.4f} ms), {id_ms:.4f} ms in ray-id order "
           f"(earlier PRs' figure), one thread per ray {pt:.4f} ms (ray-id "
           f"order), plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by}; "
           f"{alive} of {n} rays alive), tests {tests}; the rest of the path "
           "completes the monolithic launch bit for bit")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "tests": tests, "rays": n, "alive_rays": alive,
-            "per_thread_ms": pt, "ray_id_order_ms": id_ms}
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "tests": tests, "rays": n,
+            "alive_rays": alive, "per_thread_ms": pt,
+            "ray_id_order_ms": id_ms}
 
 
 def phase_stream_parity(dev, sframes) -> dict:
@@ -2904,10 +3081,12 @@ def render_routes(dev, fm: Frame) -> tuple:
 KINDS = {}
 
 
-def counted(name: str, fn, need):
+def counted(name: str, fn, need, one_draw_per_trace: bool = False):
     """Run one main path with every launch count set to 0 just before it;
     read the counts just after and require a launch of each kernel in
-    ``need``."""
+    ``need``; one_draw_per_trace (a wavefront render without a gradient):
+    require one K2 launch for each trace, as many as the trace's camera
+    sweeps (the most camera launches of one sweep kind)."""
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops import sweeps as sw
     mk.reset_launch_counts()
@@ -2921,6 +3100,13 @@ def counted(name: str, fn, need):
         print(f"[main] sweep launches in {name} by kind: {KINDS[name]}")
     for k in need:
         check(launches[k] > 0, f"{name} never launched {k}")
+    if one_draw_per_trace:
+        traces = max(v["camera"] for v in sw.LAUNCH_KINDS.values())
+        print(f"[main] {name}: {launches['scatter_draws']} scatter_draws "
+              f"launches for {traces} traces")
+        check(launches["scatter_draws"] == traces, f"{name}: "
+              f"{launches['scatter_draws']} draws launches for {traces} "
+              "traces")
     return out, launches
 
 
@@ -3007,7 +3193,7 @@ def main() -> int:
     (ms_c, img_c, peak_c), l_c = counted(
         "(c) random_spheres, wavefront",
         lambda: render_wavefront(dev, fa, gen),
-        ("sphere_sweep", "scatter_draws"))
+        ("sphere_sweep", "scatter_draws"), True)
     mean_c = img_c.reshape(-1, 3).mean(0)
     rel = ((mean_c - mean_a).abs() / mean_a).max()
     print(f"[main] random_spheres wavefront vs fused channel means "
@@ -3016,7 +3202,7 @@ def main() -> int:
     check(float(rel) <= 0.02, "the wavefront and fused images disagree")
     (ms_d, _, peak_d), l_d = counted(
         "(d) icosphere, wavefront", lambda: render_wavefront(dev, fb, gen),
-        ("sphere_sweep", "triangle_sweep", "scatter_draws"))
+        ("sphere_sweep", "triangle_sweep", "scatter_draws"), True)
     fit, l_e = counted("(e) fit", lambda: run_fit(dev),
                        ("sphere_sweep_attrs", "scatter_draws"))
     fit_f, l_f = counted("(f) mega_diff fit",
@@ -3032,7 +3218,7 @@ def main() -> int:
         ("mega_trace_xform",))
     (ms_hw, img_hw, peak_hw), l_hw = counted(
         "(h) light_box wavefront", lambda: render_wavefront(dev, fh, gen),
-        ("sphere_sweep", "scatter_draws"))
+        ("sphere_sweep", "scatter_draws"), True)
     mean_h = img_h.reshape(-1, 3).mean(0)
     rel = ((img_hw.reshape(-1, 3).mean(0) - mean_h).abs() / mean_h).max()
     print(f"[main] light_box wavefront vs fused channel means: max rel "
@@ -3059,7 +3245,7 @@ def main() -> int:
         ("mega_trace_tex",))
     (ms_kw, img_kw, peak_kw), l_kw = counted(
         "(k) tex_icosphere wavefront", lambda: render_wavefront(dev, fk, gen),
-        ("sphere_sweep", "triangle_sweep", "scatter_draws"))
+        ("sphere_sweep", "triangle_sweep", "scatter_draws"), True)
     mean_k = img_k.reshape(-1, 3).mean(0)
     rel = ((img_kw.reshape(-1, 3).mean(0) - mean_k).abs() / mean_k).max()
     print(f"[main] tex_icosphere wavefront vs fused channel means: max rel "
@@ -3297,8 +3483,9 @@ def ab_main(root: str, only: str = "") -> int:
     route and monolithic with 8 shells over the frame's rays (min of 3)
     and per frame (min of 5), (p)'s median rendering over 31 frames, and
     the winners the margins' stress rays lose (``ab_margins``).
-    ``ab_sweeps`` (K3, K4, K5 and the wavefront cells) comes first; ``only``
-    (``--only``) runs one part: "sweeps", "fused", "xform" (``ab_xform``),
+    ``ab_sweeps`` (K3, K4, K5, K2 and the wavefront cells) comes first;
+    ``only`` (``--only``) runs one part: "sweeps", "kernels" (``ab_sweeps``
+    without the wavefront cells), "fused", "xform" (``ab_xform``),
     "margins" or "xcull" (``ab_xcull``).  Run the parent's
     checkout (an unpacked ``git archive``, whose kernels build there) and
     this one in turns, in one call each way (parent, change, change,
@@ -3319,8 +3506,10 @@ def ab_main(root: str, only: str = "") -> int:
     reports = _cuda.build()
     PTXAS["text"] = "\n".join(r.ptxas for r in reports.values())
     PTXAS["built"] = reports["megakernel"].ptxas != "(reused)"
-    if only in ("", "sweeps"):
-        out.update(ab_sweeps(dev))
+    LIBRARY.update((k, r.library) for k, r in reports.items())
+    device_facts()
+    if only in ("", "sweeps", "kernels"):
+        out.update(ab_sweeps(dev, cells=only != "kernels"))
     if only in ("", "fused"):
         out.update(ab_fused(dev))
     if only == "xform":
@@ -3336,7 +3525,7 @@ def ab_main(root: str, only: str = "") -> int:
     return 0
 
 
-def ab_sweeps(dev) -> dict:
+def ab_sweeps(dev, cells: bool = True) -> dict:
     """``ab_main``'s sweep timings (min of 10 on the card, ``device_ms``):
     K3 on (c)'s first 2^18 camera rays and the same rays after one bounce,
     K4 on (d)'s middle launch and its bounce, K5 on (e)'s first launch and
@@ -3347,8 +3536,9 @@ def ab_sweeps(dev) -> dict:
     before (``..._ms``); where the package has them, the same launch with
     the other cooperation choice (``..._flip_ms``) and, for K4, with one
     box level (``..._one_level_ms``), and the counting instance's box and
-    prim tests per ray and lanes' use; then (c), (d) and (k) on the
-    wavefront (s/frame, min of 5) and (e)'s s/step (min of 5)."""
+    prim tests per ray and lanes' use; K2 as a trace launches it
+    (``ab_draws``); then, with ``cells``, (c), (d) and (k) on the wavefront
+    (s/frame, min of 5) and (e)'s s/step (min of 5)."""
     from cudaraytracer_tpu_torch.config import Quirks
     from cudaraytracer_tpu_torch.ops import intersect as isect
     from cudaraytracer_tpu_torch.ops import sweeps as sw
@@ -3434,6 +3624,9 @@ def ab_sweeps(dev) -> dict:
                 sweep_instance(p, True, coop, attrs)
                 for p, attrs in (("sph", False), ("sph", True), ("tri", False))
                 for coop in (False, True))}
+    out.update(ab_draws(dev, fa.cfg.ray_chunk))
+    if not cells:
+        return out
     for key, f in (("c", fa), ("d", frames[1]), ("k", tex_frames(dev)[1])):
         cfg = dataclasses.replace(f.cfg, engine="wavefront")
         isect_fn = sweep_intersector(cfg)
@@ -3444,6 +3637,31 @@ def ab_sweeps(dev) -> dict:
     with contextlib.redirect_stdout(sys.stderr):     # one JSON line out
         out["e_s_per_step"] = run_fit(dev)["s_per_step"]
     return out
+
+
+def ab_draws(dev, n: int) -> dict:
+    """K2 as a depth-DEPTH trace of n rays draws (min of 20): every bounce
+    in one launch, or, in a checkout from before the step range, one launch
+    a bounce; on the card (``k2_trace_ms``) and as the call
+    (``k2_trace_call_ms``); torch.rand's Philox over n x 4 floats for
+    scale (not the same function)."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    steps = DEPTH + 1
+    if "steps" in inspect.signature(mk.scatter_draws_plain).parameters:
+        buf = torch.empty(steps, n, 4, device=dev)
+
+        def trace_draws():
+            mk.scatter_draws(buf, 7)
+    else:
+        buf = torch.empty(n, 4, device=dev)
+
+        def trace_draws():
+            for step in range(steps):
+                mk.scatter_draws(buf, 7, step)
+    return {"k2_trace_ms": device_ms(trace_draws, reps=20)[0],
+            "k2_trace_call_ms": cuda_ms(trace_draws, reps=20)[0],
+            "k2_torch_rand_ms": device_ms(
+                lambda: torch.rand(n, 4, device=dev), reps=20)[0]}
 
 
 # The parent commit's K1 and K9 path instances, for --ab on a checkout
@@ -3623,13 +3841,14 @@ def ab_fused(dev) -> dict:
     return out
 
 
-def ab_window_2_4(fm, rays, seed) -> tuple:
+def ab_window_2_4(fm, rays, seed, card: bool = False) -> tuple:
     """K10's window [2, 4) resumed from the state of [0, 2) (min of 5), in
     ray-id order (the figure earlier PRs compared) and in the order its
     octant keys sort to (the order the default route serves it in): in
     place over the planes, or, in a checkout from before the planes, from
     the dumped rows, gathered (untimed) in that checkout's own octant order
-    as its driver gathered them."""
+    as its driver gathered them.  card: the card's time alone (queued
+    behind a spin), else the call's."""
     from cudaraytracer_tpu_torch.core.rays import Rays
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     times = []
@@ -3645,7 +3864,7 @@ def ab_window_2_4(fm, rays, seed) -> tuple:
             w1 = mk.Window(2, 2, planes, order)
             times.append(inplace_ms(lambda w1=w1: mk.trace_path_mega(
                 fm.scene, rays, fm.cfg, tables=fm.tables, seed=seed,
-                window=w1), planes, start_from, 5))
+                window=w1), planes, start_from, 5, card))
         return tuple(times)
     a = mk.trace_path_mega(fm.scene, rays, fm.cfg, tables=fm.tables,
                            seed=seed, window=mk.Window(0, 2, None, None,
@@ -3655,9 +3874,10 @@ def ab_window_2_4(fm, rays, seed) -> tuple:
         r2 = Rays(s[:, 3:6].contiguous(), s[:, 6:9].contiguous(), rays.time)
         w1 = mk.Window(2, 2, s[:, 9:13].contiguous(),
                        None if order is None else order.to(torch.int32))
-        times.append(cuda_ms(lambda r2=r2, w1=w1: mk.trace_path_mega(
-            fm.scene, r2, fm.cfg, tables=fm.tables, seed=seed, window=w1),
-            5)[0])
+        times.append((device_ms if card else cuda_ms)(
+            lambda r2=r2, w1=w1: mk.trace_path_mega(
+                fm.scene, r2, fm.cfg, tables=fm.tables, seed=seed,
+                window=w1), 5)[0])
     return tuple(times)
 
 
@@ -3694,17 +3914,23 @@ def ab_streamed(dev) -> dict:
     out = {}
     rays = first_chunk(fm, gen)
     seed = 12345
+    def timed(key, f, cfg):
+        def fn():
+            return mk.trace_path_mega(f.scene, rays, cfg, tables=f.tables,
+                                      seed=seed)
+        out[f"{key}_ms"] = cuda_ms(fn, 5)[0]
+        out[f"{key}_card_ms"] = device_ms(fn, 5)[0]
+
     fq = mxu_frame(fm)
-    out["k12_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
-        fq.scene, rays, fq.cfg, tables=fq.tables, seed=seed), 5)[0]
+    timed("k12_m_2_18", fq, fq.cfg)
     del fq
-    out["k6_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
-        fm.scene, rays, fm.cfg, tables=fm.tables, seed=seed), 5)[0]
+    timed("k6_m_2_18", fm, fm.cfg)
     cfg8 = dataclasses.replace(fm.cfg, mega_f2b_shells=8)
-    out["k11_m_2_18_ms"] = cuda_ms(lambda: mk.trace_path_mega(
-        fm.scene, rays, cfg8, tables=fm.tables, seed=seed), 5)[0]
-    (out["k10_m_window_2_4_ms"],
-     out["k10_m_window_2_4_octant_ms"]) = ab_window_2_4(fm, rays, seed)
+    timed("k11_m_2_18", fm, cfg8)
+    for card, tag in ((False, ""), (True, "_card")):
+        (out[f"k10_m_window_2_4{tag}_ms"],
+         out[f"k10_m_window_2_4_octant{tag}_ms"]) = ab_window_2_4(
+            fm, rays, seed, card)
     out["k6_m_frame_launch_ms"] = frame_launch(dev, fm, gen, 5)[0]
     out["k11_m_f2b8_frame_launch_ms"] = frame_launch(
         dev, fm._replace(cfg=cfg8), gen, 5)[0]
@@ -3726,9 +3952,11 @@ if __name__ == "__main__":
         ap.add_argument("--root", default=ROOT,
                         help="import cudaraytracer_tpu_torch from this "
                              "checkout")
-        ap.add_argument("--only", choices=("sweeps", "fused", "margins",
-                                           "xform", "xcull"), default="",
-                        help="run only ab_sweeps, ab_fused, ab_margins, "
+        ap.add_argument("--only", choices=("sweeps", "kernels", "fused",
+                                           "margins", "xform", "xcull"),
+                        default="",
+                        help="run only ab_sweeps (kernels: without its "
+                             "wavefront cells), ab_fused, ab_margins, "
                              "ab_xform or ab_xcull")
         args = ap.parse_args()
         sys.exit(ab_main(args.root, args.only))

@@ -99,12 +99,14 @@ def philox4x32(ctr, key0: int, key1: int):
     return c0, c1, c2, c3
 
 
-def counter_uniforms(seed: int, index: Tensor, step: int) -> Tensor:
+def counter_uniforms(seed: int, index: Tensor, step) -> Tensor:
     """Six U[0, 1) draws per index, float32[n, 6]: the high 24 bits of
     Philox4x32-10 at counters (index, step, 0, 0) and (index, step, 1, 0)
-    under key (seed low word, seed high word)."""
+    under key (seed low word, seed high word).  step: one bounce, or a
+    tensor of one bounce per index."""
     idx = index.to(torch.int64) & _MASK32
-    s = torch.full_like(idx, step & _MASK32)
+    s = (torch.full_like(idx, step & _MASK32) if isinstance(step, int)
+         else (step.to(torch.int64) & _MASK32).expand_as(idx))
     z = torch.zeros_like(idx)
     a = philox4x32((idx, s, z, z), seed, seed >> 32)
     b = philox4x32((idx, s, z + 1, z), seed, seed >> 32)
@@ -112,7 +114,7 @@ def counter_uniforms(seed: int, index: Tensor, step: int) -> Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def counter_draws(seed: int, index: Tensor, step: int):
-    """The kernel's draws for rays ``index`` at bounce ``step``:
-    (unit-ball float32[n, 3], uniform float32[n])."""
+def counter_draws(seed: int, index: Tensor, step):
+    """The kernel's draws for rays ``index`` at bounce ``step`` (one, or one
+    per index): (unit-ball float32[n, 3], uniform float32[n])."""
     return ball_from_uniforms(counter_uniforms(seed, index, step))

@@ -14,14 +14,24 @@
 
 using namespace crt;
 
-namespace {
-
-__global__ void __launch_bounds__(BLOCK) draws_kernel(
-    float* out, int n, unsigned long long seed, uint32_t step) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i < n)
-    reinterpret_cast<float4*>(out)[i] = draw(seed, (uint32_t)i, step);
+// K2 (ops/pallas_intersect.py::_draws_kernel): out[s, i] = draw(seed, i,
+// step + s) for n rays x n_steps bounces, every bounce of a trace in one
+// launch.  What bounds it: integer issue (two Philox4x32-10 blocks a draw,
+// 20 rounds of two 32-bit multiplies, their high words and two XORs),
+// then the transform's FP32 work; the stores are 16 bytes a draw.  The grid
+// holds the blocks the SMs keep resident and each thread walks its rays by
+// the grid's stride, all of a ray's bounces in turn (the Philox work on
+// the ray index alone is done once a ray); a warp's store of one bounce is
+// 32 consecutive float4.
+extern "C" __global__ void __launch_bounds__(BLOCK) crt_draws(
+    float4* out, int n, int n_steps, unsigned long long seed, uint32_t step) {
+  const int stride = gridDim.x * BLOCK;
+  for (int i = blockIdx.x * BLOCK + threadIdx.x; i < n; i += stride)
+    for (int s = 0; s < n_steps; ++s)
+      out[(size_t)s * n + i] = draw(seed, (uint32_t)i, step + (uint32_t)s);
 }
+
+namespace {
 
 // One launch: K12 when the caller gives the coefficients; the cooperative
 // family for the path integrator above 8,192 triangles, unless per_thread
@@ -192,12 +202,26 @@ extern "C" int crt_mega_path_instance(int xform, int shells, int count,
   return 0;
 }
 
-extern "C" int crt_scatter_draws(void* out, int n, unsigned long long seed,
-                                 int step, void* cuda_stream) {
+// K2 over bounces [step, step + n_steps): out float32[n_steps, n, 4].  The
+// grid: crt_draws's resident blocks an SM (queried once) x the SMs, fewer
+// for fewer rays.
+extern "C" int crt_scatter_draws(void* out, int n, int n_steps,
+                                 unsigned long long seed, int step,
+                                 void* cuda_stream) {
+  if (n_steps < 1 || step < 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const dim3 grid((n + BLOCK - 1) / BLOCK);
-  draws_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<float*>(out), n, seed, (uint32_t)step);
+  static const int per_sm = [] {
+    int blocks = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &blocks, crt_draws, BLOCK, 0) == cudaSuccess ? blocks : 0;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = (int)std::min<long long>(
+      (long long)per_sm * sms, ((long long)n + BLOCK - 1) / BLOCK);
+  crt_draws<<<grid, BLOCK, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<float4*>(out), n, n_steps, seed, (uint32_t)step);
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,8 @@
 // ray reaches; on bounce launches also the divergence between the rays of
 // a warp, which reach different chunks, and the dead lanes of the alive
 // mask.  Memory traffic is one read of the rays and one write of (t, idx)
-// (and K5's 21-float row); the tables stay in L1/L2.
+// (and K5's 21-float row, 84 bytes a ray: on a few spheres that write is
+// K5's whole cost); the tables stay in L1/L2.
 //
 // What the design does about that:
 //   * two box levels: a super box over 16 chunk boxes (256 prims), walked
@@ -55,7 +56,8 @@
 //     inverse direction components are finite and non-zero (monotone);
 //   * a block compacts the live rays of its 128-ray tile (ballot and
 //     prefix sum into shared memory) and its warps serve only those; the
-//     dead ones get (BIG, -1) in the tile pass;
+//     dead ones get (BIG, -1) in the tile pass (K3, K4; K5 keeps each ray
+//     on its own lane, below);
 //   * COOP (culled triangle launches, and sphere launches with an alive
 //     mask: the wrapper's choice, measured on the card) walks the boxes
 //     with the warp in lockstep and the lanes split a reached chunk's
@@ -70,9 +72,12 @@
 //     -0 / +0 difference changes none of them.
 // So every test and decision is the one-thread-per-ray sweep's; only the
 // thread that serves a ray changes.  K5 loads the winner's attribute row
-// once after the sweep.  The slab test, the sphere quadratic and the
-// Moller-Trumbore test are the formulas of csrc/megakernel.cuh (K1), kept
-// in this file so that the two libraries build and change independently.
+// once after the sweep and writes it as planes, one per attribute (the TPU
+// kernel's own output form), so that a warp's store of an attribute covers
+// 32 consecutive floats where a row a thread touched 32 sectors a store.
+// The slab test, the sphere quadratic and the Moller-Trumbore test are the
+// formulas of csrc/megakernel.cuh (K1), kept in this file so that the two
+// libraries build and change independently.
 //
 // COUNT: separately compiled instances that add their tests to a counts
 // array (measurement only; production launches carry no counters): box
@@ -99,6 +104,9 @@ constexpr int PRIM_CHUNK = 16;
 constexpr int CHUNKS_PER_SUPER = 16;   // 256 prims per super box
 constexpr int BOX_COLS = 8;    // lo.xyz hi.xyz | 2 pad
 constexpr int TRI_COLS = 12;   // v0 e1 e2 normal
+// K5's attributes a prim on the main path: centre, radius, material and
+// the 16 decode columns (ops/intersect.py sphere_attr_table)
+constexpr int PATH_ATTRS = 21;
 constexpr int BLOCK = 128;
 constexpr int WARPS = BLOCK / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -118,7 +126,8 @@ struct Args {
   const float* sup;             // [ceil(n_chunks / 16), 8] or null
   const unsigned char* alive;   // [n] or null
   const float* attr;            // [n_chunks * 16, n_attr] or null (K3)
-  float* out_t; int* out_i; float* out_attr;
+  float* out_t; int* out_i;
+  float* out_attr;              // [n_attr, n] (K5)
   unsigned long long* counts;   // [N_COUNTS] (COUNT only)
   int n, n_chunks, n_attr, flags;
   float t_min, t_max;
@@ -444,8 +453,10 @@ __device__ __forceinline__ void add_counts(unsigned long long* counts,
   }
 }
 
-// (t, idx) and, for K5, the winner's attribute row; a miss and a dead lane
-// carry prim 0's row.
+// (t, idx) and, for K5, the winner's attribute row as A planes of n floats
+// (plane k at out_attr + k n: a warp's store of one attribute covers its
+// rays' consecutive floats); a miss and a dead lane carry prim 0's row.  A
+// row of the main path's PATH_ATTRS is read whole before it is stored.
 template <bool ATTRS>
 __device__ __forceinline__ void write_hit(const Args& P, int i, float t,
                                           int idx) {
@@ -453,8 +464,17 @@ __device__ __forceinline__ void write_hit(const Args& P, int i, float t,
   P.out_i[i] = idx;
   if (ATTRS) {
     const float* row = P.attr + (size_t)(idx >= 0 ? idx : 0) * P.n_attr;
-    float* out = P.out_attr + (size_t)i * P.n_attr;
-    for (int k = 0; k < P.n_attr; ++k) out[k] = __ldg(row + k);
+    float* out = P.out_attr + i;
+    if (P.n_attr == PATH_ATTRS) {
+      float v[PATH_ATTRS];
+#pragma unroll
+      for (int k = 0; k < PATH_ATTRS; ++k) v[k] = __ldg(row + k);
+#pragma unroll
+      for (int k = 0; k < PATH_ATTRS; ++k) out[(size_t)k * P.n] = v[k];
+    } else {
+      for (int k = 0; k < P.n_attr; ++k)
+        out[(size_t)k * P.n] = __ldg(row + k);
+    }
   }
 }
 
@@ -462,17 +482,17 @@ __device__ __forceinline__ void write_hit(const Args& P, int i, float t,
 // are written as misses and the live ones packed, in order, into the
 // first slots (ballot and prefix sum), so that the block's warps serve
 // only live rays.  Slot threadIdx.x's ray id, or -1.  K5 (ATTRS) packs
-// nothing: its 21-float rows, written by the serving thread, bound it,
-// and packed rays spread a warp's rows over four warps' lines (measured
-// 4% slower on a thinned mask).
+// nothing and writes nothing here: each lane keeps its own ray, dead or
+// alive, and writes it after the sweep, so that a warp's store of an
+// attribute plane is one coalesced store of 32 floats (packing measured 3%
+// slower on an H100 on the fit's bounce over four spheres; dead lanes
+// written apart from the live ones split each plane's sectors over two
+// stores).
 template <bool ATTRS>
 __device__ __forceinline__ int tile_ray(const Args& P) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (ATTRS && P.alive && i < P.n && !P.alive[i]) {
-    write_hit<ATTRS>(P, i, BIG, -1);
-    return -1;
-  }
-  if (ATTRS || P.alive == nullptr) return i < P.n ? i : -1;
+  if (ATTRS) return i < P.n && (P.alive == nullptr || P.alive[i]) ? i : -1;
+  if (P.alive == nullptr) return i < P.n ? i : -1;
   __shared__ int slots[BLOCK];
   __shared__ int warp_live[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -494,7 +514,11 @@ __device__ __forceinline__ int tile_ray(const Args& P) {
 template <class T, bool CULL, bool COOP, bool ATTRS, bool COUNT>
 __device__ __forceinline__ void sweep(const Args& P) {
   const int i = tile_ray<ATTRS>(P);
-  if (!__any_sync(FULL, i >= 0)) return;      // a warp with no live ray
+  const int own = blockIdx.x * BLOCK + threadIdx.x;   // K5's lane's ray
+  if (!__any_sync(FULL, i >= 0)) {            // a warp with no live ray
+    if (ATTRS && own < P.n) write_hit<ATTRS>(P, own, BIG, -1);
+    return;
+  }
   Ray r{0.f, 0.f, 0.f, 1.f, 1.f, 1.f};
   if (i >= 0) {
     r = {P.o[3 * (size_t)i], P.o[3 * (size_t)i + 1], P.o[3 * (size_t)i + 2],
@@ -510,7 +534,9 @@ __device__ __forceinline__ void sweep(const Args& P) {
   } else if (i >= 0) {
     walk_thread<T, CULL, COUNT>(P, r, best_t, best_i, cnt);
   }
-  if (i >= 0) write_hit<ATTRS>(P, i, best_t, best_i);
+  // K5: a dead lane's best is still (BIG, -1)
+  if (ATTRS ? own < P.n : i >= 0)
+    write_hit<ATTRS>(P, ATTRS ? own : i, best_t, best_i);
   if (COUNT) add_counts(P.counts, cnt);
 }
 

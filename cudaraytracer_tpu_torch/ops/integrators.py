@@ -38,8 +38,9 @@ Draws of the wavefront path integrator, in order of precedence:
   1. an injected ``SampleStream``;
   2. ``cfg.wavefront_tpu_prng`` (the default; the JAX name kept for
      parity): the counter-keyed Philox draws of kernel K2
-     (``megakernel.scatter_draws``) on a CUDA tensor, its plain version on
-     a CPU tensor, so both devices draw the same numbers for a seed;
+     (``megakernel.scatter_draws``, every bounce of a trace in one launch
+     before the bounce loop) on a CUDA tensor, its plain version on a CPU
+     tensor, so both devices draw the same numbers for a seed;
   3. otherwise the explicit ``torch.Generator`` (the JAX package's
      threefry draws).
 """
@@ -239,16 +240,18 @@ def _bounce(scene, cfg, isect_fn, step, win, ref, o, d, tm,
             torch.where(alive & hits.hit, hits.prim.to(torch.int32), -1))
 
 
-def _draws(cfg: RenderConfig, step: int, n: int, dev, samples, seed,
-           generator):
-    """One bounce's (ball, prob) draws, in the order of precedence of the
-    module docstring."""
+def _draws(cfg: RenderConfig, n: int, dev, samples, seed, generator):
+    """step -> that bounce's (ball, prob) draws, in the order of precedence
+    of the module docstring.  K2 draws every bounce of the trace in one
+    launch here, (max_depth + 1) x n x 16 bytes (37.7 MB for 2^18 rays at
+    depth 8); the generator draws one bounce a call, in bounce order."""
     if samples is not None:
-        return samples.ball[step], samples.prob[step]
+        return lambda step: (samples.ball[step], samples.prob[step])
     if cfg.wavefront_tpu_prng:
-        draws = _mk.scatter_draws(torch.empty(n, 4, device=dev), seed, step)
-        return draws[:, :3], draws[:, 3]
-    return _mat.scatter_draws(n, generator, dev)
+        draws = _mk.scatter_draws(
+            torch.empty(cfg.max_depth + 1, n, 4, device=dev), seed)
+        return lambda step: (draws[step, :, :3], draws[step, :, 3])
+    return lambda step: _mat.scatter_draws(n, generator, dev)
 
 
 def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -298,8 +301,9 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     ref_tables = (_mk.build_mega_tables(scene) if winners is not None
                   else None)
     recorded = []
+    draws = _draws(cfg, n, dev, samples, seed, generator)
     for step in range(cfg.max_depth + 1):
-        ball, prob = _draws(cfg, step, n, dev, samples, seed, generator)
+        ball, prob = draws(step)
         body = functools.partial(
             _bounce, scene, cfg, primary_fn if step == 0 else bounce_fn,
             step, winners[step] if winners is not None else None,
@@ -349,9 +353,10 @@ def replay_rays(scene: Scene, rays: Rays, cfg: RenderConfig,
     radiance = torch.zeros(n, 3, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     o, d, tm = rays
+    draws = _draws(cfg, n, dev, samples, seed, None)
     for step in range(cfg.max_depth + 1):
         yield step, o, d, alive
-        ball, prob = _draws(cfg, step, n, dev, samples, seed, None)
+        ball, prob = draws(step)
         o, d, tm, throughput, radiance, alive, _ = _bounce(
             scene, cfg, None, step, winners[step],
             _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob),

@@ -677,7 +677,8 @@ def _library() -> ctypes.CDLL:
         lib.crt_mega_trace.restype = ci
         lib.crt_mega_path_instance.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
         lib.crt_mega_path_instance.restype = ci
-        lib.crt_scatter_draws.argtypes = [vp, ci, ctypes.c_uint64, ci, vp]
+        lib.crt_scatter_draws.argtypes = [vp, ci, ci, ctypes.c_uint64, ci,
+                                          vp]
         lib.crt_scatter_draws.restype = ci
         lib.crt_error_string.argtypes = [ci]
         lib.crt_error_string.restype = ctypes.c_char_p
@@ -1031,30 +1032,45 @@ def _launch_mega(tables: MegaTables, origin: Tensor, direction: Tensor,
     return (out, winners) if want_winners else out
 
 
-def scatter_draws(out: Tensor, seed: int, step: int) -> Tensor:
-    """Fill float32[n, 4] with the kernel's draws (unit-ball xyz, uniform)
-    for ray indices 0..n-1 at bounce ``step``: the CUDA kernel for a CUDA
-    tensor, ``scatter_draws_plain`` for a CPU tensor."""
-    n = out.shape[0]
+def scatter_draws(out: Tensor, seed: int, step: int = 0) -> Tensor:
+    """Fill ``out`` with the kernel's draws (unit-ball xyz, uniform) for ray
+    indices 0..n-1: float32[n, 4] at bounce ``step``, or float32[S, n, 4] at
+    bounces step .. step + S - 1 (one launch for every bounce of a trace:
+    S x n x 16 bytes, 37.7 MB for 2^18 rays and 9 bounces).  The CUDA
+    kernel for a CUDA tensor, ``scatter_draws_plain`` for a CPU tensor."""
+    steps = out.shape[0] if out.dim() == 3 else None
+    n = out.shape[-2]
+    if step < 0:
+        raise ValueError(f"step {step} is negative")
     if out.device.type == "cpu":
-        out.copy_(scatter_draws_plain(n, seed, step, out.device))
+        out.copy_(scatter_draws_plain(n, seed, step, out.device, steps))
         return out
-    _require_cuda_f32("out", out, (n, 4))
+    _require_cuda_f32("out", out, (n, 4) if steps is None else (steps, n, 4))
+    if n > 2 ** 30:
+        raise ValueError(f"{n} rays exceed one draws launch")
     lib = _library()
     with torch.cuda.device(out.device):
         code = lib.crt_scatter_draws(
-            out.data_ptr(), n, seed & (2 ** 64 - 1), step,
+            out.data_ptr(), n, steps or 1, seed & (2 ** 64 - 1), step,
             torch.cuda.current_stream().cuda_stream)
     _check(lib, code, "scatter_draws")
     LAUNCHES["scatter_draws"] += 1
     return out
 
 
-def scatter_draws_plain(n: int, seed: int, step: int, device) -> Tensor:
-    """Plain version of the scatter_draws kernel: float32[n, 4]."""
-    ball, prob = _rng.counter_draws(
-        seed, torch.arange(n, device=device), step)
-    return torch.cat([ball, prob[:, None]], dim=1)
+def scatter_draws_plain(n: int, seed: int, step: int, device,
+                        steps: Optional[int] = None) -> Tensor:
+    """Plain version of the scatter_draws kernel: float32[n, 4] at bounce
+    ``step``, or with ``steps`` float32[steps, n, 4] at bounces step ..
+    step + steps - 1, every (ray, bounce) counter in one pass."""
+    index = torch.arange(n, device=device)
+    if steps is None:
+        ball, prob = _rng.counter_draws(seed, index, step)
+        return torch.cat([ball, prob[:, None]], dim=1)
+    bounce = torch.arange(step, step + steps, device=device)
+    ball, prob = _rng.counter_draws(seed, index.repeat(steps),
+                                    bounce.repeat_interleave(n))
+    return torch.cat([ball, prob[:, None]], dim=1).view(steps, n, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -477,12 +477,13 @@ def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
                         sup: Optional[Tensor] = None,
                         coop: Optional[bool] = None):
     """One launch of K3 (attr_rows None) or K5 over prepared tables ->
-    (t, idx[, attrs]).  box None: the plain form; given, the culled form,
-    with the super boxes ``sup`` as a second level when given.  coop: the
-    warp-cooperative chunk tests of a culled launch (default: on a launch
-    with an alive mask).  counts: optional int64[N_COUNTS] CUDA tensor
-    that a separately compiled counting instance adds its tests to
-    (measurement only)."""
+    (t, idx[, attrs]); K5's attrs float32[N, A] are the transposed view of
+    the planes it writes, float32[A, N].  box None: the plain form; given,
+    the culled form, with the super boxes ``sup`` as a second level when
+    given.  coop: the warp-cooperative chunk tests of a culled launch
+    (default: on a launch with an alive mask).  counts: optional
+    int64[N_COUNTS] CUDA tensor that a separately compiled counting
+    instance adds its tests to (measurement only)."""
     n = origin.shape[0]
     dev = origin.device
     _launch_checks(origin, direction, alive, counts)
@@ -496,7 +497,8 @@ def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
                     dev)
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, dtype=torch.int32, device=dev)
-    out_a = (torch.empty((n, n_attr), dtype=torch.float32, device=dev)
+    # K5 writes one plane of n floats per attribute
+    out_a = (torch.empty((n_attr, n), dtype=torch.float32, device=dev)
              if attr_rows is not None else None)
     if coop is None:
         coop = alive is not None
@@ -512,7 +514,7 @@ def launch_sphere_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,
     if counts is None:
         _count_launch("sphere_sweep_attrs" if attr_rows is not None
                       else "sphere_sweep", alive)
-    return (out_t, out_i) if out_a is None else (out_t, out_i, out_a)
+    return (out_t, out_i) if out_a is None else (out_t, out_i, out_a.t())
 
 
 def launch_triangle_sweep(origin: Tensor, direction: Tensor, tbl: Tensor,

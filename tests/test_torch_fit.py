@@ -50,6 +50,7 @@ from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    params_from_numpy,
                                                    params_to_numpy,
                                                    scene_from_numpy, to_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 W, H, SPP, DEPTH = 24, 16, 1, 3
 

@@ -173,6 +173,10 @@ def test_duplicate_prims_first_wins(cuda, integrator):
 
 @pytest.mark.gpu
 def test_scatter_draws_match_plain(cuda):
+    """K2 on one bounce of 2^20 rays, and over a range of bounces in one
+    launch (a depth-8 trace's 9 x 2^18 draws from bounce 0, and 4 bounces
+    from bounce 5): bit-equal to the plain version and to the one-bounce
+    launches stacked."""
     n = 1 << 20
     out = mk.scatter_draws(torch.empty(n, 4, device=cuda), 99, 3)
     ref = mk.scatter_draws_plain(n, 99, 3, cuda)
@@ -180,6 +184,17 @@ def test_scatter_draws_match_plain(cuda):
     r = out[:, :3].double().norm(dim=1)
     assert float(r.max()) <= 1.0 + 1e-6
     assert float(out[:, :3].mean(0).abs().max()) < 5e-3
+    n = 1 << 18
+    for lo, steps in ((0, DEPTH + 1), (5, 4)):
+        before = mk.LAUNCHES["scatter_draws"]
+        out = mk.scatter_draws(torch.empty(steps, n, 4, device=cuda), 99, lo)
+        assert mk.LAUNCHES["scatter_draws"] == before + 1
+        assert torch.equal(out, mk.scatter_draws_plain(n, 99, lo, cuda,
+                                                       steps))
+        one = torch.stack([mk.scatter_draws(torch.empty(n, 4, device=cuda),
+                                            99, s)
+                           for s in range(lo, lo + steps)])
+        assert torch.equal(out, one)
 
 
 @pytest.mark.gpu
@@ -595,7 +610,9 @@ def _bounced(scene, rays, cfg, seed):
 @pytest.mark.parametrize("cull", [False, True])
 def test_sphere_sweeps_match_plain(cuda, cull, attrs):
     """K3 / K5 on random_spheres (Morton order, as the trace runs it):
-    camera rays, then bounced rays with an alive mask (dead lanes miss)."""
+    camera rays, then bounced rays with an alive mask of every ray and a
+    thinned one (dead lanes miss).  K5's attributes [N, 21] bit-equal to
+    the plain version's, a dead lane carrying prim 0's row."""
     scene, cam = presets.random_spheres(2.0, device=cuda)
     scene = integ._morton_scene(scene)[0]
     sp = scene.spheres
@@ -604,7 +621,8 @@ def test_sphere_sweeps_match_plain(cuda, cull, attrs):
         device=cuda).manual_seed(6))
     tbl = isect.sphere_attr_table(scene)
     bo, bd, alive = _bounced(scene, rays, cfg, 8)
-    for o, d, al in ((rays.origin, rays.direction, None), (bo, bd, alive)):
+    for o, d, al in ((rays.origin, rays.direction, None),
+                     (bo, bd, torch.ones_like(alive)), (bo, bd, alive)):
         before = dict(sw.LAUNCHES)
         if attrs:
             got = sw.sphere_best_hit_attrs_raw(o, d, sp.center, sp.radius,
@@ -621,9 +639,14 @@ def test_sphere_sweeps_match_plain(cuda, cull, attrs):
         torch.cuda.synchronize()
         assert sw.LAUNCHES[key] == before[key] + 1
         _hits_match(got, ref)
+        if attrs:
+            assert tuple(got[2].shape) == (o.shape[0], tbl.shape[0])
+            assert torch.equal(got[2], ref[2])
         if al is not None:
             assert bool((got[1][~al] == -1).all())
             assert bool((got[0][~al] == sw.BIG).all())
+            if attrs:
+                assert bool((got[2][~al] == tbl[:, 0]).all())
 
 
 @pytest.mark.gpu

@@ -43,10 +43,12 @@ from cudaraytracer_tpu_torch.core.rays import Rays
 from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+from cudaraytracer_tpu_torch.ops import integrators as tinteg
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    scene_from_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_megakernel import _mixed_scene
 
 W, H, SPP, DEPTH = 32, 16, 2, 8
@@ -203,6 +205,39 @@ def test_scatter_draws_plain_on_cpu_tensor():
     ball, prob = trng.counter_draws(77, torch.arange(1000), 2)
     assert torch.equal(out, torch.cat([ball, prob[:, None]], 1))
     assert tmk.LAUNCHES["scatter_draws"] == 0
+
+
+def test_scatter_draws_step_range_and_wavefront_on_them():
+    """K2's plain version over a range of bounces equals its one-bounce
+    draws stacked (from bounce 0 and from a later one), and a CPU tensor
+    of that shape takes it without a launch; the wavefront trace_path on
+    these counter draws (wavefront_tpu_prng: every bounce drawn before the
+    bounce loop) matches JAX's trace_path fed the same numbers."""
+    n, seed = 257, 0x5EED_D1CE_0042
+    for lo, steps in ((0, DEPTH + 1), (3, 4)):
+        want = torch.stack([tmk.scatter_draws_plain(n, seed, s, "cpu")
+                            for s in range(lo, lo + steps)])
+        assert torch.equal(tmk.scatter_draws_plain(n, seed, lo, "cpu",
+                                                   steps), want)
+        assert torch.equal(tmk.scatter_draws(torch.empty(steps, n, 4), seed,
+                                             lo), want)
+    assert tmk.LAUNCHES["scatter_draws"] == 0
+    js, jc = jpresets.three_spheres(aspect=2.0)
+    ts = scene_from_numpy(_np_tree(js), "cpu")
+    o, d, t = _rays_np(camera_from_numpy(_np_tree(jc), "cpu"), 6, 16, 8, 1)
+    cfg = RenderConfig(width=16, height=8, samples=1, max_depth=DEPTH)
+    assert cfg.engine == "wavefront" and cfg.wavefront_tpu_prng
+    got = tinteg.trace_path(ts, Rays(*(torch.from_numpy(x)
+                                       for x in (o, d, t))), cfg, seed=seed)
+    draws = tmk.scatter_draws_plain(o.shape[0], seed, 0, "cpu", DEPTH + 1)
+    ref = jinteg.trace_path(
+        js, JRays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t)),
+        jax.random.key(0), JConfig(width=16, height=8, samples=1,
+                                   max_depth=DEPTH),
+        samples=jinteg.SampleStream(jnp.asarray(draws[..., :3].numpy()),
+                                    jnp.asarray(draws[..., 3].numpy())))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4,
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("morton", [False, True])

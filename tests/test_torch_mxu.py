@@ -40,6 +40,7 @@ from cudaraytracer_tpu.ops import megakernel as jmk
 from cudaraytracer_tpu_torch.config import check_supported
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.ops.sweeps import triangle_candidates_t
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_torch_megakernel import _np_tree
 from test_torch_stream import N_RAYS, _cfg, _stream, _streamed, _trays
 

@@ -28,6 +28,7 @@ from cudaraytracer_tpu_torch.ops import render as trender
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    scene_from_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_megakernel import _mixed_scene
 
 W, H, SPP, DEPTH = 32, 16, 2, 8

@@ -54,6 +54,7 @@ from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    params_from_numpy,
                                                    params_to_numpy,
                                                    scene_from_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_megakernel import _mixed_scene
 from test_replay import _trs_scene
 

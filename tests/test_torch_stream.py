@@ -1,32 +1,27 @@
-"""Scenes above the table-resident size and the compaction drivers on the
-CPU: the segment level (kernel mode K6), the bounce windows (K10) and the
-front-to-back shells (K11) of the port's fused engine against the JAX
-package, and the mega_diff replay's discrete decisions.
+"""Scenes above the table-resident size on the CPU: the segment level
+(kernel mode K6) of the port's fused engine against the JAX package, its
+recorded winners (K7 on streamed tables), the field stand-ins' sizes, and
+the mega_diff replay's discrete decisions.  The compaction drivers (K10's
+windows, K11's shells on the routed path) are in
+tests/test_torch_stream_drivers.py, the plain window over the planes, its
+regrouping keys and the shell walk's model in
+tests/test_torch_stream_windows.py; both take their scenes and helpers
+from here.
 
 The streamed scenes are tests/test_megakernel.py's: a 10,368-triangle
 terrain (:202-230) and a 96 x 96 sphere field (:790-806), built by the same
 fill functions in both packages, with 512 rays cast from above and an
 injected scatter stream made with numpy.  Their renders are held against
 the JAX package's brute-force ``integ.trace_path`` (its interpret-mode
-fused drivers are too slow at this size); the JAX fused drivers run on a
-small resident scene.
+fused drivers are too slow at this size).
 
 Tolerances:
   * tables: equal to the JAX tables' boxes, rows and maps, exactly;
   * streamed renders against JAX ``trace_path``: atol 3e-4, rtol 1e-4, as
     tests/test_megakernel.py holds JAX's own engines;
-  * the drivers (phased, compact, routed) against the port's monolithic
-    render: bit for bit (assert_array_equal), under injected and counter
-    draws alike, since the draws are keyed by ray id;
-  * the phased driver against JAX's on the mixed scene: atol 2e-4, rtol
-    1e-4, as tests/test_torch_megakernel.py holds the fused engines;
   * winners against JAX's: equal on every ray and bounce;
   * the mega_diff replay against the plain version: rays bit for bit and
-    no recorded winner missed;
-  * the plain window over the planes (K10) under any order of the rays,
-    and its regrouping keys against the drivers' former Morton and octant
-    sorts: exactly; the model of the cooperative shell walk (K11): each
-    ray's visit sequence equal to the per-thread one's.
+    no recorded winner missed.
 """
 
 import dataclasses
@@ -53,8 +48,8 @@ from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.ops import sweeps as tsw
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import to_numpy
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_torch_megakernel import _np_tree, _rays_np, _stream_np
-from test_megakernel import _mixed_scene
 
 N_RAYS, DEPTH = 512, 4
 
@@ -230,366 +225,6 @@ def _f64(x):
     return x
 
 
-def _monolithic(ts, tables, rays, cfg, stream=None, seed=None):
-    return tmk.trace_path_mega(ts, rays, cfg, tables=tables, samples=stream,
-                               seed=seed)
-
-
-@pytest.mark.parametrize("draws", ["injected", "counter"])
-@pytest.mark.parametrize("every,octants,first", [
-    (1, False, None), (2, False, None), (3, False, None),
-    (1, True, None), (2, True, None), (3, True, None), (2, True, 1)])
-def test_phased_equals_monolithic(every, octants, first, draws):
-    """trace_path_mega_phased on the streamed terrain, every window length,
-    with and without octant regrouping, and a first window of one bounce:
-    bit-equal to the monolithic render, injected or counter draws."""
-    _, ts, o, d, orders = _streamed("terrain")
-    tables = tmk.build_mega_tables(ts, *orders)
-    stream = _stream()[2] if draws == "injected" else None
-    seed = None if stream is not None else 77
-    cfg = _cfg()
-    want = _monolithic(ts, tables, _trays(o, d), cfg, stream, seed)
-    got = tmk.trace_path_mega_phased(ts, _trays(o, d), cfg, tables=tables,
-                                     compact_every=every, samples=stream,
-                                     seed=seed, octants=octants,
-                                     first_window=first)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-
-
-def test_phased_matches_jax_phased_on_a_resident_scene():
-    """The port's phased driver and JAX's (interpret mode) on the mixed
-    scene at 32x16x2, the same rays and injected stream."""
-    js, jc = _mixed_scene()
-    from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
-                                                       scene_from_numpy)
-    tree = _np_tree(js)
-    ts = scene_from_numpy(tree, "cpu")
-    tc = camera_from_numpy(_np_tree(jc), "cpu")
-    o, d, t = _rays_np(tc, 3)
-    n = o.shape[0]
-    ball, prob = _stream_np(4, n)
-    depth = ball.shape[0] - 1
-    jcfg = JConfig(width=32, height=16, samples=2, max_depth=depth,
-                   quirks=JQuirks.fixed(), engine="mega")
-    ref = np.asarray(jmk.trace_path_mega_phased(
-        js, jmake_rays(jnp.asarray(o), jnp.asarray(d)), jax.random.key(0),
-        jcfg, compact_every=3,
-        samples=jinteg.SampleStream(jnp.asarray(ball), jnp.asarray(prob)),
-        octants=True))
-    cfg = RenderConfig(width=32, height=16, samples=2, max_depth=depth,
-                       quirks=Quirks.fixed(), engine="mega")
-    got = tmk.trace_path_mega_phased(
-        ts, Rays(*(torch.from_numpy(x) for x in (o, d, t))), cfg,
-        tables=tmk.morton_tables(ts), compact_every=3,
-        samples=SampleStream(torch.from_numpy(ball), torch.from_numpy(prob)),
-        octants=True)
-    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-4)
-
-
-@pytest.mark.parametrize("draws", ["injected", "counter"])
-@pytest.mark.parametrize("primary", [1, 2, DEPTH])
-def test_compact_equals_monolithic(primary, draws):
-    """trace_path_mega_compact (one Morton sort between two windows):
-    bit-equal to the monolithic render."""
-    _, ts, o, d, orders = _streamed("terrain")
-    tables = tmk.build_mega_tables(ts, *orders)
-    stream = _stream()[2] if draws == "injected" else None
-    seed = None if stream is not None else 78
-    want = _monolithic(ts, tables, _trays(o, d), _cfg(), stream, seed)
-    got = tmk.trace_path_mega_compact(ts, _trays(o, d), _cfg(),
-                                      tables=tables, primary_steps=primary,
-                                      samples=stream, seed=seed)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-
-
-@pytest.mark.parametrize("primary", [0, DEPTH + 1])
-def test_compact_rejects_steps_outside_the_depth(primary):
-    scene, cam = tpresets.three_spheres(device="cpu")
-    rays = _trays(*cs.terrain_rays(4))
-    with pytest.raises(ValueError, match=r"\[1, max_depth\]"):
-        tmk.trace_path_mega_compact(scene, rays, _cfg(),
-                                    primary_steps=primary, seed=1)
-
-
-def _spy(monkeypatch):
-    """Record the calls of trace_path_mega_phased (cfg, compact_every,
-    octants) and let them run."""
-    calls = []
-    real = tmk.trace_path_mega_phased
-
-    def spy(scene, rays, cfg, **kw):
-        calls.append((cfg, kw["compact_every"], kw["octants"]))
-        return real(scene, rays, cfg, **kw)
-
-    monkeypatch.setattr(tmk, "trace_path_mega_phased", spy)
-    return calls
-
-
-@pytest.mark.parametrize("integrator", ["path", "lambert", "normal"])
-def test_select_mega_routes_as_jax(monkeypatch, integrator):
-    """With AUTO_COMPACT_TRIS lowered to 1 << 10 (as JAX's test lowers it),
-    the terrain's path render takes the phased route (every 2 bounces,
-    octants, 8 shells) and equals the monolithic render; lambert and normal
-    stay monolithic; integrate(engine='mega') goes through select_mega."""
-    _, ts, o, d, orders = _streamed("terrain")
-    tables = tmk.build_mega_tables(ts, *orders)
-    _, _, stream = _stream()
-    cfg = _cfg(integrator=integrator)
-    want = _monolithic(ts, tables, _trays(o, d), cfg, stream)
-    monkeypatch.setattr(tmk, "AUTO_COMPACT_TRIS", 1 << 10)
-    calls = _spy(monkeypatch)
-    got = tinteg.integrate(ts, _trays(o, d), cfg, tables=tables,
-                           samples=stream)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    if integrator == "path":
-        assert [(c.mega_f2b_shells, e, oc) for c, e, oc in calls] == [
-            (8, 2, True)]
-    else:
-        assert calls == []
-
-
-def test_select_mega_keeps_explicit_shells_and_small_scenes(monkeypatch):
-    """An explicit mega_f2b_shells survives the automatic route; without
-    the lowered threshold the 10k-triangle terrain runs monolithic, as it
-    does with compact_auto off."""
-    _, ts, o, d, orders = _streamed("terrain")
-    tables = tmk.build_mega_tables(ts, *orders)
-    calls = _spy(monkeypatch)
-    for cfg in (_cfg(), _cfg(compact_auto=False)):
-        tmk.select_mega(ts, _trays(o, d), cfg, tables=tables, seed=3)
-    assert calls == []
-    monkeypatch.setattr(tmk, "AUTO_COMPACT_TRIS", 1 << 10)
-    tmk.select_mega(ts, _trays(o, d), _cfg(mega_f2b_shells=3),
-                    tables=tables, seed=3)
-    tmk.select_mega(ts, _trays(o, d), _cfg(compact_auto=False),
-                    tables=tables, seed=3)
-    assert [(c.mega_f2b_shells, e, oc) for c, e, oc in calls] == [
-        (3, 2, True)]
-
-
-@pytest.mark.parametrize("draws", ["injected", "counter"])
-def test_windowed_plain_dump_resumes_exactly(draws):
-    """The plain version's window over the planes: [0, 2) writes the 13
-    planes [rad | o | d | thr | alive] of every ray in its column; resuming
-    [2, D + 1) in place, the rays served in reverse order, adds up to the
-    unbroken render bit for bit, and leaves the dead rays' columns as they
-    were."""
-    _, ts, o, d, orders = _streamed("sphere_field")
-    tables = tmk.build_mega_tables(ts, *orders)
-    rays = _trays(o, d)
-    stream = tmk.stream_tensor(_stream()[2], N_RAYS, DEPTH + 1) \
-        if draws == "injected" else None
-    cfg = _cfg("reference")
-    want = tmk.trace_path_mega_plain(tables, rays, cfg, stream, 5)
-    planes = torch.full((tmk.N_PLANES, N_RAYS), float("nan"))
-    a = tmk.trace_path_mega_plain(tables, rays, cfg, stream, 5,
-                                  window=tmk.Window(0, 2, planes))
-    assert a is planes and not planes.isnan().any()
-    assert set(a[12].tolist()) <= {0.0, 1.0} and a[12].any()
-    was_dead = a[12] == 0.0
-    dead = a[:, was_dead].clone()
-    assert dead.shape[1] > 0
-    rev = torch.arange(N_RAYS - 1, -1, -1, dtype=torch.int32)
-    tmk.trace_path_mega_plain(tables, rays, cfg, stream, 5,
-                              window=tmk.Window(2, None, planes, rev))
-    np.testing.assert_array_equal(planes[:3].t().numpy(), want.numpy())
-    np.testing.assert_array_equal(planes[:, was_dead].numpy(), dead.numpy())
-
-
-def _box_dist2(seg: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """The kernel's box_dist2 of origins float32[R, 3] to boxes float32[S,
-    8] -> float32[R, S]."""
-    q = torch.minimum(torch.maximum(o[:, None], seg[None, :, 0:3]),
-                      seg[None, :, 3:6]) - o[:, None]
-    return q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
-
-
-def _shells(seg: torch.Tensor, o: torch.Tensor, b: int) -> np.ndarray:
-    """Each ray's shell of each box, as tri_shells ranks them ->
-    int[R, S]."""
-    d2 = _box_dist2(seg, o)
-    dmin, dmax = d2.amin(1, keepdim=True), d2.amax(1, keepdim=True)
-    scale = b / torch.clamp(dmax - dmin, min=1e-30)
-    q = torch.floor((d2 - dmin) * scale)
-    return torch.where(q >= 0, torch.clamp(q, max=b - 1), 0).long().numpy()
-
-
-def _warp_walk(shells: np.ndarray, alive: np.ndarray, b: int) -> list:
-    """A model of tri_shells_coop for one warp of 32 rays: per group of 32
-    shells the union of the lanes' one-hot shell bits per box (lane t keeps
-    box 32 w + t's), one ballot per shell into bits[s][w], then the walk of
-    the set bits in (shell, table) order with __ffs, each lane entering box
-    j in its own shell's pass -> each lane's visit sequence.  Asserts that
-    every pair walked has a lane that enters it."""
-    n_top = shells.shape[1]
-    nw = -(-n_top // 32)
-    visits = [[] for _ in range(32)]
-    for g in range(0, b, 32):
-        gb = min(b - g, 32)
-        bits = np.zeros((gb, nw), np.int64)
-        for w in range(nw):
-            mine = np.zeros(32, np.int64)
-            for t in range(min(n_top - 32 * w, 32)):
-                s = np.where(alive, shells[:, 32 * w + t] - g, -1)
-                onehot = np.where((s >= 0) & (s < 32), 1 << np.clip(s, 0, 31),
-                                  0)
-                mine[t] = np.bitwise_or.reduce(onehot)
-            for sh in range(gb):
-                bits[sh, w] = int(((mine >> sh) & 1) @ (1 << np.arange(32)))
-        for sh in range(gb):
-            for w in range(nw):
-                m = int(bits[sh, w])
-                while m:
-                    j = 32 * w + (m & -m).bit_length() - 1
-                    m &= m - 1
-                    enter = alive & (shells[:, j] == g + sh)
-                    assert enter.any(), "a vote on a pair no lane holds"
-                    for lane in np.nonzero(enter)[0]:
-                        visits[lane].append(j)
-    return visits
-
-
-def _walk_cases():
-    """(top-level boxes, origins, alive) of the terrain's and a 20,480-
-    triangle field's rays after one bounce (the plain version's window
-    [0, 1)), and of 70 random boxes (three words of segments) seen from 512
-    random origins."""
-    _, ts, o, d, orders = _streamed("terrain")
-    sf, cam = cs.field_scene(2, 2, 2.0, device="cpu")
-    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
-    fr = generate_pixel_rays(cam, 32, 16, 1, torch.arange(512),
-                             generator=torch.Generator().manual_seed(2))
-    out = []
-    for tables, rays in ((tmk.build_mega_tables(ts, *orders), _trays(o, d)),
-                         (tmk.morton_tables(sf), fr)):
-        planes = torch.empty(tmk.N_PLANES, rays.origin.shape[0])
-        tmk.trace_path_mega_plain(tables, rays, _cfg(), None, 3,
-                                  window=tmk.Window(0, 1, planes))
-        out.append((tables.tri_seg, planes[3:6].t(), planes[12] > 0))
-    rng = np.random.default_rng(4)
-    lo = rng.uniform(-10, 10, (70, 3)).astype(np.float32)
-    seg = torch.from_numpy(np.concatenate(
-        [lo, lo + rng.uniform(0.1, 3, (70, 3)).astype(np.float32),
-         np.zeros((70, 2), np.float32)], 1))
-    org = torch.from_numpy(rng.uniform(-12, 12, (512, 3)).astype(np.float32))
-    out.append((seg, org, torch.from_numpy(rng.uniform(size=512) < 0.8)))
-    return out
-
-
-@pytest.mark.parametrize("shells", [1, 3, 8, 40])
-def test_cooperative_shell_walk_keeps_each_rays_order(shells):
-    """K11 under COOP, modelled warp by warp (32 rays, the union masks, the
-    groups of 32 shells, dead lanes): every ray visits exactly the boxes of
-    the per-thread tri_shells, in its order, and every (shell, box) pair
-    the warp walks has a ray that enters it.  On the terrain's 6 segments,
-    the field's 10 and 70 random boxes."""
-    for seg, o, alive in _walk_cases():
-        sh = _shells(seg, o, shells)
-        assert len(np.unique(sh)) > min(shells, 2) - 1
-        alive = alive.numpy()
-        for w0 in range(0, o.shape[0], 32):
-            lanes = slice(w0, w0 + 32)
-            got = _warp_walk(sh[lanes], alive[lanes], shells)
-            for lane, seq in enumerate(got):
-                want = (sorted(range(seg.shape[0]),
-                               key=lambda j: (sh[w0 + lane, j], j))
-                        if alive[w0 + lane] else [])
-                assert seq == want
-
-
-def _morton_order_before(o, d, alive, octants):
-    """The drivers' regrouping before the keys moved into the kernel: the
-    30-bit Morton code of origins quantized over their own range, in int64
-    (the octant key or the code), dead rays last, a stable argsort."""
-    def spread(v):
-        v = v & 0x3FF
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        return (v | (v << 2)) & 0x09249249
-
-    def q(a):
-        lo = a.min()
-        span = torch.clamp(a.max() - lo, min=1e-20)
-        return torch.clamp((a - lo) / span * 1023.0, 0.0, 1023.0).to(
-            torch.int64)
-
-    code = (spread(q(o[:, 0])) << 2) | (spread(q(o[:, 1])) << 1) | spread(
-        q(o[:, 2]))
-    if octants:
-        oct_ = (((d[:, 0] < 0).to(torch.int64) << 2)
-                | ((d[:, 1] < 0).to(torch.int64) << 1)
-                | (d[:, 2] < 0).to(torch.int64))
-        code = (((code >> 18) << 18) | (oct_ << 15)
-                | ((code >> 3) & ((1 << 15) - 1)))
-    return torch.argsort(torch.where(alive, code, tmk.DEAD_KEY), stable=True)
-
-
-def test_regroup_keys():
-    """The plain key function (K10), on the sphere field's rays after two
-    bounces: the octant bits are the direction's signs, dead rays take
-    DEAD_KEY and sort last, alive-first keeps the ray order within each
-    group, and over the origins' own range the Morton and octant keys sort
-    as the drivers sorted before (today's Morton order)."""
-    _, ts, o, d, orders = _streamed("sphere_field")
-    tables = tmk.build_mega_tables(ts, *orders)
-    planes = torch.empty(tmk.N_PLANES, N_RAYS)
-    tmk.trace_path_mega_plain(tables, _trays(o, d), _cfg(), None, 6,
-                              window=tmk.Window(0, 2, planes))
-    o2, d2, alive = planes[3:6].t(), planes[6:9].t(), planes[12] > 0
-    assert 0 < int(alive.sum()) < N_RAYS
-    bounds = tables.key_bounds
-    assert bounds.shape == (2, 3) and bool((bounds[1] > 0).all())
-    for mode in (tmk.KEY_ALIVE, tmk.KEY_OCTANT, tmk.KEY_MORTON):
-        key = tmk.regroup_keys(o2, d2, alive, mode, bounds)
-        assert key.dtype == torch.int32
-        assert bool((key[~alive] == tmk.DEAD_KEY).all())
-        assert bool((key[alive] < tmk.DEAD_KEY).all())
-        order = tmk._next_order(key)
-        assert order.dtype == torch.int32
-        assert bool(alive[order.long()][:int(alive.sum())].all())
-    key = tmk.regroup_keys(o2, d2, alive, tmk.KEY_OCTANT, bounds)
-    neg = (d2 < 0).to(torch.int32)
-    assert torch.equal(((key >> 15) & 7)[alive],
-                       ((neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2])[alive])
-    key = tmk.regroup_keys(o2, d2, alive, tmk.KEY_ALIVE, bounds)
-    assert torch.equal(tmk._next_order(key).long(), torch.cat(
-        [torch.nonzero(alive)[:, 0], torch.nonzero(~alive)[:, 0]]))
-    lo = o2.amin(0)
-    own = torch.stack([lo, torch.clamp(o2.amax(0) - lo, min=1e-20)])
-    for mode, octants in ((tmk.KEY_MORTON, False), (tmk.KEY_OCTANT, True)):
-        key = tmk.regroup_keys(o2, d2, alive, mode, own)
-        assert torch.equal(tmk._next_order(key).long(),
-                           _morton_order_before(o2, d2, alive, octants))
-
-
-def test_plain_window_is_independent_of_the_order():
-    """The plain window over the planes under a shuffled order gives the
-    planes and keys of the identity order, at step 0 and resumed (the
-    draws and the injected stream's row follow the ray id)."""
-    _, ts, o, d, orders = _streamed("terrain")
-    tables = tmk.build_mega_tables(ts, *orders)
-    rays = _trays(o, d)
-    stream = tmk.stream_tensor(_stream()[2], N_RAYS, DEPTH + 1)
-    shuffled = torch.randperm(
-        N_RAYS, generator=torch.Generator().manual_seed(9)).to(torch.int32)
-    got = []
-    for order in (None, shuffled):
-        planes = torch.empty(tmk.N_PLANES, N_RAYS)
-        key = torch.empty(N_RAYS, dtype=torch.int32)
-        tmk.trace_path_mega_plain(tables, rays, _cfg(), stream, 0,
-                                  window=tmk.Window(0, 2, planes, order, key,
-                                                    tmk.KEY_OCTANT))
-        first = planes.clone(), key.clone()
-        tmk.trace_path_mega_plain(tables, rays, _cfg(), stream, 0,
-                                  window=tmk.Window(2, 2, planes, order, key,
-                                                    tmk.KEY_OCTANT))
-        got.append((first, (planes, key)))
-    for (a, ka), (b, kb) in zip(*got):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-        assert torch.equal(ka, kb)
-
-
 def test_streamed_winners_match_jax():
     """K7 on a streamed scene: the port's recorded winners on the terrain
     (plain version, Morton tables with the segment level) equal JAX's
@@ -643,16 +278,6 @@ def test_replay_follows_the_plain_path(profile):
                 0, step, torch.empty(tmk.N_PLANES, rays.origin.shape[0])))
         np.testing.assert_array_equal(ro.numpy(), ref[3:6].t().numpy())
         np.testing.assert_array_equal(rd.numpy(), ref[6:9].t().numpy())
-
-
-def test_fused_drivers_reject_other_integrators():
-    scene, _ = tpresets.three_spheres(device="cpu")
-    rays = _trays(*cs.terrain_rays(4))
-    with pytest.raises(ValueError, match="path integrator"):
-        tmk.trace_path_mega_phased(scene, rays, _cfg(integrator="lambert"))
-    with pytest.raises(ValueError, match="bounce window"):
-        tmk.trace_path_mega(scene, rays, _cfg(integrator="normal"),
-                            window=tmk.Window(0, 2, torch.empty(13, 4)))
 
 
 def test_big_field_scenes_hold_bench_sizes():

@@ -52,6 +52,7 @@ from cudaraytracer_tpu_torch.ops import render as trender
 from cudaraytracer_tpu_torch.ops import sweeps as tsw
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    scene_from_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_megakernel import _mixed_scene
 
 BIG = 3.4028235e38

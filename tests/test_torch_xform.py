@@ -56,6 +56,7 @@ from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.ops.integrators import SampleStream
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    scene_from_numpy, to_numpy)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_transform_prims import _trs_showcase_scene
 
 W, H, SPP, DEPTH = 32, 16, 1, 4

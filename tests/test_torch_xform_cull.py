@@ -37,6 +37,7 @@ from cudaraytracer_tpu_torch.core import vec as tv3
 from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.ops import megakernel as tmk
 from cudaraytracer_tpu_torch.utils.convert import scene_from_numpy
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from test_torch_xform import (_assert_radiance, _both, _inputs, _np_tree,
                               _tcfg)
 
@@ -44,17 +45,6 @@ FIELD = 200          # rows a class: above XFORM_CULL_MIN, in 25 chunks
 N_EDGE = 512         # rays of each xform_edge_rays set
 CFG = RenderConfig(width=32, height=16, samples=1, max_depth=3,
                    quirks=Quirks.fixed(), engine="mega")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These tests run many small tensor ops, which intra-op threads only
-    slow down (most under a parallel run); the worker's own setting comes
-    back after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
