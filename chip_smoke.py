@@ -15,8 +15,11 @@ prims of a type (the segment level K6 mega_stream, the bounce windows of
 the compaction drivers K10 mega_window, the front-to-back shells K11
 mega_f2b, the bilinear triangle sweep K12 mega_mxu under cfg.mega_mxu), and
 the skinned-animation driver apps/animate.py (its mega pipeline on K1 and
-K6, its pallas pipeline on K4).  A launch counts once for each mode it runs
-(K6-K12), or as mega_trace when it runs none.
+K6, its pallas pipeline on K4, its bvh, bonebvh and fused pipelines on the
+BVH traversal crt_bvh_traverse, csrc/bvh.cu, which replaces no pallas_call
+but JAX's traverse_bvh loop) and the render CLI's --accel bvh.  A launch
+counts once for each mode it runs (K6-K12), or as mega_trace when it runs
+none.
 
 Phases (each prints lines; any failure raises and exits nonzero):
   1. environment: the card's name and power limit;
@@ -126,6 +129,20 @@ Phases (each prints lines; any failure raises and exits nonzero):
          rays, 96 bytes of coefficients each), and its own count of tests
          (tri_done) is printed beside them, both held against the
          per-thread counting instances on (m)'s launch;
+       * the BVH (``phase_bvh``): the native builder's layout equal to
+         the Python builder's on (b), its seconds on (m) and (n); the
+         refit on the card equal to the CPU's on (b) and (m);
+         crt_bvh_traverse against traverse_bvh_plain (ids equal, t max abs
+         error 0) on 2^16 camera and 2^16 bounce rays of (b) and (m) and
+         of skinned_field's bone forest, both quirk profiles, both shrink
+         values; the forest's winners against brute force, counted; the
+         absolute pad's (AABB_PAD) first-hit losses against brute force
+         on node and triangle planes of the icosphere and the capsule and
+         on grazing slivers, counted per profile (a departure of both
+         packages, not a failure); the walk on the first 2^18 rays of (b)
+         and (m) (and their middle launches) and (n) on the card, its plain
+         version, its bound from its counted tests, beside K4 and, on (m)
+         and (n), K6 (lambert) on the same rays;
   4. draws: the scatter_draws kernel K2 as a wavefront trace launches it,
      every bounce of a depth-8 trace of 2^18 rays in one launch, against
      its plain version and its one-bounce launches stacked, timed on the
@@ -198,9 +215,18 @@ Phases (each prints lines; any failure raises and exits nonzero):
            s/frame, peak memory, the last frame's mean and mesh share;
        (p) the same on skinned_field (big_field's 128,000 triangles on two
            bones, K6);
+       (s) (o) through --pipeline bvh (the reference's active pipeline: a
+           BVH built from frame 0's pose, skin and refit timed as update,
+           the wavefront through the traversal kernel), and --pipeline
+           fused for 3 frames; the last frame against (o)'s: at most
+           max(2, n/200) pixels over 1e-3;
+       (t) (p) through --pipeline bonebvh (a tree per bone) and bvh, each
+           against (p)'s last frame the same way;
      then animate.main on an ASCII FBX of the capsule's bind pose, 3 frames
-     each of the mega, pallas and list pipelines at 256x128x2 (CSV and
-     PNGs);
+     each of the mega, pallas, list, bvh and fused pipelines at 256x128x2
+     (CSV and PNGs), and bonebvh's empty-forest error on that unskinned
+     file; then apps/render.py --accel bvh on the icosphere at (b)'s
+     1280x720x8;
      then the replay divergence on (g)'s and (l)'s first launch: the rays
      whose replay meets a recorded winner that the replayed ray misses
      (must be 0: the replay takes its decisions and rays from the plain
@@ -2220,6 +2246,335 @@ def phase_margins(dev, strict: bool = True) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The BVH (crt_bvh_traverse, csrc/bvh.cu)
+# ---------------------------------------------------------------------------
+
+BVH_RAYS = 1 << 16
+NODE_BYTES = 37    # a node's box (24 B), skip, prim0, prim1 and leaf flag
+TRI_BYTES = 48     # a triangle's v0, v1, v2 and normal, as the walk reads
+
+
+def bvh_walk(tree, tri, o, d, quirks, shrink=None, alive=None, plain=False):
+    """(best_t, best_prim) of the walk over tree (FlatBVH) of the
+    triangles ``tri`` (v0, v1, v2, normal): the kernel, or its plain
+    version."""
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.ops import bvh
+    from cudaraytracer_tpu_torch.ops.sweeps import BIG
+    fn = bvh.traverse_bvh_plain if plain else bvh.traverse_bvh
+    return fn(tree, tri.v0, tri.v1, tri.v2, tri.normal,
+              Rays(o, d, o.new_zeros(0)), 1e-3, BIG, quirks, shrink, alive)
+
+
+def bvh_parity(label, tree, tri, o, d, quirks, shrink, alive=None) -> float:
+    """crt_bvh_traverse against traverse_bvh_plain on the same rays: ids
+    equal on every ray and t max abs error 0 -> the error."""
+    got = bvh_walk(tree, tri, o, d, quirks, shrink, alive)
+    ref = bvh_walk(tree, tri, o, d, quirks, shrink, alive, plain=True)
+    n_diff = int((got[1] != ref[1]).sum())
+    err = float((got[0] - ref[0]).abs().max())
+    hit = float((ref[1] >= 0).float().mean())
+    print(f"[bvh] {label:58s} rays {o.shape[0]:7d} hit {hit * 100:6.2f}% "
+          f"idx differ {n_diff} max_abs_err {err:.3g}")
+    check(n_diff == 0 and err == 0.0, f"{label}: the kernel and the plain "
+          f"walk differ on {n_diff} ids, t by {err}")
+    return err
+
+
+def bvh_cost(tree, tri, o, d, quirks) -> dict:
+    """The counting instance on these rays (shrink from the quirks): box
+    and triangle tests, the nodes and triangles any ray tested, and the
+    bound: tests x FLOPs over the FP32 peak against the rays (24 B in, 8 B
+    out), touched nodes (37 B) and triangles (48 B) over the memory rate."""
+    from cudaraytracer_tpu_torch.ops import bvh
+    from cudaraytracer_tpu_torch.ops.sweeps import BIG
+    n, dev = o.shape[0], o.device
+    counts = bvh.BVHCounts(
+        torch.zeros(2, n, dtype=torch.int32, device=dev),
+        torch.zeros(tree.n_nodes, dtype=torch.uint8, device=dev),
+        torch.zeros(tri.v0.shape[0], dtype=torch.uint8, device=dev))
+    bvh.launch_bvh_traverse(tree, tri.v0, tri.v1, tri.v2, tri.normal, o, d,
+                            1e-3, BIG, quirks, bvh._shrink_of(quirks, None),
+                            counts=counts)
+    box = int(counts.ray_tests[0].sum())
+    tris = int(counts.ray_tests[1].sum())
+    nodes = int(counts.node_seen.sum())
+    seen = int(counts.tri_seen.sum())
+    b, by = bound(box * FLOP_BOX + tris * FLOP_TRI,
+                  n * 32 + nodes * NODE_BYTES + seen * TRI_BYTES)
+    return {"box_tests": box, "tri_tests": tris, "nodes_touched": nodes,
+            "tris_touched": seen,
+            "box_tests_per_ray": box / n,
+            "max_box_tests": int(counts.ray_tests[0].max()),
+            "bound_ms": b, "bound_by": by}
+
+
+def bvh_losses(label, tree, tri, o, d, quirks) -> dict:
+    """The walk's first hits against brute force (K4's plain version, the
+    first prim of the least t) on stress rays: a ray is lost where brute
+    force hits at t > t_min and the walk keeps another winner; ``tie``
+    (the walk's winner has the same t), ``behind`` (brute force's winner
+    lies at t <= t_min, which no box reaches: t_min cuts the slab) apart.
+    Counted only: the port keeps the JAX package's contract."""
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    bt, bp = bvh_walk(tree, tri, o, d, quirks)
+    rt, rp = sw.triangle_best_hit_plain(o, d, tri.v0, tri.v1, tri.v2,
+                                        tri.normal, 1e-3, sw.BIG, quirks)
+    differ = bp != rp
+    behind = differ & (rp >= 0) & (rt <= np.float32(1e-3))
+    tie = differ & (rp >= 0) & (bt == rt)
+    lost = differ & (rp >= 0) & ~behind & ~tie
+    out = {"rays": int(o.shape[0]), "brute_hits": int((rp >= 0).sum()),
+           "lost": int(lost.sum()), "tie": int(tie.sum()),
+           "behind": int(behind.sum()),
+           "extra": int((differ & (rp < 0)).sum())}
+    print(f"[bvh] pad losses, {label}: {out}")
+    return out
+
+
+def bvh_scene_rays(dev, f: Frame, gen, index: int):
+    """(scene triangles, camera rays, bounce rays, their alive mask): the
+    first BVH_RAYS rays of f's launch ``index`` and the same after one
+    wavefront bounce."""
+    rays = first_chunk(f, gen, index)
+    cam = rays._replace(origin=rays.origin[:BVH_RAYS].contiguous(),
+                        direction=rays.direction[:BVH_RAYS].contiguous(),
+                        time=rays.time[:BVH_RAYS])
+    b, alive, _ = one_bounce(f.scene, cam, dataclasses.replace(
+        f.cfg, engine="wavefront"), 31, gen)
+    return (f.scene.triangles, cam,
+            b._replace(origin=b.origin.contiguous(),
+                       direction=b.direction.contiguous()), alive)
+
+
+def bvh_timing(label, f: Frame, rays, quirks, tables=None) -> dict:
+    """The walk on one main-path launch of rays (f's cell's quirks):
+    crt_bvh_traverse on the card (device_ms) and as the call, its plain
+    version once, the bound from its counted tests, and beside them K4
+    (the culled triangle sweep) and, above 8,192 triangles, K6 (the
+    fused segment level, lambert: one closest hit a ray) on the same
+    rays."""
+    from cudaraytracer_tpu_torch.ops import bvh
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    tri = f.scene.triangles
+    o, d = rays.origin.contiguous(), rays.direction.contiguous()
+    t0 = time.perf_counter()
+    tree = bvh.build_triangle_bvh(tri.v0, tri.v1, tri.v2, backend="native",
+                                  device=o.device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ms, got = device_ms(lambda: bvh_walk(tree, tri, o, d, quirks), reps=5)
+    call_ms, _ = cuda_ms(lambda: bvh_walk(tree, tri, o, d, quirks), reps=5)
+    plain_ms, ref = cuda_ms(lambda: bvh_walk(tree, tri, o, d, quirks,
+                                             plain=True), reps=1, warmup=0)
+    check(torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0]),
+          f"{label}: the kernel and the plain walk differ")
+    cost = bvh_cost(tree, tri, o, d, quirks)
+    tbl = sw.triangle_table(tri.v0, tri.v1, tri.v2, tri.normal)
+    k4_ms, k4 = device_ms(lambda: sw.launch_triangle_sweep(
+        o, d, tbl[0], tbl[1], None, 1e-3, sw.BIG, quirks, sup=tbl[2]),
+        reps=5)
+    same = float((k4[1] == got[1]).float().mean())
+    instance = f"crt_bvh_{bvh.mode_of(quirks, bvh._shrink_of(quirks, None))}"
+    regs, spill = ptxas_usage(instance)
+    out = {"rays": int(o.shape[0]), "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, **cost, "instance": instance,
+           "registers": regs, "spill_bytes": spill, "k4_ms": k4_ms,
+           "k4_same_winner": same, "native_build_s": build_s,
+           "nodes": tree.n_nodes, "hit": float((got[1] >= 0).float().mean())}
+    k6 = ""
+    if tables is not None:
+        cfg = dataclasses.replace(f.cfg, integrator="lambert")
+        out["k6_lambert_ms"], _ = device_ms(lambda: mk.trace_path_mega(
+            f.scene, rays, cfg, tables=tables), reps=5)
+        k6 = f", K6 lambert {out['k6_lambert_ms']:.4f} ms"
+    print(f"[bvh] {label}: kernel {ms:.4f} ms on the card (the call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}; box tests "
+          f"{cost['box_tests']} ({cost['box_tests_per_ray']:.1f} a ray, at "
+          f"most {cost['max_box_tests']}), triangle tests "
+          f"{cost['tri_tests']}, nodes touched {cost['nodes_touched']} of "
+          f"{tree.n_nodes}); K4 {k4_ms:.4f} ms (same winner on "
+          f"{same:.2%}){k6}; native build {build_s:.3f} s; {instance} "
+          f"{regs} registers, {spill} B spill")
+    return out
+
+
+def phase_bvh(dev, fb: Frame, fm: Frame, fn: Frame) -> dict:
+    """The BVH on the card: the native build's layout equal to the Python
+    builder's on (b), and its seconds on (m) and (n); the card's refit
+    equal to the CPU's on (b) and (m); crt_bvh_traverse against
+    traverse_bvh_plain on 2^16 camera and 2^16 bounce rays of (b) and
+    (m), both quirk profiles and both shrink values, and on skinned_field's
+    bone forest (and that forest's winners against brute force, counted);
+    the pad's losses against brute force on stress rays (box planes,
+    slivers), counted per profile; the walk timed on the first 2^18 rays of
+    (b), (m) (and their middle launches: the first sees the bottom rows,
+    mostly ground) and (n), beside K4 and K6."""
+    from cudaraytracer_tpu_torch.config import Quirks
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.models import check_scenes as cs
+    from cudaraytracer_tpu_torch.models import mesh as tmesh
+    from cudaraytracer_tpu_torch.ops import bone_bvh as bb
+    from cudaraytracer_tpu_torch.ops import bvh
+    from cudaraytracer_tpu_torch.ops import intersect as isect
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = {"max_abs_err": 0.0}
+    profiles = {"reference": Quirks.reference(), "fixed": Quirks.fixed()}
+    # build: the native layout is the Python builder's
+    tb = fb.scene.triangles
+    t0 = time.perf_counter()
+    py = bvh.build_triangle_bvh(tb.v0, tb.v1, tb.v2, backend="python",
+                                device=dev)
+    out["b_python_build_s"] = time.perf_counter() - t0
+    nat = bvh.build_triangle_bvh(tb.v0, tb.v1, tb.v2, backend="native",
+                                 device=dev)
+    same = all(torch.equal(getattr(py, k), getattr(nat, k)) for k in (
+        "bbox_min", "bbox_max", "is_leaf", "skip", "prim0", "prim1",
+        "child_l", "child_r")) and len(py.levels) == len(nat.levels) and all(
+        torch.equal(a, b) for a, b in zip(py.levels, nat.levels))
+    print(f"[bvh] (b) native layout equal to the Python builder's: {same} "
+          f"({nat.n_nodes} nodes, Python {out['b_python_build_s']:.3f} s)")
+    check(same, "the native and Python builders differ on (b)")
+    trees = {"b": nat}
+    for key, f in (("m", fm), ("n", fn)):
+        tri = f.scene.triangles
+        t0 = time.perf_counter()
+        trees[key] = bvh.build_triangle_bvh(tri.v0, tri.v1, tri.v2,
+                                            backend="native", device=dev)
+        torch.cuda.synchronize()
+        out[f"{key}_native_build_s"] = time.perf_counter() - t0
+        print(f"[bvh] ({key}) native build {out[f'{key}_native_build_s']:.3f}"
+              f" s, {trees[key].n_nodes} nodes, {len(trees[key].levels)} "
+              "levels")
+    # refit: card against CPU, on a deformation of (b) and (m)
+    for key, f in (("b", fb), ("m", fm)):
+        tri = f.scene.triangles
+        g = torch.Generator(device=dev).manual_seed(7)
+        w = [v + 0.01 * torch.randn(v.shape, generator=g, device=dev)
+             for v in (tri.v0, tri.v1, tri.v2)]
+        host = bvh.FlatBVH(*(tuple(x.cpu() for x in fld)
+                             if isinstance(fld, tuple) else fld.cpu()
+                             for fld in trees[key]))
+        ms, card = cuda_ms(lambda: bvh.refit_bvh(trees[key], *w), reps=3)
+        ref = bvh.refit_bvh(host, *(x.cpu() for x in w))
+        err = max(float((card.bbox_min.cpu() - ref.bbox_min).abs().max()),
+                  float((card.bbox_max.cpu() - ref.bbox_max).abs().max()))
+        print(f"[bvh] ({key}) refit on the card against the CPU: max abs "
+              f"error {err}, {ms:.3f} ms ({len(trees[key].levels)} levels)")
+        check(err == 0.0, f"({key}) refit differs from the CPU's")
+        out[f"{key}_refit_ms"] = ms
+    # kernel against plain: camera and bounce rays of (b) and (m)
+    for key, f in (("b", fb), ("m", fm)):
+        tri, cam, bnc, alive = bvh_scene_rays(dev, f, gen, middle_chunk(f))
+        for pname, q in profiles.items():
+            for shrink in (False, True):
+                for kind, r, al in (("camera", cam, None),
+                                    ("bounce", bnc, alive)):
+                    out["max_abs_err"] = max(out["max_abs_err"], bvh_parity(
+                        f"({key}) {kind} {pname} shrink {int(shrink)}",
+                        trees[key], tri, r.origin, r.direction, q, shrink,
+                        al))
+    # the bone forest of skinned_field (frame 0's pose)
+    mesh = cs.skinned_field()
+    dm = tmesh.device_mesh(mesh, dev)
+    v0, v1, v2 = tmesh.skin_frame(dm, 0)
+    forest = bb.build_bone_forest(*(x.cpu().numpy() for x in (v0, v1, v2)),
+                                  mesh.weights, mesh.faces, device=dev)
+    check(forest.n_dropped == 0, "skinned_field's forest dropped triangles")
+    fscene = tmesh.scene_with_frame(animate_scene(dev, mesh), dm, 0)
+    ftri = fscene.triangles
+    cam = cs.field_camera(2.0, device=dev)
+    fr = generate_pixel_rays(cam, 512, 256, 1, generator=gen)
+    fr = fr._replace(origin=fr.origin[:BVH_RAYS].contiguous(),
+                     direction=fr.direction[:BVH_RAYS].contiguous(),
+                     time=fr.time[:BVH_RAYS])
+    fb_rays, falive, _ = one_bounce(fscene, fr, dataclasses.replace(
+        fm.cfg, engine="wavefront"), 37, gen)
+    for pname, q in profiles.items():
+        for shrink in (False, True):
+            for kind, r, al in (("camera", fr, None),
+                                ("bounce", fb_rays, falive)):
+                out["max_abs_err"] = max(out["max_abs_err"], bvh_parity(
+                    f"skinned_field forest {kind} {pname} shrink "
+                    f"{int(shrink)}", forest.bvh, ftri,
+                    r.origin.contiguous(), r.direction.contiguous(), q,
+                    shrink, al))
+    brute_differ = {}
+    for pname, q in profiles.items():
+        got = isect.intersect_scene_bvh(fscene, fr, forest.bvh, quirks=q)
+        ref = isect.intersect_scene(fscene, fr, quirks=q)
+        brute_differ[pname] = int((got.prim != ref.prim).sum())
+        print(f"[bvh] skinned_field forest against brute force "
+              f"(intersect_scene), {pname}: {brute_differ[pname]} of "
+              f"{fr.origin.shape[0]} winners differ")
+    out["forest"] = {"trees": int(len(forest.root_bones)),
+                     "nodes": forest.bvh.n_nodes,
+                     "dropped": int(forest.n_dropped),
+                     "brute_force_differ": brute_differ}
+    # the pad's losses on stress rays
+    losses = {}
+    for name, scene in (("icosphere", fb.scene),
+                        ("skinned_capsule",
+                         animate_scene(dev, cs.skinned_capsule()))):
+        tri = scene.triangles
+        tree = bvh.build_triangle_bvh(tri.v0, tri.v1, tri.v2, device=dev)
+        lo = torch.minimum(torch.minimum(tri.v0, tri.v1), tri.v2)
+        hi = torch.maximum(torch.maximum(tri.v0, tri.v1), tri.v2)
+        target = tri.v0.mean(0).cpu().numpy()
+        for planes, box in (("node", torch.cat([tree.bbox_min,
+                                                tree.bbox_max], 1)),
+                            ("triangle", torch.cat([lo, hi], 1))):
+            o, d = (torch.as_tensor(x, device=dev) for x in cs.plane_rays(
+                box.cpu().numpy(), target, STRESS_RAYS, 5))
+            for pname, q in profiles.items():
+                losses[f"{name} {planes} planes {pname}"] = bvh_losses(
+                    f"{name}, {planes} planes, {pname}", tree, tri, o, d, q)
+    sv = cs.sliver_cylinder()
+    sliv = type("Slivers", (), {})()
+    sliv.v0, sliv.v1, sliv.v2 = (torch.as_tensor(x, device=dev) for x in sv)
+    e1, e2 = sliv.v1 - sliv.v0, sliv.v2 - sliv.v0
+    sliv.normal = torch.nn.functional.normalize(torch.linalg.cross(e1, e2),
+                                                dim=1)
+    stree = bvh.build_triangle_bvh(sliv.v0, sliv.v1, sliv.v2, device=dev)
+    for band, (lo_, hi_) in (("moderate", (1e-3, 1e-1)),
+                             ("extreme", (1e-6, 1e-3))):
+        o, d = (torch.as_tensor(x, device=dev).contiguous()
+                for x in cs.grazing_rays(STRESS_RAYS, lo_, hi_, seed=11))
+        for pname, q in profiles.items():
+            losses[f"slivers {band} {pname}"] = bvh_losses(
+                f"slivers, {band} grazing, {pname}", stree, sliv, o, d, q)
+    out["pad_losses"] = losses
+    # timing on the first 2^18 rays of (b), (m) and (n)
+    timing = {}
+    for key, f, idx, tables in (("b", fb, 0, None),
+                                ("b_middle", fb, middle_chunk(fb), None),
+                                ("m", fm, 0, fm.tables),
+                                ("m_middle", fm, middle_chunk(fm),
+                                 fm.tables),
+                                ("n", fn, 0, fn.tables)):
+        rays = first_chunk(f, gen, idx)
+        timing[key] = bvh_timing(f"({key}) first 2^18 rays" if idx == 0
+                                 else f"({key}) launch {idx}", f, rays,
+                                 f.cfg.quirks, tables)
+    out["timing"] = timing
+    print(f"[phase] bvh done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def animate_scene(dev, mesh):
+    """A skinned mesh's bind pose as apps/animate.py builds its scene: one
+    triangle a face, reversed winding, one red lambertian."""
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    b = SceneBuilder()
+    b.add_mesh(mesh.points, mesh.faces, b.materials.lambertian(
+        color=(0.65, 0.05, 0.05)), normals=mesh.normals, reverse_winding=True)
+    return b.build(dev)
+
+
+# ---------------------------------------------------------------------------
 # Kernel mode K9 (image textures)
 # ---------------------------------------------------------------------------
 
@@ -2907,63 +3262,101 @@ def render_mxu_cells(dev, mframes) -> tuple:
     return out, launches
 
 
-def animate_cell(dev, name: str, mesh, camera) -> dict:
-    """(o) / (p): 31 frames of apps/animate.py's loop at its defaults
-    (1024x512x4, depth 8, lambert, --pipeline mega, a PNG a frame): the
-    median update, per-frame table build and rendering s/frame, the CSV's
-    build, peak memory; the last frame's mean and the share of its pixels
-    on the red mesh must pass 10%."""
+# the last frame of each animation cell, by name (the BVH cells' agreement
+# with the mega pipeline's)
+LAST_FRAMES = {}
+
+
+def animate_cell(dev, name: str, mesh, camera, pipeline: str = "mega",
+                 frames: int = 31) -> dict:
+    """(o), (p), (s), (t): ``frames`` frames of apps/animate.py's loop at
+    its defaults (1024x512x4, depth 8, lambert, a PNG a frame) through
+    ``pipeline``: the median update, per-frame table build and rendering
+    s/frame, the CSV's build, peak memory; the last frame's mean and the
+    share of its pixels on the red mesh must pass 10%."""
     import statistics
 
     from cudaraytracer_tpu_torch.apps import animate
     from cudaraytracer_tpu_torch.utils.csvlog import HEADER, MetricsLog
     csv = os.path.join(OUT_DIR, f"{name}.csv")
     args = animate.parse_args(["--out", os.path.join(OUT_DIR, name),
-                               "--csv", csv])
+                               "--csv", csv, "--pipeline", pipeline,
+                               "--frames", str(frames)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     run = animate.animate(mesh, args, camera=camera)
     peak = torch.cuda.max_memory_allocated(dev)
     rows = MetricsLog.read_csv(csv).rows
-    check(rows[0] == HEADER and len(rows) == 2 + 31, f"{name}: CSV rows")
+    check(rows[0] == HEADER and len(rows) == 2 + frames, f"{name}: CSV rows")
     med = {k: statistics.median(getattr(run, k))
            for k in ("update", "tables", "rendering")}
     img = run.image
+    LAST_FRAMES[name] = img
     mean = float(img.mean())
     hit = float((img[..., 0] > img[..., 1]).mean())
     print(f"[main] {name}: {len(run.frames)} frames "
-          f"{args.width}x{args.height}x{args.samples} {args.integrator}, "
-          f"median update {med['update']:.4f} s, table build "
-          f"{med['tables']:.4f} s, rendering {med['rendering']:.4f} s "
-          f"(tables included), build {float(rows[1][3]):.4f} s, peak "
-          f"{peak / 2 ** 30:.2f} GiB; last frame mean {mean:.4f}, on the "
-          f"mesh {hit:.2%}")
-    check(run.frames == list(range(31)), f"{name}: frames {run.frames}")
+          f"{args.width}x{args.height}x{args.samples} {args.integrator} "
+          f"--pipeline {pipeline}, median update {med['update']:.4f} s, "
+          f"table build {med['tables']:.4f} s, rendering "
+          f"{med['rendering']:.4f} s (tables included), build "
+          f"{float(rows[1][3]):.4f} s, peak {peak / 2 ** 30:.2f} GiB; last "
+          f"frame mean {mean:.4f}, on the mesh {hit:.2%}"
+          + (f", {run.dropped} triangles dropped" if pipeline == "bonebvh"
+             else ""))
+    check(run.frames == list(range(frames)), f"{name}: frames {run.frames}")
     check(bool(np.isfinite(img).all()) and mean > 0.1 and hit > 0.1,
           f"{name}: mean {mean}, hit fraction {hit}")
-    return {"frames": len(run.frames), "median_update_s": med["update"],
+    return {"pipeline": pipeline, "frames": len(run.frames),
+            "median_update_s": med["update"],
             "median_tables_s": med["tables"],
             "median_rendering_s": med["rendering"],
             "build_s": float(rows[1][3]), "peak_gib": peak / 2 ** 30,
-            "mean": mean, "hit_fraction": hit}
+            "mean": mean, "hit_fraction": hit, "dropped": run.dropped}
+
+
+def against_mega(name: str, mega: str) -> dict:
+    """The pixels of cell ``name``'s last frame that differ from the mega
+    pipeline's last frame (cell ``mega``, the same camera rays) by more
+    than 1e-3 in a channel: at most max(2, n / 200) (silhouette rays whose
+    winner an FMA-free rounding or the boxes' pad flips)."""
+    a, b = LAST_FRAMES[name], LAST_FRAMES[mega]
+    n = a.shape[0] * a.shape[1]
+    differ = int((np.abs(a - b).max(axis=-1) > 1e-3).sum())
+    limit = max(2, n // 200)
+    print(f"[main] {name} against {mega} (--pipeline mega), last frame: "
+          f"{differ} of {n} pixels differ by more than 1e-3 (limit {limit})")
+    check(differ <= limit, f"{name}: {differ} pixels differ from mega")
+    return {"pixels": n, "differ": differ, "limit": limit}
 
 
 def animate_fbx_main() -> None:
     """apps/animate.py's main() on an ASCII FBX of the capsule's bind pose
-    (3 frames), each of the mega, pallas and list pipelines at 256x128x2:
-    the CSV's header and rows and a PNG a frame."""
+    (3 frames), each of the mega, pallas, list, bvh and fused pipelines at
+    256x128x2: the CSV's header and rows and a PNG a frame; bonebvh on the
+    file, which has no skin, must raise the empty-forest error, as the JAX
+    package's apps/animate.py does."""
     from cudaraytracer_tpu_torch.apps import animate
     from cudaraytracer_tpu_torch.models import check_scenes as cs
     from cudaraytracer_tpu_torch.utils.csvlog import HEADER, MetricsLog
     cap = cs.skinned_capsule()
     path = os.path.join(OUT_DIR, "capsule_bind.fbx")
     cs.write_ascii_fbx(path, cap.points, cap.faces, frames=3)
-    for pipeline in ("mega", "pallas", "list"):
+    for pipeline in ("mega", "pallas", "list", "bvh", "fused", "bonebvh"):
         out = os.path.join(OUT_DIR, f"fbx_{pipeline}")
-        check(animate.main(["--fbx", path, "--pipeline", pipeline,
-                            "--width", "256", "--height", "128",
-                            "--samples", "2", "--out", out, "--csv",
-                            out + ".csv"]) == 0, f"animate {pipeline}")
+        argv = ["--fbx", path, "--pipeline", pipeline, "--width", "256",
+                "--height", "128", "--samples", "2", "--out", out, "--csv",
+                out + ".csv"]
+        if pipeline == "bonebvh":
+            try:
+                animate.main(argv)
+            except ValueError as err:
+                check("empty bone forest" in str(err), f"bonebvh: {err}")
+                print("[main] animate.main --pipeline bonebvh on the "
+                      "capsule's unskinned ASCII FBX raised: "
+                      f"{str(err)[:60]}...")
+                continue
+            check(False, "bonebvh on an unskinned FBX did not raise")
+        check(animate.main(argv) == 0, f"animate {pipeline}")
         rows = MetricsLog.read_csv(out + ".csv").rows
         check(rows[0] == HEADER and [r[0] for r in rows[1:]] == [
             "", "0", "1", "2"], f"animate {pipeline}: CSV rows {rows}")
@@ -2974,6 +3367,24 @@ def animate_fbx_main() -> None:
               f"animate {pipeline}: PNGs")
         print(f"[main] animate.main --pipeline {pipeline} on the capsule's "
               f"ASCII FBX: 3 frames, CSV and PNGs written")
+
+
+def render_cli_bvh() -> dict:
+    """apps/render.py --accel bvh through main(): the icosphere at (b)'s
+    1280x720x8, path 8, fixed quirks, on the wavefront with the triangles
+    through the BVH; its PNG written."""
+    from cudaraytracer_tpu_torch.apps import render as app
+    out = os.path.join(OUT_DIR, "icosphere_accel_bvh.png")
+    t0 = time.perf_counter()
+    check(app.main(["--scene", "icosphere", "--width", "1280", "--height",
+                    "720", "--spp", "8", "--max-depth", str(DEPTH),
+                    "--quirks", "fixed", "--accel", "bvh", "--out",
+                    out]) == 0, "render --accel bvh")
+    s = time.perf_counter() - t0
+    check(os.path.getsize(out) > 0, "render --accel bvh: no PNG")
+    print(f"[main] apps/render.py --accel bvh, icosphere 1280x720x8 path "
+          f"{DEPTH}: {s:.3f} s through main() (the PNG included)")
+    return {"s": s}
 
 
 def route_at_frame_shape(dev, f: Frame, gen) -> dict:
@@ -3087,13 +3498,15 @@ def counted(name: str, fn, need, one_draw_per_trace: bool = False):
     ``need``; one_draw_per_trace (a wavefront render without a gradient):
     require one K2 launch for each trace, as many as the trace's camera
     sweeps (the most camera launches of one sweep kind)."""
+    from cudaraytracer_tpu_torch.ops import bvh
     from cudaraytracer_tpu_torch.ops import megakernel as mk
     from cudaraytracer_tpu_torch.ops import sweeps as sw
     mk.reset_launch_counts()
     sw.reset_launch_counts()
+    bvh.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = {**mk.LAUNCHES, **sw.LAUNCHES}
+    launches = {**mk.LAUNCHES, **sw.LAUNCHES, **bvh.LAUNCHES}
     print(f"[main] launches in {name}: {launches}")
     if any(sw.LAUNCHES.values()):
         KINDS[name] = {k: dict(v) for k, v in sw.LAUNCH_KINDS.items()}
@@ -3147,6 +3560,7 @@ def main() -> int:
     sframes = stream_frames(dev)
     fm, fn = sframes
     sparity = phase_stream_parity(dev, sframes)
+    bvh_res = phase_bvh(dev, fb, fm, fn)
     mframes = [mxu_frame(f) for f in sframes]
     mparity = phase_mxu_parity(dev, sframes, mframes)
     sweeps = phase_sweep_parity(dev, frames)
@@ -3285,14 +3699,40 @@ def main() -> int:
         lambda: animate_cell(dev, "skinned_field", cs.skinned_field(),
                              cs.field_camera(2.0, device=dev)),
         ("mega_stream",))
+    cell_s, l_s = counted(
+        "(s) skinned_capsule, animate --pipeline bvh",
+        lambda: animate_cell(dev, "skinned_capsule_bvh",
+                             cs.skinned_capsule(), None, "bvh"),
+        ("bvh_traverse",))
+    cell_s["against_mega"] = against_mega("skinned_capsule_bvh",
+                                          "skinned_capsule")
+    cell_sf, l_sf = counted(
+        "(s) skinned_capsule, animate --pipeline fused, 3 frames",
+        lambda: animate_cell(dev, "skinned_capsule_fused",
+                             cs.skinned_capsule(), None, "fused", 3),
+        ("bvh_traverse",))
+    cell_t = {}
+    l_t = {}
+    for pipeline in ("bonebvh", "bvh"):
+        name = f"skinned_field_{pipeline}"
+        cell_t[pipeline], l_t[f"t_{pipeline}"] = counted(
+            f"(t) skinned_field, animate --pipeline {pipeline}",
+            lambda: animate_cell(dev, name, cs.skinned_field(),
+                                 cs.field_camera(2.0, device=dev),
+                                 pipeline), ("bvh_traverse",))
+        cell_t[pipeline]["against_mega"] = against_mega(name,
+                                                        "skinned_field")
     _, l_fbx = counted("animate.main on an ASCII FBX", animate_fbx_main,
-                       ("mega_trace", "triangle_sweep"))
+                       ("mega_trace", "triangle_sweep", "bvh_traverse"))
+    accel_bvh, l_accel = counted("apps/render.py --accel bvh",
+                                 render_cli_bvh, ("bvh_traverse",))
     per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
                 "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i,
                 "j": l_j, "k_fused": l_k, "k_wavefront": l_kw,
                 "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf,
                 **{f"m_{k}": v for k, v in l_m.items()}, "n": l_n,
-                "o": l_o, "p": l_p, "animate_fbx": l_fbx, **l_qr}
+                "o": l_o, "p": l_p, "s": l_s, "s_fused": l_sf, **l_t,
+                "animate_fbx": l_fbx, "accel_bvh": l_accel, **l_qr}
     launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
     # the replay's divergence from the recorded path, (g) and (l): the
     # replay takes its decisions and rays from the plain version, so none
@@ -3436,6 +3876,20 @@ def main() -> int:
                  "in-kernel draws, 63 segments",
         **k12, "big1m_2_16": mparity["big1m"],
         "terrain_2_18": mparity["terrain"]})
+    tm = bvh_res["timing"]["m"]
+    rows.append({
+        "name": "bvh_traverse", "route": "cuda",
+        "source": "cudaraytracer_tpu_torch/csrc/bvh.cu",
+        "replaces": "cudaraytracer_tpu/ops/bvh.py:296",
+        "replaces_note": "no pallas_call: traverse_bvh's lax.while_loop",
+        "launches": launches["bvh_traverse"],
+        "max_abs_err": bvh_res["max_abs_err"], "ms": tm["ms"],
+        "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": None,
+        "ms_at": "(m)'s first 262144 rays, the 128,000-triangle field, "
+                 "fixed quirks (shrink), the native builder's tree",
+        **{k: v for k, v in bvh_res.items() if k != "max_abs_err"}})
     paths = {"c_wavefront_frame_s": ms_c / 1e3, "c_peak_gib": peak_c / 2 ** 30,
              "d_wavefront_frame_s": ms_d / 1e3, "d_peak_gib": peak_d / 2 ** 30,
              "e_fit": fit, "fit_grad_rel_card_vs_cpu": grad_rel,
@@ -3460,6 +3914,9 @@ def main() -> int:
                          "frame_launch": kn},
              "frame_sized_coop_against_per_thread": frames_pt,
              "o_skinned_capsule": cell_o, "p_skinned_field": cell_p,
+             "s_skinned_capsule_bvh": cell_s,
+             "s_skinned_capsule_fused_3": cell_sf,
+             "t_skinned_field": cell_t, "accel_bvh": accel_bvh,
              "q_big_field_mxu": {k: v for k, v in mxu_cells.items()
                                  if k != "r_big1m"},
              "r_big1m_mxu": mxu_cells["r_big1m"],

@@ -15,10 +15,19 @@ renders the same quirk-gated images):
   pallas -- the wavefront on the sweep kernels K3 / K4
             (``render.sweep_intersector``, the JAX package's Pallas sweeps);
   list   -- the wavefront on brute-force tensor ops (renderListAnimation);
-  bvh, bonebvh, fused -- the BVH pipelines, not ported yet (ROADMAP Queue 1
-            item 11): they raise.
-On mega and pallas 'update' is the skinning alone; on list it is 0 and the
-skinning is untimed, as in the JAX driver.
+  bvh    -- the reference's ACTIVE pipeline (kernel.cu:97): one BVH over the
+            mesh (``ops/bvh.py``), built from the begin frame's pose (timed
+            as 'build'), refit every frame, the wavefront through
+            ``render.bvh_intersector`` (the traversal kernel);
+  bonebvh -- one BVH per skeleton bone (renderBoneBVHAnimation,
+            kernel.cu:5-21; ``ops/bone_bvh.py``), the whole forest refit
+            every frame; triangles no bone claims are dropped, as the
+            reference drops them (a mesh with no skin has none to keep, and
+            raises the empty-forest error);
+  fused  -- bvh with skin, refit and render timed as one 'rendering'.
+On mega and pallas 'update' is the skinning alone; on bvh and bonebvh the
+skinning and the refit, ended by a device sync; on list and fused it is 0,
+as in the JAX package's apps/animate.py.
 
 The per-frame draws come from a generator seeded by Philox4x32-10 of the
 frame under the run's seed (``frame_seed``): equal in distribution to the JAX
@@ -26,8 +35,8 @@ driver's ``fold_in(key, frame)``, not equal in value.  Sticky CUDA errors
 re-raise at once; transient ones retry the frame (``utils/recovery.py``).
 
 Usage: python -m cudaraytracer_tpu_torch.apps.animate --fbx PATH [--frames N]
-           [--width W --height H --samples S] [--pipeline mega|pallas|list]
-           [--cpu]
+           [--width W --height H --samples S]
+           [--pipeline mega|pallas|list|bvh|bonebvh|fused] [--cpu]
 """
 
 from __future__ import annotations
@@ -97,32 +106,25 @@ def frame_seed(frame: int, seed: int = 0) -> int:
     return ((int(c1) << 32) | int(c0)) >> 2
 
 
-def not_ported(pipeline: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"--pipeline {pipeline}: the BVH pipelines (bvh, bonebvh, fused) are "
-        "not ported yet: ROADMAP Queue 1 item 11 (ops/bvh.py, "
-        "ops/bone_bvh.py)")
-
-
 @dataclasses.dataclass
 class AnimationRun:
     """What ``animate`` measured: the CSV's log, per frame its update,
     table build (mega only; part of the rendering) and rendering seconds,
-    and the last frame's image float32[H, W, 3] (row 0 = bottom)."""
+    the last frame's image float32[H, W, 3] (row 0 = bottom), and the
+    triangles bonebvh dropped (no bone claims them)."""
     log: object
     frames: list
     update: list
     tables: list
     rendering: list
     image: Optional[np.ndarray]
+    dropped: int = 0
 
 
 def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
     """Render the animation of ``mesh`` (a ``SkinnedMesh``) as ``args``
     (``parse_args``) asks, under ``camera`` (default: the FBX pipeline's,
     ``presets.fbx_walk_camera``)."""
-    if args.pipeline in ("bvh", "bonebvh", "fused"):
-        raise not_ported(args.pipeline)
     import torch
 
     from ..config import RenderConfig
@@ -131,7 +133,9 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
     from ..models.mesh import device_mesh, scene_with_frame
     from ..models.scene import SceneBuilder
     from ..ops import megakernel as mk
-    from ..ops.render import render_image, sweep_intersector
+    from ..ops.bone_bvh import build_bone_forest
+    from ..ops.bvh import build_triangle_bvh, refit_bvh
+    from ..ops.render import bvh_intersector, render_image, sweep_intersector
     from ..utils.checkpoint import next_frame
     from ..utils.csvlog import MetricsLog
     from ..utils.image import write_png
@@ -167,6 +171,24 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
                                     for x in (tri.v0, tri.v1, tri.v2)))
                   if scene0.n_triangles else None)
     isect = sweep_intersector(cfg) if args.pipeline == "pallas" else None
+    bvh = None
+    dropped = 0
+
+    def build_accel(scene_f):
+        """The BVH (or bone forest) of the pose scene_f (kernel.cu:29-38,
+        createScene.h:253-306 for the forest)."""
+        nonlocal dropped
+        tri = scene_f.triangles
+        if args.pipeline != "bonebvh":
+            return build_triangle_bvh(tri.v0, tri.v1, tri.v2, device=device)
+        forest = build_bone_forest(*(x.cpu().numpy() for x in (
+            tri.v0, tri.v1, tri.v2)), mesh.weights, mesh.faces,
+            device=device)
+        dropped = forest.n_dropped
+        if forest.n_dropped:
+            print(f"bonebvh: {forest.n_dropped} orphan triangles dropped "
+                  "(the reference drops them)")
+        return forest.bvh
 
     log = MetricsLog(config_note=(
         f"{args.width}x{args.height}x{args.samples}spp depth{args.max_depth} "
@@ -176,19 +198,31 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
     with torch.no_grad():
         sw.Reset()
         sw.Start()
-        sync(scene_with_frame(scene0, dm, args.begin_frame).triangles.v0)
+        scene_b = scene_with_frame(scene0, dm, args.begin_frame)
+        if args.pipeline in ("bvh", "bonebvh", "fused"):
+            bvh = build_accel(scene_b)
+            sync(bvh.bbox_min)
+        sync(scene_b.triangles.v0)
         sw.Stop()
     log.log_build(sw.GetTime())
     print(f"build: {sw.GetTime():.4f}s")
 
     def restore(attempt, err):
-        nonlocal scene0, dm
+        nonlocal scene0, dm, bvh
         print(f"transient device failure (retry {attempt}/{args.retries}): "
               f"{err}\nre-uploading the mesh...", flush=True)
         scene0, dm = upload()
+        if bvh is not None:
+            bvh = build_accel(scene_with_frame(scene0, dm, args.begin_frame))
+
+    def skin_refit(frame):
+        scene_f = scene_with_frame(scene0, dm, frame)
+        tri = scene_f.triangles
+        return scene_f, refit_bvh(bvh, tri.v0, tri.v1, tri.v2)
 
     @torch.no_grad()
     def do_frame(frame):
+        nonlocal bvh
         gen = torch.Generator(device=device).manual_seed(
             frame_seed(frame, args.seed))
         tables_t = update_t = 0.0
@@ -214,6 +248,28 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
                                    intersect_fn=isect)
             img = img.cpu().numpy()           # waits for the device
             sw.Stop()
+        elif args.pipeline in ("bvh", "bonebvh"):
+            # update: skin + refit, the reference's Update_BVH
+            sw.Reset()
+            sw.Start()
+            scene_f, bvh = skin_refit(frame)
+            sync(bvh.bbox_min)
+            sw.Stop()
+            update_t = sw.GetTime()
+            sw.Reset()
+            sw.Start()
+            img = render_image(scene_f, camera, cfg, generator=gen,
+                               intersect_fn=bvh_intersector(cfg, bvh))
+            img = img.cpu().numpy()           # waits for the device
+            sw.Stop()
+        elif args.pipeline == "fused":
+            sw.Reset()
+            sw.Start()
+            scene_f, bvh_f = skin_refit(frame)
+            img = render_image(scene_f, camera, cfg, generator=gen,
+                               intersect_fn=bvh_intersector(cfg, bvh_f))
+            img = img.cpu().numpy()
+            sw.Stop()
         else:  # list
             scene_f = scene_with_frame(scene0, dm, frame)
             sw.Reset()
@@ -236,7 +292,7 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
                 keep = [r for r in prior.rows[1:]
                         if not r[0] or int(r[0]) < begin]
                 log.rows = [list(log.rows[0])] + keep
-    run = AnimationRun(log, [], [], [], [], None)
+    run = AnimationRun(log, [], [], [], [], None, dropped)
     for frame in range(begin, end_frame + 1):
         img, render_t, update_t, tables_t = retry_transient(
             lambda: do_frame(frame), retries=args.retries,
@@ -257,8 +313,6 @@ def animate(mesh, args: argparse.Namespace, camera=None) -> AnimationRun:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.pipeline in ("bvh", "bonebvh", "fused"):
-        raise not_ported(args.pipeline)
     mesh = load_mesh(args.fbx)
     print(f"loaded {args.fbx}: {mesh.n_points} points, {mesh.n_triangles} "
           f"tris, {mesh.n_bones} bones, {mesh.frame_count} frames")

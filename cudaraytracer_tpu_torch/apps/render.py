@@ -1,6 +1,6 @@
 """Still-image rendering CLI on the port: a preset scene or an OBJ mesh to
 PNG, through the fused CUDA kernel (--accel mega, and auto where the
-kernel takes the scene) or the wavefront engine (--accel sweeps or
+kernel takes the scene) or the wavefront engine (--accel sweeps, bvh or
 bruteforce).
 
 Examples:
@@ -8,6 +8,8 @@ Examples:
       --width 1920 --height 1080 --spp 16 --out out.png
   python -m cudaraytracer_tpu_torch.apps.render --obj mesh.obj --scale 10 \
       --integrator lambert --quirks fixed
+  python -m cudaraytracer_tpu_torch.apps.render --scene icosphere \
+      --accel bvh --quirks fixed   # the wavefront, triangles through a BVH
   python -m cudaraytracer_tpu_torch.apps.render --cpu --width 64 \
       --height 32 --spp 2      # the plain PyTorch path on the CPU
 """
@@ -23,9 +25,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scene", default="three_spheres",
                     choices=["three_spheres", "random_spheres", "light_box",
-                             "textured_globe", "tex_icosphere", "big_field",
-                             "big1m"],
-                    help="tex_icosphere: a 5,120-triangle icosphere on "
+                             "textured_globe", "icosphere", "tex_icosphere",
+                             "big_field", "big1m"],
+                    help="icosphere: a 5,120-triangle icosphere on a "
+                         "ground sphere; tex_icosphere: the same on "
                          "bench.py's 128x128 procedural image; big_field, "
                          "big1m: 5 x 5 and 12 x 17 copies of the "
                          "icosphere, 128,000 and 1,044,480 triangles")
@@ -41,15 +44,17 @@ def main(argv=None):
     ap.add_argument("--integrator", default="path",
                     choices=["path", "lambert", "normal"])
     ap.add_argument("--accel", default="auto",
-                    choices=["auto", "bruteforce", "sweeps", "mega"],
+                    choices=["auto", "bruteforce", "sweeps", "bvh", "mega"],
                     help="mega: the fused kernel; sweeps: the wavefront "
                          "engine on the sweep kernels (the JAX CLI's "
-                         "'pallas'); bruteforce: the wavefront engine on "
-                         "brute-force tensor ops; auto: mega where the "
-                         "kernel takes the scene (up to 2^20 spheres or "
-                         "triangles, above 8,192 through its segment "
-                         "level), else sweeps (bvh comes with a later "
-                         "slice)")
+                         "'pallas'); bvh: the wavefront engine with the "
+                         "triangles through a BVH (the traversal kernel; "
+                         "a scene without triangles renders by brute "
+                         "force, labelled bvh->bruteforce); bruteforce: "
+                         "the wavefront engine on brute-force tensor ops; "
+                         "auto: mega where the kernel takes the scene (up "
+                         "to 2^20 spheres or triangles, above 8,192 "
+                         "through its segment level), else sweeps")
     ap.add_argument("--compact-after", type=int, default=0,
                     help="mega engine, path integrator: sort the wavefront "
                          "after N bounces (kernel mode K10); a scene of "
@@ -73,8 +78,9 @@ def main(argv=None):
     from ..core.device import resolve_device
     from ..models import check_scenes, presets
     from ..models.scene import SceneBuilder
+    from ..ops.bvh import build_triangle_bvh
     from ..ops.megakernel import megakernel_supported, morton_tables
-    from ..ops.render import render_image, sweep_intersector
+    from ..ops.render import bvh_intersector, render_image, sweep_intersector
     from ..utils.image import write_png
     from ..utils.obj_loader import face_normals, load_obj
 
@@ -92,7 +98,7 @@ def main(argv=None):
         c = pts.mean(0)
         cam = make_camera(c + [0, 0.1 * ext[1], 2.2 * ext.max()], c,
                           (0, 1, 0), 40.0, aspect, 0.0, 10.0, device=device)
-    elif args.scene in ("tex_icosphere", "big_field", "big1m"):
+    elif args.scene in ("icosphere", "tex_icosphere", "big_field", "big1m"):
         scene, cam = getattr(check_scenes, args.scene + "_scene")(
             aspect, device=device)
     else:
@@ -112,6 +118,14 @@ def main(argv=None):
                        compact_after=args.compact_after)
     tables = morton_tables(scene) if accel == "mega" else None
     isect = sweep_intersector(cfg) if accel == "sweeps" else None
+    if accel == "bvh" and scene.n_triangles:
+        tri = scene.triangles
+        isect = bvh_intersector(cfg, build_triangle_bvh(
+            tri.v0, tri.v1, tri.v2, device=device))
+    # label what ran: --accel bvh on a scene without triangles renders by
+    # brute force
+    accel_used = ("bvh->bruteforce" if accel == "bvh" and isect is None
+                  else accel)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -123,7 +137,7 @@ def main(argv=None):
     write_png(args.out, np.asarray(img))
     rays = args.width * args.height * args.spp
     print(f"rendered {args.width}x{args.height}x{args.spp}spp "
-          f"({args.integrator}, {accel} on {device}) in {dt:.2f}s "
+          f"({args.integrator}, {accel_used} on {device}) in {dt:.2f}s "
           f"[{rays / dt / 1e6:.2f} Mrays/s] -> {args.out}")
     return 0
 

@@ -28,7 +28,8 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = {"megakernel": [CSRC / f"{n}.cu" for n in (
                "megakernel", "megakernel_coop", "megakernel_mxu",
                "megakernel_path", "megakernel_path_f2b")],
-           "sweeps": [CSRC / "sweeps.cu"]}
+           "sweeps": [CSRC / "sweeps.cu"],
+           "bvh": [CSRC / "bvh.cu"]}
 BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no contraction of a * b + c into one rounding, so the kernels
 # round like their plain PyTorch versions (see csrc/megakernel.cuh).

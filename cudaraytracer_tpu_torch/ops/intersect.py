@@ -1,7 +1,7 @@
 """Closest hit over a scene's spheres and triangles, as differentiable
 tensor ops (the JAX package's ``ops/intersect.py``).
 
-Two ways to find the winner, one way to build its hit record:
+Three ways to find the winner, one way to build its hit record:
   * ``intersect_scene``: brute force over (rays x prims) candidate matrices
     in chunks of prims, differentiated by autograd through the winner's
     candidate (``--accel bruteforce``, and the oracle in the tests);
@@ -9,6 +9,9 @@ Two ways to find the winner, one way to build its hit record:
     scenes under ``wavefront_kernel_attrs``) then the triangle sweep (K4)
     of ``ops/sweeps.py``, whose autograd Functions recompute only the
     winner in the backward (the counterpart of ``intersect_scene_pallas``);
+  * ``intersect_scene_bvh``: the triangles through a FlatBVH (the
+    traversal kernel of ``ops/bvh.py``), the other prims by brute force
+    (``--accel bvh``, apps/animate.py's BVH pipelines);
   * ``finalize_hits`` rebuilds the winner's record (point, normal, u, v,
     material) from its id.
 
@@ -50,6 +53,7 @@ from ..models import materials as _mat
 from ..models import transform as _tf
 from ..models.scene import Scene
 from ..models.transform import TRS
+from . import bvh as _bvh
 from . import sweeps as _sw
 from .sweeps import BIG, TRI_EPSILON, _f32
 
@@ -331,6 +335,52 @@ def intersect_scene(scene: Scene, rays: Rays, t_min: float = 1e-3,
     best = _reduce_x_tables(scene, rays, best, t_min, t_max, quirks,
                             prim_chunk)
     return finalize_hits(scene, rays, best[0], best[1], t_min, t_max, quirks)
+
+
+# ---------------------------------------------------------------------------
+# BVH (the triangles through crt_bvh_traverse)
+# ---------------------------------------------------------------------------
+
+def intersect_scene_bvh(scene: Scene, rays: Rays, bvh, t_min: float = 1e-3,
+                        t_max: float = BIG, quirks: Quirks = Quirks(),
+                        tri_override=None, alive: Optional[Tensor] = None,
+                        prim_chunk: int = 1024) -> Hits:
+    """Closest hit with a FlatBVH (``ops/bvh.py``) over the triangles
+    (intersect.py:375 of the JAX package: the reference's active pipeline,
+    a BVH over the FBX mesh, kernel.cu:97): the spheres by brute force,
+    then the triangles through ``bvh_best_hit`` (the BVH's winner takes a
+    ray only when strictly nearer, so a sphere keeps a tie), then the rects
+    and runtime-TRS prims by brute force, then finalize_hits.
+    tri_override: (v0, v1, v2, normal) in place of the scene's triangles
+    (the BVH's prim ids index them); alive: a dead lane is a miss."""
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    t_min_f, t_max_f = _f32(t_min), _f32(t_max)
+    best = (torch.full((n,), BIG, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
+    n_s, n_t = scene.n_spheres, scene.n_triangles
+    if tri_override is not None:
+        scene = scene.with_triangle_vertices(*tri_override)
+    sp, tr = scene.spheres, scene.triangles
+    for lo in range(0, n_s, prim_chunk):
+        hi = min(n_s, lo + prim_chunk)
+        valid, t = sphere_candidates(rays.origin, rays.direction,
+                                     sp.center[lo:hi], sp.radius[lo:hi],
+                                     t_min_f, t_max_f)
+        best = _reduce_best(best, t, valid, lo)
+    best_t, best_idx = best
+    if n_t:
+        bt, bp = _bvh.bvh_best_hit(bvh, tr.v0, tr.v1, tr.v2, tr.normal, rays,
+                                   t_min, t_max, quirks, alive=alive)
+        take = (bp >= 0) & (bt < best_t)
+        best_t = torch.where(take, bt, best_t)
+        best_idx = torch.where(take, bp + n_s, best_idx)
+    best_t, best_idx = _reduce_x_tables(scene, rays, (best_t, best_idx),
+                                        t_min_f, t_max_f, quirks, prim_chunk)
+    if alive is not None:
+        best_t = torch.where(alive, best_t, BIG)
+        best_idx = torch.where(alive, best_idx, -1)
+    return finalize_hits(scene, rays, best_t, best_idx, t_min, t_max, quirks)
 
 
 # ---------------------------------------------------------------------------

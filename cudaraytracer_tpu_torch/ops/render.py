@@ -9,8 +9,9 @@ Pixels are visited in 32 x 16 screen blocks, so the 32 rays of a warp
 scattered back to row-major order at the end.
 
 The wavefront engine intersects by brute force unless given an intersector:
-``sweep_intersector`` (the sweep kernels) or ``sweep_intersector_pair``
-(culled camera sweeps, then the bounce policy).
+``sweep_intersector`` (the sweep kernels), ``sweep_intersector_pair``
+(culled camera sweeps, then the bounce policy) or ``bvh_intersector`` (the
+triangles through a FlatBVH).
 """
 
 from __future__ import annotations
@@ -75,6 +76,21 @@ def sweep_intersector(cfg: RenderConfig, coherent: bool = False):
     fn.morton_spheres = mode == "morton"
     fn.build_tables = functools.partial(
         _isect.sweep_tables, attrs=cfg.wavefront_kernel_attrs)
+    return fn
+
+
+def bvh_intersector(cfg: RenderConfig, bvh):
+    """intersect_fn(scene, rays, alive=None) through the FlatBVH ``bvh``
+    over the scene's triangles (``intersect.intersect_scene_bvh``, the
+    traversal kernel on CUDA rays; render.py:44 of the JAX package, which
+    passes the BVH as ``aux``).  The closure keeps the scene's prim order:
+    the BVH's ids index its triangles."""
+    check_supported(cfg)
+
+    def fn(scene, rays, alive=None):
+        return _isect.intersect_scene_bvh(scene, rays, bvh, cfg.t_min,
+                                          cfg.t_max, cfg.quirks, alive=alive)
+
     return fn
 
 

@@ -7,7 +7,8 @@ nested object with the JAX ``Scene`` / ``Camera`` field names will do.
 Fit parameters (a dict of arrays, ``parallel/train.py``) go across with
 ``params_from_numpy`` and back with ``params_to_numpy``; a JAX
 ``SkinnedMesh`` (the FBX loader's numpy arrays) with
-``skinned_mesh_from_numpy``.
+``skinned_mesh_from_numpy``; a JAX ``FlatBVH`` with
+``flat_bvh_from_numpy``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..models.scene import (Rectangles, Scene, Spheres, Triangles, TSpheres,
                             TTriangles)
 from ..models.textures import TextureTable
 from ..models.transform import TRS
+from ..ops.bvh import FlatBVH, flat_bvh
 from .fbx_loader import SkinnedMesh
 
 # NamedTuple fields that hold another record
@@ -99,3 +101,12 @@ def skinned_mesh_from_numpy(mesh) -> SkinnedMesh:
 
     return SkinnedMesh(**{f.name: copy(getattr(mesh, f.name))
                           for f in dataclasses.fields(SkinnedMesh)})
+
+
+def flat_bvh_from_numpy(tree, device=None) -> FlatBVH:
+    """A JAX ``FlatBVH`` of numpy arrays (its ``levels`` a tuple of them)
+    -> the port's ``FlatBVH`` on ``device``, the same nodes and ids."""
+    return flat_bvh(*(np.asarray(getattr(tree, k)) for k in (
+        "bbox_min", "bbox_max", "is_leaf", "skip", "prim0", "prim1")),
+        [np.asarray(ids) for ids in tree.levels], np.asarray(tree.child_l),
+        np.asarray(tree.child_r), resolve_device(device))

@@ -28,6 +28,7 @@ import pytest
 from cudaraytracer_tpu.models import animation as janim
 from cudaraytracer_tpu.models import mesh as jmesh
 from cudaraytracer_tpu.models.scene import SceneBuilder as JSceneBuilder
+from cudaraytracer_tpu.ops import bone_bvh as jbb
 from cudaraytracer_tpu.utils import fbx_loader as jfbx
 from cudaraytracer_tpu.utils import fbx_parser as jparser
 from cudaraytracer_tpu_torch.apps import animate as tanimate
@@ -35,6 +36,7 @@ from cudaraytracer_tpu_torch.models import animation as tanim
 from cudaraytracer_tpu_torch.models import check_scenes as cs
 from cudaraytracer_tpu_torch.models import mesh as tmesh
 from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+from cudaraytracer_tpu_torch.ops.bone_bvh import partition_by_bone
 from cudaraytracer_tpu_torch.utils import fbx_loader as tfbx
 from cudaraytracer_tpu_torch.utils import fbx_parser as tparser
 from cudaraytracer_tpu_torch.utils import recovery as trec
@@ -270,14 +272,17 @@ def _args(tmp_path, pipeline, *extra):
 
 def test_animate_pipelines_on_cpu(tmp_path):
     """apps/animate.py on an ASCII FBX of the capsule's bind pose: main()
-    writes the CSV and a PNG per frame for mega, pallas and list, whose
-    frames agree; the BVH pipelines raise naming item 11, a missing file
-    raises FileNotFoundError, and --resume skips rendered frames."""
+    writes the CSV and a PNG per frame for mega, pallas, list, bvh and
+    fused, whose frames agree; bonebvh on that unskinned file raises the
+    empty-forest error, as the JAX package's apps/animate.py does, and on
+    the skinned capsule drops exactly the triangles no bone claims; a
+    missing file raises FileNotFoundError, and --resume skips rendered
+    frames."""
     cap = cs.skinned_capsule()
     path = str(tmp_path / "capsule.fbx")
     cs.write_ascii_fbx(path, cap.points, cap.faces, frames=3)
     images = {}
-    for pipeline in ("mega", "pallas", "list"):
+    for pipeline in ("mega", "pallas", "list", "bvh", "fused"):
         args = _args(tmp_path, pipeline, "--fbx", path)
         assert tanimate.main(args) == 0
         assert sorted(os.listdir(tmp_path / pipeline)) == [
@@ -288,12 +293,15 @@ def test_animate_pipelines_on_cpu(tmp_path):
         assert rows[1][:3] == ["", "", ""] and float(rows[1][3]) >= 0.0
         assert [r[0] for r in rows[2:]] == ["0", "1"]
         assert all(float(r[1]) > 0.0 for r in rows[2:])
+        # update: the skinning (and the refit on bvh); 0 on list and fused
+        assert all((float(r[2]) > 0.0) == (pipeline not in ("list", "fused"))
+                   for r in rows[2:])
         run = tanimate.animate(tanimate.load_mesh(path),
                                tanimate.parse_args(args + ["--no-png"]))
         assert run.frames == [0, 1] and run.image.shape == (8, 16, 3)
         images[pipeline] = run.image
     assert (images["mega"][..., 0] > images["mega"][..., 1]).mean() > 0.1
-    for pipeline in ("pallas", "list"):
+    for pipeline in ("pallas", "list", "bvh", "fused"):
         np.testing.assert_allclose(images[pipeline], images["mega"],
                                    atol=1e-4)
     # the animated capsule: frames differ, the update is timed
@@ -301,8 +309,20 @@ def test_animate_pipelines_on_cpu(tmp_path):
         _args(tmp_path, "mega", "--begin-frame", "29", "--no-png", "--csv",
               str(tmp_path / "anim.csv"))))
     assert run.frames == [29, 30] and all(u > 0.0 for u in run.update)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tanimate.main(_args(tmp_path, "bvh", "--fbx", path))
+    # the unskinned file's mesh carries all-zero weights on one bone: the
+    # JAX package's forest build refuses it, and so does the port's
+    jm = jfbx.load_skinned_mesh(path)
+    with pytest.raises(ValueError, match="empty bone forest"):
+        jbb.build_bone_forest(*(jm.points[jm.faces[:, k]] for k in (2, 1, 0)),
+                              jm.weights, jm.faces)
+    with pytest.raises(ValueError, match="empty bone forest"):
+        tanimate.main(_args(tmp_path, "bonebvh", "--fbx", path))
+    run = tanimate.animate(cap, tanimate.parse_args(
+        _args(tmp_path, "bonebvh", "--begin-frame", "29", "--no-png",
+              "--csv", str(tmp_path / "bone.csv"))))
+    assert run.frames == [29, 30] and all(u > 0.0 for u in run.update)
+    assert run.dropped == int((partition_by_bone(cap.weights, cap.faces)
+                               < 0).sum())
     with pytest.raises(FileNotFoundError, match="--fbx"):
         tanimate.main(_args(tmp_path, "mega", "--fbx",
                             str(tmp_path / "missing.fbx")))

@@ -9,8 +9,9 @@ persistent warps that refill finished lanes (K1, K7, K8 and K9 at 1 to
 (csrc/megakernel*.cu), the sweeps K3, K4 and K5 (csrc/sweeps.cu), the
 boxes' margins on rays that stress them (box planes, slivers, tangents to
 spheres), K8's culled walk on its edge rays and its counts against its
-plain walk, and the wavefront render, the fit, the mega_diff fit and the
-animation driver through them.
+plain walk, the BVH traversal crt_bvh_traverse (csrc/bvh.cu) in each of
+its instances and the refit on the card, and the wavefront render, the
+fit, the mega_diff fit and apps/animate.py through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -39,8 +40,12 @@ import torch
 
 from cudaraytracer_tpu_torch.config import Quirks, RenderConfig
 from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+from cudaraytracer_tpu_torch.core.rays import Rays
 from cudaraytracer_tpu_torch.models import check_scenes as cs
+from cudaraytracer_tpu_torch.models import mesh as tmesh
 from cudaraytracer_tpu_torch.models import presets
+from cudaraytracer_tpu_torch.ops import bone_bvh as bb
+from cudaraytracer_tpu_torch.ops import bvh as bvhmod
 from cudaraytracer_tpu_torch.ops import integrators as integ
 from cudaraytracer_tpu_torch.ops import intersect as isect
 from cudaraytracer_tpu_torch.ops import megakernel as mk
@@ -1771,3 +1776,113 @@ def test_winners_match_plain_on_every_instance(cuda, kind):
     _, wref = mk.trace_path_mega_plain(tables, rays, cfg, None, 17, True)
     assert torch.equal(win, wref)
     assert int(win.min()) == -1 and int(win.max()) >= 0
+
+
+# ---------------------------------------------------------------------------
+# The BVH traversal, crt_bvh_traverse (csrc/bvh.cu)
+# ---------------------------------------------------------------------------
+
+BVH_MODES = [(cull, back, clip, shrink) for cull in (False, True)
+             for back in (False, True) for clip in (False, True)
+             for shrink in (False, True)]
+
+
+def _bvh_rays(tri, tree, n, seed):
+    """n rays of each kind at the triangles ``tri``: from a camera-like
+    spot, from points on the mesh in random directions (bounces), and
+    axis-parallel rays on the tree's node planes (the slab's NaN)."""
+    v0, v1, v2 = (x.cpu().numpy() for x in (tri.v0, tri.v1, tri.v2))
+    rng = np.random.default_rng(seed)
+    target = v0.mean(0)
+    o = (rng.normal(scale=0.3, size=(n, 3)) + [0.0, 1.0, 3.0]).astype(
+        np.float32)
+    d = (target + rng.normal(scale=0.6, size=(n, 3)) - o).astype(np.float32)
+    k = rng.integers(0, len(v0), n)
+    w = rng.dirichlet([1.0, 1.0, 1.0], n)
+    p = (w[:, :1] * v0[k] + w[:, 1:2] * v1[k] + w[:, 2:] * v2[k]).astype(
+        np.float32)
+    box = torch.cat([tree.bbox_min, tree.bbox_max,
+                     tree.bbox_min.new_zeros(tree.n_nodes, 2)], 1)
+    sets = [(o, d), (p, rng.normal(size=(n, 3)).astype(np.float32)),
+            cs.plane_rays(box.cpu().numpy(), target, n, seed)]
+    dev = tri.v0.device
+    return [(torch.as_tensor(np.ascontiguousarray(a), device=dev),
+             torch.as_tensor(np.ascontiguousarray(b), device=dev))
+            for a, b in sets]
+
+
+def _walks_equal(tree, tri, o, d, quirks, shrink, alive=None):
+    rays = Rays(o, d, o.new_zeros(0))
+    args = (tree, tri.v0, tri.v1, tri.v2, tri.normal, rays, 1e-3, sw.BIG,
+            quirks, shrink, alive)
+    got = bvhmod.traverse_bvh(*args)
+    ref = bvhmod.traverse_bvh_plain(*args)
+    assert torch.equal(got[1], ref[1])
+    assert float((got[0] - ref[0]).abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", BVH_MODES, ids=lambda m: "cull%d-back%d-"
+                         "noclip%d-shrink%d" % m)
+def test_bvh_traversal_matches_plain(cuda, mode):
+    """Every production instance against the plain version on the
+    icosphere: ids equal, t max abs error 0, dead lanes missing, and the
+    counting instance giving the same winners."""
+    cull, back, clip, shrink = mode
+    quirks = Quirks(triangle_back_culling=cull, triangle_backface_only=back,
+                    triangle_no_t_clip=clip)
+    scene, _ = cs.icosphere_scene(2.0, device=cuda)
+    tri = scene.triangles
+    tree = bvhmod.build_triangle_bvh(tri.v0, tri.v1, tri.v2, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    hits = 0
+    for o, d in _bvh_rays(tri, tree, 1 << 13, 5):
+        full = _walks_equal(tree, tri, o, d, quirks, shrink)
+        hits += int((full[1] >= 0).sum())
+        alive = torch.rand(o.shape[0], generator=gen, device=cuda) < 0.6
+        part = _walks_equal(tree, tri, o, d, quirks, shrink, alive)
+        assert torch.equal(part[1], torch.where(alive, full[1], -1))
+        counts = bvhmod.BVHCounts(
+            torch.zeros(2, o.shape[0], dtype=torch.int32, device=cuda),
+            torch.zeros(tree.n_nodes, dtype=torch.uint8, device=cuda),
+            torch.zeros(tri.v0.shape[0], dtype=torch.uint8, device=cuda))
+        before = bvhmod.LAUNCHES["bvh_traverse"]
+        counted = bvhmod.launch_bvh_traverse(
+            tree, tri.v0, tri.v1, tri.v2, tri.normal, o, d, 1e-3, sw.BIG,
+            quirks, shrink, counts=counts)
+        assert bvhmod.LAUNCHES["bvh_traverse"] == before
+        assert torch.equal(counted[1], full[1])
+        assert torch.equal(counted[0], full[0])
+        assert int(counts.ray_tests[0].min()) >= 1
+        assert int(counts.node_seen.sum()) >= 1
+    # back-culling keeps the faces whose winding faces the ray, and
+    # backface-only those whose stored normal faces away: together, none
+    assert hits > 1000 or (cull and back)
+
+
+@pytest.mark.gpu
+def test_bvh_refit_and_forest_on_the_card(cuda):
+    """The card's refit equals the CPU's bit for bit; the bone forest of
+    skinned_field walks as its plain version does on the card."""
+    mesh = cs.skinned_field()
+    dm = tmesh.device_mesh(mesh, cuda)
+    v0, v1, v2 = tmesh.skin_frame(dm, 0)
+    tree = bvhmod.build_triangle_bvh(v0, v1, v2, device=cuda)
+    w0, w1, w2 = tmesh.skin_frame(dm, 7)
+    got = bvhmod.refit_bvh(tree, w0, w1, w2)
+    host = bvhmod.FlatBVH(*(tuple(x.cpu() for x in f) if isinstance(f, tuple)
+                            else f.cpu() for f in tree))
+    ref = bvhmod.refit_bvh(host, w0.cpu(), w1.cpu(), w2.cpu())
+    assert torch.equal(got.bbox_min.cpu(), ref.bbox_min)
+    assert torch.equal(got.bbox_max.cpu(), ref.bbox_max)
+    forest = bb.build_bone_forest(*(x.cpu().numpy() for x in (v0, v1, v2)),
+                                  mesh.weights, mesh.faces, device=cuda)
+    assert forest.n_dropped == 0 and len(forest.root_bones) == 2
+    fit = bvhmod.refit_bvh(forest.bvh, w0, w1, w2)
+    tri = type("Tri", (), {"v0": w0, "v1": w1, "v2": w2,
+                           "normal": tmesh.recompute_face_normals(
+                               w0, w1, w2)})
+    for o, d in _bvh_rays(tri, fit, 1 << 12, 9)[:2]:
+        for quirks in (Quirks.reference(), Quirks.fixed()):
+            _walks_equal(fit, tri, o, d, quirks, None)
