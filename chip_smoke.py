@@ -17,7 +17,10 @@ mega_f2b, the bilinear triangle sweep K12 mega_mxu under cfg.mega_mxu), and
 the skinned-animation driver apps/animate.py (its mega pipeline on K1 and
 K6, its pallas pipeline on K4, its bvh, bonebvh and fused pipelines on the
 BVH traversal crt_bvh_traverse, csrc/bvh.cu, which replaces no pallas_call
-but JAX's traverse_bvh loop) and the render CLI's --accel bvh.  A launch
+but JAX's traverse_bvh loop) and the render CLI's --accel bvh, and the
+parallel layer (cudaraytracer_tpu_torch/parallel/: ranks spawned on the
+one card, the wavefront's K2-K5 per rank, K1 under mega, K7 and the replay
+under mega_diff) with the wavefront's alive-first compaction.  A launch
 counts once for each mode it runs (K6-K12), or as mega_trace when it runs
 none.
 
@@ -231,6 +234,29 @@ Phases (each prints lines; any failure raises and exits nonzero):
      whose replay meets a recorded winner that the replayed ray misses
      (must be 0: the replay takes its decisions and rays from the plain
      version);
+  7. parallel (``phase_parallel``, after the main paths; its kernel
+     launches, counted from 0 in each case on every rank, join the
+     kernels line's): (c)'s scene at 1920x1080x2, depth 8, on the
+     wavefront with cfg.wavefront_compact off and on under one injected
+     stream, the frames bit-equal, s/frame of each, the alive share and
+     K3's card time at bounces 1, 4 and 8 of the first 2^18 rays in each
+     order; then two ranks through gloo on the card (the backend rule:
+     gloo when ranks share a card): dp = 2 on (c)'s frame on the
+     wavefront and under mega, each bit-equal to one process on the same
+     injected stream; tp = 2 on (m) at 1280x720x1, depth 8, fixed quirks,
+     sphere cull 'primary' (builder order): first-hit winners equal to
+     one process's sweeps on all but max(2, n / 10^4) rays, the rest
+     counted as exact-t ties or slivers below the margins' proof (no
+     other), and the tp frame timed, at most max(2, n / 200) pixels over
+     1e-3 against one process; sample-parallel (dp = 2) within 1e-6 of
+     the members' mean; the fit step at (e)'s shape (lr 0.1, JAX's test's
+     rate) at dp = 2, then at dp x tp = 2 x 2 on four ranks: overlapped
+     against post-hoc and each against the single-process step, loss
+     rtol 1e-6, params rtol 1e-5 and atol 1e-7 (the single step run twice
+     gives the card's own noise floor, reported); one rank through NCCL
+     (the fit step and a render, so the NCCL path runs); and
+     ``dryrun_multichip(4)``; one ``[parallel]`` line with every reading
+     and the card's name and power limit;
   8. the last line: {"ok": true, "device": {...}}.
 
 Writes its PNGs and the build log under chip_smoke_out/.
@@ -3523,6 +3549,273 @@ def counted(name: str, fn, need, one_draw_per_trace: bool = False):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the parallel layer (parallel/) and wavefront compaction
+# ---------------------------------------------------------------------------
+
+COMPACT_STEPS = (1, 4, 8)
+# The parallel fit steps' rate: JAX's test_overlapped_grad_allreduce_
+# matches_posthoc (tests/test_parallel.py:177), whose parameter tolerances
+# they take; the gradients themselves are held by checks.regroup_limit,
+# which does not depend on the rate
+FIT_LR = 0.1
+
+
+def bounce_states(scene, rays, stream, cfg, compact: bool) -> dict:
+    """step -> (o, d, alive) at the start of each bounce of COMPACT_STEPS
+    of a wavefront trace through sweep_intersector (the Morton scene its
+    trace sorts to, its tables once), as trace_path runs it with
+    cfg.wavefront_compact on or off; and the Morton scene and tables."""
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops.render import sweep_intersector
+    fn = sweep_intersector(cfg)
+    scene_m, _, _ = integ._morton_scene(scene)
+    fn = integ._with_sweep_tables(scene_m, (fn,))[0]
+    o, d, tm = rays
+    n = o.shape[0]
+    state = (o, d, tm, torch.ones(n, 3, device=o.device),
+             torch.zeros(n, 3, device=o.device),
+             torch.ones(n, dtype=torch.bool, device=o.device))
+    idx = torch.arange(n, device=o.device)
+    out = {}
+    with torch.no_grad():
+        for step in range(max(COMPACT_STEPS)):
+            ball, prob = stream.ball[step], stream.prob[step]
+            if compact:
+                ball, prob = ball[idx], prob[idx]
+            res = integ._bounce(scene_m, cfg, fn, step, None, None, *state,
+                                ball, prob, idx if compact else None)
+            state, idx = res[:6], (res[6] if compact else idx)
+            if step + 1 in COMPACT_STEPS:
+                out[step + 1] = (state[0], state[1], state[5])
+    return out, scene_m, fn.keywords["tables"]
+
+
+def compact_cell(dev) -> tuple:
+    """(c)'s scene (random_spheres, 484 spheres) at 1920x1080x2, depth 8,
+    reference quirks, on the wavefront through sweep_intersector with
+    cfg.wavefront_compact off and on, one injected stream: the frames must
+    be bit-equal; s/frame of each (min of 2 after a warm-up), and on the
+    first 2^18 rays the alive share and K3's card time at the bounces of
+    COMPACT_STEPS in each order -> (readings, the kernel launches of the
+    two renders alone, not of the K3 timing)."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.core.rays import Rays
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    from cudaraytracer_tpu_torch.ops.integrators import (SampleStream,
+                                                         stream_from_generator)
+    from cudaraytracer_tpu_torch.ops.render import (render_image,
+                                                    sweep_intersector,
+                                                    swizzled_pixels)
+    scene, cam = presets.random_spheres(aspect=1920 / 1080, device=dev)
+    cfg = RenderConfig(width=1920, height=1080, samples=2, max_depth=DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rays = generate_pixel_rays(cam, 1920, 1080, 2, swizzled_pixels(
+        1920, 1080, device=dev), generator=gen)
+    stream = stream_from_generator(gen, rays.origin.shape[0], DEPTH, dev)
+    out, imgs = {}, {}
+
+    def renders():
+        for on in (False, True):
+            c = dataclasses.replace(cfg, wavefront_compact=on)
+            fn = sweep_intersector(c)
+            with torch.no_grad():
+                ms, imgs[on] = cuda_ms(lambda: render_image(
+                    scene, cam, c, rays=rays, samples=stream,
+                    intersect_fn=fn), reps=2)
+            out["on_s_per_frame" if on else "off_s_per_frame"] = ms / 1e3
+
+    _, launches = counted("(c) compacted", renders, ("sphere_sweep",))
+    check(torch.equal(imgs[False], imgs[True]),
+          "wavefront_compact changed the frame")
+    n = cfg.ray_chunk
+    first = Rays(*(x[:n] for x in rays))
+    part = SampleStream(stream.ball[:, :n], stream.prob[:, :n])
+    for on in (False, True):
+        states, scene_m, tables = bounce_states(scene, first, part, cfg, on)
+        sp = scene_m.spheres
+        for step, (o, d, alive) in states.items():
+            k3, _ = device_ms(lambda: sw.sphere_best_hit_raw(
+                o, d, sp.center, sp.radius, cfg.t_min, cfg.t_max, True,
+                alive, tables.sph))
+            key = f"{'on' if on else 'off'}_step{step}"
+            out[key + "_alive"] = float(alive.float().mean())
+            out[key + "_k3_ms"] = k3
+    out["bit_equal"] = True
+    return out, launches
+
+
+def summed_launches(outs: list) -> dict:
+    """The kernel launches of each case of a spawn, summed over its ranks
+    (``checks.run_cases`` counts only the case's sharded calls, each from
+    0, never the single-process comparison)."""
+    total = {}
+    for o in outs:
+        for label, counts in o["launches"].items():
+            t = total.setdefault(label, dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                t[k] += v
+    return total
+
+
+def need_launches(launches: dict, label: str, need) -> None:
+    for k in need:
+        check(launches[label][k] > 0, f"[parallel] {label} never launched "
+              f"{k}: {launches[label]}")
+
+
+def phase_parallel(dev, smi: str) -> tuple:
+    """Phase 7: wavefront compaction on (c)'s frame, then the parallel
+    layer on the one card, its ranks spawned through gloo (they share the
+    card) and one rank through NCCL: (returns its readings, the kernel
+    launches by path)."""
+    from cudaraytracer_tpu_torch.parallel import checks
+    from cudaraytracer_tpu_torch.parallel.dryrun import (TOL,
+                                                          dryrun_multichip)
+    from cudaraytracer_tpu_torch.parallel.mesh import choose_backend, spawn
+    t0 = time.perf_counter()
+    res, per_path = {}, {}
+    res["compact"], per_path["parallel_compact"] = compact_cell(dev)
+    check(choose_backend(2, dev) == "gloo" and choose_backend(1, dev)
+          == "nccl", "the backend rule on a one-card machine")
+    rs = ("preset", "random_spheres", {"aspect": 1920 / 1080})
+    c_cfg = dict(width=1920, height=1080, samples=2, max_depth=DEPTH)
+    field = ("check", "big_field_scene", {"aspect": 1280 / 720})
+    m_cfg = dict(width=1280, height=720, samples=1, max_depth=DEPTH,
+                 quirks="fixed", wavefront_sphere_cull="primary")
+    three = ("preset", "three_spheres", {"aspect": 2.0})
+    e_cfg = dict(width=512, height=256, samples=4, max_depth=4, gamma=False)
+    fit = dict(scene=three, names=("centers", "albedo"), inject=("seed", 6),
+               cfg=e_cfg, reps=3, lr=FIT_LR, deterministic=True)
+    two = [("dp_wavefront", "render", dict(
+               scene=rs, cfg=c_cfg, tp=1, inject=("seed", 11),
+               isect="sweeps", timed=True)),
+           ("dp_mega", "render", dict(
+               scene=rs, cfg=dict(c_cfg, engine="mega"), tp=1,
+               inject=("seed", 11), timed=True)),
+           ("tp_first_hits", "first_hits", dict(
+               scene=field, cfg=m_cfg, tp=2, seed=5)),
+           ("tp_render", "render", dict(
+               scene=field, cfg=m_cfg, tp=2, inject=("seed", 5),
+               timed=True)),
+           ("sample_parallel", "sample_parallel", dict(
+               scene=rs, cfg=c_cfg, tp=1, seed=13, isect="sweeps")),
+           ("fit_dp2", "fit_step", dict(fit, tp=1, grad_scale=True))]
+    outs = spawn(checks.run_cases, 2, (two,), device=dev)
+    r2, l2 = outs[0], summed_launches(outs)
+    for label in ("dp_wavefront", "dp_mega"):
+        o = r2[label]
+        check(np.array_equal(o["img"], o["single"]),
+              f"[parallel] {label}: dp = 2 differs from one process")
+        res[label] = {"s_per_frame": o["s"], "single_s": o["single_s"],
+                      "bit_equal": True}
+    need_launches(l2, "dp_wavefront", ("sphere_sweep",))
+    need_launches(l2, "dp_mega", ("mega_trace",))
+    fh = r2["tp_first_hits"]
+    limit = max(2, fh["rays"] // 10 ** 4)
+    check(fh["differ"] <= limit and fh["other"] == 0,
+          f"[parallel] tp = 2 first hits: {fh}")
+    res["tp_first_hits"] = dict(fh, limit=limit)
+    tr = r2["tp_render"]
+    px = int((np.abs(tr["img"] - tr["single"]) > 1e-3).any(-1).sum())
+    px_limit = max(2, tr["img"].shape[0] * tr["img"].shape[1] // 200)
+    check(px <= px_limit, f"[parallel] tp = 2 render: {px} pixels over 1e-3")
+    res["tp_render"] = {"s_per_frame": tr["s"], "single_s": tr["single_s"],
+                        "pixels_over_1e-3": px, "limit": px_limit}
+    need_launches(l2, "tp_render", ("triangle_sweep",))
+    sp = r2["sample_parallel"]
+    d_sp = float(np.abs(sp["img"] - sp["ref"]).max())
+    check(d_sp <= 1e-6, f"[parallel] sample-parallel off by {d_sp}")
+    res["sample_parallel"] = {"max_abs": d_sp, "s_per_frame": sp["s"]}
+    need_launches(l2, "sample_parallel", ("sphere_sweep", "scatter_draws"))
+
+    def fit_check(label, o, aligned):
+        """The compared steps made under deterministic algorithms
+        (``checks.fit_step``; the timings under the default ones): the
+        single process must repeat itself bit for bit; loss rtol 1e-6 and params within
+        JAX's tolerance (as a share of it, <= 1) for every pair; with
+        ``aligned`` (the single process's chunks are the ranks' tiles) the
+        post-hoc step within checks.regroup_limit of the single process
+        (as a share, <= 1).  grad_rel: the gradients' difference over
+        their largest entry, reported."""
+        got = {"mesh": o["mesh"]}
+        a, r = o["single_again"], o["single"]
+        same = a["loss"] == r["loss"] and all(
+            np.array_equal(x, y) for x, y in zip(a["params"], r["params"]))
+        got["single_repeats"] = same
+        check(same, f"[parallel] {label}: the single-process step did not "
+              "repeat itself under deterministic algorithms")
+        pairs = [("overlapped", "posthoc"), ("overlapped", "single"),
+                 ("posthoc", "single")]
+        for mode, ref in pairs:
+            a, r = o[mode], o[ref]
+            lrel = abs(a["loss"] - r["loss"]) / abs(r["loss"])
+            share = max(float((np.abs(x - y) / (1e-7 + 1e-5 * np.abs(y)))
+                              .max()) for x, y in zip(a["params"],
+                                                      r["params"]))
+            grel = max(float(np.abs(x - y).max() / np.abs(s0 - y).max())
+                       for x, y, s0 in zip(a["params"], r["params"],
+                                           o["start"]))
+            row = {"loss_rel": lrel, "tol_share": share, "grad_rel": grel}
+            ok = lrel <= 1e-6 and share <= 1.0
+            if aligned and (mode, ref) == ("posthoc", "single"):
+                lim = checks.regroup_limit(o, mode, ref, FIT_LR)
+                row["regroup_share"] = max(
+                    float((np.abs(x - y) / m).max())
+                    for x, y, m in zip(a["params"], r["params"], lim))
+                ok = ok and row["regroup_share"] <= 1.0
+            got[f"{mode}_vs_{ref}"] = row
+            check(ok, f"[parallel] {label}: {mode} against {ref}: {row}")
+        for mode in ("overlapped", "posthoc", "single"):
+            got[f"{mode}_s_per_step"] = o[mode]["s"]
+        return got
+
+    # dp = 2: each rank's tile is one default chunk (2^18 rays)
+    res["fit_dp2"] = fit_check("fit dp = 2", r2["fit_dp2"], True)
+    need_launches(l2, "fit_dp2", ("sphere_sweep_attrs",))
+    # 2 x 2 at the default chunk (the process sums two tiles in one chunk)
+    # and with the chunks sized to the tiles (2^17 rays)
+    aligned = dict(fit, tp=2, grad_scale=True,
+                   cfg=dict(e_cfg, ray_chunk=1 << 17))
+    outs4 = spawn(checks.run_cases, 4, ([
+        ("fit_2x2", "fit_step", dict(fit, tp=2)),
+        ("fit_2x2_aligned", "fit_step", aligned)],), device=dev)
+    res["fit_2x2"] = fit_check("fit 2 x 2", outs4[0]["fit_2x2"], False)
+    res["fit_2x2_aligned"] = fit_check(
+        "fit 2 x 2, chunks = tiles", outs4[0]["fit_2x2_aligned"], True)
+    l4 = summed_launches(outs4)
+    need_launches(l4, "fit_2x2", ("sphere_sweep_attrs",))
+    need_launches(l4, "fit_2x2_aligned", ("sphere_sweep_attrs",))
+    outs1 = spawn(checks.run_cases, 1, ([
+        ("nccl_fit", "fit_step", dict(fit, tp=1, grad_scale=True)),
+        ("nccl_render", "render", dict(scene=rs, cfg=c_cfg, tp=1,
+                                       inject=("seed", 11),
+                                       isect="sweeps"))],), device=dev)
+    r1, l1 = outs1[0], summed_launches(outs1)
+    res["nccl_fit"] = fit_check("NCCL fit", r1["nccl_fit"], True)
+    check(np.array_equal(r1["nccl_render"]["img"],
+                         r1["nccl_render"]["single"]),
+          "[parallel] the NCCL render differs from one process")
+    res["nccl_render"] = {"s_per_frame": r1["nccl_render"]["s"],
+                          "bit_equal": True}
+    need_launches(l1, "nccl_render", ("sphere_sweep",))
+    td = time.perf_counter()
+    dry = dryrun_multichip(4, dev)
+    res["dryrun_4"] = {"mesh": dry["mesh"], "loss": dry["loss"],
+                       "mega_vs_wavefront": dry["mega_vs_wavefront"],
+                       "sample_parallel_vs_single":
+                           dry["sample_parallel_vs_single"], "tol": TOL,
+                       "s": time.perf_counter() - td}
+    for label, l in (("2", l2), ("4", l4), ("1_nccl", l1)):
+        for case, counts in l.items():
+            per_path[f"parallel_{label}_{case}"] = counts
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] {smi}: {json.dumps(res)}")
+    return res, per_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3726,13 +4019,15 @@ def main() -> int:
                        ("mega_trace", "triangle_sweep", "bvh_traverse"))
     accel_bvh, l_accel = counted("apps/render.py --accel bvh",
                                  render_cli_bvh, ("bvh_traverse",))
+    parallel, l_parallel = phase_parallel(dev, smi)
     per_path = {"a_b": l_ab, "c": l_c, "d": l_d, "e": l_e, "f": l_f,
                 "g": l_g, "h_fused": l_h, "h_wavefront": l_hw, "i": l_i,
                 "j": l_j, "k_fused": l_k, "k_wavefront": l_kw,
                 "l_fused": l_l, "l_mega_diff": l_lg, "l_fit": l_lf,
                 **{f"m_{k}": v for k, v in l_m.items()}, "n": l_n,
                 "o": l_o, "p": l_p, "s": l_s, "s_fused": l_sf, **l_t,
-                "animate_fbx": l_fbx, "accel_bvh": l_accel, **l_qr}
+                "animate_fbx": l_fbx, "accel_bvh": l_accel, **l_qr,
+                **l_parallel}
     launches = {k: sum(p[k] for p in per_path.values()) for k in l_ab}
     # the replay's divergence from the recorded path, (g) and (l): the
     # replay takes its decisions and rays from the plain version, so none
@@ -3920,6 +4215,7 @@ def main() -> int:
              "q_big_field_mxu": {k: v for k, v in mxu_cells.items()
                                  if k != "r_big1m"},
              "r_big1m_mxu": mxu_cells["r_big1m"],
+             "parallel": parallel,
              "launches_per_path": per_path}
     print(f"[paths] {json.dumps(paths)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

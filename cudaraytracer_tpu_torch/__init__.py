@@ -21,7 +21,12 @@ Ported so far:
     runtime-TRS prims, image textures;
   * scenes above 8,192 prims of a type (the segment level), the
     compaction drivers and their routing (``ops.megakernel.select_mega``)
-    and front-to-back shells.
+    and front-to-back shells;
+  * the BVH, skinned animation and the reference's active pipeline;
+  * the wavefront's alive-first compaction (``wavefront_compact``), and
+    rendering and training over a ('dp', 'tp') mesh of ranks on
+    ``torch.distributed`` (``parallel/``), with the multi-rank dry run,
+    ``utils/profiling.py`` and ``apps/scaling.py``.
 """
 
 from .config import Quirks, RenderConfig

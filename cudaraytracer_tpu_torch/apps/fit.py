@@ -5,11 +5,18 @@ mega_diff) through the fused kernel and the replay backward.
 
 The target is rendered from the true scene; the fit starts from perturbed
 parameters.  Runs on the CUDA card, or with --cpu on the plain PyTorch
-path.  Same flags as the JAX package's apps/fit.py; --devices / --tp above
-1 are not ported yet and raise.
+path.  Same flags as the JAX package's apps/fit.py.
+
+--devices N --tp M fits over N ranks on a (N / M, M) mesh
+(``parallel.train``: one pixel tile a rank, the gradients averaged per
+bounce).  Under ``torchrun --nproc-per-node N`` each rank joins the group
+that torchrun describes; otherwise the command spawns N local ranks itself
+(gloo when they share one card or run on the CPU, NCCL when each has a
+card of its own).  Rank 0 prints and writes the PNGs and the checkpoint.
 
     python -m cudaraytracer_tpu_torch.apps.fit --cpu --steps 20 \\
-        --width 48 --height 27 --samples 2 [--engine mega_diff]
+        --width 48 --height 27 --samples 2 [--engine mega_diff] \\
+        [--devices 2 [--tp 2]]
 """
 
 from __future__ import annotations
@@ -24,9 +31,9 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--devices", type=int, default=None,
-                    help="pixel shards (dp); only 1 is ported")
+                    help="ranks (default: --tp); pixel tiles over dp x tp")
     ap.add_argument("--tp", type=int, default=1,
-                    help="prim shards; only 1 is ported")
+                    help="the mesh's tp axis (must divide --devices)")
     ap.add_argument("--width", type=int, default=96)
     ap.add_argument("--height", type=int, default=54)
     ap.add_argument("--samples", type=int, default=4)
@@ -49,12 +56,41 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
+    devices = args.tp if args.devices is None else args.devices
+    if devices < 1 or args.tp < 1 or devices % args.tp:
+        ap.error(f"--devices {devices} is not a multiple of --tp {args.tp}")
+    device = "cpu" if args.cpu else None
+    if devices == 1:
+        from ..core.device import resolve_device
+        return run(args, resolve_device(device))
+    import torch.distributed as dist
 
+    from ..parallel.mesh import init_distributed, spawn
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dev = init_distributed(device=device)
+        try:
+            return fit_rank(dev, args)
+        finally:
+            dist.destroy_process_group()
+    spawn(fit_rank, devices, (args,), device=device,
+          threads=1 if args.cpu else 0)
+    return 0
+
+
+def fit_rank(device, args) -> int:
+    """One rank of a multi-rank fit (``spawn`` or torchrun)."""
+    from ..parallel.mesh import make_mesh
+    devices = args.tp if args.devices is None else args.devices
+    return run(args, device, make_mesh(devices, args.tp))
+
+
+def run(args, device, mesh=None) -> int:
+    """The fit on ``device``; over ``mesh`` every rank runs it and rank 0
+    reports and writes."""
     import numpy as np
     import torch
 
     from ..config import RenderConfig
-    from ..core.device import resolve_device
     from ..models import presets
     from ..ops.render import render_image
     from ..parallel.train import apply_sphere_params, fit
@@ -62,12 +98,8 @@ def main(argv=None):
     from ..utils.convert import params_from_numpy, to_numpy
     from ..utils.image import write_png
 
-    devices = 1 if args.devices is None else args.devices
-    if devices * args.tp != 1:
-        raise NotImplementedError(
-            f"--devices {devices} --tp {args.tp}: multi-device fits are not "
-            "ported yet: ROADMAP Queue 1 item 20 (slice 7)")
-    device = resolve_device("cpu" if args.cpu else None)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     scene, cam = presets.three_spheres(aspect=args.width / args.height,
                                        device=device)
     cfg = RenderConfig(width=args.width, height=args.height,
@@ -81,9 +113,10 @@ def main(argv=None):
                 device=device).manual_seed(seed))
 
     target = render(scene, 1234)
-    os.makedirs(args.out, exist_ok=True)
-    write_png(os.path.join(args.out, "target.png"),
-              np.sqrt(to_numpy(target)))
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+        write_png(os.path.join(args.out, "target.png"),
+                  np.sqrt(to_numpy(target)))
 
     rng = np.random.default_rng(0)
     true_centers = to_numpy(scene.spheres.center)
@@ -94,10 +127,12 @@ def main(argv=None):
         "albedo": np.clip(true_albedo + rng.normal(
             scale=0.15, size=true_albedo.shape).astype(np.float32), 0, 1),
     }, device)
-    write_png(os.path.join(args.out, "init.png"),
-              np.sqrt(to_numpy(render(apply_sphere_params(scene, params),
-                                      7))))
-    print(f"device: {device}")
+    init = render(apply_sphere_params(scene, params), 7)
+    if lead:
+        write_png(os.path.join(args.out, "init.png"),
+                  np.sqrt(to_numpy(init)))
+    say(f"device: {device}" + ("" if mesh is None else
+                               f", mesh {mesh.shape} of ranks"))
     c_err0 = float(np.abs(true_centers - to_numpy(params["centers"])).max())
     a_err0 = float(np.abs(true_albedo - to_numpy(params["albedo"])).max())
 
@@ -106,7 +141,7 @@ def main(argv=None):
     if args.resume and os.path.exists(ckpt_path):
         loaded, step0, _ = load_params(ckpt_path)
         params = params_from_numpy(loaded, device)
-        print(f"resumed {ckpt_path} at step {step0}")
+        say(f"resumed {ckpt_path} at step {step0}")
 
     losses = []
     remaining = max(args.steps - step0, 0)
@@ -115,26 +150,27 @@ def main(argv=None):
     while remaining > 0:
         n = min(chunk, remaining)
         params, ls = fit(scene, params, cam, cfg, target, steps=n,
-                         lr=args.lr, seed=done, verbose=True)
+                         lr=args.lr, seed=done, verbose=lead, mesh=mesh)
         losses.extend(ls)
         done += n
         remaining -= n
-        if args.checkpoint_every > 0:
+        if args.checkpoint_every > 0 and lead:
             save_params(ckpt_path, params, done)
     if not losses:
-        print(f"checkpoint already at step {step0} >= --steps {args.steps}; "
-              "nothing to do")
+        say(f"checkpoint already at step {step0} >= --steps {args.steps}; "
+            "nothing to do")
         return 0
 
     c_err1 = float(np.abs(true_centers - to_numpy(params["centers"])).max())
     a_err1 = float(np.abs(true_albedo - to_numpy(params["albedo"])).max())
-    print(f"center err: {c_err0:.4f} -> {c_err1:.4f}")
-    print(f"albedo err: {a_err0:.4f} -> {a_err1:.4f}")
-    print(f"loss: {losses[0]:.6f} -> {losses[-1]:.6f}")
-    write_png(os.path.join(args.out, "fitted.png"),
-              np.sqrt(to_numpy(render(apply_sphere_params(scene, params),
-                                      7))))
-    print(f"wrote {args.out}/target.png, init.png, fitted.png")
+    say(f"center err: {c_err0:.4f} -> {c_err1:.4f}")
+    say(f"albedo err: {a_err0:.4f} -> {a_err1:.4f}")
+    say(f"loss: {losses[0]:.6f} -> {losses[-1]:.6f}")
+    fitted = render(apply_sphere_params(scene, params), 7)
+    if lead:
+        write_png(os.path.join(args.out, "fitted.png"),
+                  np.sqrt(to_numpy(fitted)))
+    say(f"wrote {args.out}/target.png, init.png, fitted.png")
     return 0
 
 

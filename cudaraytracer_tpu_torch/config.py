@@ -11,8 +11,8 @@ commented-out line acting as a menu (render.h:119-121).
 The port runs ``engine='mega'`` (the fused kernel), ``engine='wavefront'``
 (the differentiable per-bounce engine, the default) and ``engine='mega_diff'``
 (the fused forward with the replay backward, ``mega_replay_bwd``).
-``check_supported`` rejects every knob whose engine or mode has not been
-ported yet, naming the ROADMAP item and slice that bring it.
+``check_supported`` rejects knob values the port does not run; every knob
+of the JAX package's config is ported.
 """
 
 from __future__ import annotations
@@ -121,20 +121,15 @@ class RenderConfig:
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for any engine or knob the port does not
-    run yet, naming the ROADMAP item that brings it."""
-    if cfg.wavefront_compact:
-        raise NotImplementedError(
-            "wavefront_compact (the alive-first partition between bounces) "
-            "is not ported yet: ROADMAP Queue 1 item 22 (measured first, "
-            "slice 2's open item)")
-    if cfg.grad_sync_axes:
-        raise NotImplementedError(
-            "grad_sync_axes (per-bounce gradient all-reduce) is not ported "
-            "yet: ROADMAP Queue 1 item 20 (slice 7)")
+    """Raise for a knob value the port does not run (every knob of the
+    JAX package's config is ported)."""
     if cfg.wavefront_sphere_cull not in ("morton", "primary", "off"):
         raise ValueError(
             f"wavefront_sphere_cull={cfg.wavefront_sphere_cull!r}: expected "
             "'morton', 'primary', or 'off'")
+    bad = [a for a in cfg.grad_sync_axes if a not in ("dp", "tp")]
+    if bad:
+        raise ValueError(f"grad_sync_axes={cfg.grad_sync_axes}: unknown "
+                         f"axes {bad}; expected 'dp' and 'tp'")
     if cfg.dtype != "float32":
         raise NotImplementedError("the port renders in float32 only")

@@ -51,6 +51,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from ..config import RenderConfig, check_supported
@@ -182,12 +183,75 @@ def _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob):
                                 winners[step], cfg, ball, prob)
 
 
+def partition_alive_first(alive: Tensor) -> Tensor:
+    """The stable alive-first permutation (megakernel.py:1848 of the JAX
+    package): int64[N] order such that x[order] places every alive lane
+    before every dead one, each group in its original order.  Two cumsums
+    and one scatter, no sort, no host sync."""
+    a = alive.to(torch.int64)
+    n_alive = a.sum()
+    pos = torch.where(alive, torch.cumsum(a, 0) - 1,
+                      n_alive + torch.cumsum(1 - a, 0) - 1)
+    n = alive.shape[0]
+    return torch.empty(n, dtype=torch.int64, device=alive.device).scatter_(
+        0, pos, torch.arange(n, device=alive.device))
+
+
+class _PmeanCotangents(torch.autograd.Function):
+    """The identity on the forward pass; on the backward pass the
+    cotangents of all its tensors, flattened into one buffer, are averaged
+    over the named axes of the mesh, one axis after another
+    (``_pmean_cotangent_tree``, integrators.py:87-104 of the JAX package).
+    The mesh is any object with ``group(axis)`` (a process group, or None
+    for a one-rank axis) and ``axis_size(axis)``, as ``parallel.mesh.Mesh``
+    has."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        for axis in ctx.axes:
+            group = ctx.mesh.group(axis)
+            if group is not None:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            flat = flat / ctx.mesh.axis_size(axis)
+        out = [part.view_as(g) for part, g in
+               zip(flat.split([g.numel() for g in gs]), gs)]
+        return (None, None, *out)
+
+
+def _sync_scene(scene: Scene, mesh, axes) -> Scene:
+    """The scene unchanged, its tensors that require grad routed through
+    ``_PmeanCotangents``: this bounce's scene cotangents are averaged over
+    ``axes`` in its own backward step (integrators.py:87-104 and :290-292
+    of the JAX package), so the gradient all-reduce runs in one bucket a
+    bounce.  Linear: the bounces' averaged buckets sum to the average of
+    the summed gradient."""
+    leaves = _mk._leaves(scene)
+    at = [k for k, x in enumerate(leaves) if x.requires_grad]
+    if at:
+        for k, x in zip(at, _PmeanCotangents.apply(
+                mesh, tuple(axes), *[leaves[k] for k in at])):
+            leaves[k] = x
+    return _mk._rebuild(scene, iter(leaves))
+
+
 def _bounce(scene, cfg, isect_fn, step, win, ref, o, d, tm,
-            throughput, radiance, alive, ball, prob):
+            throughput, radiance, alive, ball, prob, idx=None, sync=None):
     """One wavefront bounce (integrators.py:236-317): intersect (or replay
     the recorded winners ``win``), shade, scatter; returns the next (o, d,
     time, throughput, radiance, alive) and this bounce's winners (-1 where
     the lane was dead or missed).
+
+    idx: the rays' ids under cfg.wavefront_compact; then the next state
+    and idx leave in alive-first order (``partition_alive_first``), the
+    index riding in the state under the checkpoint, and the winners are
+    not returned.  sync: (mesh, axes) to average the scene's cotangents
+    over, or None.
 
     A replay follows the path the kernel traced: ``ref``, the plain
     version's bounce on the same winners (``_replay_ref``: the scene's
@@ -195,6 +259,8 @@ def _bounce(scene, cfg, isect_fn, step, win, ref, o, d, tm,
     decision (the sphere root, the material's scatter choices) and gives
     the values of the hit point, normal, (u, v) and scattered direction,
     while their gradients come from the differentiable tensor ops."""
+    if sync is not None:
+        scene = _sync_scene(scene, *sync)
     rays = Rays(o, d, tm)
     decide = None
     if win is not None:
@@ -233,11 +299,15 @@ def _bounce(scene, cfg, isect_fn, step, win, ref, o, d, tm,
     radiance = radiance + throughput * contrib
     c3 = continues[:, None]
     throughput = torch.where(c3, throughput * sc.attenuation, throughput)
-    return (torch.where(c3, sc.scattered.origin, o),
-            torch.where(c3, out_dir, d),
-            torch.where(continues, sc.scattered.time, tm),
-            throughput, radiance, continues,
-            torch.where(alive & hits.hit, hits.prim.to(torch.int32), -1))
+    nxt = (torch.where(c3, sc.scattered.origin, o),
+           torch.where(c3, out_dir, d),
+           torch.where(continues, sc.scattered.time, tm),
+           throughput, radiance, continues)
+    if idx is not None:
+        order = partition_alive_first(continues)
+        return tuple(x[order] for x in nxt) + (idx[order],)
+    return nxt + (torch.where(alive & hits.hit, hits.prim.to(torch.int32),
+                              -1),)
 
 
 def _draws(cfg: RenderConfig, n: int, dev, samples, seed, generator):
@@ -254,12 +324,24 @@ def _draws(cfg: RenderConfig, n: int, dev, samples, seed, generator):
     return lambda step: _mat.scatter_draws(n, generator, dev)
 
 
+def _grad_sync(cfg: RenderConfig, mesh):
+    """(mesh, axes) for ``_bounce`` when cfg names grad_sync_axes, else
+    None; naming them without a mesh raises."""
+    if not cfg.grad_sync_axes:
+        return None
+    if mesh is None:
+        raise ValueError(
+            f"cfg.grad_sync_axes={cfg.grad_sync_axes} needs the mesh to "
+            "average over: pass mesh= (parallel.mesh.make_mesh)")
+    return mesh, tuple(cfg.grad_sync_axes)
+
+
 def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
                intersect_fn=None, samples: Optional[SampleStream] = None,
                seed: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
                checkpoint: bool = True, winners: Optional[Tensor] = None,
-               return_winners: bool = False):
+               return_winners: bool = False, mesh=None):
     """shade() as a wavefront loop -> radiance float32[N, 3]
     (integrators.py:143 of the JAX package).
 
@@ -273,7 +355,20 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
     scene's Hits.prim ids (-1 for a miss): replay them instead of
     intersecting (``intersect_fn`` is then unused and the scene keeps its
     order).  return_winners: also return the winners this render recorded,
-    int32[max_depth + 1, N] in the scene's own ids."""
+    int32[max_depth + 1, N] in the scene's own ids.
+
+    cfg.wavefront_compact: after each bounce the rays, throughput,
+    radiance, alive mask and an index of ray ids are permuted alive first
+    (``partition_alive_first``), so dead lanes collect in the tail tiles
+    the alive-masked sweeps skip; each bounce's draws are gathered through
+    the index (whatever their source, so the feature is a pure
+    permutation) and the radiance is scattered back once at the end.
+    Replaying and recording runs keep the original order (integrators.py
+    :204-211 of the JAX package).
+
+    mesh: the ``parallel.mesh.Mesh`` over whose cfg.grad_sync_axes each
+    bounce averages the scene's cotangents (``_sync_scene``); a config
+    naming grad_sync_axes needs one."""
     n = rays.origin.shape[0]
     dev = rays.origin.device
     primary_fn, bounce_fn = _split_fns(intersect_fn)
@@ -302,19 +397,33 @@ def trace_path(scene: Scene, rays: Rays, cfg: RenderConfig,
                   else None)
     recorded = []
     draws = _draws(cfg, n, dev, samples, seed, generator)
+    compact = (cfg.wavefront_compact and winners is None
+               and not return_winners)
+    idx = torch.arange(n, device=dev) if compact else None
+    sync = _grad_sync(cfg, mesh)
     for step in range(cfg.max_depth + 1):
         ball, prob = draws(step)
+        if compact:
+            ball, prob = ball[idx], prob[idx]
         body = functools.partial(
             _bounce, scene, cfg, primary_fn if step == 0 else bounce_fn,
             step, winners[step] if winners is not None else None,
-            _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob))
+            _replay_ref(ref_tables, winners, step, o, d, cfg, ball, prob),
+            sync=sync)
         state = (o, d, tm, throughput, radiance, alive, ball, prob)
+        if compact:
+            state += (idx,)
         if use_ckpt:
             out = _checkpoint(body, *state, use_reentrant=False)
         else:
             out = body(*state)
-        o, d, tm, throughput, radiance, alive, win = out
-        recorded.append(win)
+        if compact:
+            o, d, tm, throughput, radiance, alive, idx = out
+        else:
+            o, d, tm, throughput, radiance, alive, win = out
+            recorded.append(win)
+    if compact:
+        radiance = torch.zeros_like(radiance).index_copy(0, idx, radiance)
     if not return_winners:
         return radiance
     return radiance, _winners_to_scene(torch.stack(recorded), n_s, n_t,
@@ -395,7 +504,8 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
               tables: Optional[_mk.MegaTables] = None,
               samples: Optional[SampleStream] = None,
               generator: Optional[torch.Generator] = None,
-              seed: Optional[int] = None, intersect_fn=None) -> Tensor:
+              seed: Optional[int] = None, intersect_fn=None,
+              mesh=None) -> Tensor:
     """Radiance float32[N, 3] of the rays under cfg.integrator and
     cfg.engine, as JAX ``integrate`` routes them (integrators.py:399-441):
     under engine='mega' all three integrators go to the fused kernel (image
@@ -406,15 +516,18 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
     scene the fused engine does not serve (above MAX_STREAM_PRIMS spheres
     or triangles) renders on the wavefront under either fused engine, as
     in JAX, and ``tables`` is dropped there; the wavefront launches its own
-    kernels on CUDA rays."""
+    kernels on CUDA rays.  mesh: the mesh of cfg.grad_sync_axes (the
+    path integrator's bounces average the scene's cotangents over it;
+    lambert and normal have no bounces to bucket, as in JAX)."""
     check_supported(cfg)
+    _grad_sync(cfg, mesh)
     fused = cfg.engine in ("mega", "mega_diff")
     if fused and not _mk.megakernel_supported(scene):
         fused, tables = False, None
     if fused and cfg.engine == "mega_diff" and cfg.integrator == "path":
         return _mk.trace_path_mega_diff(scene, rays, cfg, tables=tables,
                                         samples=samples, generator=generator,
-                                        seed=seed)
+                                        seed=seed, mesh=mesh)
     if fused and cfg.engine == "mega":
         return _mk.select_mega(scene, rays, cfg, tables=tables,
                                samples=samples, generator=generator,
@@ -423,6 +536,6 @@ def integrate(scene: Scene, rays: Rays, cfg: RenderConfig,
     # only the path integrator with a replay backward (integrators.py:404)
     if cfg.integrator == "path":
         return trace_path(scene, rays, cfg, intersect_fn, samples, seed,
-                          generator)
+                          generator, mesh=mesh)
     fn = lambert_shade if cfg.integrator == "lambert" else shade_normal
     return fn(scene, rays, cfg, intersect_fn)

@@ -1161,6 +1161,7 @@ class _DiffCall:
     samples: object
     seed: Optional[int]
     grad_at: list          # positions of the grad leaves in _leaves(scene)
+    mesh: object = None    # the replay's mesh under cfg.grad_sync_axes
 
 
 class _MegaDiff(torch.autograd.Function):
@@ -1196,7 +1197,7 @@ class _MegaDiff(torch.autograd.Function):
                      else sweep_intersector_pair(cfg))
             rad = _integ.trace_path(scene, rays, cfg, intersect_fn=isect,
                                     samples=call.samples, seed=call.seed,
-                                    winners=ctx.winners)
+                                    winners=ctx.winners, mesh=call.mesh)
             grads = torch.autograd.grad(rad, leaves, g, allow_unused=True)
         return (None,) + tuple(torch.zeros_like(x) if gx is None else gx
                                for x, gx in zip(leaves, grads))
@@ -1205,7 +1206,7 @@ class _MegaDiff(torch.autograd.Function):
 def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
                          tables: Optional[MegaTables] = None, samples=None,
                          generator: Optional[torch.Generator] = None,
-                         seed: Optional[int] = None) -> Tensor:
+                         seed: Optional[int] = None, mesh=None) -> Tensor:
     """The differentiable fused path integrator (engine='mega_diff',
     megakernel.py:2073) -> radiance float32[N, 3].
 
@@ -1218,7 +1219,8 @@ def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
     (in the kernel, and through the draws kernel K2 in the replay), so no
     stream is materialized.  The tables get no gradient; pass tables
     rebuilt from the current scene (a fit moves it).  Gradients reach the
-    scene's tensors, not the rays."""
+    scene's tensors, not the rays.  mesh: the replay's mesh under
+    cfg.grad_sync_axes (its bounces average the cotangents)."""
     check_supported(cfg)
     if cfg.integrator != "path":
         raise ValueError("engine='mega_diff' pairs only the path integrator")
@@ -1237,7 +1239,7 @@ def trace_path_mega_diff(scene: Scene, rays: Rays, cfg: RenderConfig,
     if not grad:
         return trace_path_mega(scene, rays, cfg, tables=tables,
                                samples=samples, seed=seed)
-    call = _DiffCall(scene, rays, cfg, tables, samples, seed, grad_at)
+    call = _DiffCall(scene, rays, cfg, tables, samples, seed, grad_at, mesh)
     return _MegaDiff.apply(call, *(leaves[k] for k in grad_at))
 
 

@@ -128,7 +128,7 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
                   tables: Optional[_mk.MegaTables] = None,
                   rays: Optional[Rays] = None,
                   samples: Optional[SampleStream] = None,
-                  intersect_fn=None) -> Tensor:
+                  intersect_fn=None, mesh=None) -> Tensor:
     """Render a set of pixels (default: all, row-major) -> float32[n, 3].
 
     rays: optional Rays of n * cfg.samples rays (a pixel's samples
@@ -138,7 +138,8 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
     ``integrate`` renders on the wavefront.  The mega_diff backward gives
     them no gradient, so a fit passes tables built from its current
     scene);
-    intersect_fn: the wavefront's intersector (brute force when None)."""
+    intersect_fn: the wavefront's intersector (brute force when None);
+    mesh: the mesh of cfg.grad_sync_axes (``integrate``)."""
     device = scene.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -173,7 +174,7 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
                          if samples is not None else None)
         cols = integrate(scene, chunk_rays, cfg, tables=tables,
                          samples=chunk_samples, generator=generator,
-                         seed=seed, intersect_fn=intersect_fn)
+                         seed=seed, intersect_fn=intersect_fn, mesh=mesh)
         colors.append(cols.reshape(hi - lo, spp, 3).mean(dim=1))
     return finish_pixels(torch.cat(colors), cfg)
 

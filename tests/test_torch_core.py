@@ -230,14 +230,28 @@ def test_config_defaults_match_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(wavefront_compact=True), "item 22"),
+    (dict(grad_sync_axes=("dp", "tp")), "item 20"),
 ])
 def test_config_rejects_unported_knobs(kw, item):
-    cfg = tconfig.RenderConfig(width=8, height=4, samples=1, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.check_supported(cfg)
+    """Every knob is ported now (ROADMAP items 22 and 20): check_supported
+    admits both; render_image runs under wavefront_compact, and under
+    grad_sync_axes it asks for the mesh to average over (one made without
+    a process group is the identity)."""
+    from cudaraytracer_tpu_torch.parallel.mesh import make_mesh
+    cfg = tconfig.RenderConfig(width=8, height=4, samples=1, max_depth=2,
+                               **kw)
+    tconfig.check_supported(cfg)
     scene, cam = tpresets.three_spheres(device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        trender.render_image(scene, cam, cfg)
+    plain = trender.render_image(scene, cam, dataclasses.replace(
+        cfg, wavefront_compact=False, grad_sync_axes=()))
+    if cfg.grad_sync_axes:
+        with pytest.raises(ValueError, match="needs the mesh"):
+            trender.render_image(scene, cam, cfg)
+        pix = trender.swizzled_pixels(8, 4)
+        got = trender.render_pixels(scene, cam, cfg, pix, mesh=make_mesh(1))
+        assert torch.equal(got, plain.reshape(-1, 3)[pix])
+    else:
+        assert torch.equal(trender.render_image(scene, cam, cfg), plain)
 
 
 @pytest.mark.parametrize("engine", ["mega_diff", "mega"])

@@ -44,7 +44,9 @@ from cudaraytracer_tpu_torch.core.rays import Rays
 from cudaraytracer_tpu_torch.models import presets as tpresets
 from cudaraytracer_tpu_torch.ops import integrators as tinteg
 from cudaraytracer_tpu_torch.ops import render as trender
+from cudaraytracer_tpu_torch.parallel import checks
 from cudaraytracer_tpu_torch.parallel import train as ttrain
+from cudaraytracer_tpu_torch.parallel.mesh import spawn
 from cudaraytracer_tpu_torch.utils import checkpoint as tckpt
 from cudaraytracer_tpu_torch.utils.convert import (camera_from_numpy,
                                                    params_from_numpy,
@@ -252,7 +254,22 @@ def test_fit_lowers_the_loss_on_fixed_draws():
 def test_fit_rejects_unported_modes():
     scene, cam = tpresets.three_spheres(aspect=1.5, device="cpu")
     cfg = RenderConfig(width=8, height=4, samples=1)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # dp = 2 is ported (ROADMAP item 20): make_fit_step(..., dp=2) makes its
+    # mesh on a process group of two gloo ranks, and its step equals the
+    # single-process step on the same frame
+    out = spawn(checks.run_cases, 2, ([("fit", "fit_step", dict(
+        scene=("preset", "three_spheres", {"aspect": 1.5}), tp=1,
+        names=("albedo",), inject=("seed", 3), by_counts=True,
+        cfg=dict(width=8, height=4, samples=1, max_depth=2,
+                 gamma=False)))],), device="cpu", threads=1)[0]["fit"]
+    assert out["mesh"] == {"dp": 2, "tp": 1}
+    for mode in ("overlapped", "posthoc"):
+        np.testing.assert_allclose(out[mode]["loss"], out["single"]["loss"],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(out[mode]["params"][0],
+                                   out["single"]["params"][0], rtol=1e-5,
+                                   atol=1e-7)
+    with pytest.raises(AssertionError, match="torch.distributed"):
         ttrain.make_fit_step(scene, cam, cfg, dp=2)
     # mega_mxu (K12) is ported: a mega_diff fit step under it runs (the
     # recording forward takes the Moller-Trumbore sweep, JAX :2609)
@@ -302,7 +319,12 @@ def test_fit_cli_runs_and_resumes_on_cpu(tmp_path, capsys):
     assert step == 3
     assert fit_app.main(args[:2] + ["4"] + args[3:] + ["--resume"]) == 0
     assert "resumed" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        fit_app.main(args + ["--devices", "2"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        fit_app.main(args + ["--engine", "mega_diff", "--tp", "2"])
+    # --devices / --tp are ported (ROADMAP item 20): each run spawns two
+    # gloo ranks, and rank 0 writes the PNGs and the checkpoint
+    for extra in (["--devices", "2"], ["--engine", "mega_diff", "--tp", "2"]):
+        out = tmp_path / extra[-2].strip("-")
+        argv = args[:-1] + [str(out)] + extra
+        assert fit_app.main(argv) == 0
+        assert (out / "fitted.png").exists()
+        _, step, _ = tckpt.load_params(str(out / "fit_ckpt.npz"))
+        assert step == 3

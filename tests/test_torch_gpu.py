@@ -1886,3 +1886,61 @@ def test_bvh_refit_and_forest_on_the_card(cuda):
     for o, d in _bvh_rays(tri, fit, 1 << 12, 9)[:2]:
         for quirks in (Quirks.reference(), Quirks.fixed()):
             _walks_equal(fit, tri, o, d, quirks, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["random_spheres", "mixed_fixed"])
+def test_compacted_wavefront_bit_equal(cuda, name):
+    """cfg.wavefront_compact on the card: the alive-first partition between
+    bounces is a pure permutation, so the frame through the sweeps (K3, K4)
+    equals the unpartitioned one bit for bit, under an injected stream and
+    under K2's counter draws."""
+    (scene, cam), quirks = _scene(name, cuda)
+    cfg = RenderConfig(width=128, height=64, samples=4, max_depth=DEPTH,
+                       quirks=quirks)
+    ccfg = dataclasses.replace(cfg, wavefront_compact=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rays = generate_pixel_rays(cam, 128, 64, 4, swizzled_pixels(
+        128, 64, device=cuda), generator=gen)
+    stream = stream_from_generator(gen, rays.origin.shape[0], DEPTH, cuda)
+    fn = sweep_intersector_pair(cfg)
+    for inject in (True, False):
+        def draws():
+            return (dict(rays=rays, samples=stream) if inject else
+                    dict(generator=torch.Generator(device=cuda).manual_seed(5)))
+
+        a = render_image(scene, cam, cfg, intersect_fn=fn, **draws())
+        b = render_image(scene, cam, ccfg, intersect_fn=fn, **draws())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_render_and_fit_on_one_card(cuda):
+    """Two ranks share the card through gloo: the dp = 2 render (the
+    wavefront's K2-K5, and K1 under mega) equals the single-process render
+    bit for bit under injection, and the dp = 2 fit step (overlapped and
+    post-hoc) matches the single-process step."""
+    from cudaraytracer_tpu_torch.parallel import checks
+    from cudaraytracer_tpu_torch.parallel.mesh import choose_backend, spawn
+    assert choose_backend(2, cuda) == (
+        "nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    three = ("preset", "three_spheres", {"aspect": 2.0})
+    cfg = dict(width=128, height=64, samples=2, max_depth=DEPTH)
+    cases = [(f"render_{e}", "render", dict(
+        scene=three, tp=1, inject=("seed", 4), cfg=dict(cfg, engine=e)))
+        for e in ("wavefront", "mega")]
+    cases.append(("fit", "fit_step", dict(
+        scene=three, tp=1, names=("centers", "albedo"), inject=("seed", 6),
+        cfg=dict(width=64, height=32, samples=2, max_depth=4,
+                 gamma=False))))
+    out = spawn(checks.run_cases, 2, (cases,), device=cuda)[0]
+    for e in ("wavefront", "mega"):
+        assert out[f"render_{e}"]["mesh"] == {"dp": 2, "tp": 1}
+        np.testing.assert_array_equal(out[f"render_{e}"]["img"],
+                                      out[f"render_{e}"]["single"])
+    fit = out["fit"]
+    for mode in ("overlapped", "posthoc"):
+        np.testing.assert_allclose(fit[mode]["loss"], fit["single"]["loss"],
+                                   rtol=1e-6)
+        for a, b in zip(fit[mode]["params"], fit["single"]["params"]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
