@@ -1,0 +1,8 @@
+"""Device kernels per item (fit), counted from the profiler's CUDA
+kernel events in the traced units."""
+
+from rtbench.metrics import _read
+
+
+def read(ctx):
+    return _read.launches_per_item(ctx)
