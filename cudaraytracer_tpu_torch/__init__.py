@@ -25,8 +25,13 @@ Ported so far:
   * the BVH, skinned animation and the reference's active pipeline;
   * the wavefront's alive-first compaction (``wavefront_compact``), and
     rendering and training over a ('dp', 'tp') mesh of ranks on
-    ``torch.distributed`` (``parallel/``), with the multi-rank dry run,
-    ``utils/profiling.py`` and ``apps/scaling.py``.
+    ``torch.distributed`` (``parallel/``), with the multi-rank dry run and
+    ``apps/scaling.py``;
+  * tracing: ``utils/profiling.py``'s spans inside the render, the fused
+    engine's table build and replay, the wavefront's bounces and the fit
+    step, recorded while a ``torch.profiler`` session runs (or after
+    ``profiling.enable()``) on the trace's own clock, read by the profile
+    apps and the benchmark.
 """
 
 from .config import Quirks, RenderConfig

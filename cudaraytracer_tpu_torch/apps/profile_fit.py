@@ -8,11 +8,12 @@ backward).
 Seconds per step (min of 3 after a warm-up step, host clock around a step
 that ends in a read of the loss), then one step under ``torch.profiler``:
 device time by kernel, host time by operator, the device's busy share
-(profiled device time over the unprofiled step), and the share of the
-replay's reference bounces (``megakernel.replay_reference``, host time
-with its operators, and the device time of what they launched) and of the
-table builds (``build_mega_tables``).  Prints a few lines and, last, one
-JSON object.
+(profiled device time over the unprofiled step), the program's spans
+(``utils/profiling``), and from them the share of the replay's reference
+bounces (``mega.replay``, in ``megakernel.replay_reference``) and of the
+table builds (``mega.tables``, in ``build_mega_tables``): host time with
+their operators, and the device time of what they launched.  Prints a few
+lines and, last, one JSON object.
 
     python -m cudaraytracer_tpu_torch.apps.profile_fit --engine mega_diff \
         --scene textured_globe
@@ -26,35 +27,16 @@ import subprocess
 import sys
 import time
 
-from .profile_render import _times, _top
+from .profile_render import _times, _top, print_spans
 
-# functions whose calls the profiled step labels, to give their share
-LABELLED = ("replay_reference", "build_mega_tables")
-
-
-def _labelled(mk):
-    """Wrap LABELLED of the megakernel module in profiler ranges (its own
-    callers look them up in the module, so they see the wrappers) -> the
-    originals, to put back."""
-    import functools
-
-    import torch
-    saved = {}
-    for name in LABELLED:
-        fn = saved[name] = getattr(mk, name)
-
-        def wrap(*a, _fn=fn, _name=name, **k):
-            with torch.profiler.record_function(_name):
-                return _fn(*a, **k)
-
-        setattr(mk, name, functools.wraps(fn)(wrap))
-    return saved
+# the program's spans whose share of the step the report gives
+LABELLED = ("mega.replay", "mega.tables")
 
 
 def _label_times(prof) -> dict:
-    """{label: {calls, host_ms (with its operators), device_ms (of the
-    kernels launched inside)}}, from the host's ranges (the profiler also
-    puts each range on the device's timeline, gaps included)."""
+    """{span: {calls, host_ms (with its operators), device_ms (of the
+    kernels launched inside)}}, from the spans' host ranges (the profiler
+    also puts each range on the device's timeline, gaps included)."""
     import torch
     out = {}
     for e in prof.events():
@@ -85,9 +67,9 @@ def main(argv=None):
     from ..core.camera import generate_pixel_rays
     from ..core.device import resolve_device
     from ..models import presets
-    from ..ops import megakernel as mk
     from ..ops.render import render_pixels, sweep_intersector_pair
     from ..parallel.train import fit_config, make_fit_step
+    from ..utils import profiling
 
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -128,18 +110,13 @@ def main(argv=None):
             best = min(best, time.perf_counter() - t0)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        saved = _labelled(mk)
-        try:
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                run()
-                prof_s = time.perf_counter() - t0
-        finally:
-            for name, fn in saved.items():
-                setattr(mk, name, fn)
+        profiling.clear()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            prof_s = time.perf_counter() - t0
         kernels, host = _times(prof)
-        for name in LABELLED:                 # a range, not a kernel
-            kernels.pop(name, None)
+        spans = profiling.summary()
         device_ms = sum(kernels.values()) / 1e3
         row = {"engine": engine, "s_per_step": best,
                "labelled": _label_times(prof),
@@ -148,9 +125,11 @@ def main(argv=None):
                "busy_share": device_ms / 1e3 / best if kernels else None,
                "n_kernel_launches": sum(
                    1 for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in spans),
                "top_kernels_ms": _top(kernels, 10),
-               "top_host_ms": _top(host, 10)}
+               "top_host_ms": _top(host, 10),
+               "spans": spans}
         rows.append(row)
         busy = (f"{row['busy_share']:.1%}" if kernels else "not measured")
         print(f"{engine}: {best:.4f} s/step; profiled step {prof_s:.3f} s, "
@@ -163,6 +142,7 @@ def main(argv=None):
         for what in ("top_kernels_ms", "top_host_ms"):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
+        print_spans(row["spans"])
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "power": smi, "scene": args.scene,
                       "shape": [w, h, spp], "rows": rows}))

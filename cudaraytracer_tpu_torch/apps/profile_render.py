@@ -8,12 +8,13 @@ wavefront``), or through ``--engine mega_diff`` (with ``--grad`` the
 sphere centres require a gradient, so the forward records its winners).
 
 For each chunk size: seconds per frame (min of 3 after a warm-up, CUDA
-events), then one frame under ``torch.profiler``: device time by kernel and
-host time by operator.  The device's busy share of a frame is the
-profiled device time over the frame time measured WITHOUT the profiler
-(the profiler's own host cost stretches the profiled frame, so dividing by
-it would overstate the idle share).  Prints a few lines per chunk size
-and, last, one JSON object.
+events), then one frame under ``torch.profiler``: device time by kernel,
+host time by operator, and the program's spans (``utils/profiling``:
+count, host ms and device ms by name).  The device's busy share of a frame
+is the profiled device time over the frame time measured WITHOUT the
+profiler (the profiler's own host cost stretches the profiled frame, so
+dividing by it would overstate the idle share).  Prints a few lines per
+chunk size and, last, one JSON object.
 
     python -m cudaraytracer_tpu_torch.apps.profile_render \
         --ray-chunk 262144 4194304 33554432
@@ -38,10 +39,16 @@ import sys
 def _times(prof):
     """({kernel or copy name: device us}, {host op name: self host us}).
     Device time is read from the device's own events only: the operator
-    entries repeat their kernels' time."""
+    entries repeat their kernels' time, and the program's spans, which
+    the profiler also puts on the device's timeline, are left out."""
     import torch
+
+    from ..utils import profiling
+    spans = set(profiling.summary())
     device, host = {}, {}
     for e in prof.events():
+        if e.name in spans:
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             device[e.name] = device.get(e.name, 0.0) + us
@@ -57,6 +64,16 @@ def _top(times, k=8):
     for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:k]:
         out.setdefault(name[:60], us / 1e3)
     return out
+
+
+def print_spans(spans: dict) -> None:
+    """The program's spans of the profiled item (``profiling.summary()``),
+    one line each, by host time."""
+    for name, s in sorted(spans.items(), key=lambda kv: -kv[1]["host_ms"]):
+        dev = ("" if s["device_ms"] is None
+               else f", device {s['device_ms']:.2f} ms")
+        print(f"  span {name}: {s['count']} x, host {s['host_ms']:.2f} ms"
+              f"{dev}")
 
 
 def main(argv=None):
@@ -94,6 +111,7 @@ def main(argv=None):
     from ..models import check_scenes, presets
     from ..ops.megakernel import morton_tables
     from ..ops.render import render_image, sweep_intersector
+    from ..utils import profiling
 
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,6 +163,7 @@ def main(argv=None):
             best = min(best, start.elapsed_time(end))
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
+        profiling.clear()
         with torch.profiler.profile(activities=acts) as prof:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -161,7 +180,8 @@ def main(argv=None):
                "device_ms": device_ms if kernels else None,
                "busy_share": device_ms / best if kernels else None,
                "top_kernels_ms": _top(kernels),
-               "top_host_ms": _top(host)}
+               "top_host_ms": _top(host),
+               "spans": profiling.summary()}
         rows.append(row)
         busy = (f"{row['busy_share']:.1%}" if kernels else "not measured")
         print(f"ray_chunk {chunk}: {best / 1e3:.4f} s/frame "
@@ -170,6 +190,7 @@ def main(argv=None):
         for what in ("top_kernels_ms", "top_host_ms"):
             print(f"  {what}: " + ", ".join(
                 f"{k[:40]} {v:.2f}" for k, v in row[what].items()))
+        print_spans(row["spans"])
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "power": smi, "scene": args.scene,
                       "textured": args.textured, "engine": args.engine,

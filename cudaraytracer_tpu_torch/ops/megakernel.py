@@ -94,6 +94,7 @@ from ..models import materials as _mat
 from ..models import textures as _tex
 from ..models.scene import Scene
 from ..models.transform import rotate_rows, transform_arrays
+from ..utils import profiling
 from ..utils.convert import to_numpy
 from . import _cuda
 from .sweeps import (BIG, BOX_COLS, PRIM_CHUNK, SPH_MARGIN, TRI_EPSILON,
@@ -417,6 +418,14 @@ def build_mega_tables(scene: Scene, tri_order: Optional[np.ndarray] = None,
     xform_orders: optional {"rect" | "tsph" | "ttri": permutation} in place
     of the Morton order of a class's rows in K8's chunks
     (``_xform_chunks``); any order gives the same result."""
+    with profiling.span("mega.tables", spheres=scene.n_spheres,
+                        triangles=scene.n_triangles):
+        return _pack_tables(scene, tri_order, sph_order, mxu, xform_orders)
+
+
+def _pack_tables(scene: Scene, tri_order, sph_order, mxu: bool,
+                 xform_orders) -> MegaTables:
+    """``build_mega_tables``' work."""
     reason = _unsupported(scene)
     if reason:
         raise NotImplementedError(reason)
@@ -1923,14 +1932,15 @@ def replay_reference(tables: MegaTables, o: Tensor, d: Tensor,
     plain version matches bit for bit on the card) on recorded winners
     int32[N] in scene prim ids, with tables in scene order: the winner's t,
     record and scatter, O(N), no sweep."""
-    inv_dlen = _inv_len(d)
-    valid, t, cls, idx, near = _winner_hits(tables, o, d, winner, inv_dlen,
-                                            cfg)
-    win = _record(tables, o, d, torch.where(winner >= 0, t, BIG), cls, idx,
-                  cfg, True)
-    ok, out, decide = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
-                               cfg.quirks.dielectric_reference_cosine)
-    return ReplayRef(valid, near, win.p, win.n, win.uv, ok, out, decide)
+    with profiling.span("mega.replay"):
+        inv_dlen = _inv_len(d)
+        valid, t, cls, idx, near = _winner_hits(tables, o, d, winner,
+                                                inv_dlen, cfg)
+        win = _record(tables, o, d, torch.where(winner >= 0, t, BIG), cls,
+                      idx, cfg, True)
+        ok, out, decide = _scatter(d, win.n, win.m, inv_dlen, ball, prob,
+                                   cfg.quirks.dielectric_reference_cosine)
+        return ReplayRef(valid, near, win.p, win.n, win.uv, ok, out, decide)
 
 
 def _scene_ids(tables: MegaTables, win: _Winner) -> Tensor:

@@ -25,6 +25,7 @@ from ..config import RenderConfig, check_supported
 from ..core import camera as _cam
 from ..core.rays import Rays
 from ..models.scene import Scene
+from ..utils import profiling
 from . import intersect as _isect
 from . import megakernel as _mk
 from .integrators import SampleStream, integrate
@@ -113,13 +114,16 @@ def render_image(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
     rays / samples: optional injected camera rays and scatter draws for
     every ray, in swizzled pixel order (render_pixels); otherwise both are
     drawn from ``generator`` (default: seed 0 on the scene's device)."""
-    pix = swizzled_pixels(cfg.width, cfg.height, device=scene.device)
-    colors = render_pixels(scene, camera, cfg, pix, generator, tables, rays,
-                           samples, intersect_fn)
-    out = torch.zeros((cfg.width * cfg.height, 3), dtype=colors.dtype,
-                      device=colors.device)
-    out[pix] = colors
-    return out.reshape(cfg.height, cfg.width, 3)
+    with profiling.span("render.frame", width=cfg.width, height=cfg.height,
+                        spp=cfg.samples):
+        pix = swizzled_pixels(cfg.width, cfg.height, device=scene.device)
+        colors = render_pixels(scene, camera, cfg, pix, generator, tables,
+                               rays, samples, intersect_fn)
+        with profiling.span("render.finish"):
+            out = torch.zeros((cfg.width * cfg.height, 3),
+                              dtype=colors.dtype, device=colors.device)
+            out[pix] = colors
+            return out.reshape(cfg.height, cfg.width, 3)
 
 
 def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
@@ -163,20 +167,25 @@ def render_pixels(scene: Scene, camera: _cam.Camera, cfg: RenderConfig,
     for lo, seed in zip(starts, seeds):
         hi = min(n_pix, lo + pix_chunk)
         ray_lo, ray_hi = lo * spp, hi * spp
-        if rays is not None:
-            chunk_rays = Rays(*(x[ray_lo:ray_hi] for x in rays))
-        else:
-            chunk_rays = _cam.generate_pixel_rays(
-                camera, cfg.width, cfg.height, spp, pixel_index[lo:hi],
-                generator=generator)
-        chunk_samples = (SampleStream(samples.ball[:, ray_lo:ray_hi],
-                                      samples.prob[:, ray_lo:ray_hi])
-                         if samples is not None else None)
-        cols = integrate(scene, chunk_rays, cfg, tables=tables,
-                         samples=chunk_samples, generator=generator,
-                         seed=seed, intersect_fn=intersect_fn, mesh=mesh)
-        colors.append(cols.reshape(hi - lo, spp, 3).mean(dim=1))
-    return finish_pixels(torch.cat(colors), cfg)
+        with profiling.span("render.chunk", rays=ray_hi - ray_lo):
+            with profiling.span("render.camera_rays", engine=cfg.engine):
+                if rays is not None:
+                    chunk_rays = Rays(*(x[ray_lo:ray_hi] for x in rays))
+                else:
+                    chunk_rays = _cam.generate_pixel_rays(
+                        camera, cfg.width, cfg.height, spp,
+                        pixel_index[lo:hi], generator=generator)
+            chunk_samples = (SampleStream(samples.ball[:, ray_lo:ray_hi],
+                                          samples.prob[:, ray_lo:ray_hi])
+                             if samples is not None else None)
+            with profiling.span("render.integrate", engine=cfg.engine):
+                cols = integrate(scene, chunk_rays, cfg, tables=tables,
+                                 samples=chunk_samples, generator=generator,
+                                 seed=seed, intersect_fn=intersect_fn,
+                                 mesh=mesh)
+            colors.append(cols.reshape(hi - lo, spp, 3).mean(dim=1))
+    with profiling.span("render.finish"):
+        return finish_pixels(torch.cat(colors), cfg)
 
 
 def finish_pixels(colors: Tensor, cfg: RenderConfig) -> Tensor:

@@ -32,6 +32,7 @@ from ..ops import megakernel as _mk
 from ..core.rays import Rays
 from ..ops.integrators import SampleStream
 from ..ops.render import render_pixels, sweep_intersector_pair
+from ..utils import profiling
 from .mesh import Mesh, make_mesh, pad_rows, pad_to_multiple, pmean
 
 Tensor = torch.Tensor
@@ -109,9 +110,13 @@ def value_and_grad(scene_template: Scene, params: Params, camera: Camera,
                    mesh: Optional[Mesh] = None):
     """(loss, grads): the pixel loss and its gradient for every parameter
     (a dict shaped like ``params``, whose tensors must require grad)."""
-    loss = pixel_loss(scene_template, params, camera, cfg, pixel_index,
-                      target, generator, intersect_fn, rays, samples, mesh)
-    grads = torch.autograd.grad(loss, _leaves(params))
+    dev = scene_template.device
+    with profiling.span("fit.forward", device=dev):
+        loss = pixel_loss(scene_template, params, camera, cfg, pixel_index,
+                          target, generator, intersect_fn, rays, samples,
+                          mesh)
+    with profiling.span("fit.backward", device=dev):
+        grads = torch.autograd.grad(loss, _leaves(params))
     return loss.detach(), _unflatten(params, grads)
 
 
@@ -151,10 +156,12 @@ def make_fit_step(scene_template: Scene, camera: Camera, cfg: RenderConfig,
 
         def step(params, target_flat, generator=None, rays=None,
                  samples=None):
-            loss, grads = value_and_grad(scene_template, params, camera,
-                                         lcfg, pixel_index, target_flat,
-                                         generator, isect, rays, samples)
-            return loss, _sgd(params, grads, lr)
+            with profiling.span("fit.step"):
+                loss, grads = value_and_grad(scene_template, params, camera,
+                                             lcfg, pixel_index, target_flat,
+                                             generator, isect, rays, samples)
+                with profiling.span("fit.update"):
+                    return loss, _sgd(params, grads, lr)
 
         return step
 
@@ -164,20 +171,24 @@ def make_fit_step(scene_template: Scene, camera: Camera, cfg: RenderConfig,
     local = rank_tile(mesh, n_pix, cfg.samples, scene_template.device)
 
     def step(params, target_flat, generator=None, rays=None, samples=None):
-        pixel_index, target, rays, samples = local(target_flat, rays,
-                                                   samples)
-        loss, grads = value_and_grad(scene_template, params, camera, lcfg,
-                                     pixel_index, target, generator, isect,
-                                     rays, samples, mesh)
-        loss = pmean(loss, mesh, ("dp", "tp"))
-        if not overlap:
-            leaves = _leaves(grads)
-            flat = pmean(torch.cat([g.reshape(-1) for g in leaves]), mesh,
-                         ("dp", "tp"))
-            grads = _unflatten(grads, [
-                part.view_as(g) for part, g in
-                zip(flat.split([g.numel() for g in leaves]), leaves)])
-        return loss, _sgd(params, grads, lr)
+        with profiling.span("fit.step"):
+            pixel_index, target, rays, samples = local(target_flat, rays,
+                                                       samples)
+            loss, grads = value_and_grad(scene_template, params, camera,
+                                         lcfg, pixel_index, target,
+                                         generator, isect, rays, samples,
+                                         mesh)
+            with profiling.span("fit.update"):
+                loss = pmean(loss, mesh, ("dp", "tp"))
+                if not overlap:
+                    leaves = _leaves(grads)
+                    flat = pmean(torch.cat([g.reshape(-1) for g in leaves]),
+                                 mesh, ("dp", "tp"))
+                    grads = _unflatten(grads, [
+                        part.view_as(g) for part, g in
+                        zip(flat.split([g.numel() for g in leaves]),
+                            leaves)])
+                return loss, _sgd(params, grads, lr)
 
     return step
 

@@ -1944,3 +1944,57 @@ def test_two_gloo_ranks_render_and_fit_on_one_card(cuda):
                                    rtol=1e-6)
         for a, b in zip(fit[mode]["params"], fit["single"]["params"]):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_spans_time_the_device_and_nest_the_cuda_backward(cuda):
+    """The program's spans on the card: a fit step's forward, backward and
+    bounces carry device ms once the caller has synchronised, and the
+    bounces that the checkpoint recomputes on the autograd engine's worker
+    thread sit under ``fit.backward``; a traced step launches the
+    program's kernels as an untraced one does."""
+    from cudaraytracer_tpu_torch.utils import profiling
+    scene, cam = presets.three_spheres(aspect=2.0, device=cuda)
+    cfg = RenderConfig(width=64, height=32, samples=2, max_depth=4,
+                       gamma=False)
+    target = torch.rand(cfg.width * cfg.height, 3, device=cuda)
+    params = {"albedo": (scene.textures.color0 * 0.6 + 0.1)
+              .requires_grad_(),
+              "centers": (scene.spheres.center + 0.05).requires_grad_()}
+    step = train.make_fit_step(scene, cam, cfg, lr=0.1)
+
+    def counted():
+        before = {**mk.LAUNCHES, **sw.LAUNCHES}
+        step(params, target, torch.Generator(device=cuda).manual_seed(1))
+        return {k: v - before[k] for k, v in {**mk.LAUNCHES,
+                                              **sw.LAUNCHES}.items()}
+
+    untraced = counted()
+    profiling.clear()
+    profiling.enable()
+    try:
+        traced = counted()
+    finally:
+        profiling.disable()
+    assert traced == untraced and untraced["scatter_draws"] == 1
+    torch.cuda.synchronize()
+    recs = {r["id"]: r for r in profiling.records()}
+    profiling.clear()
+    by_name = {}
+    for r in recs.values():
+        by_name.setdefault(r["name"], []).append(r)
+    fwd, = by_name["fit.forward"]
+    bwd, = by_name["fit.backward"]
+    assert fwd["device_ms"] > 0.0 and bwd["device_ms"] > 0.0
+
+    def under(r, top):
+        while r["parent"] is not None:
+            if r["parent"] == top["id"]:
+                return True
+            r = recs[r["parent"]]
+        return False
+
+    bounces = by_name["wavefront.bounce"]
+    assert all(b["device_ms"] is not None for b in bounces)
+    assert sum(under(b, fwd) for b in bounces) == cfg.max_depth + 1
+    assert sum(under(b, bwd) for b in bounces) == cfg.max_depth + 1

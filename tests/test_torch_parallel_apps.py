@@ -50,17 +50,19 @@ def test_scaling_writes_json(tmp_path, capsys):
 
 
 def test_profiling_timer_and_trace(tmp_path):
-    timer = profiling.SectionTimer()
-    for _ in range(2):
-        with timer.section("work", sync_value={"x": torch.ones(3)}):
-            torch.ones(8).sum()
-    s = timer.summary()["work"]
-    assert s["count"] == 2 and s["min"] <= s["mean"] <= s["max"]
-    assert "work" in timer.report()
-    timer.write_json(str(tmp_path / "t.json"))
-    assert json.loads((tmp_path / "t.json").read_text())["work"]["count"] == 2
+    profiling.clear()
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("span"):
-            torch.ones(64).cumsum(0)
-    assert any(e.key == "span" for e in prof.key_averages())
-    assert (tmp_path / "trace" / "trace.json").exists()
+        for _ in range(2):
+            with profiling.span("work", rays=8):
+                torch.ones(64).cumsum(0)
+    assert any(e.key == "work" for e in prof.key_averages())
+    doc = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert sum(e.get("name") == "work" and e.get("cat") == "user_annotation"
+               for e in doc["traceEvents"]) == 2
+    s = profiling.summary()["work"]
+    assert s["count"] == 2 and s["host_ms"] > 0.0 and s["device_ms"] is None
+    assert [r["attrs"] for r in profiling.records()] == [{"rays": 8}] * 2
+    with profiling.span("untraced"):
+        pass
+    assert "untraced" not in profiling.summary()
+    profiling.clear()
