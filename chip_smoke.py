@@ -152,7 +152,11 @@ Phases (each prints lines; any failure raises and exits nonzero):
      card and as the call, its bound from this run's SASS (the
      instructions a draw on the integer, FP32 and MUFU pipes,
      ``draw_pipes``); one bounce of 2^22 samples against the plain version
-     and the unit-ball and uniform distributions;
+     and the unit-ball and uniform distributions; then the winner sum
+     crt_winner_add (``phase_winner_add``) on each bounce's winners of a
+     trace at the fit cell's 1280x720x4 (484 spheres, K5's K = 25 columns)
+     against its plain version and the three index_add_ calls it
+     replaced, timed beside both and its bound from bytes;
   5. cross-engine: the wavefront and the fused engine on the same 2^18 rays
      of each frame (random_spheres' first launch, the icosphere's middle
      one, light_box's and the TRS showcase's first) and the same injected
@@ -1049,6 +1053,120 @@ def phase_draws(dev, n_path: int):
             "ms_per_2_18_draws": ms / steps * (1 << 18) / n_path,
             "pipe_bound_ms": pipe_ms, "sass_per_draw": pipes,
             "torch_rand_2_18x4_ms": rand_ms, "draws": draws}
+
+
+# ---------------------------------------------------------------------------
+# The winner sum crt_winner_add
+# ---------------------------------------------------------------------------
+
+# The benchmark's fit cell (rtbench/workloads/one_weekend.fit.json): the
+# rays of one step, at path depth DEPTH
+FIT_CELL = (1280, 720, 4)
+
+
+def fit_cell_winners(dev) -> torch.Tensor:
+    """int32[DEPTH + 1, N]: each bounce's winners (-1: a miss or a dead
+    lane) of one trace of random_spheres (the One Weekend scene, 484
+    spheres) at the fit cell's 1280x720x4 on the fit's wavefront (K5)."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.core.camera import generate_pixel_rays
+    from cudaraytracer_tpu_torch.models import presets
+    from cudaraytracer_tpu_torch.ops import integrators as integ
+    from cudaraytracer_tpu_torch.ops.render import sweep_intersector_pair
+    from cudaraytracer_tpu_torch.parallel.train import fit_config
+    w, h, spp = FIT_CELL
+    scene, cam = presets.random_spheres(aspect=w / h, device=dev)
+    cfg = fit_config(RenderConfig(width=w, height=h, samples=spp,
+                                  max_depth=DEPTH, gamma=False))
+    rays = generate_pixel_rays(cam, w, h, spp, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    with torch.no_grad():
+        _, win = integ.trace_path(scene, rays, cfg,
+                                  sweep_intersector_pair(cfg), seed=0x57,
+                                  return_winners=True)
+    return win, scene.n_spheres
+
+
+def phase_winner_add(dev) -> dict:
+    """crt_winner_add at the fit cell's shape: each bounce's winners of a
+    real trace (``fit_cell_winners``), K5's row blocks (centre 3, radius 1,
+    the 21 attributes, K = 25; the attributes contiguous, as autograd
+    hands them over) over 484 spheres, against winner_add_plain and the
+    three index_add_ calls it replaced (a yardstick only, ``library_ms``),
+    each sum to 1e-5 of the |values| added into it; timed on the card
+    (device_ms) and as the call; its bound: the bytes these inputs need
+    (idx, the hit lanes' rows, the sums) over the memory rate, and beside
+    it every lane's row read (``bound_all_rows_ms``)."""
+    from cudaraytracer_tpu_torch.ops import sweeps as sw
+    win, c = fit_cell_winners(dev)
+    n = win.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(0x5A)
+    g_c, g_r, g_attrs = (torch.randn(*s, generator=gen, device=dev)
+                         for s in ((n, 3), (n,), (n, N_ATTRS)))
+    blocks = (g_c, g_r, g_attrs)
+    k = 3 + 1 + N_ATTRS
+
+    def index_adds(idx):
+        """The backward's three scatters before the winner sum."""
+        hit = idx >= 0
+        safe = idx.clamp(min=0).long()
+        gc = torch.where(hit[:, None], g_c, 0.0)
+        gr = torch.where(hit, g_r, 0.0)
+        return (torch.zeros(c, 3, device=dev).index_add_(0, safe, gc),
+                torch.zeros(c, device=dev).index_add_(0, safe, gr),
+                torch.zeros(N_ATTRS, c, device=dev).index_add_(
+                    1, safe, torch.where(hit[None], g_attrs.t(), 0.0)).t())
+
+    rows, err = [], 0.0
+    for b in range(win.shape[0]):
+        idx = win[b].contiguous()
+        hits = int((idx >= 0).sum())
+        sw.reset_launch_counts()
+        got = sw.winner_add(idx, blocks, c)
+        check(sw.LAUNCH_KINDS["winner_add"] == {
+            **dict.fromkeys(sw.WINNER_FORMS, 0), "shared": 1},
+            f"winner_add took {sw.LAUNCH_KINDS['winner_add']}")
+        mass = sw.winner_add_plain(idx, [x.double().abs() for x in blocks],
+                                   c)
+        for ref in (sw.winner_add_plain(idx, blocks, c), index_adds(idx)):
+            for g, r, m in zip(got, ref, mass):
+                d = (g - r).double().abs()
+                check(bool((d <= 1e-5 * m).all()), f"winner_add bounce {b}: "
+                      f"off by {float(d.max())}")
+                err = max(err, float((d / m.clamp(min=1e-30)).max()))
+        ms, _ = device_ms(lambda: sw.winner_add(idx, blocks, c), reps=10)
+        call_ms, _ = cuda_ms(lambda: sw.winner_add(idx, blocks, c), reps=10)
+        plain_ms, _ = cuda_ms(lambda: sw.winner_add_plain(idx, blocks, c),
+                              reps=3)
+        lib_ms, _ = device_ms(lambda: index_adds(idx), reps=3)
+        bound_ms, bound_by = bound(0.0, 4 * n + 4 * k * (hits + c))
+        all_ms, _ = bound(0.0, 4 * n + 4 * k * (n + c))
+        rows.append({"bounce": b, "hits": hits, "ms": ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_all_rows_ms": all_ms})
+        print(f"[winner_add] bounce {b}: {n} rays, {hits} hits, {c} x {k}: "
+              f"kernel {ms:.4f} ms (call {call_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by}; every row "
+              f"{all_ms:.4f}), plain {plain_ms:.3f} ms, three index_add_ "
+              f"{lib_ms:.3f} ms")
+    step = {key: sum(r[key] for r in rows) for key in (
+        "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_all_rows_ms")}
+    print(f"[winner_add] a step's {len(rows)} bounces: {step}; max error "
+          f"over the |values| summed {err:.3g}")
+    return {"name": "winner_add", "route": "cuda",
+            "source": "cudaraytracer_tpu_torch/csrc/sweeps.cu",
+            "replaces": None,
+            "replaces_note": "no pallas_call: XLA's scatter, "
+                             "cudaraytracer_tpu/ops/pallas_intersect.py"
+                             ":1038-1043",
+            "launches": 0, "max_rel_err": err, **step,
+            "bound_by": "bytes",
+            "ms_at": f"a step's {len(rows)} bounces of the fit cell: "
+                     f"{n} rays of random_spheres {FIT_CELL}, path "
+                     f"{DEPTH}, {c} spheres x K = {k}",
+            "per_bounce": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -3540,7 +3658,7 @@ def counted(name: str, fn, need, one_draw_per_trace: bool = False):
     for k in need:
         check(launches[k] > 0, f"{name} never launched {k}")
     if one_draw_per_trace:
-        traces = max(v["camera"] for v in sw.LAUNCH_KINDS.values())
+        traces = max(v.get("camera", 0) for v in sw.LAUNCH_KINDS.values())
         print(f"[main] {name}: {launches['scatter_draws']} scatter_draws "
               f"launches for {traces} traces")
         check(launches["scatter_draws"] == traces, f"{name}: "
@@ -3858,6 +3976,7 @@ def main() -> int:
     mparity = phase_mxu_parity(dev, sframes, mframes)
     sweeps = phase_sweep_parity(dev, frames)
     draws = phase_draws(dev, fa.cfg.ray_chunk)
+    winner = phase_winner_add(dev)
     phase_cross_engine(dev, [(fa, 0), (fb, middle_chunk(fb)), (fh, 0),
                              (fs, 0), (fj, middle_chunk(fj)),
                              (fk, middle_chunk(fk)), (fl, 0)])
@@ -3911,7 +4030,7 @@ def main() -> int:
         "(d) icosphere, wavefront", lambda: render_wavefront(dev, fb, gen),
         ("sphere_sweep", "triangle_sweep", "scatter_draws"), True)
     fit, l_e = counted("(e) fit", lambda: run_fit(dev),
-                       ("sphere_sweep_attrs", "scatter_draws"))
+                       ("sphere_sweep_attrs", "scatter_draws", "winner_add"))
     fit_f, l_f = counted("(f) mega_diff fit",
                          lambda: run_fit(dev, "mega_diff"),
                          ("mega_winners", "scatter_draws"))
@@ -4065,7 +4184,8 @@ def main() -> int:
             "peak_gib": peak_a / 2 ** 30,
             "icosphere_peak_gib": peak_b / 2 ** 30}
     draws["launches"] = launches["scatter_draws"]
-    rows = [mega, draws]
+    winner["launches"] = launches["winner_add"]
+    rows = [mega, draws, winner]
     for name, line in (("sphere_sweep", 181), ("sphere_sweep_attrs", 314),
                        ("triangle_sweep", 645)):
         k = sweeps[name]

@@ -1,5 +1,6 @@
 // Closest-hit sweeps over one primitive type for NVIDIA Hopper (sm_90a):
-// kernels K3, K4 and K5 of the port.
+// kernels K3, K4 and K5 of the port, and the winner sum crt_winner_add
+// that their winner-only backwards use (its own note, below the sweeps).
 //
 // Replaces (cudaraytracer_tpu/ops/pallas_intersect.py):
 //   * K3 crt_sph_*: _sphere_kernel (culled) and _sphere_kernel_plain,
@@ -540,6 +541,164 @@ __device__ __forceinline__ void sweep(const Args& P) {
   if (COUNT) add_counts(P.counts, cnt);
 }
 
+// ---------------------------------------------------------------------------
+// The winner sum crt_winner_add: out[idx[i], :] += row i of up to three
+// row blocks [n, k_j] (any strides), out float32 [c, k], k = sum of k_j.
+// The sweeps' winner-only backwards sum their per-ray gradients into
+// per-prim gradients with it (ops/sweeps.py winner_add).
+//
+// Replaces no pallas_call: the JAX package leaves this sum to XLA's
+// scatter (pallas_intersect.py:1038-1043, .at[safe].add), as the port's
+// index_add_ did.  What bounds it on this card: bytes, one read of idx and
+// of each row (104 B a ray for K5's k = 25).  What stood in the way is
+// contention: index_add_ makes one atomic add an element, every miss and
+// dead lane adds 0 to prim 0, and a few hot winners take most hits, so the
+// adds queue on a few addresses.  What the design does about that:
+//   * a lane whose idx is negative (a miss, a dead lane) reads and adds
+//     nothing; a warp with no live lane skips its step;
+//   * the lanes of a warp with the same winner (__match_any_sync) sum each
+//     column by shuffles, a binary tree over their ranks, and the lowest of
+//     them alone adds the sum: one add a winner, a column and a warp step;
+//     neighbouring rays mostly hit the same prim, so a coherent warp makes
+//     one add a column;
+//   * shared form (c x k floats within WIN_SHARED_BYTES): a grid of the
+//     resident blocks, each over a contiguous range of rays, adds into its
+//     own accumulator in dynamic shared memory and at its end flushes each
+//     nonzero slot with one atomicAdd to the output;
+//   * global form (above it, e.g. 10^5 triangles): the warp's adders add
+//     straight to the output, at most one atomic a group where index_add_
+//     made one an element.
+// The form follows from c x k alone.  The output is zeroed on the stream
+// before the launch.  float32 throughout: only the order of the sums
+// differs from index_add_'s, whose order on the card is run-dependent too.
+// Where the caller asks for a sum that repeats bit for bit (PyTorch's
+// deterministic algorithms, under which index_add_ sums in a fixed order),
+// the ordered form runs instead: one-warp blocks, each over a contiguous
+// range of rays, each adding into its own zeroed slice of a scratch
+// [blocks, c, k] in program order, then crt_winner_add_finish sums the
+// slices in block order.  A winner outside [0, c) is dropped (the caller's
+// sweeps give none).
+// ---------------------------------------------------------------------------
+
+constexpr int WIN_BLOCK = 512;
+constexpr int WIN_MAX_BLOCKS = 3;                 // row blocks a launch sums
+constexpr int WIN_SHARED_BYTES = 96 * 1024;       // two blocks an SM
+constexpr int WIN_TREE = 5;                       // log2(32) tree steps
+constexpr int WIN_UNROLL = 4;                     // columns in flight
+
+struct WinnerArgs {
+  const int* idx;                                 // [n], -1: no winner
+  const float* rows[WIN_MAX_BLOCKS];
+  long long row_stride[WIN_MAX_BLOCKS], col_stride[WIN_MAX_BLOCKS];
+  int cols[WIN_MAX_BLOCKS];
+  int n_blocks;
+  float* out;                                     // [c, k]; ordered:
+                                                  // [blocks, c, k]
+  long long n, per_block;                         // rays; a block's range
+  int c, k;
+};
+
+// The tree over the lanes that share a winner (peers, this lane's bit
+// included): at step s a lane adds lane src[s]'s value where bit s of take
+// is set.  After step s the lanes whose rank is a multiple of 2^(s+1) hold
+// the sums of their 2^(s+1) ranks, so the lowest lane ends with its
+// group's.  steps is uniform over the warp: every lane runs every step,
+// which the shuffles need.
+struct Tree { int src[WIN_TREE]; unsigned take; int steps; };
+
+__device__ __forceinline__ Tree tree_of(unsigned peers, int lane) {
+  Tree t{};
+  const unsigned below = (1u << lane) - 1u;
+  unsigned higher = peers & ~below & ~(1u << lane);
+  int rank = __popc(peers & below);
+#pragma unroll
+  for (int s = 0; s < WIN_TREE; ++s) {
+    t.src[s] = lane;
+    if (__any_sync(FULL, higher)) {
+      const int next = __ffs(higher);             // the next peer still on
+      if (next) {
+        t.src[s] = next - 1;
+        t.take |= 1u << s;
+      }
+      higher &= ~__ballot_sync(FULL, rank & 1);   // odd ranks are summed
+      rank >>= 1;
+      t.steps = s + 1;
+    }
+  }
+  return t;
+}
+
+// ORDERED: a block is one warp, adding into its own slice of P.out in
+// program order (its adders hold distinct slots), so the sums repeat.
+template <bool SHARED, bool ORDERED>
+__device__ __forceinline__ void winner_sum(const WinnerArgs& P) {
+  extern __shared__ float acc[];                  // SHARED: [c, k]
+  constexpr int threads = ORDERED ? 32 : WIN_BLOCK;
+  const int lane = threadIdx.x & 31;
+  const int slots = P.c * P.k;
+  if (SHARED) {
+    for (int s = threadIdx.x; s < slots; s += WIN_BLOCK) acc[s] = 0.f;
+    __syncthreads();
+  }
+  float* const dst = SHARED ? acc
+                            : P.out + (ORDERED ? blockIdx.x * (size_t)slots
+                                               : 0);
+  const long long lo = (long long)blockIdx.x * P.per_block;
+  const long long hi = P.n < lo + P.per_block ? P.n : lo + P.per_block;
+  for (long long base = lo + (threadIdx.x & ~31); base < hi;
+       base += threads) {
+    const long long i = base + lane;
+    int w = i < hi ? __ldg(P.idx + i) : -1;
+    if (w >= P.c) w = -1;
+    const bool live = w >= 0;
+    if (!__any_sync(FULL, live)) continue;
+    unsigned peers = __match_any_sync(FULL, w);
+    if (!live) peers = 1u << lane;
+    const Tree t = tree_of(peers, lane);
+    const bool adds = live && !(peers & ((1u << lane) - 1u));
+    float* const slot = dst + (size_t)(live ? w : 0) * P.k;
+    int col = 0;
+    for (int b = 0; b < P.n_blocks; ++b) {
+      const float* row = P.rows[b] + (live ? i * P.row_stride[b] : 0);
+      const long long cs = P.col_stride[b];
+      const int cols = P.cols[b];
+      for (int j0 = 0; j0 < cols; j0 += WIN_UNROLL) {
+        float x[WIN_UNROLL];
+#pragma unroll
+        for (int u = 0; u < WIN_UNROLL; ++u)
+          x[u] = live && j0 + u < cols ? __ldg(row + (j0 + u) * cs) : 0.f;
+#pragma unroll
+        for (int s = 0; s < WIN_TREE; ++s) {
+          if (s < t.steps) {
+#pragma unroll
+            for (int u = 0; u < WIN_UNROLL; ++u) {
+              const float y = __shfl_sync(FULL, x[u], t.src[s]);
+              if (t.take >> s & 1u) x[u] += y;
+            }
+          }
+        }
+        if (adds) {
+#pragma unroll
+          for (int u = 0; u < WIN_UNROLL; ++u) {
+            if (j0 + u >= cols) continue;
+            if (ORDERED)
+              slot[col + j0 + u] += x[u];
+            else
+              atomicAdd(slot + col + j0 + u, x[u]);
+          }
+        }
+      }
+      col += cols;
+    }
+    if (ORDERED) __syncwarp();    // this step's adds before the next's
+  }
+  if (SHARED) {
+    __syncthreads();
+    for (int s = threadIdx.x; s < slots; s += WIN_BLOCK)
+      if (acc[s] != 0.f) atomicAdd(P.out + s, acc[s]);
+  }
+}
+
 }  // namespace crt_sweeps
 
 using namespace crt_sweeps;
@@ -564,6 +723,30 @@ CRT_SWEEP(crt_tri_plain, Triangle, false, false, false)
 CRT_SWEEP(crt_tri_cull, Triangle, true, false, false)
 CRT_SWEEP(crt_tri_coop, Triangle, true, true, false)
 #undef CRT_SWEEP
+
+// The winner sum's forms, and the ordered form's sum over its blocks'
+// slices (one thread a slot, blocks in order)
+extern "C" __global__ void __launch_bounds__(WIN_BLOCK)
+    crt_winner_add_shared(WinnerArgs P) {
+  winner_sum<true, false>(P);
+}
+extern "C" __global__ void __launch_bounds__(WIN_BLOCK)
+    crt_winner_add_global(WinnerArgs P) {
+  winner_sum<false, false>(P);
+}
+extern "C" __global__ void __launch_bounds__(32)
+    crt_winner_add_ordered(WinnerArgs P) {
+  winner_sum<false, true>(P);
+}
+extern "C" __global__ void __launch_bounds__(WIN_BLOCK)
+    crt_winner_add_finish(const float* slices, float* out, long long slots,
+                          int blocks) {
+  const long long s = (long long)blockIdx.x * WIN_BLOCK + threadIdx.x;
+  if (s >= slots) return;
+  float sum = 0.f;
+  for (int b = 0; b < blocks; ++b) sum += slices[b * slots + s];
+  out[s] = sum;
+}
 
 namespace {
 
@@ -643,6 +826,88 @@ extern "C" int crt_triangle_sweep(
   if (n <= 0) return 0;
   const int form = box ? (coop ? 2 : 1) : 0;
   return launch(TRIANGLE_KERNELS[form][counts != nullptr], P, cuda_stream);
+}
+
+// out[idx[i], :] += the rows i of rows[0 .. n_blocks) (block j:
+// cols[j] columns, element (i, c) at rows[j][i * strides[2 j] + c *
+// strides[2 j + 1]]), out float32 [c, sum of cols] zeroed here first.
+// scratch (float32 [scratch_blocks, c, sum of cols]) non-null: the ordered
+// form over scratch_blocks one-warp blocks.  *form: 0 shared, 1 global, 2
+// ordered, -1 when no kernel ran (no ray, no slot).
+extern "C" int crt_winner_add(const void* idx, const void* const* rows,
+                              const long long* strides, const int* cols,
+                              int n_blocks, void* out, long long n, int c,
+                              void* scratch, int scratch_blocks, int* form,
+                              void* cuda_stream) {
+  *form = -1;
+  if (n_blocks < 1 || n_blocks > WIN_MAX_BLOCKS || n < 0 || c < 0 ||
+      (scratch && scratch_blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  WinnerArgs P{};
+  P.idx = static_cast<const int*>(idx);
+  for (int b = 0; b < n_blocks; ++b) {
+    P.rows[b] = static_cast<const float*>(rows[b]);
+    P.row_stride[b] = strides[2 * b];
+    P.col_stride[b] = strides[2 * b + 1];
+    P.cols[b] = cols[b];
+    P.k += cols[b];
+  }
+  P.n_blocks = n_blocks;
+  P.out = static_cast<float*>(out);
+  P.n = n;
+  P.c = c;
+  const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const size_t bytes = (size_t)c * P.k * sizeof(float);
+  if (bytes == 0) return 0;
+  cudaError_t e = cudaMemsetAsync(out, 0, bytes, s);
+  if (e != cudaSuccess || n == 0) return (int)e;
+  if (scratch) {
+    e = cudaMemsetAsync(scratch, 0, bytes * scratch_blocks, s);
+    if (e != cudaSuccess) return (int)e;
+    const long long warps = (n + 31) / 32;
+    P.per_block = (warps + scratch_blocks - 1) / scratch_blocks * 32;
+    P.out = static_cast<float*>(scratch);
+    crt_winner_add_ordered<<<(unsigned)((n + P.per_block - 1) /
+                                        P.per_block), 32, 0, s>>>(P);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const long long slots = (long long)c * P.k;
+    crt_winner_add_finish<<<(unsigned)((slots + WIN_BLOCK - 1) / WIN_BLOCK),
+                            WIN_BLOCK, 0, s>>>(
+        static_cast<const float*>(scratch), static_cast<float*>(out), slots,
+        scratch_blocks);
+    *form = 2;
+    return (int)cudaGetLastError();
+  }
+  const bool shared = bytes <= (size_t)WIN_SHARED_BYTES;
+  void (*kernel)(WinnerArgs) =
+      shared ? crt_winner_add_shared : crt_winner_add_global;
+  const int smem = shared ? (int)bytes : 0;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    WIN_BLOCK, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // the resident blocks, fewer for fewer rays, each over a contiguous
+  // range of whole warps
+  const long long warps = (n + 31) / 32;
+  const long long most = (long long)per_sm * sms;
+  const long long want = (n + WIN_BLOCK - 1) / WIN_BLOCK;
+  const long long grid0 = want < most ? want : most;
+  P.per_block = (warps + grid0 - 1) / grid0 * 32;
+  const long long grid = (n + P.per_block - 1) / P.per_block;
+  kernel<<<(unsigned)grid, WIN_BLOCK, smem, s>>>(P);
+  *form = shared ? 0 : 1;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* crt_sweeps_error_string(int code) {

@@ -5,7 +5,9 @@ wrappers around ``csrc/sweeps.cu`` (the ports of ``_sphere_kernel`` /
 ``_sphere_kernel_plain`` (K3), ``_triangle_kernel`` /
 ``_triangle_kernel_culled`` (K4) and ``_sphere_kernel_attrs`` (K5)), their
 plain PyTorch versions, and the ``torch.autograd.Function``s around them
-whose backward recomputes only the winning primitive.
+whose backward recomputes only the winning primitive and sums the rays'
+gradients into the primitives' with the winner sum ``winner_add``
+(``crt_winner_add``, a kernel of the same library).
 
 Contract kept from the TPU kernels: per-ray (t, idx) with t = BIG and
 idx = -1 on a miss; the nearest in-range sphere root; Moller-Trumbore with
@@ -132,16 +134,30 @@ F_BACKFACE_ONLY, F_NO_T_CLIP, F_BACK_CULLING = 1, 2, 4
 COUNT_NAMES = ("box", "prim", "box_step", "prim_step")
 N_COUNTS = len(COUNT_NAMES)
 
+# The winner sum's row blocks a launch, and its forms (csrc/sweeps.cu
+# crt_winner_add: the shared form while the [C, K] sums fit its budget of
+# shared memory, else the global form; under PyTorch's deterministic
+# algorithms the ordered form, whose sums repeat bit for bit, over at most
+# WINNER_ORDERED_BLOCKS one-warp blocks and a scratch of at most
+# WINNER_ORDERED_BYTES)
+WINNER_BLOCKS = 3
+WINNER_FORMS = ("shared", "global", "ordered")
+WINNER_ORDERED_BLOCKS = 1024
+WINNER_ORDERED_BYTES = 1 << 28
+
 # Launches of each kernel since the last reset_launch_counts(), and the
-# same launches by kind: "bounce" with an alive mask, else "camera".
-LAUNCHES = {"sphere_sweep": 0, "sphere_sweep_attrs": 0, "triangle_sweep": 0}
-LAUNCH_KINDS = {k: {"camera": 0, "bounce": 0} for k in LAUNCHES}
+# same launches by kind: a sweep's "bounce" with an alive mask, else
+# "camera"; the winner sum's by form.
+LAUNCH_KINDS = {**{k: {"camera": 0, "bounce": 0} for k in (
+    "sphere_sweep", "sphere_sweep_attrs", "triangle_sweep")},
+    "winner_add": dict.fromkeys(WINNER_FORMS, 0)}
+LAUNCHES = dict.fromkeys(LAUNCH_KINDS, 0)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
+    for k, kinds in LAUNCH_KINDS.items():
         LAUNCHES[k] = 0
-        LAUNCH_KINDS[k] = {"camera": 0, "bounce": 0}
+        LAUNCH_KINDS[k] = dict.fromkeys(kinds, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +425,9 @@ def _library() -> ctypes.CDLL:
         lib.crt_triangle_sweep.argtypes = ([vp] * 9 + [ci] * 4 + [cf] * 2
                                            + [vp])
         lib.crt_triangle_sweep.restype = ci
+        lib.crt_winner_add.argtypes = [vp] * 6 + [ctypes.c_longlong, ci,
+                                           vp, ci, vp, vp]
+        lib.crt_winner_add.restype = ci
         lib.crt_sweeps_error_string.argtypes = [ci]
         lib.crt_sweeps_error_string.restype = ctypes.c_char_p
         lib._crt_declared = True
@@ -655,6 +674,103 @@ def triangle_best_hit_raw(origin: Tensor, direction: Tensor, v0: Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The winner sum: per-ray gradients into per-prim gradients
+# ---------------------------------------------------------------------------
+#
+# crt_winner_add (csrc/sweeps.cu) replaces no pallas_call: the JAX package
+# sums the winner-only backwards' rows with XLA's scatter
+# (pallas_intersect.py:1038-1043, .at[safe].add).  It is bounded by bytes,
+# one read of idx and of each row (about 104 B a ray for K5's K = 25), and
+# works around the contention of a few hot winners: misses and dead lanes
+# add nothing, and the lanes of a warp with the same winner add once.
+
+def _winner_views(out: Tensor, blocks) -> list:
+    """out [C, K] split into one view per row block: [C, k] for a block
+    [N, k], [C] for a block [N]."""
+    views, col = [], 0
+    for b in blocks:
+        if b.dim() == 1:
+            views.append(out[:, col])
+            col += 1
+        else:
+            views.append(out[:, col:col + b.shape[1]])
+            col += b.shape[1]
+    return views
+
+
+def winner_add_plain(idx: Tensor, blocks, n_slots: int) -> list:
+    """Plain version of crt_winner_add: index_add_ of the hit lanes' rows
+    (idx >= 0) into n_slots slots -> one view per block (``winner_add``)."""
+    hit = idx >= 0
+    rows = torch.cat([b.reshape(b.shape[0], -1)[hit] for b in blocks],
+                     dim=1)
+    out = rows.new_zeros(n_slots, rows.shape[1]).index_add_(
+        0, idx[hit].long(), rows)
+    return _winner_views(out, blocks)
+
+
+def launch_winner_add(idx: Tensor, blocks, n_slots: int) -> list:
+    """One launch of crt_winner_add: idx int32[N] (negative: no winner),
+    1 to WINNER_BLOCKS float32 row blocks [N, k] or [N] of any strides,
+    read in place -> one view per block of the float32 [n_slots, K] sums
+    (``winner_add``); the ordered form under PyTorch's deterministic
+    algorithms."""
+    n = idx.shape[0]
+    dev = idx.device
+    _check_cuda("idx", idx, torch.int32, (n,), dev)
+    if not 1 <= len(blocks) <= WINNER_BLOCKS:
+        raise ValueError(f"{len(blocks)} row blocks; a winner sum takes 1 "
+                         f"to {WINNER_BLOCKS}")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rays exceed one launch")
+    ptrs, strides, cols = [], [], []
+    for j, b in enumerate(blocks):
+        b2 = b[:, None] if b.dim() == 1 else b
+        if (not b2.is_cuda or b2.dtype != torch.float32 or b2.dim() != 2
+                or b2.shape[0] != n):
+            raise ValueError(f"row block {j} must be a float32 CUDA tensor "
+                             f"[{n}, k] or [{n}]; got {b.dtype} "
+                             f"{tuple(b.shape)} on {b.device}")
+        if b2.device != dev:
+            raise ValueError(f"row block {j} is on {b2.device}, idx on {dev}")
+        ptrs.append(b2.data_ptr())
+        strides += b2.stride()
+        cols.append(b2.shape[1])
+    out = torch.empty(n_slots, sum(cols), dtype=torch.float32, device=dev)
+    scratch, n_scratch = None, 0
+    if torch.are_deterministic_algorithms_enabled() and out.numel():
+        n_scratch = max(1, min(WINNER_ORDERED_BLOCKS, -(-n // 32),
+                               WINNER_ORDERED_BYTES // (4 * out.numel())))
+        scratch = torch.empty(n_scratch, *out.shape, dtype=torch.float32,
+                              device=dev)
+    form = ctypes.c_int(-1)
+    lib = _library()
+    with torch.cuda.device(dev):
+        code = lib.crt_winner_add(
+            idx.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_longlong * len(strides))(*strides),
+            (ctypes.c_int * len(cols))(*cols), len(cols), out.data_ptr(),
+            n, n_slots, _ptr(scratch), n_scratch, ctypes.byref(form),
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, code, "winner_add")
+    if form.value >= 0:
+        LAUNCHES["winner_add"] += 1
+        LAUNCH_KINDS["winner_add"][WINNER_FORMS[form.value]] += 1
+    return _winner_views(out, blocks)
+
+
+def winner_add(idx: Tensor, blocks, n_slots: int) -> list:
+    """The winner sum: row i of each block added into slot idx[i], lanes
+    with idx < 0 skipped -> one view per block ([n_slots, k] of a block
+    [N, k], [n_slots] of a block [N]), all of one [n_slots, K] tensor.  A
+    CUDA idx launches crt_winner_add (float32) or raises; a CPU idx runs
+    winner_add_plain."""
+    if idx.device.type == "cpu":
+        return winner_add_plain(idx, blocks, n_slots)
+    return launch_winner_add(idx, blocks, n_slots)
+
+
+# ---------------------------------------------------------------------------
 # Differentiable sweeps: kernel forward, winner-only backward
 # ---------------------------------------------------------------------------
 
@@ -726,8 +842,7 @@ class _SphereBestHit(torch.autograd.Function):
         g_o, g_d, g_c, g_r = _sphere_grads(origin, direction, center[safe],
                                            radius[safe], hit, g_t,
                                            *ctx.bounds)
-        g_center = torch.zeros_like(center).index_add_(0, safe, g_c)
-        g_radius = torch.zeros_like(radius).index_add_(0, safe, g_r)
+        g_center, g_radius = winner_add(idx, (g_c, g_r), center.shape[0])
         return g_o, g_d, g_center, g_radius, None, None, None, None, None
 
 
@@ -748,19 +863,16 @@ class _SphereBestHitAttrs(torch.autograd.Function):
     def backward(ctx, g_t, _g_idx, g_attrs):
         origin, direction, idx, attrs = ctx.saved_tensors
         hit = idx >= 0
-        safe = idx.clamp(min=0).long()
         # miss lanes carry prim 0's row (finite geometry); every term is
-        # masked by hit (pallas_intersect.py:1015-1050)
+        # masked by hit, and the winner sum skips them
+        # (pallas_intersect.py:1015-1050)
         g_o, g_d, g_c, g_r = _sphere_grads(origin, direction, attrs[:, 0:3],
                                            attrs[:, 3], hit, g_t,
                                            *ctx.bounds)
-        n_c = ctx.tbl_shape[1]
-        g_center = origin.new_zeros(n_c, 3).index_add_(0, safe, g_c)
-        g_radius = origin.new_zeros(n_c).index_add_(0, safe, g_r)
-        g_tbl = origin.new_zeros(ctx.tbl_shape).index_add_(
-            1, safe, torch.where(hit[None], g_attrs.t(), 0.0))
-        return (g_o, g_d, g_center, g_radius, g_tbl, None, None, None, None,
-                None, None)
+        g_center, g_radius, g_rows = winner_add(idx, (g_c, g_r, g_attrs),
+                                                ctx.tbl_shape[1])
+        return (g_o, g_d, g_center, g_radius, g_rows.t(), None, None, None,
+                None, None, None)
 
 
 def _tri_t_of(origin, direction, v0, v1, v2, mask):
@@ -799,9 +911,7 @@ class _TriangleBestHit(torch.autograd.Function):
             total = (t * torch.where(hit, g_t, 0.0)).sum()
             g_o, g_d, g0, g1, g2 = torch.autograd.grad(total, leaves)
         z = hit[:, None]
-        grads = [torch.zeros_like(v).index_add_(0, safe,
-                                                torch.where(z, g, 0.0))
-                 for v, g in ((v0, g0), (v1, g1), (v2, g2))]
+        grads = winner_add(idx, (g0, g1, g2), v0.shape[0])
         return (torch.where(z, g_o, 0.0), torch.where(z, g_d, 0.0), *grads,
                 None, None, None, None, None, None)
 
@@ -811,9 +921,9 @@ def sphere_best_hit(origin: Tensor, direction: Tensor, center: Tensor,
                     cull: bool = False, alive: Optional[Tensor] = None,
                     tables: Optional[tuple] = None) -> Tuple[Tensor, Tensor]:
     """Differentiable K3 (pallas_intersect.py:938): t carries gradients to
-    the rays and to the winners' center and radius; idx carries none.
-    tables: as sphere_best_hit_raw (the backward reads the spheres, never
-    the tables)."""
+    the rays and to the winners' center and radius (a winner sum,
+    ``winner_add``); idx carries none.  tables: as sphere_best_hit_raw
+    (the backward reads the spheres, never the tables)."""
     return _SphereBestHit.apply(origin, direction, center, radius, t_min,
                                 t_max, cull, alive, tables)
 
@@ -826,8 +936,10 @@ def sphere_best_hit_attrs(origin: Tensor, direction: Tensor, center: Tensor,
                           rows: Optional[Tensor] = None):
     """Differentiable K5 (pallas_intersect.py:989): t flows to the rays
     and to center/radius (winner's center/radius read from attrs); attrs
-    flow to attr_tbl by a scatter-add at the winners' columns.  The caller
-    builds attr_tbl from center/radius, so the two paths are disjoint.
+    flow to attr_tbl at the winners' columns; the three gradients come
+    from one winner sum (``winner_add``, one launch on the card).  The
+    caller builds attr_tbl from center/radius, so the two paths are
+    disjoint.
     tables, rows: as sphere_best_hit_attrs_raw."""
     return _SphereBestHitAttrs.apply(origin, direction, center, radius,
                                      attr_tbl, t_min, t_max, cull, alive,
@@ -840,7 +952,8 @@ def triangle_best_hit(origin: Tensor, direction: Tensor, v0: Tensor,
                       alive: Optional[Tensor] = None,
                       tables: Optional[tuple] = None):
     """Differentiable K4 (pallas_intersect.py:1074): t carries gradients to
-    the rays and to the winners' vertices; the normal gets none.  tables:
-    as triangle_best_hit_raw."""
+    the rays and to the winners' vertices (a winner sum, ``winner_add``,
+    the three vertices in one launch on the card); the normal gets none.
+    tables: as triangle_best_hit_raw."""
     return _TriangleBestHit.apply(origin, direction, v0, v1, v2, normal,
                                   t_min, t_max, quirks, alive, tables)

@@ -10,8 +10,9 @@ persistent warps that refill finished lanes (K1, K7, K8 and K9 at 1 to
 boxes' margins on rays that stress them (box planes, slivers, tangents to
 spheres), K8's culled walk on its edge rays and its counts against its
 plain walk, the BVH traversal crt_bvh_traverse (csrc/bvh.cu) in each of
-its instances and the refit on the card, and the wavefront render, the
-fit, the mega_diff fit and apps/animate.py through them.
+its instances and the refit on the card, the winner sum crt_winner_add
+(csrc/sweeps.cu) in both forms, and the wavefront render, the fit, the
+mega_diff fit and apps/animate.py through them.
 
 Every test here carries the ``gpu`` marker and asks the ``cuda`` fixture for
 the device, which skips where there is no card.  This file imports neither
@@ -26,10 +27,12 @@ plain), the draws to 1e-5, and the sweeps' idx exactly.  K9 allows the rays
 whose texel flipped at an edge (its atan2f / asinf against PyTorch's,
 within rounding of a texel boundary), at most max(2, n / 10^4) of them.
 The fused engine against the wavefront on one injected stream: at most
-max(2, n / 200) rays over 1e-3.  A fit step on the
-card against the CPU: the loss to rtol 1e-5 and each gradient to 1e-3 of
-its largest entry (the card sums the scatter-adds with atomics and the
-means in another order).
+max(2, n / 200) rays over 1e-3.  The winner sum crt_winner_add against
+its plain version: each sum to 1e-5 of the |values| added into it (both
+sum in other orders, with atomics).  A fit step on the card against the
+CPU: the loss to rtol 1e-5 and each gradient to 1e-3 of its largest entry
+(the card sums the winner sums with atomics and the means in another
+order).
 """
 
 import dataclasses
@@ -760,6 +763,103 @@ def test_sweep_gradients_on_the_card_match_the_cpu(cuda):
         assert torch.isfinite(g_dev).all()
         assert float((g_dev - g_cpu).abs().max()) <= 1e-4 * max(
             1.0, float(g_cpu.abs().max()))
+
+
+def _winner_case(case, dev):
+    """(idx, row blocks, slots, the form the launch must take) of one
+    winner-sum case: 2^18 rays, K5's blocks (centre, radius, the 21
+    attributes) over 484 spheres, or K4's three vertices over 10^5
+    triangles (the global form)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, c = 1 << 18, 484
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    if case in ("global", "ordered_large"):
+        c = 100_000
+    idx = torch.randint(-1, c, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if case == "one_winner":
+        idx.fill_(5)
+    elif case == "all_miss":
+        idx.fill_(-1)
+    elif case in ("hot_and_miss", "global", "ordered", "ordered_large"):
+        r = torch.rand(n, generator=gen, device=dev)
+        idx = torch.where(r < 0.6, -1, torch.where(
+            r < 0.9, 0, torch.where(r < 0.97, 3, idx))).to(torch.int32)
+    if case == "strided":           # column views, planes seen as rows
+        blocks = (randn(n, 8)[:, 2:5], randn(n, 4)[:, 1], randn(21, n).t())
+    elif case in ("global", "ordered_large"):
+        blocks = (randn(n, 3), randn(n, 3), randn(n, 3))
+    else:
+        blocks = (randn(n, 3), randn(n), randn(n, 21))
+    form = case if case == "global" else "shared"
+    return idx, blocks, c, "ordered" if "ordered" in case else form
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "one_winner", "all_miss",
+                                  "hot_and_miss", "strided", "global",
+                                  "ordered", "ordered_large"])
+def test_winner_add_matches_plain(cuda, case):
+    """crt_winner_add against winner_add_plain (index_add_ over the hit
+    lanes) on the card, in the form its shape takes, or under PyTorch's
+    deterministic algorithms in the ordered form, which must repeat itself
+    bit for bit.  Tolerance: 1e-5 of each sum's magnitude (the sum of the
+    |values| added into it): the two sum in other orders, the plain
+    version with atomics in a run-dependent one."""
+    idx, blocks, c, form = _winner_case(case, cuda)
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(form == "ordered", warn_only=True)
+    try:
+        sw.reset_launch_counts()
+        got = sw.winner_add(idx, blocks, c)
+        assert sw.LAUNCHES["winner_add"] == 1
+        assert sw.LAUNCH_KINDS["winner_add"][form] == 1
+        if form == "ordered":
+            again = sw.winner_add(idx, blocks, c)
+            assert all(torch.equal(a, g) for a, g in zip(again, got))
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    ref = sw.winner_add_plain(idx, blocks, c)
+    mass = sw.winner_add_plain(idx, [b.double().abs() for b in blocks], c)
+    for g, r, m in zip(got, ref, mass):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert bool(((g - r).double().abs() <= 1e-5 * m).all())
+    if case == "all_miss":
+        assert all(not g.any() for g in got)
+    else:
+        assert all(g.any() for g in got)
+
+
+@pytest.mark.gpu
+def test_fit_step_sums_each_bounce_in_one_winner_add(cuda):
+    """A fit step's backward on random_spheres (K5 over 484 spheres, path
+    depth 8) sums each bounce's gradients in one launch of the winner sum's
+    shared form: 9 a step, and the card runs no index_add_."""
+    scene, cam = presets.random_spheres(aspect=2.0, device=cuda)
+    cfg = RenderConfig(width=64, height=32, samples=2, max_depth=DEPTH,
+                       gamma=False)
+    target = torch.rand(cfg.width * cfg.height, 3, device=cuda)
+    params = {"albedo": (scene.textures.color0 * 0.6 + 0.1)
+              .requires_grad_(),
+              "centers": (scene.spheres.center + 0.05).requires_grad_()}
+    step = train.make_fit_step(scene, cam, cfg, lr=0.1)
+    step(params, target, torch.Generator(device=cuda).manual_seed(1))
+    sw.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(params, target, torch.Generator(device=cuda).manual_seed(1))
+        torch.cuda.synchronize()
+    assert sw.LAUNCHES["winner_add"] == DEPTH + 1
+    assert sw.LAUNCH_KINDS["winner_add"] == {
+        **dict.fromkeys(sw.WINNER_FORMS, 0), "shared": DEPTH + 1}
+    kernels = {e.key: e.count for e in prof.key_averages()}
+    assert not [k for k in kernels if "indexFuncLargeIndex" in k]
+    assert sum(n for k, n in kernels.items()
+               if "crt_winner_add_shared" in k) == DEPTH + 1
 
 
 @pytest.mark.gpu

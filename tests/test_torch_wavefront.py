@@ -22,7 +22,9 @@ Tolerances:
     tests/test_torch_megakernel.py holds the fused engines to (the same
     FMA difference, carried through a few bounces);
   * autograd against finite differences: torch.autograd.gradcheck's
-    defaults in float64 on rays away from silhouettes.
+    defaults in float64 on rays away from silhouettes;
+  * the winner sum against JAX's scatter: equal, on values whose every sum
+    is exact in float32.
 """
 
 import dataclasses
@@ -488,6 +490,37 @@ def test_sweep_gradcheck_float64():
                                      Quirks.fixed())[0]
 
     assert torch.autograd.gradcheck(tri, (o, d, v0, v1, v2))
+
+
+@pytest.mark.parametrize("cols,n_slots", [((3, 1, 21), 40), ((3, 3, 3), 7)])
+def test_winner_add_plain_matches_jax_scatter(cols, n_slots):
+    """The winner sum (K5's blocks: centre, radius, the attribute row; K4's:
+    three vertices) against the JAX backward's ``.at[safe].add`` of the
+    hit lanes' rows (pallas_intersect.py:1038-1043), misses (-1) and a hot
+    winner included, on row blocks that are views (a 1-D column, a
+    transposed block of planes).  The values are multiples of 1/8 below 8
+    in magnitude, so every sum is exact in float32 whatever its order."""
+    rng = np.random.default_rng(sum(cols) + n_slots)
+    n = 3000
+    idx = rng.integers(-1, n_slots, n).astype(np.int32)
+    idx[:600] = -1
+    idx[600:1800] = 2
+    vals = [(rng.integers(-64, 64, (n, k)) / 8).astype(np.float32)
+            for k in cols]
+    hit = idx >= 0
+    ref = jnp.zeros((n_slots, sum(cols)), jnp.float32).at[
+        jnp.maximum(idx, 0)].add(
+            jnp.where(hit[:, None], np.concatenate(vals, 1), 0.0))
+    blocks = [_t(v[:, 0]) if k == 1 else _t(v) for v, k in zip(vals, cols)]
+    blocks[-1] = _t(vals[-1].T).t()          # planes [k, N] seen as [N, k]
+    got = tsw.winner_add(_t(idx), blocks, n_slots)
+    assert [tuple(g.shape) for g in got] == [
+        (n_slots,) if k == 1 else (n_slots, k) for k in cols]
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+    np.testing.assert_array_equal(
+        torch.cat([g.reshape(n_slots, -1) for g in got], 1).numpy(),
+        np.asarray(ref))
+    assert np.asarray(ref)[2].any()
 
 
 def test_sweep_gradients_finite_with_degenerate_rays():
