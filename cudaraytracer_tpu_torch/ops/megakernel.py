@@ -224,10 +224,13 @@ WORK_NAMES = ("bounce", "warp_step", "draw")
 # adding one to each mode it runs: the rect / TRS sweeps (K8), the winner
 # recording (K7), the texel fetch (K9), the segment level (K6), a bounce
 # window (K10), front-to-back shells (K11), the bilinear triangle sweep
-# (K12); and the draws (K2).
+# (K12); and the draws (K2).  ``mega_regroup`` counts the compaction
+# drivers' sorts of the keys between windows (``_next_order``), on either
+# device.
 LAUNCHES = {"mega_trace": 0, "mega_trace_xform": 0, "mega_winners": 0,
             "mega_trace_tex": 0, "mega_stream": 0, "mega_window": 0,
-            "mega_f2b": 0, "mega_mxu": 0, "scatter_draws": 0}
+            "mega_f2b": 0, "mega_mxu": 0, "scatter_draws": 0,
+            "mega_regroup": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1101,13 +1104,19 @@ def _resolve_seed(cfg: RenderConfig, injected: bool, seed: Optional[int],
 def _trace(tables: MegaTables, o: Tensor, d: Tensor, cfg: RenderConfig,
            stream: Optional[Tensor], seed: int, want_winners: bool = False,
            window: Window = WHOLE):
-    """The kernel on CUDA rays, its plain version on CPU rays."""
-    if o.device.type == "cpu":
-        return trace_path_mega_plain(tables, Rays(o, d, o.new_zeros(0)),
-                                     cfg, stream, seed, want_winners,
-                                     window)
-    return _launch_mega(tables, o.contiguous(), d.contiguous(), cfg, stream,
-                        seed, want_winners=want_winners, window=window)
+    """The kernel on CUDA rays, its plain version on CPU rays; either in a
+    ``mega.window`` span (a monolithic launch is one window of every
+    step)."""
+    with profiling.span("mega.window", device=o.device,
+                        step_lo=window.step_lo, steps=window.steps(cfg),
+                        rays=o.shape[0]):
+        if o.device.type == "cpu":
+            return trace_path_mega_plain(tables, Rays(o, d, o.new_zeros(0)),
+                                         cfg, stream, seed, want_winners,
+                                         window)
+        return _launch_mega(tables, o.contiguous(), d.contiguous(), cfg,
+                            stream, seed, want_winners=want_winners,
+                            window=window)
 
 
 def trace_path_mega(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -1294,8 +1303,12 @@ def regroup_keys(o: Tensor, d: Tensor, alive: Tensor, mode: int,
 
 def _next_order(key: Tensor) -> Tensor:
     """The next window's order: the ray ids sorted by key, stable (one
-    device sort, no host sync)."""
-    return torch.sort(key, stable=True).indices.to(torch.int32)
+    device sort, no host sync), in a ``mega.regroup`` span and counted in
+    ``LAUNCHES["mega_regroup"]``."""
+    LAUNCHES["mega_regroup"] += 1
+    with profiling.span("mega.regroup", device=key.device,
+                        rays=key.shape[0]):
+        return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
 def _driver_setup(scene: Scene, rays: Rays, cfg: RenderConfig, tables,

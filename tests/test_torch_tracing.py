@@ -143,8 +143,73 @@ def test_render_opens_a_table_build_and_a_span_a_chunk():
         for name in ("render.camera_rays", "render.integrate"):
             inner, = _children(recs, c, name)
             assert inner["attrs"] == {"engine": "mega"}
+        # the monolithic launch: one window of every bounce step
+        integ, = _children(recs, c, "render.integrate")
+        window, = _children(recs, integ, "mega.window")
+        assert window["attrs"] == {"step_lo": 0, "steps": cfg.max_depth + 1,
+                                   "rays": c["attrs"]["rays"]}
     assert len(_children(recs, frame, "render.finish")) == 2
-    assert len(recs) == 1 + 1 + 4 * 3 + 2
+    assert len(recs) == 1 + 1 + 4 * 4 + 2
+
+
+def _small_field():
+    """4 x 3 copies of the 1,280-triangle icosphere (15,360 triangles,
+    above the resident ceiling, so the fused path streams segments) and a
+    camera over them."""
+    from cudaraytracer_tpu_torch.core.camera import make_camera
+    from cudaraytracer_tpu_torch.models import check_scenes
+    from cudaraytracer_tpu_torch.models.scene import SceneBuilder
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    pts, faces = check_scenes.icosphere(3)
+    b = SceneBuilder()
+    mat = b.materials.lambertian(color=(0.6, 0.5, 0.4))
+    for i in range(4):
+        for j in range(3):
+            b.add_mesh(pts, faces, mat, position=(2.3 * (i - 2), 0.0,
+                                                  -2.6 * j))
+    scene = b.build("cpu")
+    assert scene.n_triangles == 15360 > mk.MAX_VMEM_PRIMS
+    cam = make_camera((0, 2.2, 3.2), (0, 0.35, -2.6), (0, 1, 0), 50.0, 2.0,
+                      0.0, 10.0, device="cpu")
+    return scene, cam
+
+
+@pytest.mark.parametrize("route,knobs,windows,sorts", [
+    ("phased", dict(compact_every=2, compact_octants=True,
+                    mega_f2b_shells=8), [(0, 2), (2, 2), (4, 1)], 2),
+    ("compact", dict(compact_after=1), [(0, 1), (1, 4)], 1),
+])
+def test_streamed_routes_open_a_window_span_a_window_and_one_a_sort(
+        route, knobs, windows, sorts):
+    """On a streamed triangle field, each compaction driver opens one
+    ``mega.window`` a window (its steps and rays) and one ``mega.regroup``
+    a sort of the keys, under the chunk's ``render.integrate``; and
+    ``LAUNCHES["mega_regroup"]`` counts the sorts."""
+    from cudaraytracer_tpu_torch.ops import megakernel as mk
+    scene, cam = _small_field()
+    cfg = RenderConfig(width=8, height=4, samples=2, max_depth=4,
+                       engine="mega", ray_chunk=32, **knobs)
+    mk.reset_launch_counts()
+    profiling.enable()
+    render.render_image(scene, cam, cfg)
+    recs = _by_id()
+    chunks = [r for r in recs.values() if r["name"] == "render.chunk"]
+    assert len(chunks) == 2
+    for c in chunks:
+        integ, = _children(recs, c, "render.integrate")
+        got = _children(recs, integ, "mega.window")
+        assert [(w["attrs"]["step_lo"], w["attrs"]["steps"])
+                for w in got] == windows
+        assert all(w["attrs"]["rays"] == 32 for w in got)
+        regroups = _children(recs, integ, "mega.regroup")
+        assert len(regroups) == sorts
+        assert all(r["attrs"] == {"rays": 32} for r in regroups)
+        # a sort comes between two windows
+        assert sorted(r["id"] for r in got + regroups)[1::2] == [
+            r["id"] for r in regroups]
+    assert mk.LAUNCHES["mega_regroup"] == 2 * sorts
+    mk.reset_launch_counts()
+    assert mk.LAUNCHES["mega_regroup"] == 0
 
 
 def test_fit_step_spans_the_forward_backward_and_recompute():
